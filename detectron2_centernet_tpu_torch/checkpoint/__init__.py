@@ -1,0 +1,3 @@
+from .from_jax import canonical_dla_key, state_dict_from_jax, torch_key
+
+__all__ = ["canonical_dla_key", "state_dict_from_jax", "torch_key"]

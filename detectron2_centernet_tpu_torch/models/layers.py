@@ -1,0 +1,140 @@
+"""Shared building blocks (NCHW), counterpart of the JAX package's
+``models/layers.py``.
+
+Module and attribute names follow the reference fork's torch modules, so the
+state-dict keys are the reference's own (``ConvBnAct`` is a Sequential with
+the conv at ``.0`` and the BatchNorm at ``.1``; ``DeformConvV2`` holds the DCN
+at ``.conv`` and its BatchNorm + ReLU at ``.actf``).
+
+Parameters are made on the CPU by ``init_weights`` from a ``torch.Generator``
+with the JAX package's initializers (its values differ: the two frameworks'
+generators give other numbers from one seed).
+"""
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..ops.dcn import modulated_deform_conv
+
+BN_MOMENTUM = 0.1  # torch convention; the JAX package's flax momentum is 0.9
+BN_EPS = 1e-5
+
+
+class ConvBnAct(nn.Sequential):
+    """kxk conv (symmetric padding, no bias) → BatchNorm → optional ReLU
+    (JAX ``ConvBnAct``, layers.py:34)."""
+
+    def __init__(self, cin, cout, kernel_size=3, stride=1, dilation=1, relu=True):
+        pad = dilation * (kernel_size - 1) // 2
+        mods = [
+            nn.Conv2d(cin, cout, kernel_size, stride, pad, dilation, bias=False),
+            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+        ]
+        if relu:
+            mods.append(nn.ReLU(inplace=True))
+        super().__init__(*mods)
+
+
+class DCNv2(nn.Module):
+    """The modulated deformable 3x3 conv's parameters: the DCN ``weight`` and
+    ``bias`` and the 27-channel ``conv_offset_mask`` that predicts, per pixel,
+    18 offsets (dy, dx per tap, taps row-major) and 9 mask logits."""
+
+    def __init__(self, cin, cout):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.conv_offset_mask = nn.Conv2d(cin, 27, 3, padding=1)
+
+    def offset_mask(self, x):
+        """(offset (N, 18, H, W) f32, sigmoided mask (N, 9, H, W) f32). The
+        conv runs at the model's width; the coordinate math downstream is f32,
+        where bf16 would cost whole pixels at x ~ 128."""
+        om = self.conv_offset_mask(x).float()
+        return om[:, :18].contiguous(), torch.sigmoid(om[:, 18:]).contiguous()
+
+
+class DeformConvV2(nn.Module):
+    """DCN → BatchNorm → ReLU, the block used 16 times in DLAUp/IDAUp (JAX
+    ``DeformConvV2``, layers.py:83-189).
+
+    At eval the conv bias and the BatchNorm fold into the DCN kernel's
+    epilogue, ``relu(acc * scale + shift)`` with ``scale = γ/√(var+ε)`` and
+    ``shift = scale·(bias − mean) + β``, so the output is written once."""
+
+    def __init__(self, cin, cout):
+        super().__init__()
+        self.conv = DCNv2(cin, cout)
+        self.actf = nn.Sequential(
+            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM), nn.ReLU(inplace=True)
+        )
+
+    def forward(self, x):
+        offset, mask = self.conv.offset_mask(x)
+        if self.training:
+            y = modulated_deform_conv(x, offset, mask, self.conv.weight, self.conv.bias)
+            return self.actf(y)
+        bn = self.actf[0]
+        scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        shift = scale * (self.conv.bias.float() - bn.running_mean.float()) + bn.bias.float()
+        return modulated_deform_conv(
+            x, offset, mask, self.conv.weight,
+            post_scale=scale, post_shift=shift, post_relu=True,
+        )
+
+
+def bilinear_kernel(f: int) -> np.ndarray:
+    """(2f, 2f) bilinear interpolation stencil (reference fill_up_weights)."""
+    size = 2 * f
+    c = (2 * np.ceil(size / 2) - 1 - np.ceil(size / 2) % 2) / (2.0 * np.ceil(size / 2))
+    og = np.ogrid[:size, :size]
+    k = (1 - np.abs(og[0] / np.ceil(size / 2) - c)) * (1 - np.abs(og[1] / np.ceil(size / 2) - c))
+    return k.astype(np.float32)
+
+
+class BilinearUpsample(nn.ConvTranspose2d):
+    """Depthwise ``ConvTranspose2d(k=2f, s=f, pad=f//2, groups=C)`` with the
+    bilinear init (JAX ``BilinearUpsample``, layers.py:218-284).
+
+    The JAX package correlates the input-dilated map with its kernel as
+    stored; torch's transposed conv uses the kernel spatially flipped, so a
+    JAX kernel crosses over flipped (``checkpoint/from_jax.py``)."""
+
+    def __init__(self, channels: int, factor: int):
+        super().__init__(
+            channels, channels, 2 * factor, stride=factor, padding=factor // 2,
+            groups=channels, bias=False,
+        )
+
+    def reset_parameters(self):
+        k = torch.from_numpy(bilinear_kernel(self.kernel_size[0] // 2))
+        with torch.no_grad():
+            self.weight.copy_(k.expand_as(self.weight))
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initializers, drawn from ``generator``: conv kernels
+    lecun-normal (std 1/√fan_in) with zero bias; DCN kernels uniform within
+    ±1/√fan_in with zero bias; ``conv_offset_mask`` zero (offsets start at 0,
+    masks at 0.5); BatchNorm γ=1, β=0, mean 0, var 1; upsamplers bilinear."""
+    for m in model.modules():
+        if isinstance(m, BilinearUpsample):
+            m.reset_parameters()
+        elif isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    for m in model.modules():  # after the generic pass, which reached its convs
+        if isinstance(m, DCNv2):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            m.weight.uniform_(-bound, bound, generator=generator)
+            m.bias.zero_()
+            m.conv_offset_mask.weight.zero_()
+            m.conv_offset_mask.bias.zero_()

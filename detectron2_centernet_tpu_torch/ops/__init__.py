@@ -1,0 +1,4 @@
+from .dcn import modulated_deform_conv
+from .decode import ctdet_decode, heat_nms
+
+__all__ = ["ctdet_decode", "heat_nms", "modulated_deform_conv"]
