@@ -1,17 +1,27 @@
-"""Single-image inference from a config (counterpart of the JAX package's
-``engine/defaults.py::DefaultPredictor``).
+"""Inference and training from a config (counterpart of the JAX package's
+``engine/defaults.py``: ``DefaultPredictor`` and ``DefaultTrainer``).
 
-Training, the trainer and its hooks, and evaluation are not ported yet.
+Evaluation (``DefaultTrainer.test``, ``EvalHook``, ``PreciseBN``) is not
+ported yet (ROADMAP A10).
 """
 
+import logging
+import os
 from typing import Dict
 
 import numpy as np
 import torch
 
+from ..checkpoint import Checkpointer, PeriodicCheckpointer
 from ..config import CfgNode
-from ..data import letterbox_transform, warp_image
+from ..data import build_detection_train_loader, letterbox_transform, warp_image
 from ..models import build_model
+from ..solver import build_lr_scheduler, build_optimizer
+from ..utils.events import CommonMetricPrinter, JSONWriter
+from . import hooks
+from .train_loop import SimpleTrainer
+
+logger = logging.getLogger(__name__)
 
 
 def load_weights(model: torch.nn.Module, path: str) -> None:
@@ -51,3 +61,57 @@ class DefaultPredictor:
         dets = self.model.predict_fn(warped.permute(2, 0, 1)[None])
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
         return self.model.postprocess(dets, [m], [(h, w)])[0]
+
+
+class DefaultTrainer(SimpleTrainer):
+    """The train-from-config workflow on one device (``cfg.MODEL.DEVICE``):
+    the model, the optimizer and its LR schedule, the train loader over
+    ``DATASETS.TRAIN`` (register it first, e.g. with
+    ``data.datasets.ensure_synthetic_datasets``), the checkpointer and the
+    hooks. ``resume_or_load()``, then ``train()``."""
+
+    def __init__(self, cfg: CfgNode) -> None:
+        if cfg.TEST.PRECISE_BN.ENABLED:
+            raise NotImplementedError("PreciseBN is not ported yet (ROADMAP A10)")
+        self.cfg = cfg
+        model = build_model(cfg)
+        optimizer, scheduler = build_optimizer(cfg, model.model)
+        super().__init__(model, build_detection_train_loader(cfg), optimizer, scheduler)
+        self.schedule = build_lr_scheduler(cfg)
+        self.checkpointer = Checkpointer(model.model, cfg.OUTPUT_DIR, optimizer=optimizer,
+                                         scheduler=scheduler)
+        self.start_iter = 0
+        self.max_iter = int(cfg.SOLVER.MAX_ITER)
+        self.register_hooks(self.build_hooks())
+
+    def resume_or_load(self, resume: bool = True) -> None:
+        """Resume from OUTPUT_DIR's last checkpoint (``resume``), else load
+        ``MODEL.WEIGHTS`` when set."""
+        self.start_iter = self.checkpointer.resume_or_load(self.cfg.MODEL.WEIGHTS, resume=resume)
+
+    def build_hooks(self):
+        cfg = self.cfg
+        ret = [hooks.IterationTimer(), hooks.LRSchedulerHook(self.schedule)]
+        if cfg.OUTPUT_DIR:
+            ret.append(hooks.PeriodicCheckpointerHook(PeriodicCheckpointer(
+                self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD, cfg.SOLVER.MAX_ITER)))
+        ret.append(hooks.PeriodicWriter(self.build_writers(), period=20))
+        return ret
+
+    def build_writers(self):
+        writers = [CommonMetricPrinter(self.max_iter)]
+        if self.cfg.OUTPUT_DIR:
+            writers.append(JSONWriter(os.path.join(self.cfg.OUTPUT_DIR, "metrics.json")))
+        return writers
+
+    def train(self) -> None:
+        try:
+            super().train(self.start_iter, self.max_iter)
+        finally:
+            self.data_loader.close()
+
+    @classmethod
+    def test(cls, cfg: CfgNode, model, evaluators=None):
+        raise NotImplementedError(
+            "evaluation (inference_on_dataset, COCOEvaluator) is not ported yet (ROADMAP A10)"
+        )

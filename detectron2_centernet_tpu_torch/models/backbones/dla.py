@@ -7,8 +7,9 @@ ctdet heads read. Attribute names are the reference fork's (``base``,
 ``level2.tree1.conv1``, ``root.conv``, ``project.0``, ``dla_up.ida_0.proj_1``,
 ``up_1``, ...), so its state-dict keys load as they are.
 
-As in the JAX package, a Tree handed a residual uses it, and its own
-projection (whose weights still exist) is not computed.
+As in the JAX package, a Tree handed a residual uses it; its own projection
+is computed all the same and its output dropped, so that projection's
+BatchNorm statistics move at training as JAX's do.
 """
 
 import itertools
@@ -90,8 +91,9 @@ class Tree(nn.Module):
     def forward(self, x, residual=None, children=None):
         children = [] if children is None else list(children)
         bottom = self.downsample(x) if self.downsample is not None else x
+        proj = self.project(bottom) if self.project is not None else bottom
         if residual is None:
-            residual = self.project(bottom) if self.project is not None else bottom
+            residual = proj
         if self.level_root:
             children.append(bottom)
         x1 = self.tree1(x, residual)

@@ -8,7 +8,9 @@ at ``.conv`` and its BatchNorm + ReLU at ``.actf``).
 
 Parameters are made on the CPU by ``init_weights`` from a ``torch.Generator``
 with the JAX package's initializers (its values differ: the two frameworks'
-generators give other numbers from one seed).
+generators give other numbers from one seed). Parameters and BatchNorm
+statistics stay f32 whatever the model's compute width, as flax keeps them
+(``CenterNetModel`` runs its convolutions under autocast).
 """
 
 import math
@@ -17,10 +19,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.dcn import modulated_deform_conv
+from ..ops.dcn import modulated_deform_conv, modulated_deform_conv_ad
 
 BN_MOMENTUM = 0.1  # torch convention; the JAX package's flax momentum is 0.9
 BN_EPS = 1e-5
+# std of a unit normal truncated at ±2: flax's lecun_normal divides by it
+TRUNC_NORMAL_STD = 0.87962566103423978
 
 
 class ConvBnAct(nn.Sequential):
@@ -59,8 +63,11 @@ class DCNv2(nn.Module):
 
 class DeformConvV2(nn.Module):
     """DCN → BatchNorm → ReLU, the block used 16 times in DLAUp/IDAUp (JAX
-    ``DeformConvV2``, layers.py:83-189).
+    ``DeformConvV2``, layers.py:83-189). The DCN runs at x's width with its
+    f32 weight cast to it, as JAX casts its kernel.
 
+    At training the DCN is differentiable (``modulated_deform_conv_ad``: the forward kernel
+    without epilogue, the backward kernels) and the BatchNorm runs apart.
     At eval the conv bias and the BatchNorm fold into the DCN kernel's
     epilogue, ``relu(acc * scale + shift)`` with ``scale = γ/√(var+ε)`` and
     ``shift = scale·(bias − mean) + β``, so the output is written once."""
@@ -73,15 +80,16 @@ class DeformConvV2(nn.Module):
         )
 
     def forward(self, x):
+        x = x.contiguous()  # autocast's CPU convolutions may return channels-last
         offset, mask = self.conv.offset_mask(x)
+        weight = self.conv.weight.to(x.dtype)
         if self.training:
-            y = modulated_deform_conv(x, offset, mask, self.conv.weight, self.conv.bias)
-            return self.actf(y)
+            return self.actf(modulated_deform_conv_ad(x, offset, mask, weight, self.conv.bias))
         bn = self.actf[0]
         scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
         shift = scale * (self.conv.bias.float() - bn.running_mean.float()) + bn.bias.float()
         return modulated_deform_conv(
-            x, offset, mask, self.conv.weight,
+            x, offset, mask, weight,
             post_scale=scale, post_shift=shift, post_relu=True,
         )
 
@@ -118,15 +126,16 @@ class BilinearUpsample(nn.ConvTranspose2d):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers, drawn from ``generator``: conv kernels
-    lecun-normal (std 1/√fan_in) with zero bias; DCN kernels uniform within
+    lecun-normal (flax's: a normal truncated at ±2σ, σ = 1/√fan_in / 0.8796
+    so the variance is 1/fan_in) with zero bias; DCN kernels uniform within
     ±1/√fan_in with zero bias; ``conv_offset_mask`` zero (offsets start at 0,
     masks at 0.5); BatchNorm γ=1, β=0, mean 0, var 1; upsamplers bilinear."""
     for m in model.modules():
         if isinstance(m, BilinearUpsample):
             m.reset_parameters()
         elif isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            std = 1.0 / math.sqrt(m.weight[0].numel()) / TRUNC_NORMAL_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):

@@ -1,25 +1,29 @@
-"""CenterNet ("Objects as Points", ctdet) inference, counterpart of the JAX
-package's ``models/meta_arch/centernet.py``.
+"""CenterNet ("Objects as Points", ctdet), counterpart of the JAX package's
+``models/meta_arch/centernet.py``.
 
 ``CenterNetModel`` is the network (backbone → hm/reg/wh heads, NCHW);
 ``CenterNet`` owns it on ``cfg.MODEL.DEVICE`` with the normalization, the
-fixed-size decode (``predict_fn``) and the host boundary (``postprocess``).
-Training (targets, losses) is not ported yet.
+training loss (``loss_fn``: targets rendered on the device, the CornerNet
+focal loss and the masked L1), the fixed-size decode (``predict_fn``) and the
+host boundary (``postprocess``).
 
-The number of classes is ``MODEL.CENTERNET.TASK.HM``: the port has no dataset
-catalog, where the JAX package takes the class count of a registered
-``DATASETS.TRAIN`` (80 for COCO, the default of ``TASK.HM``).
+The number of classes is that of the registered ``DATASETS.TRAIN[0]``'s
+``thing_classes`` where there is one, else ``MODEL.CENTERNET.TASK.HM``, as in
+the JAX package.
 """
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from ...config import CfgNode
+from ...data.catalog import DatasetCatalog, MetadataCatalog
 from ...data.detection_utils import unwarp_boxes
 from ...ops.decode import ctdet_decode
+from ...ops.photometric import device_color_jitter
+from ...ops.target_gen import gen_centernet_targets
 from ...structures import Boxes, Instances
 from ..build import resolve_device
 from ..layers import init_weights
@@ -31,7 +35,8 @@ HM_BIAS = -2.19  # -log((1 - 0.1) / 0.1): the initial heatmap probability is ~0.
 class CenterNetHead(nn.Sequential):
     """3x3 conv(head_conv) → ReLU → kxk conv, the reference's head tower
     (keys ``.0`` and ``.2``). The last conv runs in f32 whatever the model's
-    width, as the JAX head does: head outputs stay f32 for the decode."""
+    width, as the JAX head does: head outputs stay f32 for the loss and the
+    decode."""
 
     def __init__(self, cin: int, head_conv: int, nout: int, final_kernel: int):
         super().__init__(
@@ -41,15 +46,22 @@ class CenterNetHead(nn.Sequential):
         )
 
     def forward(self, y):
-        return self[2](self[1](self[0](y)).float())
+        h = self[1](self[0](y))
+        with torch.autocast(h.device.type, enabled=False):
+            return self[2](h.float())
 
 
 class CenterNetModel(nn.Module):
-    """backbone → heads. Input: normalized (N, 3, H, W) images."""
+    """backbone → heads. Input: normalized (N, 3, H, W) images.
+
+    Parameters and BatchNorm statistics are f32; the convolutions run at
+    ``dtype`` (autocast), BatchNorm normalizes in f32 and rounds its output,
+    as flax does with ``param_dtype`` f32 and ``dtype`` bf16."""
 
     def __init__(self, backbone: nn.Module, heads: Tuple[Tuple[str, int], ...],
                  head_conv: int = 256, final_kernel: int = 1):
         super().__init__()
+        self.dtype = torch.float32
         if head_conv <= 0:
             raise ValueError("the port's CenterNet heads need MODEL.CENTERNET.HEAD_CONV > 0")
         self.backbone = backbone
@@ -58,15 +70,67 @@ class CenterNetModel(nn.Module):
             setattr(self, name, CenterNetHead(backbone.out_channels, head_conv, nout, final_kernel))
 
     def cast(self, dtype: torch.dtype) -> "CenterNetModel":
-        """Compute width of everything but the heads' last convs (kept f32)."""
-        self.to(dtype)
-        for name in self.head_names:
-            getattr(self, name)[2].float()
+        """Compute width of everything but the heads' last convs (kept f32).
+        The parameters stay f32."""
+        self.dtype = dtype
         return self
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        y = self.backbone(images.to(self.hm[0].weight.dtype))
-        return {name: getattr(self, name)(y) for name in self.head_names}
+        with torch.autocast(images.device.type, dtype=self.dtype,
+                            enabled=self.dtype != torch.float32):
+            y = self.backbone(images.to(self.dtype))
+            return {name: getattr(self, name)(y) for name in self.head_names}
+
+
+def focal_loss(hm_logits: torch.Tensor, gt_hm: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """CornerNet-style modified focal loss (reference ``_neg_loss``; JAX
+    ``focal_loss``) on (N, C, H, W) logits and targets: the positive term
+    weighted per class by ``alpha`` (C,), the negative term down-weighted by
+    (1 - gt)^4, normalized by the number of positives."""
+    pred = torch.clamp(torch.sigmoid(hm_logits.float()), 1e-4, 1 - 1e-4)
+    gt = gt_hm.float()
+    pos = (gt == 1.0).float()
+    neg = (gt < 1.0).float()
+    pos_loss = torch.log(pred) * (1.0 - pred) ** 2 * pos
+    neg_loss = torch.log(1.0 - pred) * pred ** 2 * (1.0 - gt) ** 4 * neg
+    num_pos = pos.sum()
+    pos_total = (alpha.view(1, -1, 1, 1) * pos_loss).sum()
+    neg_total = neg_loss.sum()
+    return torch.where(num_pos == 0, -neg_total, -(pos_total + neg_total) / torch.clamp(num_pos, min=1.0))
+
+
+def reg_l1_loss(out: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
+                target: torch.Tensor) -> torch.Tensor:
+    """Masked L1 of an (N, 2, H, W) head gathered at the centers ``ind``
+    (N, M) = y·W + x against ``target`` (N, M, 2) (reference ``RegL1Loss``;
+    the normalizer counts the expanded (N, M, 2) mask)."""
+    n, c, h, w = out.shape
+    flat = out.float().reshape(n, c, h * w)
+    pred = torch.gather(flat, 2, ind.long().view(n, 1, -1).expand(n, c, ind.shape[1])).transpose(1, 2)
+    m = mask.float()[:, :, None].expand_as(pred)
+    return (pred * m - target.float() * m).abs().sum() / (m.sum() + 1e-4)
+
+
+def _resolve_alpha(alpha_cfg, num_classes: int) -> np.ndarray:
+    """The reference's alpha list handling: one value for every class, or a
+    list padded with 1.0."""
+    alpha = list(alpha_cfg) if isinstance(alpha_cfg, (list, tuple)) else [alpha_cfg]
+    if len(alpha) == 1:
+        alpha = alpha * num_classes
+    elif len(alpha) < num_classes:
+        alpha = alpha + [1.0] * (num_classes - len(alpha))
+    return np.asarray(alpha[:num_classes], np.float32)
+
+
+def num_classes_of(cfg: CfgNode) -> int:
+    """``len(thing_classes)`` of a registered ``DATASETS.TRAIN[0]``, else
+    ``MODEL.CENTERNET.TASK.HM``."""
+    train: Sequence[str] = tuple(cfg.DATASETS.TRAIN)
+    if train and train[0] in DatasetCatalog:
+        classes = MetadataCatalog.get(train[0]).get("thing_classes")
+        if classes is not None:
+            return len(classes)
+    return int(cfg.MODEL.CENTERNET.TASK.HM)
 
 
 @META_ARCH_REGISTRY.register()
@@ -77,11 +141,22 @@ class CenterNet:
     def __init__(self, cfg: CfgNode) -> None:
         c = cfg.MODEL.CENTERNET
         self.device = resolve_device(cfg.MODEL.DEVICE)
-        self.num_classes = int(c.TASK.HM)
+        self.num_classes = num_classes_of(cfg)
         self.down_ratio = int(c.DOWN_RATIO)
         self.score_threshold = float(c.SCORE_THRESH_TEST)
         self.topk_candidates = int(c.TOPK_CANDIDATES_TEST)
         self.max_detections = int(cfg.TEST.DETECTIONS_PER_IMAGE)
+        self.hm_weight = float(c.HM_WEIGHT)
+        self.wh_weight = float(c.WH_WEIGHT)
+        self.off_weight = float(c.OFF_WEIGHT)
+        self.alpha = torch.from_numpy(_resolve_alpha(c.FOCAL_LOSS_ALPHA, self.num_classes)).to(self.device)
+        # the batch-level train augmentation of the step (JAX models/build.py):
+        # INPUT.COLOR_JITTER on the device unless DATALOADER.DEVICE_PHOTOMETRIC
+        # is off (the port has no host jitter: then there is none)
+        self.device_augment = (
+            device_color_jitter
+            if cfg.DATALOADER.DEVICE_PHOTOMETRIC and cfg.INPUT.COLOR_JITTER else None
+        )
         # TEST.EXACT_MODE pins f32 decode scores; TPU.APPROX_TOPK has no
         # counterpart (top-k is always exact here)
         self.exact_mode = bool(cfg.TEST.EXACT_MODE)
@@ -103,6 +178,27 @@ class CenterNet:
         """x/255, then (x - mean)/std (ctdet configs carry 0-1 scale mean/std)."""
         x = images.to(self.device, torch.float32) / 255.0
         return (x - self.pixel_mean) / self.pixel_std
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total, {"hm_loss", "wh_loss", "off_loss"}) of one train batch on
+        the device: ``image`` (N, 3, H, W) 0..255, ``gt_boxes`` (N, M, 4) XYXY
+        in input pixels, ``gt_classes`` (N, M), ``gt_valid`` (N, M). The
+        model runs in its current mode (``train()`` for BatchNorm batch
+        statistics); the loss terms come back already weighted."""
+        images = self.normalize(batch["image"])
+        z = self.model(images)
+        n, _, h, w = images.shape
+        t = gen_centernet_targets(
+            batch["gt_boxes"].to(self.device), batch["gt_classes"].to(self.device),
+            batch["gt_valid"].to(self.device), self.num_classes,
+            h // self.down_ratio, w // self.down_ratio, self.down_ratio,
+        )
+        losses = {
+            "hm_loss": focal_loss(z["hm"], t["hm"], self.alpha) * self.hm_weight,
+            "wh_loss": reg_l1_loss(z["wh"], t["reg_mask"], t["ind"], t["wh"]) * self.wh_weight,
+            "off_loss": reg_l1_loss(z["reg"], t["reg_mask"], t["ind"], t["reg"]) * self.off_weight,
+        }
+        return losses["hm_loss"] + losses["wh_loss"] + losses["off_loss"], losses
 
     @torch.inference_mode()
     def predict_fn(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-from .boxes import Boxes
+from .boxes import Boxes, BoxMode
 from .instances import Instances
 
-__all__ = ["Boxes", "Instances"]
+__all__ = ["BoxMode", "Boxes", "Instances"]

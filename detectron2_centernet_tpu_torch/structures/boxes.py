@@ -1,13 +1,39 @@
 """Boxes (a copy of the JAX package's ``structures/boxes.py::Boxes``).
 
 Host-side and numpy-backed: the decode's fixed-size device output becomes
-``Boxes`` at the host boundary (``CenterNet.postprocess``). ``BoxMode`` and
-the pairwise overlaps are not copied yet: nothing in the port uses them.
+``Boxes`` at the host boundary (``CenterNet.postprocess``). ``BoxMode``
+converts between the two absolute axis-aligned modes the train mapper reads;
+the relative and rotated modes and the pairwise overlaps are not copied yet.
 """
 
+from enum import IntEnum
 from typing import List, Tuple
 
 import numpy as np
+
+
+class BoxMode(IntEnum):
+    """Coordinate conventions for a box, the reference enum's values."""
+
+    XYXY_ABS = 0
+    XYWH_ABS = 1
+    XYXY_REL = 2
+    XYWH_REL = 3
+    XYWHA_ABS = 4
+
+    @staticmethod
+    def convert(box, from_mode: "BoxMode", to_mode: "BoxMode") -> np.ndarray:
+        """XYXY_ABS <-> XYWH_ABS of a (4,) box or (N, 4) boxes, as float64."""
+        arr = np.array(box, dtype=np.float64)
+        modes = {BoxMode.XYXY_ABS, BoxMode.XYWH_ABS}
+        if from_mode not in modes or to_mode not in modes:
+            raise NotImplementedError(f"BoxMode {from_mode} -> {to_mode} is not ported")
+        if from_mode == to_mode:
+            return arr
+        flat = arr.reshape(-1, 4)
+        sign = 1.0 if from_mode == BoxMode.XYWH_ABS else -1.0
+        flat[:, 2:] += sign * flat[:, :2]
+        return flat.reshape(arr.shape)
 
 
 class Boxes:

@@ -1,6 +1,7 @@
-"""The port on the card (marker ``cuda``): the Hopper DCN kernel against its
-plain PyTorch version, and the small DLA-34 CenterNet on the card against
-itself on the CPU.
+"""The port on the card (marker ``cuda``): the Hopper DCN kernels (forward
+and the four backward kernels) against their plain PyTorch versions, and the
+small DLA-34 CenterNet on the card against itself on the CPU, at inference
+and for one training step.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -17,6 +18,7 @@ import torch
 from detectron2_centernet_tpu_torch.config import get_cfg
 from detectron2_centernet_tpu_torch.models import build_model
 from detectron2_centernet_tpu_torch.ops import dcn
+from detectron2_centernet_tpu_torch.ops import deform_conv as plain
 
 pytestmark = pytest.mark.cuda
 
@@ -67,30 +69,125 @@ def test_kernel_matches_plain(card, dtype, epilogue, shape):
     assert err <= tol * max(1.0, ref.float().abs().max().item()), err
 
 
-def test_kernel_refuses_autograd(card):
-    x, offset, mask, weight, _ = _case(1)
-    x = x.to(card).requires_grad_()
-    with pytest.raises(NotImplementedError):
-        dcn.modulated_deform_conv(x, offset.to(card), mask.to(card), weight.to(card))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(48, 80, 20, 24), (16, 64, 7, 130), (64, 16, 33, 5)])
+def test_backward_kernels_match_plain(card, dtype, shape):
+    """K2 (dX), K3 (d offset, d mask), K4 (dW) and K5 (K3 + K4) at ragged
+    pixel and channel tiles, offsets up to ±8 px, each within a tolerance
+    relative to the gradient's max |value|: f32 1e-4 (sums in another order,
+    atomics), bf16 1e-2 (dX and dW round once to bf16; d offset and d mask
+    stay f32)."""
+    cin, cout, h, w = shape
+    x, offset, mask, weight, _ = _case(sum(shape) + 1, cin=cin, cout=cout, h=h, w=w)
+    dt = getattr(torch, dtype)
+    g = torch.randn(2, cout, h, w, generator=torch.Generator().manual_seed(3))
+    args = (x.to(card, dt), offset.to(card), mask.to(card), weight.to(card, dt), g.to(card, dt))
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    counts = [f.launches for f in (dcn.dcn_bwd_dx, dcn.dcn_bwd_dq, dcn.dcn_bwd_dw, dcn.dcn_bwd_dqdw)]
+    got = {
+        "dx": dcn.dcn_bwd_dx(*args), "dq": dcn.dcn_bwd_dq(*args),
+        "dw": dcn.dcn_bwd_dw(*args[:3], args[4]), "dqdw": dcn.dcn_bwd_dqdw(*args),
+    }
+    torch.cuda.synchronize()
+    assert [f.launches for f in (dcn.dcn_bwd_dx, dcn.dcn_bwd_dq, dcn.dcn_bwd_dw,
+                                 dcn.dcn_bwd_dqdw)] == [c + 1 for c in counts]
+    want = {
+        "dx": plain.dcn_bwd_dx(*args), "dq": plain.dcn_bwd_dq(*args),
+        "dw": plain.dcn_bwd_dw(*args[:3], args[4]), "dqdw": plain.dcn_bwd_dqdw(*args),
+    }
+    for name in got:
+        pairs = zip(*(t if isinstance(t, tuple) else (t,) for t in (got[name], want[name])))
+        for a, b in pairs:
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= tol * max(b.float().abs().max().item(), 1e-12), (name, err)
 
 
-def test_small_centernet_on_card_matches_cpu(card):
-    """The small DLA-34 CenterNet in f32 (random offset convs and BN
-    statistics): one forward makes 16 kernel launches, and its heads agree
-    with the CPU model's to 1e-3 of their scale."""
+def test_autograd_function_launches_each_backward_kernel(card):
+    """Through ``modulated_deform_conv_ad``: all four inputs need a gradient
+    → K1, K2, K5; no weight gradient → K3; no offset/mask gradient → K4."""
+    x, offset, mask, weight, _ = _case(5, cin=32, cout=32, h=16, w=16)
+    fns = (dcn.modulated_deform_conv, dcn.dcn_bwd_dx, dcn.dcn_bwd_dq, dcn.dcn_bwd_dw, dcn.dcn_bwd_dqdw)
+    for needs, want in (((1, 1, 1, 1), (1, 1, 0, 0, 1)), ((1, 1, 1, 0), (1, 1, 1, 0, 0)),
+                        ((1, 0, 0, 1), (1, 1, 0, 1, 0))):
+        ts = [t.to(card).requires_grad_(bool(n)) for t, n in zip((x, offset, mask, weight), needs)]
+        before = [f.launches for f in fns]
+        dcn.modulated_deform_conv_ad(*ts).square().sum().backward()
+        torch.cuda.synchronize()
+        assert tuple(f.launches - b for f, b in zip(fns, before)) == want, needs
+
+
+def test_small_train_step_on_card_matches_cpu(card):
+    """One f32 training step of the small CenterNet (random offset convs,
+    TF32 off) on the card and on the CPU: the loss terms to 1e-4 relative,
+    every parameter's gradient within 1e-2 of its max |value| plus 5e-4 of
+    the largest gradient (train-mode BatchNorm over small maps magnifies f32
+    rounding; the DCN biases' true gradient is 0). One step launches 16 of
+    K1, K2 and K5."""
+    cfg = _small_cfg()
+    host = build_model(cfg)
+    _randomize(host)
+    with torch.no_grad():  # offsets of under a pixel: gradients stay well conditioned
+        for name, t in host.model.named_parameters():
+            if "conv_offset_mask.weight" in name:
+                t.mul_(0.01)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    dev.model.load_state_dict(host.model.state_dict())
+    rng = np.random.RandomState(1)
+    batch = {
+        "image": torch.from_numpy(rng.uniform(0, 255, (2, 3, 64, 64)).astype(np.float32)),
+        "gt_boxes": torch.tensor([[[4.0, 6.0, 30.0, 40.0], [20.0, 8.0, 60.0, 30.0]]] * 2),
+        "gt_classes": torch.tensor([[1, 3]] * 2),
+        "gt_valid": torch.tensor([[True, True], [True, False]]),
+    }
+    fns = (dcn.modulated_deform_conv, dcn.dcn_bwd_dx, dcn.dcn_bwd_dqdw)
+    before = [f.launches for f in fns]
+    out = {}
+    for name, m in (("cuda", dev), ("cpu", host)):
+        m.model.train()
+        total, losses = m.loss_fn({k: v.to(m.device) for k, v in batch.items()})
+        total.backward()
+        out[name] = (losses, {k: p.grad.cpu() for k, p in m.model.named_parameters() if p.grad is not None})
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [16, 16, 16]
+    for k, v in out["cpu"][0].items():
+        assert abs(out["cuda"][0][k].item() - v.item()) <= 1e-4 * abs(v.item()), k
+    grads = out["cpu"][1]
+    assert set(out["cuda"][1]) == set(grads)
+    floor = 5e-4 * max(g.abs().max().item() for g in grads.values())
+    for k, g in grads.items():
+        err = (out["cuda"][1][k] - g).abs().max().item()
+        assert err <= 1e-2 * g.abs().max().item() + floor, k
+
+
+def _small_cfg():
     cfg = get_cfg()
     cfg.merge_from_list([
         "MODEL.META_ARCHITECTURE", "CenterNet", "MODEL.BACKBONE.NAME", "build_dla34_backbone",
         "MODEL.CENTERNET.CHANNELS", [8, 8, 16, 16, 32, 32], "MODEL.CENTERNET.HEAD_CONV", 16,
         "MODEL.CENTERNET.TASK.HM", 4, "TPU.DTYPE", "float32", "MODEL.DEVICE", "cpu",
     ])
-    host = build_model(cfg)
+    return cfg
+
+
+def _randomize(model):
+    """Random offset convs (offsets of about a pixel) and BN statistics."""
     g = torch.Generator().manual_seed(0)
     with torch.no_grad():
-        for name, t in host.model.state_dict().items():
+        for name, t in model.model.state_dict().items():
             if "conv_offset_mask" in name or "running" in name:
                 t.copy_(torch.rand(t.shape, generator=g) * (0.5 if "mask" in name else 1.0)
                         + (0.5 if "running_var" in name else 0.0))
+
+
+def test_small_centernet_on_card_matches_cpu(card):
+    """The small DLA-34 CenterNet in f32 (random offset convs and BN
+    statistics): one forward makes 16 kernel launches, and its heads agree
+    with the CPU model's to 1e-3 of their scale."""
+    cfg = _small_cfg()
+    host = build_model(cfg)
+    _randomize(host)
     cfg.MODEL.DEVICE = "cuda"
     dev = build_model(cfg)
     dev.model.load_state_dict(host.model.state_dict())
