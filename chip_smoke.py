@@ -7,12 +7,16 @@ DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward).
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build both kernel libraries (``ops/csrc/dcn_fwd.cu``, ``dcn_bwd.cu``),
-     one nvcc each, at once, and print each kernel's registers and spills;
+     one nvcc each, at once, and print each kernel's registers and spills,
+     and the backward kernels' shared memory and resident warps per SM;
   3. every kernel against its plain PyTorch version at the seven DCN shapes
-     of DLA-34 at 512x512, batch 2, offsets up to ±8 px (off-integer), f32
-     and bf16: K1 with the epilogue on and off, K2-K5 on a random
-     cotangent; then K3 and K4 through the autograd Function (weight, or
-     offset and mask, frozen), the only way they launch;
+     of DLA-34 at 512x512, batch 2, f32 and bf16, in four offset regimes:
+     0 (every sample on the grid), about 1 px (normal), up to ±8 px and up
+     to ±40 px (uniform; beyond K2's halo and off the map): K1 with the
+     epilogue on and off, K2-K5 on a random cotangent, and dW of K4 and K5
+     the same bit for bit over two launches; then K3 and K4 through the
+     autograd Function (weight, or offset and mask, frozen), the only way
+     they launch;
   4. the inference path: ``DefaultPredictor`` on three seeded images and
      ``CenterNet.predict_fn`` on one batch of 16, bf16, 16 K1 launches per
      forward; the f32 heads of one image on the card against the CPU;
@@ -25,9 +29,10 @@ Phases (any failure raises and the script exits non-zero):
      step through the plain versions on the card and on the CPU;
   7. times from CUDA events after warm-up: every kernel at each shape at
      batch 1 (and K2-K5 at the trained batch) beside its bound and its plain
-     version's time. (Phase 4 also times the request latency, predict_fn's
-     img/s and a profiled batch-1 forward; phase 5 the train step, its img/s
-     and a profiled train step.)
+     version's time, ±8 px offsets; K2 and K5 also with zero and ~1 px
+     offsets, at batch 1 and at the trained batch. (Phase 4 also times the
+     request latency, predict_fn's img/s and a profiled batch-1 forward;
+     phase 5 the train step, its img/s and a profiled train step.)
   8. one JSON line for the kernels, the card's name and power limit, and a
      last line ``{"ok": true, "device": {...}}``.
 
@@ -96,6 +101,10 @@ TRAIN_BATCH = 32  # SOLVER.IMS_PER_BATCH of Base-CenterNet.yaml
 TRAIN_STEPS = 6  # the first TRAIN_WARMUP are not timed
 TRAIN_WARMUP = 2
 PROFILED_STEP = 4
+# offset regimes of the kernel phases: 0 px (the zero-initialised offset
+# convs every DCN starts training with), about a pixel (normal, σ = 1 px:
+# the seeded train step's offsets), uniform within ±8 px and within ±40 px
+REGIMES = ("zero", "1px", "8px", "40px")
 CSRC = "detectron2_centernet_tpu_torch/ops/csrc/"
 PALLAS = "detectron2_centernet_tpu/ops/pallas_dcn.py:"
 KERNELS = {  # name: (wrapper, source, TPU kernel it replaces)
@@ -195,14 +204,17 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def dcn_case(b, cin, cout, hw, dtype, seed):
-    """Inputs of one DCN launch on the card: x, offset (±8 px), mask, weight
-    and the output cotangent g; the bias and the epilogue."""
+def dcn_case(b, cin, cout, hw, dtype, seed, regime="8px"):
+    """Inputs of one DCN launch on the card: x, offset (of one of REGIMES),
+    mask, weight and the output cotangent g; the bias and the epilogue."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.rand(*s, generator=g, device="cuda")
     n = lambda *s: torch.randn(*s, generator=g, device="cuda")
     x = n(b, cin, hw, hw).to(dtype)
-    offset = (r(b, 18, hw, hw) * 2 - 1) * 8.0
+    offset = {"zero": lambda: torch.zeros(b, 18, hw, hw, device="cuda"),
+              "1px": lambda: n(b, 18, hw, hw),
+              "8px": lambda: (r(b, 18, hw, hw) * 2 - 1) * 8.0,
+              "40px": lambda: (r(b, 18, hw, hw) * 2 - 1) * 40.0}[regime]()
     mask = r(b, 9, hw, hw)
     weight = (n(cout, cin, 3, 3) / math.sqrt(9 * cin)).to(dtype)
     cot = n(b, cout, hw, hw).to(dtype)
@@ -258,35 +270,43 @@ def rel_err(got, want):
     return (got.float() - want.float()).abs().max().item() / max(want.float().abs().max().item(), 1e-30)
 
 
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 def phase_kernels_vs_plain(report):
-    print("== 3. every kernel against its plain version (batch 2, offsets up to ±8 px)")
+    print("== 3. every kernel against its plain version (batch 2; offsets 0, ~1 px, ±8 px, ±40 px)")
     rows, bad = [], []
     for cin, cout, hw, _ in DLA_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            args, cot, kw_bias, kw_epi = dcn_case(2, cin, cout, hw, dtype, seed=cin + cout + hw)
-            cases = [("dcn_fwd", kw_bias), ("dcn_fwd", kw_epi)] + [(k, None) for k in KERNELS if k != "dcn_fwd"]
-            errs = {}
-            for name, kw in cases:
-                run, ref = kernel_call(name, args, cot, kw)
-                got, want = run(), ref()
-                torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                err = max(rel_err(a, b) for a, b in zip(got, want))
-                finite = all(bool(torch.isfinite(a).all()) for a in got)
-                label = name + ("+epilogue" if kw is kw_epi else "")
-                errs[label] = err
-                row = dict(kernel=label, cin=cin, cout=cout, hw=hw, dtype=str(dtype).split(".")[1],
-                           max_rel_err=err, tol=TOL[dtype], ok=finite and err <= TOL[dtype],
-                           max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)))
-                rows.append(row)
-                if not row["ok"]:
-                    bad.append(row)
-            print(f"  {cin:4d}->{cout:<4d} @{hw:3d}^2 {str(dtype).split('.')[1]:8s} tol {TOL[dtype]:.0e}: "
-                  + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+            for regime in REGIMES:
+                args, cot, kw_bias, kw_epi = dcn_case(2, cin, cout, hw, dtype, seed=cin + cout + hw, regime=regime)
+                cases = [("dcn_fwd", kw_bias), ("dcn_fwd", kw_epi)] + [(k, None) for k in KERNELS if k != "dcn_fwd"]
+                errs = {}
+                for name, kw in cases:
+                    run, ref = kernel_call(name, args, cot, kw)
+                    got, want = run(), ref()
+                    torch.cuda.synchronize()
+                    got, want = as_tuple(got), as_tuple(want)
+                    err = max(rel_err(a, b) for a, b in zip(got, want))
+                    finite = all(bool(torch.isfinite(a).all()) for a in got)
+                    # dW (the last output of K4 and K5) carries no atomics: the same bits again
+                    same = name not in ("dcn_bwd_dw", "dcn_bwd_dqdw") or torch.equal(got[-1], as_tuple(run())[-1])
+                    label = name + ("+epilogue" if kw is kw_epi else "")
+                    errs[label] = err
+                    row = dict(kernel=label, cin=cin, cout=cout, hw=hw, dtype=str(dtype).split(".")[1],
+                               regime=regime, max_rel_err=err, tol=TOL[dtype], bit_identical=same,
+                               ok=finite and same and err <= TOL[dtype],
+                               max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)))
+                    rows.append(row)
+                    if not row["ok"]:
+                        bad.append(row)
+                print(f"  {cin:4d}->{cout:<4d} @{hw:3d}^2 {str(dtype).split('.')[1]:8s} {regime:4s} "
+                      f"tol {TOL[dtype]:.0e}: " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
     report["kernel_vs_plain"] = rows
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
+    print("  dW of dcn_bwd_dw and dcn_bwd_dqdw: bit-identical over two launches in every case")
 
     print("  K3 and K4 through the autograd Function (weight, or offset and mask, frozen):")
     reset_launches()
@@ -583,6 +603,16 @@ def phase_kernel_timing(report):
             print(f"  {name:12s} {cin:4d}->{cout:<4d} @{hw:3d}^2 x{count}: b1 {row['ms_b1']:.4f} ms "
                   f"(plain {row['plain_ms_b1']:.4f}, bound {row['bound_ms_b1']:.4f} {row['bound_by_b1']}) | "
                   f"b{big} {row[f'ms_b{big}']:.4f} ms (bound {row[f'bound_ms_b{big}']:.4f} {row[f'bound_by_b{big}']})")
+    # K2 and K5, the train step's backward kernels, in the other offset regimes
+    for row in rows:
+        if row["kernel"] not in ("dcn_bwd_dx", "dcn_bwd_dqdw"):
+            continue
+        for regime in ("zero", "1px"):
+            for b in (1, TRAIN_BATCH):
+                args, cot, _, _ = dcn_case(b, row["cin"], row["cout"], row["hw"], torch.bfloat16, seed=7, regime=regime)
+                run, _ = kernel_call(row["kernel"], args, cot)
+                row[f"ms_b{b}_{regime}"] = cuda_ms(run, iters=10 if b > 1 else 30)
+                del args, cot
     totals = {}
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
@@ -596,6 +626,14 @@ def phase_kernel_timing(report):
         print(f"  {name:12s} 16 launches of one pass: b1 {t['ms_b1']:.4f} ms (plain {t['plain_ms_b1']:.4f}, "
               f"bound {t['bound_ms_b1']:.4f} {t['bound_by_b1']}); b{big} {t[f'ms_b{big}']:.4f} ms "
               f"(bound {t[f'bound_ms_b{big}']:.4f})")
+        if name in ("dcn_bwd_dx", "dcn_bwd_dqdw"):
+            t["regimes"], shares = {}, []
+            for b in (1, big):
+                for regime in ("zero", "1px", "8px"):
+                    key = f"ms_b{b}" + ("" if regime == "8px" else f"_{regime}")
+                    ms = t["regimes"][f"b{b} {regime}"] = sum(r[key] * r["count"] for r in mine)
+                    shares.append(f"b{b} {regime} {ms:.4f} ms ({t[f'bound_ms_b{b}'] / ms:.1%} of bound)")
+            print(f"  {name:12s} by offset regime, 16 launches: " + "; ".join(shares))
 
     report["kernel_timing"] = dict(per_shape=rows, per_pass=totals)
     return totals
@@ -656,6 +694,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("    " + line.strip())
     report["build_s"] = {k: v["seconds"] for k, v in built.items()}
+    resources = dcn.kernel_resources()
+    for name, by_dtype in resources.items():
+        print(f"  {name}: " + "; ".join(
+            f"{dt} {r['smem_bytes']} B shared, {r['blocks_per_sm']} blocks = {r['warps_per_sm']} warps per SM"
+            for dt, r in by_dtype.items()))
+    report["backward_resources"] = resources
 
     max_err, phase_launches = phase_kernels_vs_plain(report)
     rng = np.random.RandomState(0)
@@ -682,6 +726,7 @@ def main() -> int:
             "per": "16 launches, the DLA-34 shapes at batch 1, bf16",
             f"ms_b{t['big_batch']}": t[f"ms_b{t['big_batch']}"],
             f"bound_ms_b{t['big_batch']}": t[f"bound_ms_b{t['big_batch']}"],
+            **({"ms_by_regime": t["regimes"]} if "regimes" in t else {}),
         })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

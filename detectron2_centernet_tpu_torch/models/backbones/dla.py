@@ -19,12 +19,12 @@ import torch
 import torch.nn as nn
 
 from ...config import CfgNode
-from ..layers import BN_EPS, BN_MOMENTUM, BilinearUpsample, ConvBnAct, DeformConvV2
+from ..layers import BN_EPS, BN_MOMENTUM, BatchNorm2d, BilinearUpsample, ConvBnAct, DeformConvV2
 from ..registry import BACKBONE_REGISTRY
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class BasicBlock(nn.Module):

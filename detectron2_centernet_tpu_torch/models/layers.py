@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.dcn import modulated_deform_conv, modulated_deform_conv_ad
 
@@ -25,6 +26,30 @@ BN_MOMENTUM = 0.1  # torch convention; the JAX package's flax momentum is 0.9
 BN_EPS = 1e-5
 # std of a unit normal truncated at ±2: flax's lecun_normal divides by it
 TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step folds the *biased* batch
+    variance into ``running_var``, as flax's BatchNorm does (torch folds the
+    unbiased one, n/(n-1) larger, n the values per channel). Torch's update
+    is v' = (1-m)·v + m·u with u = n/(n-1)·b; it runs here on
+    s = n/(n-1)·v, and ``running_var`` becomes (n-1)/n·s' = (1-m)·v + m·b.
+    Two elementwise passes over the C-vector per call, none over the
+    activations; the statistics tensor torch saves for its backward is s,
+    which is not written again. State-dict keys are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.numel() // x.shape[1]
+        if not (self.training and self.track_running_stats and self.momentum is not None and n > 1):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        scaled = self.running_var * (n / (n - 1))
+        out = F.batch_norm(x, self.running_mean, scaled, self.weight, self.bias, True,
+                           self.momentum, self.eps)
+        with torch.no_grad():
+            torch.mul(scaled, (n - 1) / n, out=self.running_var)
+        return out
 
 
 class ConvBnAct(nn.Sequential):
@@ -35,7 +60,7 @@ class ConvBnAct(nn.Sequential):
         pad = dilation * (kernel_size - 1) // 2
         mods = [
             nn.Conv2d(cin, cout, kernel_size, stride, pad, dilation, bias=False),
-            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
         ]
         if relu:
             mods.append(nn.ReLU(inplace=True))
@@ -76,7 +101,7 @@ class DeformConvV2(nn.Module):
         super().__init__()
         self.conv = DCNv2(cin, cout)
         self.actf = nn.Sequential(
-            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM), nn.ReLU(inplace=True)
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM), nn.ReLU(inplace=True)
         )
 
     def forward(self, x):

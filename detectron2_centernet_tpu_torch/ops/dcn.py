@@ -41,10 +41,12 @@ from .deform_conv import modulated_deform_conv as modulated_deform_conv_plain
 
 __all__ = [
     "build_libraries",
+    "bwd_plan",
     "dcn_bwd_dq",
     "dcn_bwd_dqdw",
     "dcn_bwd_dw",
     "dcn_bwd_dx",
+    "kernel_resources",
     "modulated_deform_conv",
     "modulated_deform_conv_ad",
     "modulated_deform_conv_plain",
@@ -64,11 +66,16 @@ _SIGNATURES = {
     "fwd": {"dcn_fwd": [_P] * 7 + [_I] * 7 + [_P]},
     "bwd": {
         "dcn_bwd_dx": [_P] * 6 + [_I] * 6 + [_P],
-        "dcn_bwd_dq": [_P] * 7 + [_I] * 6 + [_P],
-        "dcn_bwd_dw": [_P] * 5 + [_I] * 6 + [_P],
-        "dcn_bwd_dqdw": [_P] * 8 + [_I] * 6 + [_P],
+        "dcn_bwd_dq": [_P] * 7 + [_I] * 8 + [_P],
+        "dcn_bwd_dw": [_P] * 6 + [_I] * 8 + [_P],
+        "dcn_bwd_dqdw": [_P] * 9 + [_I] * 8 + [_P],
+        "dcn_bwd_info": [_I, _I, _P],  # which kernel, is_bf16, int[3] out
     },
 }
+# Tiling of K3-K5 (csrc/dcn_bwd.cu): pixel tiles, channel chunks, Cout tiles
+BWD_TILE_PIXELS, BWD_CHUNK_CHANNELS, BWD_COUT_TILE = 64, 16, 64
+# blocks of K3-K5 aimed at per SM: two resident blocks, two waves
+BWD_BLOCKS_PER_SM = 4
 
 
 def _nvcc() -> str:
@@ -230,7 +237,51 @@ def modulated_deform_conv(
 
 def _dims(x, g):
     n, cin, h, w = x.shape
-    return n, cin, h, w, g.shape[1], int(x.dtype == torch.bfloat16)
+    return n, cin, h, w, g.shape[1]
+
+
+def _is_bf16(x) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
+def bwd_plan(n: int, cin: int, h: int, w: int, cout: int, sms: int) -> Dict[str, int]:
+    """How K3-K5 cut their work: the ``tiles`` pixel tiles (``n`` images of
+    ceil(H·W / 64) tiles each; a tile never crosses an image) go in
+    ``splits`` spans of ``span`` consecutive tiles, split s owning tiles
+    [s·span, min((s + 1)·span, tiles)). The grid is chunks × cout_tiles ×
+    splits blocks; the span is picked so that it is about
+    ``BWD_BLOCKS_PER_SM · sms`` blocks (two waves of two resident blocks per
+    SM), or one split per tile where there are fewer tiles. Every split owns
+    at least one tile. dW's partial buffer holds splits × Cout × 9·Cin f32."""
+    tiles = n * -(-(h * w) // BWD_TILE_PIXELS)
+    chunks = -(-cin // BWD_CHUNK_CHANNELS)
+    cout_tiles = -(-cout // BWD_COUT_TILE)
+    want = max(1, -(-BWD_BLOCKS_PER_SM * sms // (chunks * cout_tiles)))
+    span = -(-tiles // min(want, tiles))
+    splits = -(-tiles // span)
+    return dict(tiles=tiles, chunks=chunks, cout_tiles=cout_tiles, span=span, splits=splits)
+
+
+def _plan(x, g):
+    n, cin, h, w, cout = _dims(x, g)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return bwd_plan(n, cin, h, w, cout, sms)
+
+
+def kernel_resources() -> Dict[str, Dict[str, dict]]:
+    """{kernel: {dtype: {"smem_bytes", "blocks_per_sm", "warps_per_sm"}}} of
+    the four backward kernels on the current card (CUDA's occupancy
+    calculator with the launch's dynamic shared memory)."""
+    out = {}
+    for which, name in enumerate(("dcn_bwd_dx", "dcn_bwd_dq", "dcn_bwd_dw", "dcn_bwd_dqdw")):
+        for dtype in ("float32", "bfloat16"):
+            res = (ctypes.c_int * 3)()
+            err = _library("bwd").dcn_bwd_info(which, int(dtype == "bfloat16"), res)
+            if err != 0:
+                raise RuntimeError(f"dcn_bwd_info({name}) failed with CUDA error {err}")
+            out.setdefault(name, {})[dtype] = dict(
+                smem_bytes=res[0], blocks_per_sm=res[1], warps_per_sm=res[1] * res[2] // 32)
+    return out
 
 
 def dcn_bwd_dx(x, offset, mask, weight, g) -> torch.Tensor:
@@ -241,7 +292,7 @@ def dcn_bwd_dx(x, offset, mask, weight, g) -> torch.Tensor:
         return plain.dcn_bwd_dx(x, offset, mask, weight, g)
     dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     _launch("bwd", "dcn_bwd_dx", x, x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-            weight.data_ptr(), g.data_ptr(), dx.data_ptr(), *_dims(x, g))
+            weight.data_ptr(), g.data_ptr(), dx.data_ptr(), *_dims(x, g), _is_bf16(x))
     dcn_bwd_dx.launches += 1
     return dx.to(x.dtype)
 
@@ -251,10 +302,12 @@ def dcn_bwd_dq(x, offset, mask, weight, g):
     _check(x, offset, mask, weight, g)
     if x.device.type == "cpu":
         return plain.dcn_bwd_dq(x, offset, mask, weight, g)
-    doffset = torch.empty_like(offset)
-    dmask = torch.empty_like(mask)
+    plan = _plan(x, g)
+    doffset = torch.zeros_like(offset)
+    dmask = torch.zeros_like(mask)
     _launch("bwd", "dcn_bwd_dq", x, x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-            weight.data_ptr(), g.data_ptr(), doffset.data_ptr(), dmask.data_ptr(), *_dims(x, g))
+            weight.data_ptr(), g.data_ptr(), doffset.data_ptr(), dmask.data_ptr(), *_dims(x, g),
+            plan["span"], plan["splits"], _is_bf16(x))
     dcn_bwd_dq.launches += 1
     return doffset, dmask
 
@@ -264,12 +317,15 @@ def dcn_bwd_dw(x, offset, mask, g) -> torch.Tensor:
     _check(x, offset, mask, g=g, cout=g.shape[1])
     if x.device.type == "cpu":
         return plain.dcn_bwd_dw(x, offset, mask, g)
-    n, cin, h, w = x.shape
-    dw = torch.zeros((g.shape[1], cin, 3, 3), dtype=torch.float32, device=x.device)
+    n, cin, h, w, cout = _dims(x, g)
+    plan = _plan(x, g)
+    partial = torch.empty((plan["splits"], cout, cin * 9), dtype=torch.float32, device=x.device)
+    dw = torch.empty((cout, cin, 3, 3), dtype=x.dtype, device=x.device)
     _launch("bwd", "dcn_bwd_dw", x, x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-            g.data_ptr(), dw.data_ptr(), *_dims(x, g))
+            g.data_ptr(), dw.data_ptr(), partial.data_ptr(), n, cin, h, w, cout,
+            plan["span"], plan["splits"], _is_bf16(x))
     dcn_bwd_dw.launches += 1
-    return dw.to(x.dtype)
+    return dw
 
 
 def dcn_bwd_dqdw(x, offset, mask, weight, g):
@@ -277,14 +333,18 @@ def dcn_bwd_dqdw(x, offset, mask, weight, g):
     _check(x, offset, mask, weight, g)
     if x.device.type == "cpu":
         return plain.dcn_bwd_dqdw(x, offset, mask, weight, g)
-    doffset = torch.empty_like(offset)
-    dmask = torch.empty_like(mask)
-    dw = torch.zeros(weight.shape, dtype=torch.float32, device=x.device)
+    n, cin, h, w, cout = _dims(x, g)
+    plan = _plan(x, g)
+    doffset = torch.zeros_like(offset)
+    dmask = torch.zeros_like(mask)
+    partial = torch.empty((plan["splits"], cout, cin * 9), dtype=torch.float32, device=x.device)
+    dw = torch.empty(weight.shape, dtype=x.dtype, device=x.device)
     _launch("bwd", "dcn_bwd_dqdw", x, x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
             weight.data_ptr(), g.data_ptr(), doffset.data_ptr(), dmask.data_ptr(),
-            dw.data_ptr(), *_dims(x, g))
+            dw.data_ptr(), partial.data_ptr(), n, cin, h, w, cout,
+            plan["span"], plan["splits"], _is_bf16(x))
     dcn_bwd_dqdw.launches += 1
-    return doffset, dmask, dw.to(x.dtype)
+    return doffset, dmask, dw
 
 
 for _fn in (modulated_deform_conv, dcn_bwd_dx, dcn_bwd_dq, dcn_bwd_dw, dcn_bwd_dqdw):

@@ -74,9 +74,9 @@ def test_kernel_matches_plain(card, dtype, epilogue, shape):
 def test_backward_kernels_match_plain(card, dtype, shape):
     """K2 (dX), K3 (d offset, d mask), K4 (dW) and K5 (K3 + K4) at ragged
     pixel and channel tiles, offsets up to ±8 px, each within a tolerance
-    relative to the gradient's max |value|: f32 1e-4 (sums in another order,
-    atomics), bf16 1e-2 (dX and dW round once to bf16; d offset and d mask
-    stay f32)."""
+    relative to the gradient's max |value|: f32 1e-4 (sums in another order;
+    dX, d offset and d mask through atomics), bf16 1e-2 (dX and dW round once
+    to bf16; d offset and d mask stay f32)."""
     cin, cout, h, w = shape
     x, offset, mask, weight, _ = _case(sum(shape) + 1, cin=cin, cout=cout, h=h, w=w)
     dt = getattr(torch, dtype)
@@ -101,6 +101,62 @@ def test_backward_kernels_match_plain(card, dtype, shape):
             assert a.dtype == b.dtype and a.shape == b.shape, name
             err = (a.float() - b.float()).abs().max().item()
             assert err <= tol * max(b.float().abs().max().item(), 1e-12), (name, err)
+
+
+def _offsets(regime, n, h, w, seed):
+    """Offsets of one regime: 0 (every sample on the grid, as training
+    starts), about a pixel (normal, σ = 1 px) or uniform within ±40 px (most
+    samples beyond K2's 8-pixel halo, many off the map)."""
+    g = torch.Generator().manual_seed(seed)
+    if regime == "zero":
+        return torch.zeros(n, 18, h, w)
+    if regime == "1px":
+        return torch.randn(n, 18, h, w, generator=g)
+    return (torch.rand(n, 18, h, w, generator=g) * 2 - 1) * 40.0
+
+
+def _backward_args(card, dtype, cin, cout, h, w, n, regime, seed):
+    x, _, mask, weight, _ = _case(seed, n=n, cin=cin, cout=cout, h=h, w=w)
+    offset = _offsets(regime, n, h, w, seed + 1)
+    g = torch.randn(n, cout, h, w, generator=torch.Generator().manual_seed(seed + 2))
+    return (x.to(card, dtype), offset.to(card), mask.to(card), weight.to(card, dtype), g.to(card, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("regime", ["zero", "1px", "40px"])
+@pytest.mark.parametrize("shape", [(20, 16, 13, 21), (40, 80, 9, 30), (24, 256, 17, 16)])
+def test_backward_kernels_ragged_tiles_and_offsets(card, dtype, regime, shape):
+    """Batch 3, H and W not multiples of K2's 8 x 8 tile, Cin not a multiple
+    of the 16-channel chunk, Cout 16 / 80 / 256 (K3-K5 tile Cout by 64),
+    offsets 0, about 1 px and ±40 px: K2-K5 against their plain versions,
+    with the tolerances of ``test_backward_kernels_match_plain``."""
+    cin, cout, h, w = shape
+    dt = getattr(torch, dtype)
+    args = _backward_args(card, dt, cin, cout, h, w, 3, regime, sum(shape))
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    got = {"dx": dcn.dcn_bwd_dx(*args), "dq": dcn.dcn_bwd_dq(*args),
+           "dw": dcn.dcn_bwd_dw(*args[:3], args[4]), "dqdw": dcn.dcn_bwd_dqdw(*args)}
+    torch.cuda.synchronize()
+    want = {"dx": plain.dcn_bwd_dx(*args), "dq": plain.dcn_bwd_dq(*args),
+            "dw": plain.dcn_bwd_dw(*args[:3], args[4]), "dqdw": plain.dcn_bwd_dqdw(*args)}
+    for name in got:
+        pairs = zip(*(t if isinstance(t, tuple) else (t,) for t in (got[name], want[name])))
+        for a, b in pairs:
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= tol * max(b.float().abs().max().item(), 1e-12), (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dw_is_bit_identical_between_launches(card, dtype):
+    """K4 and K5 reduce dW through per-split partials summed in a fixed
+    order, with no atomics: two launches on the same inputs give the same
+    bits."""
+    args = _backward_args(card, getattr(torch, dtype), 40, 80, 20, 24, 3, "1px", 9)
+    for run in (lambda: dcn.dcn_bwd_dw(*args[:3], args[4]), lambda: dcn.dcn_bwd_dqdw(*args)[2]):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 def test_autograd_function_launches_each_backward_kernel(card):

@@ -184,3 +184,33 @@ def test_wrappers_reject_bad_cotangent():
         dcn.dcn_bwd_dx(x, off, mask, weight, g[:, :2])
     with pytest.raises(ValueError):
         dcn.dcn_bwd_dw(x, off, mask, g.bfloat16())
+
+
+# DLA-34 at 512x512: the DCN shapes of one pass as (Cin, Cout, H = W)
+_DLA_SHAPES = [(512, 256, 16), (256, 256, 32), (256, 128, 32), (256, 64, 32),
+               (128, 128, 64), (128, 64, 64), (64, 64, 128)]
+
+
+@pytest.mark.parametrize("n, cin, cout, h, w", [
+    *[(b, cin, cout, hw, hw) for cin, cout, hw in _DLA_SHAPES for b in (1, 32)],
+    (3, 20, 16, 13, 21), (3, 40, 80, 9, 30), (3, 24, 256, 17, 16), (1, 1, 1, 1, 1), (2, 48, 80, 20, 24),
+])
+def test_bwd_plan_spans_cover_every_tile_once(n, cin, cout, h, w):
+    """The host-side plan of K3-K5 (``dcn.bwd_plan``): the spans of the
+    splits cover each of the n·ceil(H·W / 64) pixel tiles exactly once, no
+    span is empty (the kernel refuses a plan otherwise), and the grid is at
+    least half of its aim of four blocks per SM wherever there are enough
+    tiles, on a 132-SM and a 114-SM card."""
+    for sms in (132, 114):
+        plan = dcn.bwd_plan(n, cin, h, w, cout, sms=sms)
+        tiles = n * -(-(h * w) // dcn.BWD_TILE_PIXELS)
+        assert plan["tiles"] == tiles
+        assert plan["chunks"] == -(-cin // dcn.BWD_CHUNK_CHANNELS)
+        assert plan["cout_tiles"] == -(-cout // dcn.BWD_COUT_TILE)
+        span, splits = plan["span"], plan["splits"]
+        owned = [t for s in range(splits) for t in range(s * span, min((s + 1) * span, tiles))]
+        assert sorted(owned) == list(range(tiles)) and len(owned) == tiles
+        assert (splits - 1) * span < tiles <= splits * span
+        base = plan["chunks"] * plan["cout_tiles"]
+        aim = min(dcn.BWD_BLOCKS_PER_SM * sms, base * tiles)
+        assert base * splits >= aim / 2 or base >= aim
