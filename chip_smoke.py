@@ -8,29 +8,33 @@ Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build both kernel libraries (``ops/csrc/dcn_fwd.cu``, ``dcn_bwd.cu``),
      one nvcc each, at once, and print each kernel's registers and spills,
-     and the backward kernels' shared memory and resident warps per SM;
+     and the shared memory and resident warps per SM of K1 (at each Cout
+     tile) and of the backward kernels;
   3. every kernel against its plain PyTorch version at the seven DCN shapes
      of DLA-34 at 512x512, batch 2, f32 and bf16, in four offset regimes:
      0 (every sample on the grid), about 1 px (normal), up to ±8 px and up
      to ±40 px (uniform; beyond K2's halo and off the map): K1 with the
-     epilogue on and off, K2-K5 on a random cotangent, and dW of K4 and K5
-     the same bit for bit over two launches; then K3 and K4 through the
-     autograd Function (weight, or offset and mask, frozen), the only way
-     they launch;
+     epilogue on and off, K2-K5 on a random cotangent, and K1's output and
+     dW of K4 and K5 the same bit for bit over two launches; then K3 and K4
+     through the autograd Function (weight, or offset and mask, frozen), the
+     only way they launch;
   4. the inference path: ``DefaultPredictor`` on three seeded images and
      ``CenterNet.predict_fn`` on one batch of 16, bf16, 16 K1 launches per
      forward; the f32 heads of one image on the card against the CPU;
   5. the training path: ``DefaultTrainer`` on the synthetic stand-in for
      coco_2017_train (80 classes, warped to 512²), batch 32, bf16, color
      jitter on the card, SGD at the config's LR, a few steps: each step
-     launches 16 x K1, K2 and K5, every loss is finite, peak memory printed;
+     launches 16 x K1, K2 and K5, every loss is finite, peak memory printed,
+     and the profiled step's device time per DCN kernel;
   6. one f32 train step (TF32 off) of one 512² image: the loss terms and every
      parameter's gradient, through the kernels on the card against the same
      step through the plain versions on the card and on the CPU;
   7. times from CUDA events after warm-up: every kernel at each shape at
-     batch 1 (and K2-K5 at the trained batch) beside its bound and its plain
-     version's time, ±8 px offsets; K2 and K5 also with zero and ~1 px
-     offsets, at batch 1 and at the trained batch. (Phase 4 also times the
+     batch 1 and at the trained batch (K1 at batch 1 and predict_fn's 16
+     with the eval epilogue, and at the trained batch without it, as the
+     train step calls it) beside its bound and its plain version's time,
+     ±8 px offsets; K1, K2 and K5 also with zero and ~1 px offsets at each
+     batch. (Phase 4 also times the
      request latency, predict_fn's img/s and a profiled batch-1 forward;
      phase 5 the train step, its img/s and a profiled train step.)
   8. one JSON line for the kernels, the card's name and power limit, and a
@@ -290,8 +294,8 @@ def phase_kernels_vs_plain(report):
                     got, want = as_tuple(got), as_tuple(want)
                     err = max(rel_err(a, b) for a, b in zip(got, want))
                     finite = all(bool(torch.isfinite(a).all()) for a in got)
-                    # dW (the last output of K4 and K5) carries no atomics: the same bits again
-                    same = name not in ("dcn_bwd_dw", "dcn_bwd_dqdw") or torch.equal(got[-1], as_tuple(run())[-1])
+                    # K1's output and dW (the last output of K4 and K5) carry no atomics: the same bits again
+                    same = name not in ("dcn_fwd", "dcn_bwd_dw", "dcn_bwd_dqdw") or torch.equal(got[-1], as_tuple(run())[-1])
                     label = name + ("+epilogue" if kw is kw_epi else "")
                     errs[label] = err
                     row = dict(kernel=label, cin=cin, cout=cout, hw=hw, dtype=str(dtype).split(".")[1],
@@ -306,7 +310,7 @@ def phase_kernels_vs_plain(report):
     report["kernel_vs_plain"] = rows
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
-    print("  dW of dcn_bwd_dw and dcn_bwd_dqdw: bit-identical over two launches in every case")
+    print("  dcn_fwd's output and dW of dcn_bwd_dw and dcn_bwd_dqdw: bit-identical over two launches in every case")
 
     print("  K3 and K4 through the autograd Function (weight, or offset and mask, frozen):")
     reset_launches()
@@ -417,6 +421,16 @@ def phase_inference(report, weights, seed=0):
     return predictor, batch, images, launches
 
 
+def dcn_device_ms(events) -> dict:
+    """Device ms of each DCN kernel family in a profiler's ``key_averages()``,
+    helpers included: K1 with its staging and split sum, K2, K3-K5 with their
+    split sum."""
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    families = {"dcn_fwd": ("dcn_fwd",), "dcn_bwd_dx": ("dcn_bwd_dx",), "dcn_bwd_wq": ("dcn_bwd_wq", "sum_splits")}
+    return {f: sum(e.self_device_time_total for e in kernels if any(k in e.key for k in keys)) / 1e3
+            for f, keys in families.items()}
+
+
 class StepClock(HookBase):
     """Wall time of every train step, the card synchronized at its end, and
     a torch.profiler table of step ``profiled``."""
@@ -441,6 +455,7 @@ class StepClock(HookBase):
             # as the table's "Self CUDA time total": kernels, not annotations
             self.device_ms = sum(e.self_device_time_total for e in events
                                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+            self.dcn_ms = dcn_device_ms(events)
             self.profiled_ms = self.times[-1]
             self._prof = None
 
@@ -486,6 +501,8 @@ def phase_training(report, weights):
     print(f"  device time by op over one train step ({clock.device_ms:.1f} ms on the card in a "
           f"{clock.profiled_ms:.1f} ms step: busy {100 * clock.device_ms / clock.profiled_ms:.0f}%):")
     print(clock.table)
+    print("  DCN kernels in the profiled step (ms of device time, helpers included): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in clock.dcn_ms.items()))
     loader = build_detection_train_loader(cfg)
     next(loader)
     t0 = time.perf_counter()
@@ -499,6 +516,7 @@ def phase_training(report, weights):
                               step_ms_median=step_ms, img_per_s=TRAIN_BATCH * 1e3 / step_ms,
                               data_ms_median=data_ms, peak_gib=peak_gib, profile=clock.table,
                               profiled_step_ms=clock.profiled_ms, profiled_device_ms=clock.device_ms,
+                              profiled_dcn_ms=clock.dcn_ms,
                               loader_ms_per_batch=loader_ms)
     return launches
 
@@ -581,54 +599,56 @@ class plain_dcn_route:
                 setattr(dcn, n, fn)
 
 
+def timed_batches(name):
+    """(batch, epilogue) of each launch phase 7 times: K1 at batch 1 and at
+    predict_fn's 16 with the eval epilogue, and at the trained batch without
+    it (the train step's call); K2-K5 at batch 1 and the trained batch."""
+    if name == "dcn_fwd":
+        return ((1, True), (16, True), (TRAIN_BATCH, False))
+    return ((1, False), (TRAIN_BATCH, False))
+
+
+REGIME_TIMED = ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dqdw")  # the main path's kernels
+
+
 def phase_kernel_timing(report):
     print("== 7. kernel times (CUDA events after warm-up; bf16)")
     rows = []
     for cin, cout, hw, count in DLA_SHAPES:
         for name in KERNELS:
             row = dict(kernel=name, cin=cin, cout=cout, hw=hw, count=count)
-            for b in (1, TRAIN_BATCH):
-                if name == "dcn_fwd" and b == TRAIN_BATCH:
-                    b = 16  # the forward at predict_fn's batch, as slice 1 measured it
-                args, cot, _, kw = dcn_case(b, cin, cout, hw, torch.bfloat16, seed=7)
-                run, ref = kernel_call(name, args, cot, kw if name == "dcn_fwd" else None)
-                row[f"ms_b{b}"] = cuda_ms(run, iters=10 if b > 1 else 30)
-                row[f"bound_ms_b{b}"], row[f"bound_by_b{b}"] = bound_of(*dcn_bound(name, b, cin, cout, hw, torch.bfloat16))
-                if b == 1:
-                    row["plain_ms_b1"] = cuda_ms(ref, iters=5, warmup=2)
-                    row["ops_ms_b1"], row["bytes_ms_b1"] = dcn_bound(name, 1, cin, cout, hw, torch.bfloat16)
-                del args, cot
+            for b, epi in timed_batches(name):
+                for regime in ("8px", "zero", "1px") if name in REGIME_TIMED else ("8px",):
+                    args, cot, _, kw = dcn_case(b, cin, cout, hw, torch.bfloat16, seed=7, regime=regime)
+                    run, ref = kernel_call(name, args, cot, kw if epi else None)
+                    row[f"ms_b{b}" + ("" if regime == "8px" else f"_{regime}")] = cuda_ms(run, iters=10 if b > 1 else 30)
+                    if regime == "8px":
+                        row[f"bound_ms_b{b}"], row[f"bound_by_b{b}"] = bound_of(*dcn_bound(name, b, cin, cout, hw, torch.bfloat16))
+                    if regime == "8px" and b == 1:
+                        row["plain_ms_b1"] = cuda_ms(ref, iters=5, warmup=2)
+                        row["ops_ms_b1"], row["bytes_ms_b1"] = dcn_bound(name, 1, cin, cout, hw, torch.bfloat16)
+                    del args, cot
             rows.append(row)
-            big = 16 if name == "dcn_fwd" else TRAIN_BATCH
             print(f"  {name:12s} {cin:4d}->{cout:<4d} @{hw:3d}^2 x{count}: b1 {row['ms_b1']:.4f} ms "
-                  f"(plain {row['plain_ms_b1']:.4f}, bound {row['bound_ms_b1']:.4f} {row['bound_by_b1']}) | "
-                  f"b{big} {row[f'ms_b{big}']:.4f} ms (bound {row[f'bound_ms_b{big}']:.4f} {row[f'bound_by_b{big}']})")
-    # K2 and K5, the train step's backward kernels, in the other offset regimes
-    for row in rows:
-        if row["kernel"] not in ("dcn_bwd_dx", "dcn_bwd_dqdw"):
-            continue
-        for regime in ("zero", "1px"):
-            for b in (1, TRAIN_BATCH):
-                args, cot, _, _ = dcn_case(b, row["cin"], row["cout"], row["hw"], torch.bfloat16, seed=7, regime=regime)
-                run, _ = kernel_call(row["kernel"], args, cot)
-                row[f"ms_b{b}_{regime}"] = cuda_ms(run, iters=10 if b > 1 else 30)
-                del args, cot
+                  f"(plain {row['plain_ms_b1']:.4f}, bound {row['bound_ms_b1']:.4f} {row['bound_by_b1']})"
+                  + "".join(f" | b{b} {row[f'ms_b{b}']:.4f} ms (bound {row[f'bound_ms_b{b}']:.4f} {row[f'bound_by_b{b}']})"
+                            for b, _ in timed_batches(name)[1:]))
     totals = {}
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
-        big = 16 if name == "dcn_fwd" else TRAIN_BATCH
+        bigs = [b for b, _ in timed_batches(name)[1:]]
         t = {k: sum(r[k] * r["count"] for r in mine)
              for k in ("ms_b1", "plain_ms_b1", "bound_ms_b1", "ops_ms_b1", "bytes_ms_b1",
-                       f"ms_b{big}", f"bound_ms_b{big}")}
+                       *(f"ms_b{b}" for b in bigs), *(f"bound_ms_b{b}" for b in bigs))}
         t["bound_by_b1"] = bound_of(t["ops_ms_b1"], t["bytes_ms_b1"])[1]
-        t["big_batch"] = big
+        t["big_batches"] = bigs
         totals[name] = t
         print(f"  {name:12s} 16 launches of one pass: b1 {t['ms_b1']:.4f} ms (plain {t['plain_ms_b1']:.4f}, "
-              f"bound {t['bound_ms_b1']:.4f} {t['bound_by_b1']}); b{big} {t[f'ms_b{big}']:.4f} ms "
-              f"(bound {t[f'bound_ms_b{big}']:.4f})")
-        if name in ("dcn_bwd_dx", "dcn_bwd_dqdw"):
+              f"bound {t['bound_ms_b1']:.4f} {t['bound_by_b1']})"
+              + "".join(f"; b{b} {t[f'ms_b{b}']:.4f} ms (bound {t[f'bound_ms_b{b}']:.4f})" for b in bigs))
+        if name in REGIME_TIMED:
             t["regimes"], shares = {}, []
-            for b in (1, big):
+            for b in (1, *bigs):
                 for regime in ("zero", "1px", "8px"):
                     key = f"ms_b{b}" + ("" if regime == "8px" else f"_{regime}")
                     ms = t["regimes"][f"b{b} {regime}"] = sum(r[key] * r["count"] for r in mine)
@@ -661,11 +681,17 @@ def phase_inference_timing(report, predictor, batch, images):
         for _ in range(3):
             model.predict_fn(one)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90)
-    print("  device time by op over 3 batch-1 forwards:")
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90)
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    dcn_ms = dcn_device_ms(events)
+    print(f"  device time by op over 3 batch-1 forwards ({device_ms:.3f} ms; K1 with its helpers "
+          f"{dcn_ms['dcn_fwd']:.3f} ms):")
     print(table)
     report["inference_timing"] = dict(predictor_ms=lat, predict_fn_b1_ms=fwd1_ms,
-                                      predict_fn_b16_ms=batch_ms, img_per_s=ips, profile_b1=table)
+                                      predict_fn_b16_ms=batch_ms, img_per_s=ips, profile_b1=table,
+                                      profile_b1_device_ms=device_ms, profile_b1_dcn_ms=dcn_ms)
 
 
 def main() -> int:
@@ -699,7 +725,7 @@ def main() -> int:
         print(f"  {name}: " + "; ".join(
             f"{dt} {r['smem_bytes']} B shared, {r['blocks_per_sm']} blocks = {r['warps_per_sm']} warps per SM"
             for dt, r in by_dtype.items()))
-    report["backward_resources"] = resources
+    report["kernel_resources"] = resources
 
     max_err, phase_launches = phase_kernels_vs_plain(report)
     rng = np.random.RandomState(0)
@@ -723,9 +749,10 @@ def main() -> int:
             "launches_inference": inference[name], "launches_training": training[name],
             "max_abs_err": max_err[name], "ms": t["ms_b1"], "plain_ms": t["plain_ms_b1"],
             "bound_ms": t["bound_ms_b1"], "bound_by": t["bound_by_b1"], "library_ms": None,
-            "per": "16 launches, the DLA-34 shapes at batch 1, bf16",
-            f"ms_b{t['big_batch']}": t[f"ms_b{t['big_batch']}"],
-            f"bound_ms_b{t['big_batch']}": t[f"bound_ms_b{t['big_batch']}"],
+            "per": "16 launches, the DLA-34 shapes at batch 1, bf16"
+            + (" (K1: with the eval epilogue at batches 1 and 16, without at 32)" if name == "dcn_fwd" else ""),
+            **{f"ms_b{b}": t[f"ms_b{b}"] for b in t["big_batches"]},
+            **{f"bound_ms_b{b}": t[f"bound_ms_b{b}"] for b in t["big_batches"]},
             **({"ms_by_regime": t["regimes"]} if "regimes" in t else {}),
         })
     report["kernels"] = kernels

@@ -34,7 +34,7 @@
 // WMMA fragment load in the same banks. What bounds both now, at a few per
 // cent of the least time: the latency of the sampling phases between a
 // block's barriers at 8 warps per SM, and the global atomics (d offset and d
-// mask; dX's flush). tools/dcn_bwd_phases.py times the kernels with each
+// mask; dX's flush). tools/dcn_phases.py times the kernels with each
 // phase cut out.
 //
 // dcn_bwd_wq_kernel (K3, K4, K5). A block owns one channel chunk, one Cout
@@ -78,7 +78,7 @@
 // Tensor cores: bf16 WMMA 16x16x16 with f32 accumulation (mma.sync); f32
 // operands take the FMA pipes. wgmma is not used: the two products are about
 // a fifth of K5's time on the H100 and under a tenth of K2's, the sampling
-// phases over half of each (tools/dcn_bwd_phases.py; PERF.md, Findings), and a
+// phases over half of each (tools/dcn_phases.py; PERF.md, Findings), and a
 // 64 x 144 wgmma tile would want the gathered column tile in its
 // core-matrix layout. Both bodies hold two 4-warp
 // blocks per SM in bf16 (8 warps; under 113 KB of shared memory each, at most

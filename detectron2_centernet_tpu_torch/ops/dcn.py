@@ -26,6 +26,7 @@ source, all started together, and cached by the hash of source and flags.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -42,6 +43,7 @@ from .deform_conv import modulated_deform_conv as modulated_deform_conv_plain
 __all__ = [
     "build_libraries",
     "bwd_plan",
+    "fwd_plan",
     "dcn_bwd_dq",
     "dcn_bwd_dqdw",
     "dcn_bwd_dw",
@@ -60,10 +62,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _DTYPES = (torch.float32, torch.bfloat16)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: pointers, then ints, then the stream
 _SIGNATURES = {
-    "fwd": {"dcn_fwd": [_P] * 7 + [_I] * 7 + [_P]},
+    "fwd": {
+        "dcn_fwd": [_P] * 8 + [_I] * 10 + [_L, _P],
+        "dcn_fwd_info": [_I, _I, _P],  # Cout tile, is_bf16, int[3] out
+    },
     "bwd": {
         "dcn_bwd_dx": [_P] * 6 + [_I] * 6 + [_P],
         "dcn_bwd_dq": [_P] * 7 + [_I] * 8 + [_P],
@@ -76,6 +81,12 @@ _SIGNATURES = {
 BWD_TILE_PIXELS, BWD_CHUNK_CHANNELS, BWD_COUT_TILE = 64, 16, 64
 # blocks of K3-K5 aimed at per SM: two resident blocks, two waves
 BWD_BLOCKS_PER_SM = 4
+# K1 (csrc/dcn_fwd.cu): the side of its square pixel tiles, bytes of
+# channels per chunk, the blocks aimed at per SM (two waves of one resident
+# block), the cap on the split partials (bytes)
+FWD_TILE, FWD_CHUNK_BYTES = 8, 32
+FWD_BLOCKS_PER_SM = 2
+FWD_PARTIAL_CAP = 16 << 20
 
 
 def _nvcc() -> str:
@@ -173,10 +184,49 @@ def _check(x, offset, mask, weight=None, g=None, cout=None) -> None:
 
 def _launch(lib: str, fn: str, x: torch.Tensor, *args) -> None:
     """Call a kernel's C entry point on x's device and current stream."""
-    with torch.cuda.device(x.device):
-        err = getattr(_library(lib), fn)(*args, torch.cuda.current_stream().cuda_stream)
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _launch(lib, fn, x, *args)
+    # the raw stream handle, without building a torch.cuda.Stream per call
+    err = getattr(_library(lib), fn)(*args, torch._C._cuda_getCurrentRawStream(x.device.index))
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed with CUDA error {err}")
+
+
+def fwd_plan(n: int, cin: int, h: int, w: int, cout: int, sms: int, itemsize: int = 2) -> Dict[str, int]:
+    """How K1 cuts its work. A block owns an 8 x 8 pixel tile of one image
+    (``tiles`` per image) and a Cout tile of ``bm`` = 64, 128 or 256 rows (the smallest
+    that holds Cout; ``cout_tiles`` of them). The Cin axis goes in ``chunks``
+    of 32 bytes of channels (16 bf16 or 8 f32 for ``itemsize`` 2 or 4), and
+    the chunks in ``splits`` spans of ``span``, split s owning chunks
+    [s·span, min((s + 1)·span, chunks)). Where the n·tiles·cout_tiles blocks
+    are fewer than ``FWD_BLOCKS_PER_SM · sms`` (two waves), the span is cut so
+    that ``blocks`` = that product × splits reaches it, or to one chunk per
+    split where there are too few chunks, with the [splits, N, Cout, H·W] f32
+    partial buffer (``partial_bytes``) at most ``FWD_PARTIAL_CAP``.
+    ``scratch_bytes``: x channels-last with Cin padded to ``cin_pad``, the
+    weight as its W tiles (rows padded by 16 bytes, as in shared memory), and
+    the partials, each 256-byte aligned."""
+    ck = FWD_CHUNK_BYTES // itemsize
+    bm = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    tiles = -(-h // FWD_TILE) * -(-w // FWD_TILE)
+    cout_tiles = -(-cout // bm)
+    chunks = -(-cin // ck)
+    base = n * tiles * cout_tiles
+    aim = FWD_BLOCKS_PER_SM * sms
+    per_split = n * cout * h * w * 4
+    span = chunks
+    if base < aim:
+        most = max(1, FWD_PARTIAL_CAP // per_split)
+        span = max(chunks // -(-aim // base), -(-chunks // most), 1)
+    splits = -(-chunks // span)
+    cin_pad = chunks * ck
+    partial = splits * per_split if splits > 1 else 0
+    aligned = lambda b: -(-b // 256) * 256
+    ldk = 9 * ck + 16 // itemsize  # a W tile row in shared memory, padded by 16 bytes
+    scratch = aligned(n * h * w * cin_pad * itemsize) + aligned(cout_tiles * bm * chunks * ldk * itemsize) + partial
+    return dict(bm=bm, tiles=tiles, cout_tiles=cout_tiles, chunks=chunks, cin_pad=cin_pad, span=span,
+                splits=splits, blocks=base * splits, partial_bytes=partial, scratch_bytes=scratch)
 
 
 def modulated_deform_conv(
@@ -225,11 +275,14 @@ def modulated_deform_conv(
         shift = shift.contiguous()
     elif bias is not None:
         shift = bias.to(torch.float32).contiguous()
+    bm, span, splits, scratch_bytes = _fwd_launch_plan(n, cin, h, w, cout, _sms(x.device), x.element_size())
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device)
     out = torch.empty((n, cout, h, w), dtype=x.dtype, device=x.device)
     _launch(
         "fwd", "dcn_fwd", x, x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         None if scale is None else scale.data_ptr(), None if shift is None else shift.data_ptr(),
-        out.data_ptr(), n, cin, h, w, cout, int(post_relu), int(x.dtype == torch.bfloat16),
+        out.data_ptr(), scratch.data_ptr(), n, cin, h, w, cout, int(post_relu), _is_bf16(x),
+        bm, span, splits, scratch_bytes,
     )
     modulated_deform_conv.launches += 1
     return out
@@ -262,23 +315,42 @@ def bwd_plan(n: int, cin: int, h: int, w: int, cout: int, sms: int) -> Dict[str,
     return dict(tiles=tiles, chunks=chunks, cout_tiles=cout_tiles, span=span, splits=splits)
 
 
+@functools.lru_cache(maxsize=1024)
+def _fwd_launch_plan(n, cin, h, w, cout, sms, itemsize):
+    """(bm, span, splits, scratch_bytes) of ``fwd_plan``, once per shape."""
+    plan = fwd_plan(n, cin, h, w, cout, sms, itemsize)
+    return plan["bm"], plan["span"], plan["splits"], plan["scratch_bytes"]
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sms(device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device.index]
+
+
 def _plan(x, g):
     n, cin, h, w, cout = _dims(x, g)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return bwd_plan(n, cin, h, w, cout, sms)
+    return bwd_plan(n, cin, h, w, cout, _sms(x.device))
 
 
 def kernel_resources() -> Dict[str, Dict[str, dict]]:
     """{kernel: {dtype: {"smem_bytes", "blocks_per_sm", "warps_per_sm"}}} of
-    the four backward kernels on the current card (CUDA's occupancy
-    calculator with the launch's dynamic shared memory)."""
+    K1's main kernel at each Cout tile (``dcn_fwd_bm64`` ...) and the four
+    backward kernels on the current card (CUDA's occupancy calculator with
+    the launch's dynamic shared memory)."""
+    queries = [(f"dcn_fwd_bm{bm}", "fwd", "dcn_fwd_info", bm) for bm in (64, 128, 256)]
+    queries += [(name, "bwd", "dcn_bwd_info", which) for which, name in
+                enumerate(("dcn_bwd_dx", "dcn_bwd_dq", "dcn_bwd_dw", "dcn_bwd_dqdw"))]
     out = {}
-    for which, name in enumerate(("dcn_bwd_dx", "dcn_bwd_dq", "dcn_bwd_dw", "dcn_bwd_dqdw")):
+    for name, lib, fn, which in queries:
         for dtype in ("float32", "bfloat16"):
             res = (ctypes.c_int * 3)()
-            err = _library("bwd").dcn_bwd_info(which, int(dtype == "bfloat16"), res)
+            err = getattr(_library(lib), fn)(which, int(dtype == "bfloat16"), res)
             if err != 0:
-                raise RuntimeError(f"dcn_bwd_info({name}) failed with CUDA error {err}")
+                raise RuntimeError(f"{fn}({name}) failed with CUDA error {err}")
             out.setdefault(name, {})[dtype] = dict(
                 smem_bytes=res[0], blocks_per_sm=res[1], warps_per_sm=res[1] * res[2] // 32)
     return out

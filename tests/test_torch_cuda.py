@@ -69,6 +69,62 @@ def test_kernel_matches_plain(card, dtype, epilogue, shape):
     assert err <= tol * max(1.0, ref.float().abs().max().item()), err
 
 
+# (n, Cin, Cout, H, W, route of dcn.fwd_plan on the card)
+_FWD_ROUTES = [
+    (1, 64, 64, 16, 16, "split"),  # 4 pixel tiles: a split per channel chunk
+    (2, 256, 256, 32, 32, "split"),  # the 256-row Cout tile
+    (2, 32, 64, 95, 97, "whole"),  # 312 blocks: one split, the epilogue in the main kernel; ragged tiles
+    (1, 24, 320, 13, 21, "split"),  # Cin 24; Cout 320: two Cout tiles repeat the gather
+    (40, 24, 320, 13, 21, "whole"),  # the Cout-tile fallback with one split
+    (3, 40, 80, 9, 30, "split"),  # Cout 80: a ragged 128-row slab
+]
+
+
+def _fwd_args(card, dtype, n, cin, cout, h, w, regime, seed):
+    x, _, mask, weight, vecs = _case(seed, n=n, cin=cin, cout=cout, h=h, w=w)
+    offset = _offsets(regime, n, h, w, seed + 1)
+    args = (x.to(card, dtype), offset.to(card), mask.to(card), weight.to(card, dtype))
+    return args, {k: v.to(card) for k, v in vecs.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("regime", ["zero", "1px", "8px", "40px"])
+@pytest.mark.parametrize("n, cin, cout, h, w, route", _FWD_ROUTES)
+def test_kernel_routes_match_plain(card, dtype, epilogue, regime, n, cin, cout, h, w, route):
+    """K1 on each route of ``dcn.fwd_plan`` (split partials summed by the
+    second kernel, or one split with the epilogue in the main kernel), the
+    Cout-tile fallback (Cout 320) and a ragged slab (Cout 80), Cin 24,
+    ragged pixel tiles, offsets 0, ~1, ±8 and ±40 px, with and without the
+    epilogue, against the plain version: f32 within 1e-4 of the output's
+    scale, bf16 within 1e-2 (the one rounding of the output)."""
+    dt = getattr(torch, dtype)
+    plan = dcn.fwd_plan(n, cin, h, w, cout, torch.cuda.get_device_properties(0).multi_processor_count,
+                        torch.tensor([], dtype=dt).element_size())
+    assert (plan["splits"] > 1) == (route == "split"), plan
+    args, vecs = _fwd_args(card, dt, n, cin, cout, h, w, regime, n + cin + cout + h)
+    kw = dict(post_scale=vecs["post_scale"], post_shift=vecs["post_shift"], post_relu=True) if epilogue else {}
+    got = dcn.modulated_deform_conv(*args, **kw)
+    torch.cuda.synchronize()
+    ref = dcn.modulated_deform_conv_plain(*args, **kw)
+    assert got.dtype == dt and got.shape == (n, cout, h, w)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    assert err <= tol * max(1.0, ref.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_is_bit_identical_between_launches(card, dtype):
+    """K1 sums the splits' f32 partials in a fixed order, with no atomics:
+    two launches at split shapes give the same bits."""
+    for n, cin, cout, h, w, route in _FWD_ROUTES[:2]:
+        args, vecs = _fwd_args(card, getattr(torch, dtype), n, cin, cout, h, w, "1px", 11)
+        first = dcn.modulated_deform_conv(*args, bias=vecs["bias"])
+        second = dcn.modulated_deform_conv(*args, bias=vecs["bias"])
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(48, 80, 20, 24), (16, 64, 7, 130), (64, 16, 33, 5)])
 def test_backward_kernels_match_plain(card, dtype, shape):
@@ -105,14 +161,14 @@ def test_backward_kernels_match_plain(card, dtype, shape):
 
 def _offsets(regime, n, h, w, seed):
     """Offsets of one regime: 0 (every sample on the grid, as training
-    starts), about a pixel (normal, σ = 1 px) or uniform within ±40 px (most
-    samples beyond K2's 8-pixel halo, many off the map)."""
+    starts), about a pixel (normal, σ = 1 px), uniform within ±8 px or
+    within ±40 px (most samples beyond K2's 8-pixel halo, many off the map)."""
     g = torch.Generator().manual_seed(seed)
     if regime == "zero":
         return torch.zeros(n, 18, h, w)
     if regime == "1px":
         return torch.randn(n, 18, h, w, generator=g)
-    return (torch.rand(n, 18, h, w, generator=g) * 2 - 1) * 40.0
+    return (torch.rand(n, 18, h, w, generator=g) * 2 - 1) * {"8px": 8.0, "40px": 40.0}[regime]
 
 
 def _backward_args(card, dtype, cin, cout, h, w, n, regime, seed):

@@ -214,3 +214,59 @@ def test_bwd_plan_spans_cover_every_tile_once(n, cin, cout, h, w):
         base = plan["chunks"] * plan["cout_tiles"]
         aim = min(dcn.BWD_BLOCKS_PER_SM * sms, base * tiles)
         assert base * splits >= aim / 2 or base >= aim
+
+
+def _fwd_cover(plan):
+    span, splits, chunks = plan["span"], plan["splits"], plan["chunks"]
+    return [c for s in range(splits) for c in range(s * span, min((s + 1) * span, chunks))]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n, cin, cout, h, w", [
+    *[(b, cin, cout, hw, hw) for cin, cout, hw in _DLA_SHAPES for b in (1, 16, 32)],
+    (1, 24, 320, 13, 21), (3, 40, 80, 9, 30), (2, 32, 64, 95, 97), (1, 1, 1, 1, 1), (64, 512, 256, 16, 16),
+])
+def test_fwd_plan_splits_cover_every_chunk_once(n, cin, cout, h, w, itemsize):
+    """K1's host-side plan (``dcn.fwd_plan``): the splits' spans cover each
+    of the ceil(Cin / CK) channel chunks exactly once with no empty span (the
+    kernel refuses a plan otherwise), the Cout tile is the smallest of 64,
+    128 and 256 that holds Cout, the grid reaches two waves unless every
+    split owns one chunk or the partial buffer is at its cap, and that
+    buffer stays within ``FWD_PARTIAL_CAP``, on a 132-SM and a 114-SM card."""
+    for sms in (132, 114):
+        plan = dcn.fwd_plan(n, cin, h, w, cout, sms, itemsize)
+        ck = dcn.FWD_CHUNK_BYTES // itemsize
+        assert plan["chunks"] == -(-cin // ck) and plan["cin_pad"] == plan["chunks"] * ck
+        assert _fwd_cover(plan) == list(range(plan["chunks"]))
+        assert (plan["splits"] - 1) * plan["span"] < plan["chunks"] <= plan["splits"] * plan["span"]
+        assert plan["bm"] == min(b for b in (64, 128, 256, 10 ** 9) if b >= min(cout, 256))
+        assert plan["cout_tiles"] == -(-cout // plan["bm"])
+        base = n * -(-h // dcn.FWD_TILE) * -(-w // dcn.FWD_TILE) * plan["cout_tiles"]
+        assert plan["blocks"] == base * plan["splits"]
+        per_split = n * cout * h * w * 4
+        capped = (plan["splits"] + 1) * per_split > dcn.FWD_PARTIAL_CAP
+        assert plan["blocks"] >= dcn.FWD_BLOCKS_PER_SM * sms or plan["span"] == 1 or capped
+        assert plan["partial_bytes"] <= dcn.FWD_PARTIAL_CAP
+        assert plan["partial_bytes"] == (plan["splits"] * per_split if plan["splits"] > 1 else 0)
+        xt = n * h * w * plan["cin_pad"] * itemsize
+        wp = plan["cout_tiles"] * plan["bm"] * plan["chunks"] * (9 * ck + 16 // itemsize) * itemsize
+        assert xt + wp + plan["partial_bytes"] <= plan["scratch_bytes"] < xt + wp + plan["partial_bytes"] + 512
+
+
+@pytest.mark.parametrize("cin, cout, hw", _DLA_SHAPES)
+def test_fwd_plan_fills_the_card_at_batch_1(cin, cout, hw):
+    """At batch 1 every DLA-34 shape launches at least two waves of 132 SMs,
+    or one split per channel chunk where there are fewer, and each sample is
+    gathered once (one Cout tile)."""
+    plan = dcn.fwd_plan(1, cin, hw, hw, cout, 132)
+    assert plan["cout_tiles"] == 1
+    assert plan["blocks"] >= 2 * 132 or plan["splits"] == plan["chunks"]
+    assert plan["partial_bytes"] <= dcn.FWD_PARTIAL_CAP
+
+
+@pytest.mark.parametrize("n", [16, 32])
+def test_fwd_plan_single_split_where_the_grid_is_full(n):
+    """64->64 @128^2 at batch 16 and 32 has 4096 / 8192 blocks: one split,
+    no partial buffer, the epilogue in the main kernel."""
+    plan = dcn.fwd_plan(n, 64, 128, 128, 64, 132)
+    assert plan["splits"] == 1 and plan["partial_bytes"] == 0 and plan["blocks"] == n * 256
