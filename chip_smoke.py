@@ -7,7 +7,8 @@ DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward).
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build both kernel libraries (``ops/csrc/dcn_fwd.cu``, ``dcn_bwd.cu``),
-     one nvcc each, at once, and print each kernel's registers and spills,
+     one nvcc each, at once, and the COCO matcher (``ops/csrc/cocoeval.cpp``,
+     g++) beside them, and print each kernel's registers and spills,
      and the shared memory and resident warps per SM of K1 (at each Cout
      tile) and of the backward kernels;
   3. every kernel against its plain PyTorch version at the seven DCN shapes
@@ -20,26 +21,31 @@ Phases (any failure raises and the script exits non-zero):
      only way they launch;
   4. the inference path: ``DefaultPredictor`` on three seeded images and
      ``CenterNet.predict_fn`` on one batch of 16, bf16, 16 K1 launches per
-     forward; the f32 heads of one image on the card against the CPU;
+     forward; the f32 heads of one image on the card against the CPU, with
+     TF32 off and again with cuDNN's TF32 flags at PyTorch's defaults (the
+     model's own ``ieee_f32`` context must keep them f32; the error with that
+     context bypassed is printed beside it);
+  4d. evaluation: ``DefaultTrainer.test`` (the test loader with the
+     letterbox, ``inference_on_dataset``, ``COCOEvaluator``) on a synthetic
+     stand-in for coco_2017_val (64 images of 480x640), bf16, batch 16: 16
+     K1 launches per batch, a complete and finite bbox AP dict, the C++ and
+     the numpy COCO evaluators equal on the same detections, the eval's
+     img/s (CUDA events) and the loop's own timing;
   5. the training path: ``DefaultTrainer`` on the synthetic stand-in for
      coco_2017_train (80 classes, warped to 512²), batch 32, bf16, color
      jitter on the card, SGD at the config's LR, a few steps: each step
      launches 16 x K1, K2 and K5, every loss is finite, peak memory printed,
      and the profiled step's device time per DCN kernel;
-  6. one f32 train step (TF32 off) of one 512² image: the loss terms and every
-     parameter's gradient, through the kernels on the card against the same
-     step through the plain versions on the card and on the CPU;
-  7. times from CUDA events after warm-up: every kernel at each shape at
-     batch 1 and at the trained batch (K1 at batch 1 and predict_fn's 16
-     with the eval epilogue, and at the trained batch without it, as the
-     train step calls it) beside its bound and its plain version's time,
-     ±8 px offsets; K1, K2 and K5 also with zero and ~1 px offsets at each
-     batch. (Phase 4 also times the
-     request latency, predict_fn's img/s and a profiled batch-1 forward;
-     phase 5 the train step, its img/s and a profiled train step.)
-  8. one JSON line for the kernels, the card's name and power limit, and a
-     last line ``{"ok": true, "device": {...}}``.
-
+  5b. ``DefaultTrainer`` at batch 32 for 4 steps with PreciseBN (2 batches)
+     and ``TEST.EVAL_PERIOD`` 0: PreciseBN and then ``EvalHook`` fire after
+     the last step, the final checkpoint holds PreciseBN's statistics;
+  6. f32 train steps of 512² images: the loss terms and every parameter's
+     gradient, through the kernels on the card against the same step
+     through the plain versions on the card (batch 1 and batch 4; and, only
+     reported, batch 1 with the BatchNorms in eval mode, whose statistics
+     from the calibration images blow these activations up) and on the
+     CPU; and K2 and K5 against their plain versions on each DCN's inputs
+     and output gradient captured in the batch-1 step;
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
 
@@ -59,10 +65,13 @@ import collections
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -71,11 +80,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from detectron2_centernet_tpu_torch.config import get_cfg
 from detectron2_centernet_tpu_torch.data import build_detection_train_loader, letterbox_transform, warp_image
-from detectron2_centernet_tpu_torch.data.datasets import ensure_synthetic_datasets
-from detectron2_centernet_tpu_torch.engine import DefaultPredictor, DefaultTrainer, HookBase
+from detectron2_centernet_tpu_torch.data.datasets import ensure_synthetic_datasets, register_synthetic_instances
+from detectron2_centernet_tpu_torch.engine import DefaultPredictor, DefaultTrainer, HookBase, hooks
+from detectron2_centernet_tpu_torch.evaluation import COCOEval
+from detectron2_centernet_tpu_torch.evaluation import evaluator as eval_loop
 from detectron2_centernet_tpu_torch.models import build_model
+from detectron2_centernet_tpu_torch.models import layers
 from detectron2_centernet_tpu_torch.models.layers import DCNv2, DeformConvV2
-from detectron2_centernet_tpu_torch.ops import dcn
+from detectron2_centernet_tpu_torch.models.meta_arch import centernet
+from detectron2_centernet_tpu_torch.ops import dcn, fast_cocoeval
 from detectron2_centernet_tpu_torch.ops import deform_conv as plain
 
 # DLA-34 at 512x512: the 16 DCN launches of one forward as (Cin, Cout, H=W, count)
@@ -89,17 +102,23 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # max |err| / max |plain|
 HEAD_TOL = 1e-3  # f32 card vs CPU, per head, relative to the head's max |value|
-# f32 train step. The loss terms, card against CPU, within LOSS_TOL relative.
+# f32 train steps. The loss terms, card against CPU, within LOSS_TOL relative.
 # The gradients, as quantiles over the parameters of error / own max |value|:
 # the kernel route against the plain route on the card (same cuDNN, so only
-# the five kernels differ) within ROUTE_TOL; the card against the CPU within
-# CPU_TOL, and each gradient within GRAD_CAP of its own max plus GRAD_FLOOR of
-# the largest gradient (the DCN biases' true gradient is 0: a BatchNorm
-# follows). The random full-width model magnifies rounding along its backward
-# through 40 train-mode BatchNorms and 16 DCNs: card against CPU sits at ~2%
-# at the median, where cuDNN's and oneDNN's convolutions round differently.
+# the five kernels differ) within ROUTE_TOL_B1 at batch 1 and ROUTE_TOL at
+# batch 4; the card against the CPU within CPU_TOL, and each gradient within
+# GRAD_CAP of its own max plus GRAD_FLOOR of the largest gradient (the DCN
+# biases' true gradient is 0: a BatchNorm follows). The random full-width
+# model magnifies rounding along its backward through 40 train-mode
+# BatchNorms and 16 DCNs: the route gap halves from batch 1 (4.77e-3 / 1.07e-2
+# at the median / 90th percentile) to batch 4 (2.43e-3 / 7.08e-3) while K2 and
+# K5 agree with their plain versions to 9e-7 on every DCN's captured inputs,
+# so it is the BatchNorms' magnification, not a kernel (ROADMAP C10); the
+# limits sit 25-40% above those measurements. Card against CPU sits at ~2% at
+# the median, where cuDNN's and oneDNN's convolutions round differently.
 LOSS_TOL, GRAD_CAP, GRAD_FLOOR = 1e-3, 0.2, 5e-4
-ROUTE_TOL = {0.5: 1e-2, 0.9: 3e-2}
+ROUTE_TOL_B1 = {0.5: 6e-3, 0.9: 1.5e-2}
+ROUTE_TOL = {0.5: 3e-3, 0.9: 1e-2}
 CPU_TOL = {0.5: 5e-2, 0.9: 1e-1}
 TRAIN_BATCH = 32  # SOLVER.IMS_PER_BATCH of Base-CenterNet.yaml
 TRAIN_STEPS = 6  # the first TRAIN_WARMUP are not timed
@@ -396,7 +415,7 @@ def phase_inference(report, weights, seed=0):
     report["inference"] = dict(launches=launches, per_forward=per_forward,
                                detections=[len(i) for i in outputs])
 
-    print("== 4b. f32 head outputs of one image: card against CPU (TF32 off)")
+    print("== 4b. f32 head outputs of one image: card against CPU (TF32 off for the process)")
     cfg32 = ctdet_dla34_cfg("float32")
     card = build_model(cfg32)
     cfg32.MODEL.DEVICE = "cpu"
@@ -418,7 +437,166 @@ def phase_inference(report, weights, seed=0):
         if not ok:
             raise SystemExit(f"the card's {k} head differs from the CPU's")
     report["heads_card_vs_cpu"] = head_err
+
+    print("== 4b. the same f32 heads with cuDNN's TF32 flags at PyTorch's defaults (ROADMAP C9)")
+    c9 = {}
+    for run, bypass in (("ieee_f32", False), ("ieee_f32 bypassed", True)):
+        with pytorch_default_tf32(), (bypass_ieee_f32() if bypass else nullcontext()), torch.inference_mode():
+            zd = card.model(card.normalize(x))
+        c9[run] = {k: (zd[k].float().cpu() - zh[k]).abs().max().item() for k in ("hm", "wh", "reg")}
+    for k in ("hm", "wh", "reg"):
+        scale = head_err[k]["scale"]
+        ok = c9["ieee_f32"][k] <= HEAD_TOL * max(scale, 1.0)
+        print(f"  {k}: max_abs_err={c9['ieee_f32'][k]:.3e} (tol {HEAD_TOL:.0e} x max(scale, 1)) "
+              f"{'ok' if ok else 'FAIL'}; with the context bypassed (TF32): {c9['ieee_f32 bypassed'][k]:.3e}")
+        if not ok:
+            raise SystemExit(f"the card's f32 {k} head at PyTorch's default TF32 flags differs from the CPU's")
+    report["heads_card_vs_cpu_default_tf32_flags"] = c9
     return predictor, batch, images, launches
+
+
+@contextmanager
+def pytorch_default_tf32():
+    """cuDNN's and cuBLAS's TF32 flags at PyTorch's defaults (cuDNN's on,
+    cuBLAS's off) within the block; this script's own setting after it."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextmanager
+def bypass_ieee_f32():
+    """CenterNetModel.forward without its ``ieee_f32`` context (what the
+    repair of ROADMAP C9 prevents), within the block."""
+    saved = centernet.ieee_f32
+    centernet.ieee_f32 = nullcontext
+    try:
+        yield
+    finally:
+        centernet.ieee_f32 = saved
+
+
+EVAL_IMAGES, EVAL_SIZE = 64, (480, 640)  # the synthetic stand-in for coco_2017_val
+BBOX_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")
+
+
+def phase_evaluation(report, weights, out_dir):
+    print(f"== 4d. evaluation: DefaultTrainer.test, ctdet DLA-34, 512², bf16, synthetic coco_2017_val "
+          f"({EVAL_IMAGES} images of {EVAL_SIZE[0]}x{EVAL_SIZE[1]}), batch 16")
+    cfg = ctdet_dla34_cfg("bfloat16")
+    cfg.OUTPUT_DIR = out_dir
+    register_synthetic_instances("coco_2017_val", num_images=EVAL_IMAGES, image_size=EVAL_SIZE)
+    model = build_model(cfg)
+    model.model.load_state_dict(weights)
+    batches = -(-EVAL_IMAGES // cfg.TEST.BATCH_SIZE)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    start.record()
+    results = DefaultTrainer.test(cfg, model)
+    end.record()
+    end.synchronize()
+    launches = read_launches()
+    stats = dict(eval_loop.LAST_INFERENCE_STATS)
+    eval_ms = start.elapsed_time(end)
+    print(f"  launches: {launches} over {batches} batches")
+    if launches != {k: 16 * batches if k == "dcn_fwd" else 0 for k in KERNELS}:
+        raise SystemExit(f"expected {16 * batches} dcn_fwd launches (16 per batch) and no other, got {launches}")
+    with open(os.path.join(out_dir, "coco_instances_results.json")) as f:
+        dets = json.load(f)
+    with open(os.path.join(out_dir, "coco_2017_val_coco_format.json")) as f:
+        gt = json.load(f)
+    # complete: the six numbers and a per-class AP for each of the 80 classes;
+    # finite: all six, and the per-class AP of every class with a ground-truth
+    # box (COCO's per-class AP of a class without one is NaN)
+    bbox = results.get("bbox", {})
+    names = [c["name"] for c in gt["categories"]]
+    present = {names[a["category_id"]] for a in gt["annotations"]}
+    if not (all(k in bbox and math.isfinite(bbox[k]) for k in BBOX_KEYS) and len(names) == 80
+            and all(f"AP-{n}" in bbox for n in names)
+            and all(math.isfinite(bbox[f"AP-{n}"]) == (n in present) for n in names)):
+        raise SystemExit(f"the bbox AP dict is not complete and finite: {bbox}")
+    print("  bbox: " + ", ".join(f"{k} {bbox[k]:.4f}" for k in BBOX_KEYS)
+          + f"; 80 per-class APs, finite for the {len(present)} classes with a ground-truth box")
+    # the C++ matcher (the port's cocoeval.cpp) against the numpy evaluator on the same detections
+    img_ids = [im["id"] for im in gt["images"]]
+    cat_ids = [c["id"] for c in gt["categories"]]
+    evals = {}
+    for name, cls in (("fast", fast_cocoeval.FastCOCOEval), ("numpy", COCOEval)):
+        t0 = time.perf_counter()
+        ev = cls(gt["annotations"], dets, img_ids, cat_ids)
+        ev.evaluate()
+        evals[name] = (ev.summarize(), ev.per_category_ap(), time.perf_counter() - t0)
+    (fs, fc, ft), (ns, nc, nt) = evals["fast"], evals["numpy"]
+    same = np.array_equal(fs, ns) and all(fc[k] == nc[k] or (math.isnan(fc[k]) and math.isnan(nc[k])) for k in nc)
+    print(f"  {len(dets)} detections: FastCOCOEval ({ft:.2f} s) and numpy COCOEval ({nt:.2f} s) "
+          f"stats and per-category APs {'equal' if same else 'DIFFER'}; stats {np.round(fs, 6).tolist()}")
+    if not same or not np.isclose(fs[0] * 100, bbox["AP"]):
+        raise SystemExit("the fast and the numpy COCO evaluators disagree on the same detections")
+    img_s = EVAL_IMAGES * 1e3 / eval_ms
+    busy = stats.get("device_s", float("nan")) / stats["wall_s"]
+    print(f"  DefaultTrainer.test: {eval_ms:.1f} ms by CUDA events = {img_s:.1f} img/s (loader, letterbox, "
+          f"forward, decode, postprocess and COCO evaluation); forward spans on the stream "
+          f"{stats.get("device_s", float("nan")) * 1e3:.1f} ms of the loop's {stats['wall_s'] * 1e3:.1f} ms ({busy:.0%})")
+    print("  LAST_INFERENCE_STATS: " + json.dumps(stats))
+    report["evaluation"] = dict(launches=launches, batches=batches, bbox=bbox, detections=len(dets),
+                                eval_ms=eval_ms, img_per_s=img_s, forward_share=busy,
+                                fast_vs_numpy_equal=same, fast_s=ft, numpy_s=nt, inference_stats=stats)
+    return launches
+
+
+def phase_train_with_eval(report, weights, out_dir):
+    print(f"== 5b. DefaultTrainer, batch {TRAIN_BATCH}, 4 steps, PreciseBN over 2 batches, EVAL_PERIOD 0")
+    cfg = ctdet_dla34_cfg("bfloat16")
+    cfg.merge_from_list(["SOLVER.MAX_ITER", 4, "TEST.PRECISE_BN.ENABLED", True, "TEST.PRECISE_BN.NUM_ITER", 2,
+                         "TEST.EVAL_PERIOD", 0, "TEST.EXPECTED_RESULTS", [], "OUTPUT_DIR", out_dir])
+    trainer = DefaultTrainer(cfg)
+    trainer.model.model.load_state_dict(weights)
+    trainer.resume_or_load(resume=False)
+    names = [type(h).__name__ for h in trainer._hooks]
+    precise = next(h for h in trainer._hooks if isinstance(h, hooks.PreciseBN))
+    evalhook = next(h for h in trainer._hooks if isinstance(h, hooks.EvalHook))
+    fired, snap = [], {}
+    running = lambda: {k: v.detach().clone() for k, v in trainer.model.model.state_dict().items() if "running" in k}
+    update, do_eval = precise.update_stats, evalhook._do_eval
+
+    def traced_update():
+        before = running()
+        update()
+        fired.append(("PreciseBN", trainer.iter))
+        snap.update(before=before, after=running())
+
+    def traced_eval():
+        fired.append(("EvalHook", trainer.iter))
+        return do_eval()
+
+    precise.update_stats, evalhook._do_eval = traced_update, traced_eval
+    reset_launches()
+    results = trainer.train()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  hooks {names}; fired {fired}; launches {launches}")
+    if names.index("PreciseBN") > names.index("PeriodicCheckpointerHook") or names.index("EvalHook") < names.index("PeriodicCheckpointerHook"):
+        raise SystemExit(f"the hooks are not in the JAX package's order: {names}")
+    if fired != [("PreciseBN", 3), ("EvalHook", 4)]:
+        raise SystemExit(f"expected PreciseBN after the last step and then EvalHook, got {fired}")
+    eval_batches = -(-EVAL_IMAGES // cfg.TEST.BATCH_SIZE)
+    want = {"dcn_fwd": 16 * (4 + 2 + eval_batches), "dcn_bwd_dx": 64, "dcn_bwd_dq": 0, "dcn_bwd_dw": 0, "dcn_bwd_dqdw": 64}
+    if launches != want:
+        raise SystemExit(f"expected {want} (4 steps, 2 PreciseBN forwards, {eval_batches} eval batches), got {launches}")
+    saved = torch.load(os.path.join(out_dir, "model_final.pth"), map_location="cpu", weights_only=True)["model"]
+    moved = max((snap["after"][k] - snap["before"][k]).abs().max().item() for k in snap["after"])
+    if moved == 0 or any(not torch.equal(saved[k], v.cpu()) for k, v in snap["after"].items()):
+        raise SystemExit("the final checkpoint does not hold PreciseBN's statistics")
+    bbox = results["bbox"]
+    if not all(math.isfinite(bbox[k]) for k in BBOX_KEYS):
+        raise SystemExit(f"the end-of-training evaluation is not finite: {bbox}")
+    print(f"  the final checkpoint holds PreciseBN's {len(snap['after'])} statistics (they moved by up to "
+          f"{moved:.3e}); end-of-training bbox AP {bbox['AP']:.4f}")
+    report["train_with_eval"] = dict(hooks=names, fired=fired, launches=launches, bbox=bbox, precise_bn_moved=moved)
+    return launches
 
 
 def dcn_device_ms(events) -> dict:
@@ -465,6 +643,7 @@ def phase_training(report, weights):
           f"synthetic coco_2017_train, {TRAIN_STEPS} steps")
     cfg = ctdet_dla34_cfg("bfloat16")
     cfg.SOLVER.MAX_ITER = TRAIN_STEPS
+    cfg.DATASETS.TEST = ()  # the train step alone: 4d and 5b evaluate
     ensure_synthetic_datasets(cfg.DATASETS.TRAIN)
     trainer = DefaultTrainer(cfg)
     if trainer.model.num_classes != 80 or trainer.model.device_augment is None:
@@ -521,61 +700,123 @@ def phase_training(report, weights):
     return launches
 
 
-def phase_f32_step(report, weights):
-    print("== 6. one f32 train step of one 512² image: card against CPU (TF32 off)")
-    # uniform noise: a flat synthetic scene leaves whole channels of the
-    # batch-1 BatchNorms with almost no variance, where f32 rounding is
-    # magnified by 1/sqrt(eps) and the comparison says nothing of the kernels
-    cfg = ctdet_dla34_cfg("float32")
+def f32_batch(n):
+    """n uniform-noise 512² images (a flat synthetic scene leaves whole
+    channels of the batch-1 BatchNorms with almost no variance, where f32
+    rounding is magnified by 1/sqrt(eps) and the comparison says nothing of
+    the kernels) with three boxes each."""
     rng = np.random.RandomState(5)
-    batch = {
-        "image": torch.from_numpy(rng.uniform(0, 255, (1, 3, 512, 512)).astype(np.float32)),
+    return {
+        "image": torch.from_numpy(rng.uniform(0, 255, (n, 3, 512, 512)).astype(np.float32)),
         "gt_boxes": torch.tensor([[[40.0, 60.0, 300.0, 400.0], [200.0, 80.0, 500.0, 300.0],
-                                   [10.0, 10.0, 60.0, 44.0]]]),
-        "gt_classes": torch.tensor([[1, 17, 79]]),
-        "gt_valid": torch.tensor([[True, True, True]]),
+                                   [10.0, 10.0, 60.0, 44.0]]] * n),
+        "gt_classes": torch.tensor([[1, 17, 79]] * n),
+        "gt_valid": torch.tensor([[True, True, True]] * n),
     }
+
+
+def phase_f32_step(report, weights):
+    print("== 6. f32 train steps of 512² images: kernels against plain versions, card against CPU (TF32 off)")
+    cfg = ctdet_dla34_cfg("float32")
     out = {}
     threads = torch.get_num_threads()
-    runs = (("card", "cuda", False), ("card_plain", "cuda", True), ("cpu", "cpu", False))
-    for run, device, plain_route in runs:
+    captured = []  # each DCN's inputs and output gradient in the kernel route's step
+    # (run, device, plain DCN route, batch, BatchNorms in eval mode)
+    runs = (("card", "cuda", False, 1, False), ("card_plain", "cuda", True, 1, False),
+            ("card_b4", "cuda", False, 4, False), ("card_plain_b4", "cuda", True, 4, False),
+            ("card_bn_eval", "cuda", False, 1, True), ("card_plain_bn_eval", "cuda", True, 1, True),
+            ("cpu", "cpu", False, 1, False))
+    for run, device, plain_route, n, bn_eval in runs:
         cfg.MODEL.DEVICE = device
         m = build_model(cfg)
         m.model.load_state_dict(weights)
         m.model.train()
+        if bn_eval:
+            for mod in m.model.modules():
+                if isinstance(mod, torch.nn.BatchNorm2d):
+                    mod.eval()
         t0 = time.perf_counter()
-        with plain_dcn_route(plain_route):
-            total, losses = m.loss_fn({k: v.to(m.device) for k, v in batch.items()})
+        with plain_dcn_route(plain_route), capture_dcn(captured if run == "card" else None):
+            total, losses = m.loss_fn({k: v.to(m.device) for k, v in f32_batch(n).items()})
             total.backward()
         grads = {k: p.grad.detach().cpu() for k, p in m.model.named_parameters() if p.grad is not None}
         out[run] = ({k: v.item() for k, v in losses.items()}, grads, time.perf_counter() - t0)
-    (lc, gc, _), (_, gp, _), (lh, gh, th) = out["card"], out["card_plain"], out["cpu"]
-    print(f"  loss terms card {lc}, CPU {lh} (CPU step {th:.1f} s on {threads} threads)")
+    for run, (loss, _, _) in out.items():
+        print(f"  {run}: loss terms " + ", ".join(f"{k} {v:.6g}" for k, v in loss.items()))
+
+    print(f"  K2 and K5 against their plain versions on the {len(captured)} DCNs' captured inputs "
+          f"and output gradients (batch 1, f32, tol {TOL[torch.float32]:.0e} of the plain output's max |value|):")
+    layer_errs = []
+    for i, c in enumerate(captured):
+        args = (c["x"], c["offset"], c["mask"], c["weight"], c["g"])
+        errs = {"dcn_bwd_dx": rel_err(dcn.dcn_bwd_dx(*args), plain.dcn_bwd_dx(*args))}
+        errs.update({f"dcn_bwd_dqdw {part}": rel_err(a, b) for part, a, b in zip(
+            ("d offset", "d mask", "dW"), dcn.dcn_bwd_dqdw(*args), plain.dcn_bwd_dqdw(*args))})
+        shape = f"{c['x'].shape[1]}->{c['weight'].shape[0]} @{c['x'].shape[2]}^2"
+        layer_errs.append(dict(layer=i, shape=shape, **errs))
+        print(f"    DCN {i:2d} {shape}: " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+        if max(errs.values()) > TOL[torch.float32]:
+            raise SystemExit(f"DCN {i} ({shape}): a backward kernel differs from its plain version: {errs}")
+
+    (lc, gc, _), (lh, gh, th) = out["card"], out["cpu"]
+    print(f"  CPU step {th:.1f} s on {threads} threads")
     for k, v in lh.items():
         if not abs(lc[k] - v) <= LOSS_TOL * abs(v):
             raise SystemExit(f"{k}: card {lc[k]} vs CPU {v} beyond {LOSS_TOL} relative")
-    if not set(gc) == set(gh) == set(gp):
+    if len({frozenset(g) for _, g, _ in out.values()}) != 1:
         raise SystemExit("the runs have gradients for different parameters")
     # error of each gradient relative to its own max |value|
     rel = lambda a, b: (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
     q = lambda rows, f: rows[min(int(f * len(rows)), len(rows) - 1)][0]
     result = {}
-    for name, got, want, limits in (("kernels vs plain route, card", gc, gp, ROUTE_TOL),
-                                    ("card vs CPU", gc, gh, CPU_TOL)):
+    for name, got, want, limits in (
+        ("kernels vs plain route, card, batch 1", "card", "card_plain", ROUTE_TOL_B1),
+        ("kernels vs plain route, card, batch 4", "card_b4", "card_plain_b4", ROUTE_TOL),
+        ("kernels vs plain route, card, batch 1, BatchNorm in eval mode (reported)",
+         "card_bn_eval", "card_plain_bn_eval", None),
+        ("card vs CPU, batch 1", "card", "cpu", CPU_TOL),
+    ):
+        got, want = out[got][1], out[want][1]
         rows = sorted((rel(got[k], g), k) for k, g in want.items())
-        quant = {f: q(rows, f) for f in limits}
+        quant = {f: q(rows, f) for f in (0.5, 0.9)}
         print(f"  {name}: {len(rows)} gradients, error / own max |value|: "
-              + ", ".join(f"{f:.0%} quantile {v:.2e} (limit {limits[f]:.0e})" for f, v in quant.items())
+              + ", ".join(f"{f:.0%} quantile {v:.2e}" + (f" (limit {limits[f]:.2g})" if limits else "")
+                          for f, v in quant.items())
               + "; worst " + ", ".join(f"{k} {e:.2e}" for e, k in rows[-3:]))
         for f, v in quant.items():
-            if v > limits[f]:
-                raise SystemExit(f"{name}: the {f:.0%} quantile {v:.2e} is above {limits[f]:.0e}")
+            if limits and v > limits[f]:
+                raise SystemExit(f"{name}: the {f:.0%} quantile {v:.2e} is above {limits[f]:.2g}")
         result[name] = dict(quantiles=quant, worst=rows[-10:])
     floor = GRAD_FLOOR * max(g.abs().max().item() for g in gh.values())
     for k, g in gh.items():
         if (gc[k] - g).abs().max().item() > GRAD_CAP * g.abs().max().item() + floor:
             raise SystemExit(f"gradient of {k}: card vs CPU beyond {GRAD_CAP} of its scale + {floor:.2e}")
-    report["f32_step"] = dict(loss_card=lc, loss_cpu=lh, cpu_seconds=th, **result)
+    report["f32_step"] = dict(losses={k: v[0] for k, v in out.items()}, cpu_seconds=th,
+                              captured_dcn=layer_errs, **result)
+
+
+@contextmanager
+def capture_dcn(records):
+    """Within the block (when ``records`` is a list), every differentiable
+    DCN of the model appends its inputs and, in the backward, the gradient
+    of its output to ``records``."""
+    if records is None:
+        yield
+        return
+    orig = layers.modulated_deform_conv_ad
+
+    def capturing(x, offset, mask, weight, bias=None):
+        out = orig(x, offset, mask, weight, bias)
+        rec = dict(x=x.detach(), offset=offset.detach(), mask=mask.detach(), weight=weight.detach())
+        out.register_hook(lambda g: rec.__setitem__("g", g.detach().clone()))
+        records.append(rec)
+        return out
+
+    layers.modulated_deform_conv_ad = capturing
+    try:
+        yield
+    finally:
+        layers.modulated_deform_conv_ad = orig
 
 
 class plain_dcn_route:
@@ -719,6 +960,11 @@ def main() -> int:
         for line in b["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("    " + line.strip())
+    t0 = time.perf_counter()
+    cocoeval_lib = fast_cocoeval.build_library()
+    built["cocoeval"] = {"path": cocoeval_lib, "seconds": time.perf_counter() - t0, "log": ""}
+    print(f"  {cocoeval_lib.name} (g++, from {os.path.relpath(fast_cocoeval.SOURCE)}): "
+          f"{built['cocoeval']['seconds']:.1f} s")
     report["build_s"] = {k: v["seconds"] for k, v in built.items()}
     resources = dcn.kernel_resources()
     for name, by_dtype in resources.items():
@@ -733,20 +979,28 @@ def main() -> int:
     weights = seeded_weights(ctdet_dla34_cfg("float32"), calib, seed=0)
     predictor, batch, images, inference = phase_inference(report, weights)
     phase_inference_timing(report, predictor, batch, images)
-    training = phase_training(report, weights)
+    os.makedirs("output", exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+    try:
+        evaluation = phase_evaluation(report, weights, os.path.join(scratch, "eval"))
+        training = phase_training(report, weights)
+        train_eval = phase_train_with_eval(report, weights, os.path.join(scratch, "train_eval"))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     phase_f32_step(report, weights)
     totals = phase_kernel_timing(report)
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         t = totals[name]
-        main_path = inference[name] + training[name]
+        main_path = inference[name] + evaluation[name] + training[name] + train_eval[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_path or phase_launches[name],
-            "launches_from": "main path (inference + training)" if main_path
-            else "autograd phase (weight or offset/mask frozen); 0 on the main path",
-            "launches_inference": inference[name], "launches_training": training[name],
+            "launches_from": "main path (inference, evaluation, training, training with PreciseBN and "
+            "evaluation)" if main_path else "autograd phase (weight or offset/mask frozen); 0 on the main path",
+            "launches_inference": inference[name], "launches_evaluation": evaluation[name],
+            "launches_training": training[name], "launches_train_eval": train_eval[name],
             "max_abs_err": max_err[name], "ms": t["ms_b1"], "plain_ms": t["plain_ms_b1"],
             "bound_ms": t["bound_ms_b1"], "bound_by": t["bound_by_b1"], "library_ms": None,
             "per": "16 launches, the DLA-34 shapes at batch 1, bf16"

@@ -1,11 +1,14 @@
-"""The train loader (counterpart of the JAX package's ``data/build.py``:
-``get_detection_dataset_dicts``, the threaded prefetch iterator and
-``build_detection_train_loader``).
+"""The train and test loaders (counterpart of the JAX package's
+``data/build.py``: ``get_detection_dataset_dicts``, the threaded prefetch
+iterator, ``build_detection_train_loader`` and
+``build_detection_test_loader``).
 
 Every mapped sample has the same shapes, so a batch is ``np.stack``. The
 loader is a producer thread that maps the samples of each batch on a small
 thread pool (the warp is PyTorch, which releases the GIL) and keeps
-``DATALOADER.PREFETCH`` batches ready while the card computes.
+``DATALOADER.PREFETCH`` batches ready while the card computes. Over a
+finite index stream (the test loader's) the last batch may be short, and
+the iterator ends after it.
 """
 
 import itertools
@@ -21,11 +24,11 @@ import numpy as np
 from ..config import CfgNode
 from .catalog import DatasetCatalog
 from .dataset_mapper import DatasetMapper
-from .samplers import TrainingSampler
+from .samplers import InferenceSampler, TrainingSampler
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["build_detection_train_loader", "get_detection_dataset_dicts"]
+__all__ = ["build_detection_test_loader", "build_detection_train_loader", "get_detection_dataset_dicts"]
 
 
 def _has_annotations(d: dict) -> bool:
@@ -60,10 +63,11 @@ def _stack_batch(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 class PrefetchIterator:
-    """Threaded map + batch + prefetch over an infinite index stream. Sample
-    ``pos`` of the stream is mapped with ``RandomState(seed + pos)``, so the
-    batches do not depend on the thread count. ``close()`` stops the
-    producer; a mapper's exception comes out of ``next()``."""
+    """Threaded map + batch + prefetch over an index stream. Sample ``pos``
+    of the stream is mapped with ``RandomState(seed + pos)`` (a train
+    mapper's; an eval mapper, ``is_train`` False, draws nothing and gets
+    None), so the batches do not depend on the thread count. ``close()``
+    stops the producer; a mapper's exception comes out of ``next()``."""
 
     def __init__(self, dataset: List[dict], indices: Iterable[int], mapper: Callable,
                  batch_size: int, num_workers: int, prefetch: int, seed: int) -> None:
@@ -80,7 +84,9 @@ class PrefetchIterator:
 
     def _map_one(self, pos_idx):
         pos, idx = pos_idx
-        return self._mapper(self._dataset[idx], rng=np.random.RandomState((self._seed + pos) % (2 ** 31)))
+        draws = getattr(self._mapper, "is_train", True)
+        rng = np.random.RandomState((self._seed + pos) % (2 ** 31)) if draws else None
+        return self._mapper(self._dataset[idx], rng=rng)
 
     def _put(self, item) -> bool:
         """Queue ``item`` unless ``close()`` is called while the queue is full."""
@@ -98,7 +104,11 @@ class PrefetchIterator:
                 enumerated = enumerate(self._indices)
                 while not self._stop.is_set():
                     chunk = list(itertools.islice(enumerated, self._batch_size))
+                    if not chunk:
+                        return
                     if not self._put(_stack_batch(list(pool.map(self._map_one, chunk)))):
+                        return
+                    if len(chunk) < self._batch_size:
                         return
         except Exception as e:  # noqa: BLE001 - handed to the consumer, which raises it
             self._put(e)
@@ -136,4 +146,17 @@ def build_detection_train_loader(cfg: CfgNode, mapper: Optional[Callable] = None
         dataset_dicts, TrainingSampler(len(dataset_dicts), seed=seed),
         mapper or DatasetMapper(cfg, is_train=True), int(cfg.SOLVER.IMS_PER_BATCH),
         num_workers=cfg.DATALOADER.NUM_WORKERS, prefetch=cfg.DATALOADER.PREFETCH, seed=seed,
+    )
+
+
+def build_detection_test_loader(cfg: CfgNode, dataset_name: str,
+                                mapper: Optional[Callable] = None) -> PrefetchIterator:
+    """Finite eval loader over every image of ``dataset_name``, in order,
+    ``TEST.BATCH_SIZE`` images per batch, the last batch as short as it
+    comes (reference ``build.py:358-403``); images without annotations stay."""
+    dataset_dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False)
+    return PrefetchIterator(
+        dataset_dicts, InferenceSampler(len(dataset_dicts)),
+        mapper or DatasetMapper(cfg, is_train=False), max(1, int(cfg.TEST.BATCH_SIZE)),
+        num_workers=cfg.DATALOADER.NUM_WORKERS, prefetch=cfg.DATALOADER.PREFETCH, seed=0,
     )

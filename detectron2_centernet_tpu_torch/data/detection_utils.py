@@ -7,17 +7,18 @@ boxes warp with the same M, and its inverse un-maps predicted boxes at the
 host boundary (``CenterNet.postprocess``). At training, the annotations
 become a fixed number of box slots (``pad_to_capacity``).
 
-``warp_image`` differs in mechanism, not in meaning: the JAX package calls
-``cv2.warpAffine``; the port samples bilinearly in PyTorch (on whatever
-device the caller names), with zero fill outside the source. cv2 quantizes
-sample positions to 1/32 px, so the two agree to that quantization, not
-bit for bit.
+``warp_image`` and ``fast_letterbox`` differ in mechanism, not in meaning:
+the JAX package calls ``cv2.warpAffine`` and ``cv2.resize``; the port
+samples bilinearly in PyTorch (the card's machine has no cv2). cv2
+quantizes sample positions to 1/32 px and, for uint8, its resize weights to
+11 bits, so the two agree to that quantization, not bit for bit.
 """
 
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..structures import BoxMode
 
@@ -194,3 +195,41 @@ def warp_image(
         idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
         out += flat[idx] * (wgt * valid)[..., None]
     return out
+
+
+def fast_letterbox(image: np.ndarray, out_size: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """Centered, aspect-preserving letterbox by resize and paste (the JAX
+    package's ``fast_letterbox``, there ``cv2.resize`` + paste): the source
+    is resized bilinearly with the half-pixel-center convention, no
+    antialiasing, to the integer paste rectangle of the source extent under
+    ``letterbox_transform``, and pasted on a zero canvas.
+
+    Returns ``(canvas, m_eff)``: the canvas in the image's dtype (uint8 is
+    rounded), and the EXACT source -> canvas affine the operation applied,
+    ``x_dst = s·(x_src + 0.5) - 0.5 + x0`` per axis, which differs from
+    ``letterbox_transform``'s by under a pixel. Boxes un-map through
+    ``m_eff``."""
+    from .transforms import letterbox_transform
+
+    h, w = image.shape[:2]
+    out_h, out_w = out_size
+    m = letterbox_transform(h, w, out_size)
+    # paste rectangle of the source extent under the requested warp
+    x0, y0 = m[0, 2], m[1, 2]
+    x1, y1 = m[0, 0] * w + x0, m[1, 1] * h + y0
+    xi0, yi0 = max(int(round(x0)), 0), max(int(round(y0)), 0)
+    xi1, yi1 = min(int(round(x1)), out_w), min(int(round(y1)), out_h)
+    rw, rh = max(xi1 - xi0, 1), max(yi1 - yi0, 1)
+    src = torch.from_numpy(np.ascontiguousarray(image)).reshape(h, w, -1)
+    resized = F.interpolate(src.permute(2, 0, 1)[None].to(torch.float32), size=(rh, rw),
+                            mode="bilinear", align_corners=False, antialias=False)[0].permute(1, 2, 0)
+    if image.dtype == np.uint8:
+        resized = resized.round_().clamp_(0, 255)
+    canvas = np.zeros((out_h, out_w) + image.shape[2:], image.dtype)
+    canvas[yi0:yi0 + rh, xi0:xi0 + rw] = resized.numpy().astype(image.dtype).reshape((rh, rw) + image.shape[2:])
+    sx, sy = rw / w, rh / h
+    m_eff = np.array(
+        [[sx, 0.0, xi0 + 0.5 * sx - 0.5], [0.0, sy, yi0 + 0.5 * sy - 0.5]],
+        np.float64,
+    )
+    return canvas, m_eff

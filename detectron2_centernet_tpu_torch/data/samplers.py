@@ -1,6 +1,7 @@
-"""The training index sampler (counterpart of the JAX package's
-``data/samplers.py::TrainingSampler``, the reference's contract): an infinite
-stream of shuffled indices, sharded ``rank::world_size``. The port trains on
+"""Index samplers (counterpart of the JAX package's ``data/samplers.py``,
+the reference's contract): ``TrainingSampler``, an infinite stream of
+shuffled indices sharded ``rank::world_size``, and ``InferenceSampler``,
+every index once, in order, a contiguous shard per rank. The port runs on
 one card, so rank and world size are arguments (0 and 1 by default)."""
 
 import itertools
@@ -30,3 +31,20 @@ class TrainingSampler:
                 yield from rng.permutation(self._size).tolist()
             else:
                 yield from range(self._size)
+
+
+class InferenceSampler:
+    """A contiguous shard of ``range(size)`` per rank covering every index
+    once (reference ``samplers.py:173-200``)."""
+
+    def __init__(self, size: int, rank: int = 0, world_size: int = 1) -> None:
+        shard_size = (size - 1) // world_size + 1
+        begin = min(shard_size * rank, size)
+        end = min(shard_size * (rank + 1), size)
+        self._local_indices = range(begin, end)
+
+    def __iter__(self) -> Iterator[int]:
+        yield from self._local_indices
+
+    def __len__(self) -> int:
+        return len(self._local_indices)

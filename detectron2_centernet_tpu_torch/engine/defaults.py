@@ -1,12 +1,11 @@
-"""Inference and training from a config (counterpart of the JAX package's
-``engine/defaults.py``: ``DefaultPredictor`` and ``DefaultTrainer``).
-
-Evaluation (``DefaultTrainer.test``, ``EvalHook``, ``PreciseBN``) is not
-ported yet (ROADMAP A10).
+"""Inference, training and evaluation from a config (counterpart of the JAX
+package's ``engine/defaults.py``: ``DefaultPredictor`` and
+``DefaultTrainer`` with its ``test``).
 """
 
 import logging
 import os
+from collections import OrderedDict
 from typing import Dict
 
 import numpy as np
@@ -14,7 +13,19 @@ import torch
 
 from ..checkpoint import Checkpointer, PeriodicCheckpointer
 from ..config import CfgNode
-from ..data import build_detection_train_loader, letterbox_transform, warp_image
+from ..data import (
+    build_detection_test_loader,
+    build_detection_train_loader,
+    letterbox_transform,
+    warp_image,
+)
+from ..evaluation import (
+    COCOEvaluator,
+    DatasetEvaluator,
+    inference_on_dataset,
+    print_csv_format,
+    verify_results,
+)
 from ..models import build_model
 from ..solver import build_lr_scheduler, build_optimizer
 from ..utils.events import CommonMetricPrinter, JSONWriter
@@ -67,16 +78,20 @@ class DefaultTrainer(SimpleTrainer):
     """The train-from-config workflow on one device (``cfg.MODEL.DEVICE``):
     the model, the optimizer and its LR schedule, the train loader over
     ``DATASETS.TRAIN`` (register it first, e.g. with
-    ``data.datasets.ensure_synthetic_datasets``), the checkpointer and the
-    hooks. ``resume_or_load()``, then ``train()``."""
+    ``data.datasets.ensure_synthetic_datasets``; ``DATASETS.TEST`` too), the
+    checkpointer and the hooks, in the JAX package's order: PreciseBN (when
+    ``TEST.PRECISE_BN.ENABLED``) before the checkpointer, so the final
+    checkpoint and the evaluation see its statistics, then ``EvalHook``,
+    always registered, so ``DATASETS.TEST`` is evaluated after the last step
+    even at ``TEST.EVAL_PERIOD`` 0. ``resume_or_load()``, then ``train()``,
+    which ends in ``verify_results`` (``TEST.EXPECTED_RESULTS``) and returns
+    the last evaluation's results."""
 
     def __init__(self, cfg: CfgNode) -> None:
-        if cfg.TEST.PRECISE_BN.ENABLED:
-            raise NotImplementedError("PreciseBN is not ported yet (ROADMAP A10)")
         self.cfg = cfg
         model = build_model(cfg)
         optimizer, scheduler = build_optimizer(cfg, model.model)
-        super().__init__(model, build_detection_train_loader(cfg), optimizer, scheduler)
+        super().__init__(model, self.build_train_loader(cfg), optimizer, scheduler)
         self.schedule = build_lr_scheduler(cfg)
         self.checkpointer = Checkpointer(model.model, cfg.OUTPUT_DIR, optimizer=optimizer,
                                          scheduler=scheduler)
@@ -92,9 +107,18 @@ class DefaultTrainer(SimpleTrainer):
     def build_hooks(self):
         cfg = self.cfg
         ret = [hooks.IterationTimer(), hooks.LRSchedulerHook(self.schedule)]
+        if cfg.TEST.PRECISE_BN.ENABLED:
+            ret.append(hooks.PreciseBN(cfg.TEST.EVAL_PERIOD, lambda: self.build_train_loader(cfg),
+                                       cfg.TEST.PRECISE_BN.NUM_ITER))
         if cfg.OUTPUT_DIR:
             ret.append(hooks.PeriodicCheckpointerHook(PeriodicCheckpointer(
                 self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD, cfg.SOLVER.MAX_ITER)))
+
+        def test_and_save_results():
+            self._last_eval_results = self.test(self.cfg, self)
+            return self._last_eval_results
+
+        ret.append(hooks.EvalHook(cfg.TEST.EVAL_PERIOD, test_and_save_results))
         ret.append(hooks.PeriodicWriter(self.build_writers(), period=20))
         return ret
 
@@ -104,14 +128,61 @@ class DefaultTrainer(SimpleTrainer):
             writers.append(JSONWriter(os.path.join(self.cfg.OUTPUT_DIR, "metrics.json")))
         return writers
 
-    def train(self) -> None:
+    def train(self):
         try:
             super().train(self.start_iter, self.max_iter)
         finally:
             self.data_loader.close()
+        if hasattr(self, "_last_eval_results"):
+            verify_results(self.cfg, self._last_eval_results)
+            return self._last_eval_results
 
     @classmethod
-    def test(cls, cfg: CfgNode, model, evaluators=None):
-        raise NotImplementedError(
-            "evaluation (inference_on_dataset, COCOEvaluator) is not ported yet (ROADMAP A10)"
-        )
+    def build_train_loader(cls, cfg: CfgNode):
+        return build_detection_train_loader(cfg)
+
+    @classmethod
+    def build_test_loader(cls, cfg: CfgNode, dataset_name: str):
+        return build_detection_test_loader(cfg, dataset_name)
+
+    @classmethod
+    def build_evaluator(cls, cfg: CfgNode, dataset_name: str) -> DatasetEvaluator:
+        return COCOEvaluator(dataset_name, output_dir=cfg.OUTPUT_DIR)
+
+    @classmethod
+    def test(cls, cfg: CfgNode, trainer_or_model, evaluators=None):
+        """Evaluate on every ``cfg.DATASETS.TEST`` (reference
+        ``defaults.py:483-533``) in one process. ``trainer_or_model`` is a
+        DefaultTrainer (its model as trained so far) or a CenterNet; the
+        network runs in eval mode and gets its mode back. Returns the
+        results of the one dataset, or an OrderedDict by dataset name."""
+        model = trainer_or_model.model if isinstance(trainer_or_model, DefaultTrainer) else trainer_or_model
+        was_training = model.model.training
+        model.model.eval()
+        results = OrderedDict()
+        try:
+            for idx, dataset_name in enumerate(cfg.DATASETS.TEST):
+                if evaluators is not None:
+                    evaluator = evaluators[idx]
+                else:
+                    try:
+                        evaluator = cls.build_evaluator(cfg, dataset_name)
+                    except NotImplementedError:
+                        logger.warning("No evaluator for %s", dataset_name)
+                        results[dataset_name] = {}
+                        continue
+                data_loader = cls.build_test_loader(cfg, dataset_name)
+                try:
+                    results_i = inference_on_dataset(model.predict_fn, data_loader, evaluator,
+                                                     postprocess=model.postprocess, device=model.device)
+                finally:
+                    data_loader.close()
+                results[dataset_name] = results_i
+                assert isinstance(results_i, dict), results_i
+                logger.info("Evaluation results for %s in csv format:", dataset_name)
+                print_csv_format(results_i)
+        finally:
+            model.model.train(was_training)
+        if len(results) == 1:
+            results = list(results.values())[0]
+        return results

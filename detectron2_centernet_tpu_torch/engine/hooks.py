@@ -1,20 +1,24 @@
 """The training hooks on the port's path (counterpart of the JAX package's
 ``engine/hooks.py``; the reference's ``detectron2/engine/hooks.py``):
-``IterationTimer``, ``LRSchedulerHook``, ``PeriodicWriter`` and
-``PeriodicCheckpointerHook``. ``EvalHook`` and ``PreciseBN`` wait for
-evaluation (ROADMAP A10).
+``IterationTimer``, ``LRSchedulerHook``, ``PeriodicWriter``,
+``PeriodicCheckpointerHook``, ``EvalHook`` and ``PreciseBN``.
 """
 
 import logging
 import time
-from typing import Callable
+from typing import Callable, Iterable
 
+import numpy as np
+import torch
+
+from ..evaluation.testing import flatten_results_dict
 from ..utils.events import get_event_storage
 from .train_loop import HookBase
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["IterationTimer", "LRSchedulerHook", "PeriodicCheckpointerHook", "PeriodicWriter"]
+__all__ = ["EvalHook", "IterationTimer", "LRSchedulerHook", "PeriodicCheckpointerHook",
+           "PeriodicWriter", "PreciseBN"]
 
 
 class IterationTimer(HookBase):
@@ -89,3 +93,110 @@ class PeriodicCheckpointerHook(HookBase):
 
     def after_step(self):
         self._pc.step(self.trainer.iter)
+
+
+class EvalHook(HookBase):
+    """Run ``eval_function`` every ``eval_period`` steps and after the last
+    step, also when ``eval_period`` is 0 (reference ``hooks.py:300-355``);
+    the flattened results go to the EventStorage."""
+
+    def __init__(self, eval_period: int, eval_function: Callable):
+        self._period = eval_period
+        self._func = eval_function
+
+    def _do_eval(self):
+        results = self._func()
+        if results:
+            assert isinstance(results, dict), f"Eval function must return a dict. Got {results} instead."
+            storage = get_event_storage()
+            for k, v in flatten_results_dict(results).items():
+                try:
+                    storage.put_scalar(k, float(v), smoothing_hint=False)
+                except (ValueError, TypeError) as e:
+                    raise ValueError(
+                        f"[EvalHook] eval_function should return a nested dict of float. Got '{k}: {v}' instead."
+                    ) from e
+
+    def after_step(self):
+        next_iter = self.trainer.iter + 1
+        if self._period > 0 and next_iter % self._period == 0 and next_iter != self.trainer.max_iter:
+            self._do_eval()
+
+    def after_train(self):
+        if self.trainer.iter + 1 >= self.trainer.max_iter:
+            self._do_eval()
+        del self._func
+
+
+class PreciseBN(HookBase):
+    """Recompute every BatchNorm's running statistics as a true average over
+    ``num_iter`` train batches (reference ``hooks.py:357-418``; the JAX
+    package's ``PreciseBN``, ``engine/hooks.py:214-275``), every ``period``
+    steps and at the last step, before the checkpointer and the evaluation.
+
+    Each batch runs the network forward only, without gradients, in train
+    mode (BatchNorm on batch statistics), on the normalized images and no
+    color jitter, as the JAX package's ``forward_stats``. Every BatchNorm's
+    input gives this batch's mean and *biased* variance, the statistics
+    flax's BatchNorm folds; the ``num_iter`` batches are averaged with equal
+    weight and written into ``running_mean`` and ``running_var``. The modules'
+    ``momentum`` is not touched: with ``momentum=None`` torch would average
+    the unbiased variance instead. The mode and ``num_batches_tracked`` are
+    restored.
+
+    ``build_data_loader`` makes the batches' loader (host batches with a
+    uint8 (N, H, W, 3) ``image``) at the first update, so it does not
+    prefetch while nothing reads it; it is closed after training."""
+
+    def __init__(self, period: int, build_data_loader: Callable[[], Iterable], num_iter: int = 200):
+        self._period = period
+        self._build_data_loader = build_data_loader
+        self._num_iter = num_iter
+        self._data_loader = None
+        self._data_iter = None
+
+    @torch.no_grad()
+    def update_stats(self) -> None:
+        model = self.trainer.model
+        net = model.model
+        bns = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d) and m.track_running_stats]
+        if not bns:
+            return
+        if self._data_iter is None:
+            self._data_loader = self._build_data_loader()
+            self._data_iter = iter(self._data_loader)
+        sums = {bn: [0.0, 0.0] for bn in bns}
+
+        def accumulate(bn, inputs):
+            var, mean = torch.var_mean(inputs[0].float(), dim=(0, 2, 3), unbiased=False)
+            sums[bn][0] = sums[bn][0] + mean
+            sums[bn][1] = sums[bn][1] + var
+
+        handles = [bn.register_forward_pre_hook(accumulate) for bn in bns]
+        tracked = [bn.num_batches_tracked.clone() for bn in bns]
+        was_training = net.training
+        net.train()
+        try:
+            for _ in range(self._num_iter):
+                batch = next(self._data_iter)
+                images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(model.device, non_blocking=True)
+                net(model.normalize(images.permute(0, 3, 1, 2)))
+        finally:
+            for h in handles:
+                h.remove()
+            net.train(was_training)
+        for bn, count in zip(bns, tracked):
+            bn.running_mean.copy_(sums[bn][0] / self._num_iter)
+            bn.running_var.copy_(sums[bn][1] / self._num_iter)
+            bn.num_batches_tracked.copy_(count)
+        logger.info("PreciseBN updated the statistics of %d BatchNorms over %d batches", len(bns), self._num_iter)
+
+    def after_step(self):
+        next_iter = self.trainer.iter + 1
+        if (self._period > 0 and next_iter % self._period == 0) or next_iter == self.trainer.max_iter:
+            self.update_stats()
+
+    def after_train(self):
+        close = getattr(self._data_loader, "close", None)
+        if close is not None:
+            close()

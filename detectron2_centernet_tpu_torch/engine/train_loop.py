@@ -5,7 +5,8 @@
 ``SimpleTrainer.run_step`` is one eager PyTorch step: the batch to the
 device, the color jitter there, the forward at the model's width with f32
 parameters, ``loss_fn``, the backward (through the DCN backward kernels on a
-card), the optimizer step and the scheduler step. Loss values stay on the
+card; its f32 convolutions in IEEE f32, as the forward's), the optimizer
+step and the scheduler step. Loss values stay on the
 device and are copied to the host together every ``metrics_period`` steps,
 where the NaN check runs (``FloatingPointError``, as the reference's
 ``_detect_anomaly``), so the loop does not wait on the card every step.
@@ -19,6 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models.layers import ieee_f32
 from ..utils.events import EventStorage
 
 logger = logging.getLogger(__name__)
@@ -153,7 +155,8 @@ class SimpleTrainer(TrainerBase):
         self.model.model.train()
         total, losses = self.model.loss_fn(batch)
         self.optimizer.zero_grad(set_to_none=False)
-        total.backward()
+        with ieee_f32():  # the backward's f32 convolutions too
+            total.backward()
         self.optimizer.step()
         self.scheduler.step()
 

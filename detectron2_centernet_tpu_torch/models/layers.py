@@ -13,6 +13,8 @@ statistics stay f32 whatever the model's compute width, as flax keeps them
 (``CenterNetModel`` runs its convolutions under autocast).
 """
 
+import functools
+import inspect
 import math
 
 import numpy as np
@@ -26,6 +28,29 @@ BN_MOMENTUM = 0.1  # torch convention; the JAX package's flax momentum is 0.9
 BN_EPS = 1e-5
 # std of a unit normal truncated at ±2: flax's lecun_normal divides by it
 TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+@functools.lru_cache(maxsize=None)
+def _cudnn_flag_names():
+    return tuple(inspect.signature(torch.backends.cudnn.flags).parameters)
+
+
+def ieee_f32():
+    """A context in which cuDNN computes f32 convolutions in IEEE f32, not
+    TF32: ``torch.backends.cudnn.flags`` with ``allow_tf32=False`` (and, where
+    torch has it, ``fp32_precision="ieee"``), every other cuDNN flag passed
+    at its current value (the context's defaults would turn cuDNN off). The
+    flags are restored on exit; nothing is set for the process. bf16 and
+    CPU convolutions are not affected."""
+    cudnn = torch.backends.cudnn
+    names = _cudnn_flag_names()
+    kw = {k: getattr(cudnn, k) for k in ("enabled", "benchmark", "benchmark_limit",
+                                          "deterministic", "depthwise_kernel")
+          if k in names and getattr(cudnn, k, None) is not None}
+    kw["allow_tf32"] = False
+    if "fp32_precision" in names:
+        kw["fp32_precision"] = "ieee"
+    return cudnn.flags(**kw)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -26,7 +26,7 @@ from ...ops.photometric import device_color_jitter
 from ...ops.target_gen import gen_centernet_targets
 from ...structures import Boxes, Instances
 from ..build import resolve_device
-from ..layers import init_weights
+from ..layers import ieee_f32, init_weights
 from ..registry import BACKBONE_REGISTRY, META_ARCH_REGISTRY
 
 HM_BIAS = -2.19  # -log((1 - 0.1) / 0.1): the initial heatmap probability is ~0.1
@@ -36,7 +36,8 @@ class CenterNetHead(nn.Sequential):
     """3x3 conv(head_conv) → ReLU → kxk conv, the reference's head tower
     (keys ``.0`` and ``.2``). The last conv runs in f32 whatever the model's
     width, as the JAX head does: head outputs stay f32 for the loss and the
-    decode."""
+    decode. Under ``CenterNetModel.forward`` that f32 is IEEE f32, not
+    TF32."""
 
     def __init__(self, cin: int, head_conv: int, nout: int, final_kernel: int):
         super().__init__(
@@ -56,7 +57,10 @@ class CenterNetModel(nn.Module):
 
     Parameters and BatchNorm statistics are f32; the convolutions run at
     ``dtype`` (autocast), BatchNorm normalizes in f32 and rounds its output,
-    as flax does with ``param_dtype`` f32 and ``dtype`` bf16."""
+    as flax does with ``param_dtype`` f32 and ``dtype`` bf16. The forward
+    runs under ``ieee_f32()``: every f32 convolution on the card (all of
+    them at ``dtype`` f32, the heads' last convs at bf16) is IEEE f32, as
+    the JAX package's f32 is, not the TF32 cuDNN takes by default."""
 
     def __init__(self, backbone: nn.Module, heads: Tuple[Tuple[str, int], ...],
                  head_conv: int = 256, final_kernel: int = 1):
@@ -76,8 +80,8 @@ class CenterNetModel(nn.Module):
         return self
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with torch.autocast(images.device.type, dtype=self.dtype,
-                            enabled=self.dtype != torch.float32):
+        with ieee_f32(), torch.autocast(images.device.type, dtype=self.dtype,
+                                        enabled=self.dtype != torch.float32):
             y = self.backbone(images.to(self.dtype))
             return {name: getattr(self, name)(y) for name in self.head_names}
 

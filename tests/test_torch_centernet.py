@@ -277,3 +277,68 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_port_builds_only_its_own_sources(tmp_path, monkeypatch):
+    """Every source the port compiles lies inside the port: the argument
+    lists that ``ops/dcn.py::build_libraries`` hands nvcc (run here with a
+    stand-in for nvcc, which the CPU machine lacks) and that
+    ``ops/fast_cocoeval.py::build_library`` hands g++ (run for real) name
+    sources under ``detectron2_centernet_tpu_torch/`` and nothing of the JAX
+    package. The library g++ built then evaluates the oracle case of
+    ``tests/evaluation/test_cocoeval_oracle.py`` as the numpy COCOEval does."""
+    import importlib.util
+    import pathlib
+    import shlex
+
+    from detectron2_centernet_tpu_torch.evaluation import COCOEval
+    from detectron2_centernet_tpu_torch.ops import fast_cocoeval
+
+    port = pathlib.Path(REPO, "detectron2_centernet_tpu_torch").resolve()
+    commands = []
+
+    class FakeNvcc:
+        def __init__(self, argv, **kw):
+            commands.append(list(argv))
+            pathlib.Path(argv[argv.index("-o") + 1]).write_bytes(b"")
+            self.returncode = 0
+
+        def communicate(self):
+            return "", ""
+
+    with monkeypatch.context() as m:  # Popen is the subprocess module's: undone before g++ runs
+        m.setattr(dcn, "BUILD_DIR", tmp_path / "dcn")
+        m.setattr(dcn.subprocess, "Popen", FakeNvcc)
+        built = dcn.build_libraries()
+    assert set(built) == set(dcn.SOURCES) and len(commands) == len(dcn.SOURCES) == 2
+
+    real_run = fast_cocoeval.subprocess.run
+
+    def recording_run(argv, **kw):
+        commands.append(list(argv))
+        return real_run(argv, **kw)
+
+    monkeypatch.setattr(fast_cocoeval, "BUILD_DIR", tmp_path / "cocoeval")
+    monkeypatch.setattr(fast_cocoeval, "_LIB", None)
+    monkeypatch.setattr(fast_cocoeval.subprocess, "run", recording_run)
+    library = fast_cocoeval.build_library()
+    assert library.exists() and len(commands) == 3
+    sources = [pathlib.Path(a).resolve() for argv in commands for a in argv
+               if a.endswith((".cu", ".cpp", ".cc", ".c"))]
+    assert len(sources) == 3, [shlex.join(c) for c in commands]
+    for src in sources:
+        assert src.is_relative_to(port) and src.exists(), src
+    assert {s.name for s in sources} == {"dcn_fwd.cu", "dcn_bwd.cu", "cocoeval.cpp"}
+
+    spec = importlib.util.spec_from_file_location(
+        "_cocoeval_oracle", os.path.join(REPO, "tests", "evaluation", "test_cocoeval_oracle.py"))
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    case = oracle._fixture()
+    stats = []
+    for cls in (fast_cocoeval.FastCOCOEval, COCOEval):
+        ev = cls(*case)
+        ev.evaluate()
+        stats.append(ev.summarize())
+    np.testing.assert_array_equal(stats[0], stats[1])
+    np.testing.assert_allclose(stats[0], oracle._FROZEN, atol=1e-5)

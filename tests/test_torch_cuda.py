@@ -1,7 +1,8 @@
 """The port on the card (marker ``cuda``): the Hopper DCN kernels (forward
-and the four backward kernels) against their plain PyTorch versions, and the
+and the four backward kernels) against their plain PyTorch versions, the
 small DLA-34 CenterNet on the card against itself on the CPU, at inference
-and for one training step.
+and for one training step, the f32 heads at PyTorch's default TF32 flags,
+and a short evaluation through ``DefaultTrainer.test``.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -11,12 +12,20 @@ JAX, hence ``--noconftest``)::
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
 
+import json
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from detectron2_centernet_tpu_torch.config import get_cfg
+from detectron2_centernet_tpu_torch.data import DatasetCatalog
+from detectron2_centernet_tpu_torch.data.datasets import register_synthetic_instances
+from detectron2_centernet_tpu_torch.engine import DefaultTrainer
+from detectron2_centernet_tpu_torch.evaluation import COCOEval
 from detectron2_centernet_tpu_torch.models import build_model
+from detectron2_centernet_tpu_torch.ops.fast_cocoeval import FastCOCOEval
 from detectron2_centernet_tpu_torch.ops import dcn
 from detectron2_centernet_tpu_torch.ops import deform_conv as plain
 
@@ -312,3 +321,71 @@ def test_small_centernet_on_card_matches_cpu(card):
     for k in ("hm", "wh", "reg"):
         scale = max(1.0, zh[k].abs().max().item())
         assert (zd[k].cpu() - zh[k]).abs().max().item() <= 1e-3 * scale, k
+
+
+def test_f32_heads_at_default_tf32_flags_match_cpu(card):
+    """ROADMAP C9: with cuDNN's TF32 flags at PyTorch's defaults (the
+    fixture turns them off; this test turns them back on), ctdet DLA-34 at
+    full width in f32 (128² input, random offset convs and BN statistics)
+    keeps its convolutions in IEEE f32 through the model's own context: the
+    heads within 1e-3 of their scale of the CPU's (chip_smoke.py's
+    HEAD_TOL), and the process-wide flag is as the test left it."""
+    cfg = _small_cfg()
+    cfg.merge_from_list(["MODEL.CENTERNET.CHANNELS", [16, 32, 64, 128, 256, 512],
+                         "MODEL.CENTERNET.HEAD_CONV", 256])
+    host = build_model(cfg)
+    _randomize(host)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    dev.model.load_state_dict(host.model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(2).uniform(0, 255, (1, 3, 128, 128)).astype(np.float32))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            zd = dev.model(dev.normalize(x))
+            zh = host.model(host.normalize(x))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for k in ("hm", "wh", "reg"):
+        scale = max(1.0, zh[k].abs().max().item())
+        assert (zd[k].float().cpu() - zh[k]).abs().max().item() <= 1e-3 * scale, k
+
+
+def test_evaluation_on_card(card, tmp_path):
+    """DefaultTrainer.test on the card: 10 synthetic 48x64 images at batch 4
+    (3 batches, the last short), the letterbox to 64², the small f32
+    CenterNet. 16 K1 launches per batch, a complete bbox AP dict, finite
+    but for the classes without a ground-truth box, and the COCO numbers of the card's detections equal, exactly,
+    whether the C++ or the numpy evaluator computes them."""
+    name = "test_torch_cuda_eval"
+    if name not in DatasetCatalog:
+        register_synthetic_instances(name, num_images=10, image_size=(48, 64))
+    cfg = _small_cfg()
+    cfg.merge_from_list(["MODEL.DEVICE", "cuda", "MODEL.CENTERNET.TASK.HM", 80, "DATASETS.TEST", (name,),
+                         "INPUT.TEST_SIZE", (64, 64), "TEST.BATCH_SIZE", 4, "OUTPUT_DIR", str(tmp_path),
+                         "MODEL.CENTERNET.SCORE_THRESH_TEST", 0.0])  # every one of the top 100 is a detection
+    model = build_model(cfg)
+    _randomize(model)
+    with torch.no_grad():  # boxes of about 8 px: the random heads alone give empty ones
+        model.model.wh[2].bias.fill_(8.0)
+    before = dcn.modulated_deform_conv.launches
+    results = DefaultTrainer.test(cfg, model)
+    assert dcn.modulated_deform_conv.launches - before == 16 * 3
+    bbox = results["bbox"]
+    dets = json.loads((tmp_path / "coco_instances_results.json").read_text())
+    gt = json.loads((tmp_path / f"{name}_coco_format.json").read_text())
+    names = [c["name"] for c in gt["categories"]]
+    present = {names[a["category_id"]] for a in gt["annotations"]}
+    assert all(math.isfinite(bbox[k]) for k in ("AP", "AP50", "AP75", "APs", "APm", "APl"))
+    # a class without a ground-truth box has a NaN AP, as in COCO
+    assert all(math.isfinite(bbox[f"AP-{n}"]) == (n in present) for n in names)
+    assert len(dets) > 0
+    stats = []
+    for cls in (FastCOCOEval, COCOEval):
+        ev = cls(gt["annotations"], dets, [i["id"] for i in gt["images"]], [c["id"] for c in gt["categories"]])
+        ev.evaluate()
+        stats.append(ev.summarize())
+    np.testing.assert_array_equal(stats[0], stats[1])
+    assert stats[0][0] * 100 == bbox["AP"]

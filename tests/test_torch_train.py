@@ -224,7 +224,8 @@ def test_default_trainer_three_steps_on_cpu(tmp_path):
     """DefaultTrainer with MODEL.DEVICE=cpu on the synthetic stand-in for
     coco_2017_train (80 classes), jitter on: 3 steps with finite losses,
     metrics.json and the final checkpoint written; a second trainer resumes
-    from it at iteration 3; evaluation raises (not ported)."""
+    from it at iteration 3; with no DATASETS.TEST, evaluation gives no
+    results and train() returns them empty."""
     from detectron2_centernet_tpu_torch.data.datasets import ensure_synthetic_datasets
 
     _, cfg = _cfgs()
@@ -235,7 +236,7 @@ def test_default_trainer_three_steps_on_cpu(tmp_path):
     trainer = DefaultTrainer(cfg)
     assert trainer.model.num_classes == 80 and trainer.model.device_augment is not None
     trainer.resume_or_load(resume=False)
-    trainer.train()
+    assert trainer.train() == {}
     for k in ("hm_loss", "wh_loss", "off_loss", "total_loss"):
         values = [v for v, _ in trainer.storage.history(k).values()]
         assert len(values) == 3 and all(math.isfinite(v) for v in values), k
@@ -248,5 +249,39 @@ def test_default_trainer_three_steps_on_cpu(tmp_path):
     for a, b in zip(again.model.model.state_dict().values(), trainer.model.model.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     again.data_loader.close()
-    with pytest.raises(NotImplementedError, match="A10"):
-        DefaultTrainer.test(cfg, trainer.model)
+    assert DefaultTrainer.test(cfg, trainer.model) == {}
+
+
+@pytest.mark.parametrize("expected, passes", [(0.0, True), (150.0, False)])
+def test_default_trainer_precise_bn_eval_verify_on_cpu(tmp_path, expected, passes):
+    """The train-then-evaluate workflow on the CPU, as the accuracy configs
+    run it: synth_learnable (3 classes), 3 steps of batch 4, PreciseBN over
+    2 batches after the last step, the checkpoint, EvalHook at EVAL_PERIOD
+    0 (COCOEvaluator over the 24 images, the fast matcher), then
+    verify_results: train() returns the results when they are within
+    TEST.EXPECTED_RESULTS and exits 1 when they are not."""
+    from detectron2_centernet_tpu_torch.data.datasets import ensure_synthetic_datasets
+
+    _, cfg = _cfgs()
+    cfg.merge_from_list(["DATASETS.TRAIN", ("synth_learnable",), "DATASETS.TEST", ("synth_learnable",),
+                         "INPUT.TEST_SIZE", (SIZE, SIZE), "SOLVER.IMS_PER_BATCH", 4, "SOLVER.MAX_ITER", 3,
+                         "TEST.PRECISE_BN.ENABLED", True, "TEST.PRECISE_BN.NUM_ITER", 2, "TEST.BATCH_SIZE", 8,
+                         "TEST.EXPECTED_RESULTS", [["bbox", "AP", expected, 100.0]],
+                         "OUTPUT_DIR", str(tmp_path), "DATALOADER.NUM_WORKERS", 2])
+    ensure_synthetic_datasets(cfg.DATASETS.TRAIN)
+    trainer = DefaultTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    if not passes:
+        with pytest.raises(SystemExit) as e:
+            trainer.train()
+        assert e.value.code == 1
+        return
+    results = trainer.train()
+    bbox = results["bbox"]
+    assert set(bbox) >= {"AP", "AP50", "AP75", "APs", "APm", "APl", "AP-color_0"}
+    assert all(math.isfinite(v) for v in bbox.values())
+    assert trainer.storage.history("bbox/AP").latest() == bbox["AP"]
+    saved = torch.load(tmp_path / "model_final.pth", weights_only=True)["model"]
+    for k, v in trainer.model.model.state_dict().items():
+        assert torch.equal(saved[k], v), k
+    assert (tmp_path / "coco_instances_results.json").exists()
