@@ -2,7 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``detectron2_centernet_tpu_torch``) on
 one NVIDIA card: ctdet DLA-34 at full width, inference through the port's
 ``DefaultPredictor`` and training through its ``DefaultTrainer``, with every
-DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward).
+DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward); then
+the ResNet-18/50-deconv and VoVNet-39 configs, ``tools/train_net`` and
+``tools/bench``. Every config is read from its YAML file
+(``configs/COCO-Detection/``) by the port's own reader.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -25,6 +28,8 @@ Phases (any failure raises and the script exits non-zero):
      TF32 off and again with cuDNN's TF32 flags at PyTorch's defaults (the
      model's own ``ieee_f32`` context must keep them f32; the error with that
      context bypassed is printed beside it);
+  4c. ``tools/bench.py``'s inference numbers (request latency, ``predict_fn``
+     img/s at batch 16), ``predict_fn`` at batch 1 and its profile;
   4d. evaluation: ``DefaultTrainer.test`` (the test loader with the
      letterbox, ``inference_on_dataset``, ``COCOEvaluator``) on a synthetic
      stand-in for coco_2017_val (64 images of 480x640), bf16, batch 16: 16
@@ -33,7 +38,8 @@ Phases (any failure raises and the script exits non-zero):
      img/s (CUDA events) and the loop's own timing;
   5. the training path: ``DefaultTrainer`` on the synthetic stand-in for
      coco_2017_train (80 classes, warped to 512²), batch 32, bf16, color
-     jitter on the card, SGD at the config's LR, a few steps: each step
+     jitter on the card, SGD at the config's LR, ``tools/bench.py``'s
+     steps (2 warm-up, 4 timed, 1 more profiled) and clocks: each step
      launches 16 x K1, K2 and K5, every loss is finite, peak memory printed,
      and the profiled step's device time per DCN kernel;
   5b. ``DefaultTrainer`` at batch 32 for 4 steps with PreciseBN (2 batches)
@@ -46,6 +52,18 @@ Phases (any failure raises and the script exits non-zero):
      from the calibration images blow these activations up) and on the
      CPU; and K2 and K5 against their plain versions on each DCN's inputs
      and output gradient captured in the batch-1 step;
+  8a. ``ctdet_res_18_1x.yaml``, ``ctdet_res_50_1x.yaml`` and
+     ``ctdet_vovnet2_39_1x.yaml`` read without PyYAML;
+  8b. each of them at full width, bf16, 512², 80 classes: ``DefaultPredictor``
+     detections, the f32 heads card against CPU, and ``tools/bench.py``'s
+     numbers on seeded weights: request latency, ``predict_fn`` img/s at
+     batch 16, and for ResNet-18 and VoVNet-39 its train steps at batch 32
+     (step time, the card's busy share, peak memory); no DCN kernel launches;
+  8c. ``tools/train_net`` on ``ctdet_res_18_1x.yaml`` (6 steps at batch 32
+     on synthetic data), then ``--eval-only --resume`` on its checkpoint:
+     resumed at iteration 6, the same evaluation dict, no DCN launch;
+  8d. ``tools/bench`` on ctdet DLA-34; its JSON line is printed;
+  7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
 
@@ -63,15 +81,15 @@ Usage: python3 chip_smoke.py [--json PATH]
 import argparse
 import collections
 import json
+import logging
 import math
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager, nullcontext, redirect_stdout
 
 import numpy as np
 import torch
@@ -79,9 +97,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from detectron2_centernet_tpu_torch.config import get_cfg
-from detectron2_centernet_tpu_torch.data import build_detection_train_loader, letterbox_transform, warp_image
-from detectron2_centernet_tpu_torch.data.datasets import ensure_synthetic_datasets, register_synthetic_instances
-from detectron2_centernet_tpu_torch.engine import DefaultPredictor, DefaultTrainer, HookBase, hooks
+from detectron2_centernet_tpu_torch.data import (DatasetCatalog, MetadataCatalog, build_detection_train_loader,
+                                                 letterbox_transform, warp_image)
+from detectron2_centernet_tpu_torch.data.datasets import register_synthetic_instances
+from detectron2_centernet_tpu_torch.engine import DefaultPredictor, DefaultTrainer, hooks
 from detectron2_centernet_tpu_torch.evaluation import COCOEval
 from detectron2_centernet_tpu_torch.evaluation import evaluator as eval_loop
 from detectron2_centernet_tpu_torch.models import build_model
@@ -90,6 +109,7 @@ from detectron2_centernet_tpu_torch.models.layers import DCNv2, DeformConvV2
 from detectron2_centernet_tpu_torch.models.meta_arch import centernet
 from detectron2_centernet_tpu_torch.ops import dcn, fast_cocoeval
 from detectron2_centernet_tpu_torch.ops import deform_conv as plain
+from detectron2_centernet_tpu_torch.tools import bench
 
 # DLA-34 at 512x512: the 16 DCN launches of one forward as (Cin, Cout, H=W, count)
 DLA_SHAPES = [
@@ -121,9 +141,6 @@ ROUTE_TOL_B1 = {0.5: 6e-3, 0.9: 1.5e-2}
 ROUTE_TOL = {0.5: 3e-3, 0.9: 1e-2}
 CPU_TOL = {0.5: 5e-2, 0.9: 1e-1}
 TRAIN_BATCH = 32  # SOLVER.IMS_PER_BATCH of Base-CenterNet.yaml
-TRAIN_STEPS = 6  # the first TRAIN_WARMUP are not timed
-TRAIN_WARMUP = 2
-PROFILED_STEP = 4
 # offset regimes of the kernel phases: 0 px (the zero-initialised offset
 # convs every DCN starts training with), about a pixel (normal, σ = 1 px:
 # the seeded train step's offsets), uniform within ±8 px and within ±40 px
@@ -153,53 +170,40 @@ def read_launches():
     return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
 
 
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
-def ctdet_dla34_cfg(dtype: str):
-    """configs/COCO-Detection/ctdet_dla_34_1x.yaml (over Base-CenterNet.yaml),
-    built in code: the card's machine has no YAML parser."""
+def ctdet_cfg(name: str, dtype: str):
+    """``configs/COCO-Detection/<name>.yaml`` (over Base-CenterNet.yaml) read
+    by the port's own YAML reader, with the run's compute width, output
+    directory and seed over it."""
     cfg = get_cfg()
-    cfg.merge_from_list([
-        "MODEL.META_ARCHITECTURE", "CenterNet",
-        "MODEL.BACKBONE.NAME", "build_dla34_backbone",
-        "MODEL.PIXEL_MEAN", [0.408, 0.447, 0.470],
-        "MODEL.PIXEL_STD", [0.289, 0.274, 0.278],
-        "MODEL.CENTERNET.FOCAL_LOSS_ALPHA", [1],
-        "INPUT.FORMAT", "BGR",
-        "INPUT.TRAIN_SIZE", (512, 512),
-        "INPUT.TEST_SIZE", (512, 512),
-        "DATASETS.TRAIN", ("coco_2017_train",),
-        "DATASETS.TEST", ("coco_2017_val",),
-        "SOLVER.IMS_PER_BATCH", TRAIN_BATCH,
-        "SOLVER.BASE_LR", 2.5e-4,
-        "SOLVER.STEPS", (90000, 120000),
-        "SOLVER.MAX_ITER", 140000,
-        "SOLVER.CHECKPOINT_PERIOD", 10000,
-        "TEST.BATCH_SIZE", 16,
-        "TPU.DTYPE", dtype,
-        "OUTPUT_DIR", "output/chip_smoke",
-        "SEED", 0,
-    ])
+    cfg.merge_from_file(os.path.join("configs", "COCO-Detection", name + ".yaml"))
+    cfg.merge_from_list(["TPU.DTYPE", dtype, "OUTPUT_DIR", "output/chip_smoke", "SEED", 0])
     return cfg
+
+
+DLA = "ctdet_dla_34_1x"
 
 
 def seeded_weights(cfg, images: torch.Tensor, seed: int) -> dict:
     """Random weights from ``seed``, on the CPU in f32: the model's own init,
     random offset convs (N(0, 1/fan_in): offsets of about a pixel), and
-    BatchNorm statistics measured on ``images`` so activations keep their
-    scale through the 40 layers (with identity statistics they fade, and the
-    heatmap is flat). Returns the state dict for every model of the run."""
+    BatchNorm (and FrozenBatchNorm) statistics measured on ``images`` so
+    activations keep their scale through the layers (with identity
+    statistics they fade or grow, and the heatmap is flat). Returns the
+    state dict for every model of the run."""
     cfg = cfg.clone()
     cfg.MODEL.DEVICE = "cpu"
     cfg.TPU.DTYPE = "float32"
     host = build_model(cfg)
     g = torch.Generator().manual_seed(seed)
     bns = [m for m in host.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+
+    def calibrate(frozen, inputs):  # a FrozenBatchNorm's statistics := this batch's (biased, as flax's)
+        x = inputs[0].float()
+        frozen.running_mean.copy_(x.mean((0, 2, 3)))
+        frozen.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(calibrate) for m in host.model.modules()
+             if isinstance(m, layers.FrozenBatchNorm)]
     with torch.no_grad():
         for m in host.model.modules():
             if isinstance(m, DCNv2):
@@ -211,20 +215,12 @@ def seeded_weights(cfg, images: torch.Tensor, seed: int) -> dict:
         host.model(host.normalize(images))
     for bn in bns:
         bn.momentum = 0.1
+    for h in hooks:
+        h.remove()
     return host.model.state_dict()
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+cuda_ms = bench.Clock("cuda").ms  # mean ms per call, CUDA events
 
 
 def dcn_case(b, cin, cout, hw, dtype, seed, regime="8px"):
@@ -362,9 +358,18 @@ def letterboxed(rng, dev, n, size):
         for im in (rng.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(n))])
 
 
+def check_detections(name, img, inst, score_threshold):
+    """Some detections, finite, inside the image, above the threshold, of the 80 classes."""
+    b, (h, w) = inst.pred_boxes.tensor, img.shape[:2]
+    if not (len(inst) > 0 and np.isfinite(b).all() and np.isfinite(inst.scores).all()
+            and (b[:, [0, 2]] <= w).all() and (b[:, [1, 3]] <= h).all() and (b >= 0).all()
+            and (inst.scores > score_threshold).all() and (inst.pred_classes < 80).all()):
+        raise SystemExit(f"{name}: bad detections for a {h}x{w} image: {inst}")
+
+
 def phase_inference(report, weights, seed=0):
     print("== 4. inference: ctdet DLA-34, 512x512, 80 classes, bf16, DefaultPredictor")
-    cfg = ctdet_dla34_cfg("bfloat16")
+    cfg = ctdet_cfg(DLA, "bfloat16")
     size = tuple(cfg.INPUT.TEST_SIZE)
     rng = np.random.RandomState(seed + 1)
     predictor = DefaultPredictor(cfg)
@@ -400,13 +405,8 @@ def phase_inference(report, weights, seed=0):
     if shapes != want:
         raise SystemExit(f"the main path's DCN shapes {dict(shapes)} are not the table's {dict(want)}")
     for img, inst in zip(images, outputs):
-        b = inst.pred_boxes.tensor
-        h, w = img.shape[:2]
-        if not (len(inst) > 0 and np.isfinite(b).all() and np.isfinite(inst.scores).all()
-                and (b[:, [0, 2]] <= w).all() and (b[:, [1, 3]] <= h).all() and (b >= 0).all()
-                and (inst.scores > model.score_threshold).all() and (inst.pred_classes < 80).all()):
-            raise SystemExit(f"bad detections for a {h}x{w} image: {inst}")
-        print(f"  request {h}x{w}: {len(inst)} detections, top score {inst.scores.max():.4f}")
+        check_detections(DLA, img, inst, model.score_threshold)
+        print(f"  request {img.shape[0]}x{img.shape[1]}: {len(inst)} detections, top score {inst.scores.max():.4f}")
     n = cfg.TEST.BATCH_SIZE
     if not (dets["boxes"].shape == (n, 100, 4) and dets["scores"].shape == (n, 100)
             and bool(torch.isfinite(dets["boxes"]).all()) and bool(torch.isfinite(dets["scores"]).all())):
@@ -416,7 +416,7 @@ def phase_inference(report, weights, seed=0):
                                detections=[len(i) for i in outputs])
 
     print("== 4b. f32 head outputs of one image: card against CPU (TF32 off for the process)")
-    cfg32 = ctdet_dla34_cfg("float32")
+    cfg32 = ctdet_cfg(DLA, "float32")
     card = build_model(cfg32)
     cfg32.MODEL.DEVICE = "cpu"
     host = build_model(cfg32)
@@ -452,7 +452,7 @@ def phase_inference(report, weights, seed=0):
         if not ok:
             raise SystemExit(f"the card's f32 {k} head at PyTorch's default TF32 flags differs from the CPU's")
     report["heads_card_vs_cpu_default_tf32_flags"] = c9
-    return predictor, batch, images, launches
+    return predictor, batch, launches
 
 
 @contextmanager
@@ -486,7 +486,7 @@ BBOX_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")
 def phase_evaluation(report, weights, out_dir):
     print(f"== 4d. evaluation: DefaultTrainer.test, ctdet DLA-34, 512², bf16, synthetic coco_2017_val "
           f"({EVAL_IMAGES} images of {EVAL_SIZE[0]}x{EVAL_SIZE[1]}), batch 16")
-    cfg = ctdet_dla34_cfg("bfloat16")
+    cfg = ctdet_cfg(DLA, "bfloat16")
     cfg.OUTPUT_DIR = out_dir
     register_synthetic_instances("coco_2017_val", num_images=EVAL_IMAGES, image_size=EVAL_SIZE)
     model = build_model(cfg)
@@ -549,7 +549,7 @@ def phase_evaluation(report, weights, out_dir):
 
 def phase_train_with_eval(report, weights, out_dir):
     print(f"== 5b. DefaultTrainer, batch {TRAIN_BATCH}, 4 steps, PreciseBN over 2 batches, EVAL_PERIOD 0")
-    cfg = ctdet_dla34_cfg("bfloat16")
+    cfg = ctdet_cfg(DLA, "bfloat16")
     cfg.merge_from_list(["SOLVER.MAX_ITER", 4, "TEST.PRECISE_BN.ENABLED", True, "TEST.PRECISE_BN.NUM_ITER", 2,
                          "TEST.EVAL_PERIOD", 0, "TEST.EXPECTED_RESULTS", [], "OUTPUT_DIR", out_dir])
     trainer = DefaultTrainer(cfg)
@@ -609,80 +609,41 @@ def dcn_device_ms(events) -> dict:
             for f, keys in families.items()}
 
 
-class StepClock(HookBase):
-    """Wall time of every train step, the card synchronized at its end, and
-    a torch.profiler table of step ``profiled``."""
-
-    def __init__(self, profiled: int):
-        self.times, self.profiled, self.table, self._prof = [], profiled, None, None
-
-    def before_step(self):
-        torch.cuda.synchronize()
-        if self.trainer.iter == self.profiled:
-            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            self._prof.__enter__()
-        self._t0 = time.perf_counter()
-
-    def after_step(self):
-        torch.cuda.synchronize()
-        self.times.append((time.perf_counter() - self._t0) * 1e3)
-        if self._prof is not None:
-            self._prof.__exit__(None, None, None)
-            events = self._prof.key_averages()
-            self.table = events.table(sort_by="cuda_time_total", row_limit=20, max_name_column_width=90)
-            # as the table's "Self CUDA time total": kernels, not annotations
-            self.device_ms = sum(e.self_device_time_total for e in events
-                                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
-            self.dcn_ms = dcn_device_ms(events)
-            self.profiled_ms = self.times[-1]
-            self._prof = None
-
-
 def phase_training(report, weights):
-    print(f"== 5. training: DefaultTrainer, ctdet DLA-34, 512², batch {TRAIN_BATCH}, bf16, "
-          f"synthetic coco_2017_train, {TRAIN_STEPS} steps")
-    cfg = ctdet_dla34_cfg("bfloat16")
-    cfg.SOLVER.MAX_ITER = TRAIN_STEPS
-    cfg.DATASETS.TEST = ()  # the train step alone: 4d and 5b evaluate
-    ensure_synthetic_datasets(cfg.DATASETS.TRAIN)
-    trainer = DefaultTrainer(cfg)
-    if trainer.model.num_classes != 80 or trainer.model.device_augment is None:
-        raise SystemExit("the trainer's model is not the 80-class ctdet with device color jitter")
-    trainer.model.model.load_state_dict(weights)
-    trainer.resume_or_load(resume=False)
-    clock = StepClock(PROFILED_STEP)
-    trainer.register_hooks([clock])
-    torch.cuda.reset_peak_memory_stats()
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    print(f"== 5. training: DefaultTrainer, ctdet DLA-34, 512², batch {TRAIN_BATCH}, bf16, synthetic "
+          f"coco_2017_train, tools/bench.py's {steps} steps (the last one profiled)")
     reset_launches()
-    trainer.train()
+    numbers, trainer, clock = bench.bench_training(ctdet_cfg(DLA, "bfloat16"), weights)
     torch.cuda.synchronize()
     launches = read_launches()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"  launches: {launches} over {TRAIN_STEPS} steps")
+    if trainer.model.num_classes != 80 or trainer.model.device_augment is None:
+        raise SystemExit("the trainer's model is not the 80-class ctdet with device color jitter")
+    print(f"  launches: {launches} over {steps} steps")
     want = {"dcn_fwd": 16, "dcn_bwd_dx": 16, "dcn_bwd_dq": 0, "dcn_bwd_dw": 0, "dcn_bwd_dqdw": 16}
-    # the profiled step launches the kernels once more inside the profiler; it
-    # is one of the TRAIN_STEPS, so the count per step is exact
-    if launches != {k: v * TRAIN_STEPS for k, v in want.items()}:
-        raise SystemExit(f"expected per step {want}, got {launches} over {TRAIN_STEPS} steps")
+    if launches != {k: v * steps for k, v in want.items()}:
+        raise SystemExit(f"expected per step {want}, got {launches} over {steps} steps")
     losses = {}
     for k in ("hm_loss", "wh_loss", "off_loss", "total_loss"):
         values = [v for v, _ in trainer.storage.history(k).values()]
-        if len(values) != TRAIN_STEPS or not all(math.isfinite(v) for v in values):
+        if len(values) != steps or not all(math.isfinite(v) for v in values):
             raise SystemExit(f"{k} is not finite at every step: {values}")
         losses[k] = values
         print(f"  {k}: " + " ".join(f"{v:.4f}" for v in values))
-    timed = clock.times[TRAIN_WARMUP:]
-    step_ms = statistics.median(timed)
+    step_ms = numbers["train_step_ms"]
     data_ms = statistics.median(v for v, _ in trainer.storage.history("data_time").values()) * 1e3
-    print(f"  step times (ms, synchronized): {' '.join(f'{t:.1f}' for t in clock.times)}")
-    print(f"  train step {step_ms:.1f} ms median of {len(timed)} = {TRAIN_BATCH * 1e3 / step_ms:.1f} img/s; "
-          f"waiting for data {data_ms:.1f} ms median; peak memory {peak_gib:.2f} GiB")
-    print(f"  device time by op over one train step ({clock.device_ms:.1f} ms on the card in a "
-          f"{clock.profiled_ms:.1f} ms step: busy {100 * clock.device_ms / clock.profiled_ms:.0f}%):")
-    print(clock.table)
+    table = clock.events.table(sort_by="cuda_time_total", row_limit=20, max_name_column_width=90)
+    dcn_ms = dcn_device_ms(clock.events)
+    print(f"  step times (ms, synchronized): {' '.join(f'{t:.1f}' for t in clock.times)}; "
+          f"the profiled step {clock.profiled_ms:.1f}")
+    print(f"  train step {step_ms:.1f} ms median of {bench.TRAIN_STEPS} = {numbers['train_img_s']:.1f} img/s; "
+          f"waiting for data {data_ms:.1f} ms median; peak memory {numbers['peak_memory_gib']:.2f} GiB")
+    print(f"  device time by op over the profiled step ({clock.device_ms:.1f} ms on the card: busy "
+          f"{numbers['train_busy_share']:.0%} of the median step):")
+    print(table)
     print("  DCN kernels in the profiled step (ms of device time, helpers included): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in clock.dcn_ms.items()))
-    loader = build_detection_train_loader(cfg)
+          + ", ".join(f"{k} {v:.3f}" for k, v in dcn_ms.items()))
+    loader = build_detection_train_loader(trainer.cfg)
     next(loader)
     t0 = time.perf_counter()
     for _ in range(3):
@@ -690,12 +651,10 @@ def phase_training(report, weights):
     loader_ms = (time.perf_counter() - t0) / 3 * 1e3
     loader.close()
     print(f"  the train loader alone, card idle: {loader_ms:.1f} ms per batch of {TRAIN_BATCH} "
-          f"({cfg.DATALOADER.NUM_WORKERS} mapper threads, {os.cpu_count()} CPUs)")
-    report["training"] = dict(launches=launches, losses=losses, step_ms=clock.times,
-                              step_ms_median=step_ms, img_per_s=TRAIN_BATCH * 1e3 / step_ms,
-                              data_ms_median=data_ms, peak_gib=peak_gib, profile=clock.table,
-                              profiled_step_ms=clock.profiled_ms, profiled_device_ms=clock.device_ms,
-                              profiled_dcn_ms=clock.dcn_ms,
+          f"({trainer.cfg.DATALOADER.NUM_WORKERS} mapper threads, {os.cpu_count()} CPUs)")
+    report["training"] = dict(launches=launches, losses=losses, step_ms=clock.times, **numbers,
+                              data_ms_median=data_ms, profile=table, profiled_step_ms=clock.profiled_ms,
+                              profiled_device_ms=clock.device_ms, profiled_dcn_ms=dcn_ms,
                               loader_ms_per_batch=loader_ms)
     return launches
 
@@ -717,7 +676,7 @@ def f32_batch(n):
 
 def phase_f32_step(report, weights):
     print("== 6. f32 train steps of 512² images: kernels against plain versions, card against CPU (TF32 off)")
-    cfg = ctdet_dla34_cfg("float32")
+    cfg = ctdet_cfg(DLA, "float32")
     out = {}
     threads = torch.get_num_threads()
     captured = []  # each DCN's inputs and output gradient in the kernel route's step
@@ -900,24 +859,15 @@ def phase_kernel_timing(report):
     return totals
 
 
-def phase_inference_timing(report, predictor, batch, images):
-    print("== 4c. inference times (host clock for requests, CUDA events for predict_fn; bf16)")
-    img = images[0]
-    for _ in range(3):
-        predictor(img)
-    lat = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        predictor(img)  # returns host arrays: the device work is done
-        lat.append((time.perf_counter() - t0) * 1e3)
+def phase_inference_timing(report, predictor, batch):
+    print("== 4c. inference times (tools/bench.py's: host clock for requests, CUDA events for predict_fn; bf16)")
+    numbers = bench.bench_inference(predictor)
     model = predictor.model
-    batch_ms = cuda_ms(lambda: model.predict_fn(batch), iters=10, warmup=2)
-    ips = batch.shape[0] * 1e3 / batch_ms
     one = batch[:1].contiguous()
     fwd1_ms = cuda_ms(lambda: model.predict_fn(one), iters=20)
-    print(f"  DefaultPredictor request ({img.shape[0]}x{img.shape[1]}): median {statistics.median(lat):.3f} ms, "
-          f"mean {statistics.mean(lat):.3f} ms, min {min(lat):.3f} ms over 20")
-    print(f"  predict_fn batch 1: {fwd1_ms:.3f} ms; batch {batch.shape[0]}: {batch_ms:.3f} ms = {ips:.1f} img/s")
+    print(f"  DefaultPredictor request (480x640): median {numbers['predictor_latency_ms']:.3f} ms of "
+          f"{bench.REQUESTS}; predict_fn batch 1: {fwd1_ms:.3f} ms; batch {numbers['batch']}: "
+          f"{numbers['predict_fn_ms']:.3f} ms = {numbers['img_s']:.1f} img/s")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             model.predict_fn(one)
@@ -930,9 +880,200 @@ def phase_inference_timing(report, predictor, batch, images):
     print(f"  device time by op over 3 batch-1 forwards ({device_ms:.3f} ms; K1 with its helpers "
           f"{dcn_ms['dcn_fwd']:.3f} ms):")
     print(table)
-    report["inference_timing"] = dict(predictor_ms=lat, predict_fn_b1_ms=fwd1_ms,
-                                      predict_fn_b16_ms=batch_ms, img_per_s=ips, profile_b1=table,
+    report["inference_timing"] = dict(**numbers, predict_fn_b1_ms=fwd1_ms, profile_b1=table,
                                       profile_b1_device_ms=device_ms, profile_b1_dcn_ms=dcn_ms)
+
+
+NEW_CONFIGS = ("ctdet_res_18_1x", "ctdet_res_50_1x", "ctdet_vovnet2_39_1x")
+NEW_TRAINED = ("ctdet_res_18_1x", "ctdet_vovnet2_39_1x")
+
+
+def phase_configs(report):
+    print("== 8a. the ResNet and VoVNet configs through the port's YAML reader")
+    rows = {}
+    for name in NEW_CONFIGS:
+        cfg = ctdet_cfg(name, "bfloat16")
+        m, c = cfg.MODEL, cfg.MODEL.CENTERNET
+        body = (f"VoVNet {m.VOVNET.CONV_BODY}" if "vovnet" in m.BACKBONE.NAME
+                else f"ResNet-{m.RESNETS.DEPTH} (RES2_OUT_CHANNELS {m.RESNETS.RES2_OUT_CHANNELS}, NORM "
+                     f"{m.RESNETS.NORM}, FREEZE_AT {m.BACKBONE.FREEZE_AT})")
+        rows[name] = dict(backbone=m.BACKBONE.NAME, body=body, head_conv=c.HEAD_CONV,
+                          test_size=list(cfg.INPUT.TEST_SIZE), train_batch=cfg.SOLVER.IMS_PER_BATCH)
+        print(f"  {name}: {m.BACKBONE.NAME}, {body}, HEAD_CONV {c.HEAD_CONV}, TEST_SIZE "
+              f"{tuple(cfg.INPUT.TEST_SIZE)}, IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH}")
+    if "yaml" in sys.modules:
+        raise SystemExit("PyYAML was imported: the port must read configs with its own reader")
+    print("  PyYAML not imported (the port's config/yaml_io.py read every file)")
+    report["new_configs"] = rows
+
+
+def phase_backbones(report):
+    """(b): each new config at full width, seeded weights: DefaultPredictor
+    detections, the f32 heads card against CPU, and tools/bench.py's
+    inference numbers (bf16), and for R18 and VoVNet-39 its train steps at
+    batch 32; no DCN kernel may launch."""
+    out = {}
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    for name in NEW_CONFIGS:
+        print(f"== 8b. {name}: inference (bf16, 512², 80 classes), f32 heads card vs CPU"
+              + (f", {steps} train steps at batch {TRAIN_BATCH}" if name in NEW_TRAINED else ""))
+        rng = np.random.RandomState(3)
+        cfg = ctdet_cfg(name, "bfloat16")
+        size = tuple(cfg.INPUT.TEST_SIZE)
+        weights = seeded_weights(ctdet_cfg(name, "float32"), letterboxed(rng, "cpu", 2, size), seed=0)
+        reset_launches()
+        predictor = DefaultPredictor(cfg)
+        model = predictor.model
+        model.model.load_state_dict(weights)
+        for h, w in ((480, 640), (512, 512), (375, 500)):
+            img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            check_detections(name, img, predictor(img)["instances"], model.score_threshold)
+        batch = letterboxed(rng, model.device, cfg.TEST.BATCH_SIZE, size)
+        dets = model.predict_fn(batch)
+        n = cfg.TEST.BATCH_SIZE
+        if not (dets["boxes"].shape == (n, 100, 4) and bool(torch.isfinite(dets["boxes"]).all())
+                and bool(torch.isfinite(dets["scores"]).all())):
+            raise SystemExit(f"{name}: predict_fn returned malformed detections")
+        row = bench.bench_inference(predictor)
+        print(f"  DefaultPredictor request 480x640: median {row['predictor_latency_ms']:.3f} ms of "
+              f"{bench.REQUESTS}; predict_fn batch {n}: {row['predict_fn_ms']:.3f} ms = {row['img_s']:.1f} img/s")
+        del predictor, model
+
+        cfg32 = ctdet_cfg(name, "float32")
+        card = build_model(cfg32)
+        cfg32.MODEL.DEVICE = "cpu"
+        host = build_model(cfg32)
+        for m in (card, host):
+            m.model.load_state_dict(weights)
+        with torch.inference_mode():
+            zc = card.model(card.normalize(batch[:1]))
+            zh = host.model(host.normalize(batch[:1].cpu()))
+        row["heads_card_vs_cpu"] = {}
+        for k in ("hm", "wh", "reg"):
+            err = (zc[k].float().cpu() - zh[k]).abs().max().item()
+            scale = zh[k].abs().max().item()
+            row["heads_card_vs_cpu"][k] = dict(max_abs_err=err, scale=scale)
+            ok = bool(torch.isfinite(zc[k]).all()) and err <= HEAD_TOL * max(scale, 1.0)
+            print(f"  f32 {k}: max_abs_err={err:.3e} (scale {scale:.3e}, tol {HEAD_TOL:.0e} x max(scale, 1)) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{name}: the card's f32 {k} head differs from the CPU's")
+        del card, host
+
+        if name in NEW_TRAINED:
+            numbers, trainer, clock = bench.bench_training(ctdet_cfg(name, "bfloat16"), weights)
+            losses = [v for v, _ in trainer.storage.history("total_loss").values()]
+            if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+                raise SystemExit(f"{name}: the total loss is not finite at every step: {losses}")
+            row.update(numbers, train_step_ms_all=clock.times, profiled_step_ms=clock.profiled_ms,
+                       profiled_device_ms=clock.device_ms, total_loss=losses)
+            print(f"  train: total loss {' '.join(f'{v:.4f}' for v in losses)}; step times (ms) "
+                  f"{' '.join(f'{t:.1f}' for t in clock.times)}, the profiled one {clock.profiled_ms:.1f}; "
+                  f"median of {bench.TRAIN_STEPS} {numbers['train_step_ms']:.1f} ms = "
+                  f"{numbers['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = "
+                  f"{numbers['train_busy_share']:.0%} of the median step; peak memory "
+                  f"{numbers['peak_memory_gib']:.2f} GiB")
+            print(clock.events.table(sort_by="cuda_time_total", row_limit=20, max_name_column_width=90))
+            del trainer
+        torch.cuda.synchronize()
+        launches = read_launches()
+        print(f"  DCN kernel launches on this path: {launches}")
+        if any(launches.values()):
+            raise SystemExit(f"{name}: the path launched DCN kernels: {launches}")
+        row["launches"] = launches
+        out[name] = row
+        torch.cuda.empty_cache()
+    report["new_backbones"] = out
+    return out
+
+
+def same_results(a, b) -> bool:
+    """Equal result dicts, NaN equal to NaN (the AP of a class with no box)."""
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def phase_train_net(report, out_dir):
+    print(f"== 8c. tools/train_net on ctdet_res_18_1x.yaml: 6 steps at batch {TRAIN_BATCH} (DETECTRON2_SYNTH_DATA), "
+          f"then --eval-only --resume on the {EVAL_IMAGES} synthetic coco_2017_val images")
+    from detectron2_centernet_tpu_torch.engine import default_argument_parser, launch
+    from detectron2_centernet_tpu_torch.tools import train_net
+    from detectron2_centernet_tpu_torch.utils.logger import setup_logger
+
+    argv = ["--config-file", "configs/COCO-Detection/ctdet_res_18_1x.yaml", "SOLVER.MAX_ITER", "6",
+            "SOLVER.IMS_PER_BATCH", str(TRAIN_BATCH), "OUTPUT_DIR", out_dir, "SEED", "0"]
+    resumed = []
+    resume_or_load = train_net.Trainer.resume_or_load
+
+    def recording(self, resume=True):
+        resume_or_load(self, resume=resume)
+        resumed.append(self.start_iter)
+
+    os.environ["DETECTRON2_SYNTH_DATA"] = "1"
+    # coco_2017_val afresh: its metadata still names the COCO json that phase 4d cached in a removed directory
+    DatasetCatalog.remove("coco_2017_val")
+    MetadataCatalog.remove("coco_2017_val")
+    register_synthetic_instances("coco_2017_val", num_images=EVAL_IMAGES, image_size=EVAL_SIZE)
+    log_path = "output/chip_smoke_train_net_log.txt"
+    reset_launches()
+    train_net.Trainer.resume_or_load = recording
+    try:
+        with open(log_path, "w") as log, redirect_stdout(log):
+            t0 = time.perf_counter()
+            trained = launch(train_net.main, args=(default_argument_parser().parse_args(argv),))
+            t1 = time.perf_counter()
+            evaluated = launch(train_net.main,
+                               args=(default_argument_parser().parse_args(["--eval-only", "--resume"] + argv),))
+            t2 = time.perf_counter()
+            pkg = logging.getLogger("detectron2_centernet_tpu_torch")
+            for h in list(pkg.handlers):  # the entry point's handlers write to this log
+                pkg.removeHandler(h)
+                h.close()
+            pkg.propagate = True
+            setup_logger.cache_clear()
+    finally:
+        train_net.Trainer.resume_or_load = resume_or_load
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  train: {t1 - t0:.1f} s; eval-only: {t2 - t1:.1f} s; iterations resumed at {resumed}; "
+          f"bbox AP {trained['bbox']['AP']:.4f} / {evaluated['bbox']['AP']:.4f}; DCN launches {launches}")
+    if resumed != [0, 6]:
+        raise SystemExit(f"expected to start at iteration 0 and resume at 6, got {resumed}")
+    if not same_results(trained, evaluated):
+        raise SystemExit(f"the evaluation after training and the --eval-only --resume one differ: "
+                         f"{trained['bbox']} vs {evaluated['bbox']}")
+    if any(launches.values()):
+        raise SystemExit(f"train_net on ResNet-18 launched DCN kernels: {launches}")
+    if not os.path.exists(os.path.join(out_dir, "config.yaml")):
+        raise SystemExit("default_setup did not write config.yaml")
+    print(f"  the two evaluation dicts are identical ({len(trained['bbox'])} bbox entries); "
+          f"config.yaml written; log in {log_path}")
+    report["train_net"] = dict(train_s=t1 - t0, eval_only_s=t2 - t1, resumed=resumed, bbox=trained["bbox"],
+                               launches=launches)
+    return launches
+
+
+def phase_bench(report):
+    print("== 8d. tools/bench on ctdet DLA-34 (512², bf16, the YAML's TEST.BATCH_SIZE and IMS_PER_BATCH)")
+    from detectron2_centernet_tpu_torch.tools import bench
+
+    reset_launches()
+    result = bench.main([])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN launches in the bench: {launches}")
+    calls = 2 + bench.ITERS + bench.REQUEST_WARMUP + bench.REQUESTS
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    want = {"dcn_fwd": 16 * (calls + steps), "dcn_bwd_dx": 16 * steps, "dcn_bwd_dq": 0, "dcn_bwd_dw": 0,
+            "dcn_bwd_dqdw": 16 * steps}
+    if launches != want:
+        raise SystemExit(f"expected {want} ({calls} forwards, {steps} train steps), got {launches}")
+    keys = {"predictor_latency_ms", "train_step_ms", "train_img_s", "train_busy_share", "peak_memory_gib",
+            "dtype", "card"}
+    if not (result["metric"] == "ctdet_dla34_512_infer_throughput" and result["value"] > 0
+            and keys <= set(result["extra"]) and all(result["extra"][k] is not None for k in keys)):
+        raise SystemExit(f"the bench's line is not complete: {result}")
+    report["bench"] = dict(result=result, launches=launches)
+    return launches
 
 
 def main() -> int:
@@ -948,7 +1089,7 @@ def main() -> int:
     report = {}
 
     print("== 1. environment")
-    smi = nvidia_smi()
+    smi = bench.card()
     print(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     report["card"] = smi
@@ -976,9 +1117,9 @@ def main() -> int:
     max_err, phase_launches = phase_kernels_vs_plain(report)
     rng = np.random.RandomState(0)
     calib = letterboxed(rng, "cpu", 2, (512, 512))
-    weights = seeded_weights(ctdet_dla34_cfg("float32"), calib, seed=0)
-    predictor, batch, images, inference = phase_inference(report, weights)
-    phase_inference_timing(report, predictor, batch, images)
+    weights = seeded_weights(ctdet_cfg(DLA, "float32"), calib, seed=0)
+    predictor, batch, inference = phase_inference(report, weights)
+    phase_inference_timing(report, predictor, batch)
     os.makedirs("output", exist_ok=True)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
     try:
@@ -988,19 +1129,31 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     phase_f32_step(report, weights)
+    phase_configs(report)
+    phase_backbones(report)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+    try:
+        train_net_launches = phase_train_net(report, os.path.join(scratch, "train_net"))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    bench_launches = phase_bench(report)
     totals = phase_kernel_timing(report)
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         t = totals[name]
-        main_path = inference[name] + evaluation[name] + training[name] + train_eval[name]
+        main_path = inference[name] + evaluation[name] + training[name] + train_eval[name] + bench_launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_path or phase_launches[name],
             "launches_from": "main path (inference, evaluation, training, training with PreciseBN and "
-            "evaluation)" if main_path else "autograd phase (weight or offset/mask frozen); 0 on the main path",
+            "evaluation, the bench)" if main_path else "autograd phase (weight or offset/mask frozen); 0 on the main path",
             "launches_inference": inference[name], "launches_evaluation": evaluation[name],
             "launches_training": training[name], "launches_train_eval": train_eval[name],
+            "launches_bench": bench_launches[name],
+            # the ResNet-18/50 and VoVNet-39 paths (inference, training) and train_net on ResNet-18
+            "launches_resnet_vovnet": sum(r["launches"][name] for r in report["new_backbones"].values())
+            + train_net_launches[name],
             "max_abs_err": max_err[name], "ms": t["ms_b1"], "plain_ms": t["plain_ms_b1"],
             "bound_ms": t["bound_ms_b1"], "bound_by": t["bound_by_b1"], "library_ms": None,
             "per": "16 launches, the DLA-34 shapes at batch 1, bf16"
@@ -1017,7 +1170,7 @@ def main() -> int:
             json.dump(report, f, indent=1)
     print(f"== done in {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(nvidia_smi())
+    print(bench.card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -2,18 +2,25 @@
 ``state_dict``.
 
 The port's module names are the reference fork's torch keys, so one name map
-serves both a JAX tree and a reference ``.pth``. ``canonical_dla_key`` is a
-copy of the JAX package's ``checkpoint/dla_import.py`` map (torch key → flax
-path); ``torch_key`` is its inverse, and ``state_dict_from_jax`` checks every
-key it makes against the copy.
+serves both a JAX tree and a reference ``.pth``. ``canonical_key`` maps a
+torch key to its flax path: DLA-34 through ``canonical_dla_key``, a copy of
+the JAX package's ``checkpoint/dla_import.py`` map; the ResNet and VoVNet
+trunks (``backbone.stem.conv1``, ``backbone.res2.0.conv1.norm``,
+``backbone.stage2.OSA2_1.layers.0.OSA2_1_0/conv``, ...) to the JAX trunk
+under ``backbone/trunk``; the deconv neck (``deconv_layers.N``) to
+``backbone/deconvI`` and ``backbone/deconvI_bn``; heads with or without a
+tower. ``torch_key`` is its inverse, and ``state_dict_from_jax`` checks
+every key it makes against it.
 
 Layouts (the rules of the JAX package's ``checkpoint/torch_import.py``, run
 the other way):
   * conv kernel HWIO → OIHW;
   * BatchNorm ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
     ``running_mean``/``running_var``;
-  * the depthwise ``up_*`` kernel (2f, 2f, 1, C) → (C, 1, 2f, 2f), flipped
-    spatially: torch's transposed conv correlates with the reversed kernel.
+  * the depthwise ``up_*`` kernel (2f, 2f, 1, C) → (C, 1, 2f, 2f) and the
+    neck's transposed-conv kernel (4, 4, Cin, Cout) → (Cin, Cout, 4, 4), both
+    flipped spatially: torch's transposed conv correlates with the reversed
+    kernel, flax's with the kernel as stored.
 """
 
 import re
@@ -22,7 +29,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["canonical_dla_key", "state_dict_from_jax", "torch_key"]
+__all__ = ["canonical_dla_key", "canonical_key", "state_dict_from_jax", "torch_key"]
 
 _LEAF = {"weight": "kernel", "bias": "bias", "running_mean": "mean", "running_var": "var"}
 _BN_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
@@ -92,6 +99,10 @@ def canonical_dla_key(key: str) -> Optional[str]:
             out += ["heads", f"{tok}_tower" if nxt == "0" else f"{tok}_out"]
             i += 2
             continue
+        if tok in _HEAD_TASKS and i == 0 and nxt is None:  # a head without a tower
+            out += ["heads", f"{tok}_out"]
+            i += 1
+            continue
         out.append(tok)
         i += 1
     return _finish(out, leaf, is_bn)
@@ -108,12 +119,109 @@ def _finish(out, leaf, is_bn) -> Optional[str]:
 
 _FLAX_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
               "mean": "running_mean", "var": "running_var"}
+_OSA_CONV = {"conv": ("", "conv"), "norm": ("", "norm"), "dw_conv3x3": ("_dw", "conv"),
+             "dw_norm": ("_dw", "norm"), "pw_conv1x1": ("_pw", "conv"), "pw_norm": ("_pw", "norm")}
 
 
-def torch_key(path: str) -> str:
-    """Flax variables path (``params/backbone/...``) → the port's key."""
+def _trunk_to_flax(body, norm: str):
+    """The ResNet or VoVNet module path (torch tokens after ``backbone``) →
+    (flax tokens after ``backbone/trunk``, whether it is a normalization),
+    or None."""
+    head = body[0]
+    if head == "stem" and len(body) >= 2 and body[1] == "conv1":  # ResNet stem
+        return (["stem", "conv1_norm", norm], True) if body[2:] == ["norm"] else (["stem", "conv1"], False)
+    m = re.fullmatch(r"res(\d)", head)
+    if m and len(body) >= 3:
+        block = f"res{m.group(1)}_block{body[1]}"
+        return ([block, body[2] + "_norm", norm], True) if body[3:] == ["norm"] else ([block, body[2]], False)
+    if head == "stem" and len(body) == 2:  # VoVNet stem: stem_K/conv, stem_K/norm
+        m = re.fullmatch(r"stem_(\d)/(conv|norm)", body[1])
+        return ([f"stem{m.group(1)}", m.group(2)], m.group(2) == "norm") if m else None
+    m = re.fullmatch(r"stage(\d)", head)
+    if m and len(body) >= 3:
+        bm = re.fullmatch(rf"OSA{m.group(1)}_(\d+)", body[1])
+        if bm is None:
+            return None
+        block = f"stage{m.group(1)}_block{int(bm.group(1)) - 1}"
+        rest = body[2:]
+        if rest[0] == "ese" and rest[1:] == ["fc"]:
+            return [block, "ese", "fc"], False
+        last = rest[-1].rsplit("/", 1)
+        if len(last) != 2:
+            return None
+        if rest[0] == "layers" and len(rest) == 3 and last[1] in _OSA_CONV:
+            suffix, part = _OSA_CONV[last[1]]
+            return [block, f"layer{rest[1]}{suffix}", part], part == "norm"
+        if rest[0] in ("conv_reduction", "concat") and len(rest) == 2 and last[1] in ("conv", "norm"):
+            return [block, "reduction" if rest[0] == "conv_reduction" else "concat", last[1]], last[1] == "norm"
+    return None
+
+
+def _trunk_to_torch(body):
+    """The inverse of ``_trunk_to_flax``: flax tokens after ``backbone/trunk``
+    → the torch module path after ``backbone``."""
+    head = body[0]
+    if head == "stem":
+        return "stem.conv1.norm" if len(body) == 3 else "stem.conv1"
+    m = re.fullmatch(r"res(\d)_block(\d+)", head)
+    if m:
+        conv = body[1].removesuffix("_norm")
+        return f"res{m.group(1)}.{m.group(2)}.{conv}" + (".norm" if body[1].endswith("_norm") else "")
+    m = re.fullmatch(r"stem(\d)", head)
+    if m:
+        return f"stem.stem_{m.group(1)}/{body[1]}"
+    m = re.fullmatch(r"stage(\d)_block(\d+)", head)
+    s, b = m.group(1), int(m.group(2)) + 1
+    osa = f"stage{s}.OSA{s}_{b}"
+    if body[1] == "ese":
+        return f"{osa}.ese.fc"
+    if body[1] == "reduction":
+        return f"{osa}.conv_reduction.OSA{s}_{b}_reduction_0/{body[2]}"
+    if body[1] == "concat":
+        return f"{osa}.concat.OSA{s}_{b}_concat/{body[2]}"
+    lm = re.fullmatch(r"layer(\d+)(_dw|_pw)?", body[1])
+    name = {v: k for k, v in _OSA_CONV.items()}[(lm.group(2) or "", body[2])]
+    return f"{osa}.layers.{lm.group(1)}.OSA{s}_{b}_{lm.group(1)}/{name}"
+
+
+def canonical_key(key: str, norm: str = "bn") -> Optional[str]:
+    """Torch key of any CenterNet backbone and its heads → flax variables
+    path, or None when the key has no flax counterpart. ``norm`` is the
+    flax name of the ResNet trunk's normalization: ``bn`` (BatchNorm and
+    FrozenBatchNorm) or ``gn`` (GroupNorm)."""
+    parts = key.split(".")
+    if parts and parts[0] == "module":
+        parts = parts[1:]
+    if len(parts) < 2:
+        return canonical_dla_key(key)
+    body, leaf = parts[:-1], parts[-1]
+    if leaf == "num_batches_tracked":
+        return None
+    if body[0] == "deconv_layers" and len(body) == 2 and body[1].isdigit():
+        stage, role = divmod(int(body[1]), 3)
+        if role == 0:
+            return _finish(["backbone", f"deconv{stage}"], leaf, False)
+        return _finish(["backbone", f"deconv{stage}_bn"], leaf, True) if role == 1 else None
+    if body[0] == "backbone" and len(body) > 1 and re.fullmatch(r"stem|res\d|stage\d", body[1]):
+        mapped = _trunk_to_flax(body[1:], norm)
+        if mapped is None:
+            return None
+        tokens, is_norm = mapped
+        return _finish(["backbone", "trunk"] + tokens, leaf, is_norm)
+    return canonical_dla_key(key)
+
+
+def torch_key(path: str, towers: bool = True) -> str:
+    """Flax variables path (``params/backbone/...``) → the port's key.
+    ``towers``: whether the heads have a tower (``hm.2``) or are one conv
+    (``hm``)."""
     parts = path.split("/")[1:]  # drop the collection
     body, leaf = parts[:-1], parts[-1]
+    if body[:2] == ["backbone", "trunk"]:
+        return f"backbone.{_trunk_to_torch(body[2:])}.{_FLAX_LEAF[leaf]}"
+    if len(body) == 2 and body[0] == "backbone" and re.fullmatch(r"deconv\d+(_bn)?", body[1]):
+        stage = int(body[1][6:].removesuffix("_bn"))
+        return f"deconv_layers.{3 * stage + body[1].endswith('_bn')}.{_FLAX_LEAF[leaf]}"
     out = []
     i = 0
     while i < len(body):
@@ -137,7 +245,7 @@ def torch_key(path: str) -> str:
             i += 1 if nxt is None else 2
         elif tok == "heads":
             task, part = nxt.rsplit("_", 1)
-            out += [task, "0" if part == "tower" else "2"]
+            out += [task] + ([] if not towers else ["0" if part == "tower" else "2"])
             i += 2
         else:
             out.append(tok)
@@ -160,20 +268,26 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``{'params', 'batch_stats'}`` tree (numpy leaves) as the
     port's ``state_dict``, f32, with ``num_batches_tracked`` = 0 for every
     BatchNorm. Raises if two leaves would share a key or a key does not map
-    back to its leaf through ``canonical_dla_key``."""
+    back to its leaf through ``canonical_key``."""
+    flat = _flatten(variables)
+    towers = any("_tower/" in p for p in flat)
+    norm = "gn" if any("/trunk/" in p and "/gn/" in p for p in flat) else "bn"
     out: Dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(variables).items():
-        key = torch_key(path)
-        if canonical_dla_key(key) != path:
-            raise ValueError(f"{path} maps to {key}, which maps back to {canonical_dla_key(key)}")
+    for path, arr in flat.items():
+        key = torch_key(path, towers)
+        if canonical_key(key, norm) != path:
+            raise ValueError(f"{path} maps to {key}, which maps back to {canonical_key(key, norm)}")
         if key in out:
             raise ValueError(f"two leaves map to {key}")
         arr = np.array(arr, np.float32)  # a writable copy
         if arr.ndim == 4:
             if key.split(".")[-2].startswith("up_"):
-                arr = arr[::-1, ::-1]
-            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
+                arr = np.transpose(arr[::-1, ::-1], (3, 2, 0, 1))  # (2f, 2f, 1, C) → (C, 1, 2f, 2f)
+            elif key.startswith("deconv_layers."):
+                arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))  # (4, 4, Cin, Cout) → (Cin, Cout, 4, 4)
+            else:
+                arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
-        if key.endswith(".running_var"):
+        if key.endswith(".running_var"):  # a FrozenBatchNorm drops it when it loads
             out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return out

@@ -7,14 +7,17 @@ command-line override pairs.  This module reimplements that contract without a
 yacs dependency so reference YAML configs (e.g. ``ctdet_dla_34_1x.yaml``) load
 unmodified.
 
-PyYAML is imported only by ``merge_from_file`` and ``dump``: building a config
-in code (``get_cfg`` + ``merge_from_list``) needs no YAML parser.
+YAML files are read and written by the port's own ``yaml_io`` (the subset of
+YAML that configs use), never by PyYAML, so a config file loads wherever the
+port runs.
 """
 
 import copy
 import os
 from ast import literal_eval
 from typing import Any, Dict, List
+
+from .yaml_io import dump_yaml, load_yaml
 
 BASE_KEY = "_BASE_"
 
@@ -114,22 +117,10 @@ class CfgNode(dict):
             out[k] = v._as_plain_dict() if isinstance(v, CfgNode) else v
         return out
 
-    def dump(self, **kwargs) -> str:
-        """Serialize to a YAML string (tuples stored as lists)."""
-
-        def _clean(v):
-            if isinstance(v, CfgNode):
-                return {k: _clean(x) for k, x in v.items()}
-            if isinstance(v, dict):
-                return {k: _clean(x) for k, x in v.items()}
-            if isinstance(v, (list, tuple)):
-                return [_clean(x) for x in v]
-            return v
-
-        import yaml
-
-        kwargs.setdefault("default_flow_style", False)
-        return yaml.safe_dump(_clean(self), **kwargs)
+    def dump(self) -> str:
+        """Serialize to a YAML string (tuples written as lists) that
+        ``merge_from_file`` reads back into the same config."""
+        return dump_yaml(self._as_plain_dict())
 
     def __str__(self) -> str:
         def _indent(s, n):
@@ -234,42 +225,22 @@ def _merge_into(src: CfgNode, dst: CfgNode, key_path: List[str]) -> None:
             dst[k] = _coerce_type(_decode_value(v), dst[k], full_key)
 
 
-def _expr_loader():
-    """SafeLoader extended with the one unsafe construct detectron2 configs
-    actually use: ``!!python/object/apply:eval ["<expr>"]`` (e.g. the anchor
-    size expression in Base-RetinaNet.yaml).  The expression is evaluated with
-    builtins stripped, so it supports arithmetic/comprehensions but cannot
-    reach imports or IO — unlike yacs's allow_unsafe fallback to
-    ``yaml.unsafe_load``.
-    """
-    import yaml
-
-    class _ExprLoader(yaml.SafeLoader):
-        pass
-
-    def _construct_eval(loader, node):
-        args = loader.construct_sequence(node)
-        if len(args) != 1 or not isinstance(args[0], str):
-            raise ValueError(f"eval tag takes one string, got {args}")
-        return eval(args[0], {"__builtins__": {}}, {})  # noqa: S307
-
-    _ExprLoader.add_constructor("tag:yaml.org,2002:python/object/apply:eval", _construct_eval)
-    return _ExprLoader
-
-
 def _load_yaml_with_base(filename: str) -> Dict[str, Any]:
     """Load YAML, recursively applying ``_BASE_`` parent files.
 
     Same semantics as the reference's CfgNode.load_yaml_with_base: a relative
     ``_BASE_`` path is resolved against the including file's directory, the
-    base is loaded first, and the child's keys override it.
+    base is loaded first, and the child's keys override it. The one tag
+    configs use, ``!!python/object/apply:eval ["<expr>"]`` (the anchor sizes
+    of Base-RetinaNet.yaml), is evaluated with builtins stripped: arithmetic
+    and comprehensions, no imports or IO.
     """
-    import yaml
-
     with open(filename, "r") as f:
-        cfg = yaml.load(f, Loader=_expr_loader())
+        cfg = load_yaml(f.read(), filename)
     if cfg is None:
         cfg = {}
+    if not isinstance(cfg, dict):
+        raise ValueError(f"{filename}: a config file holds a mapping, got {type(cfg).__name__}")
     if BASE_KEY in cfg:
         base_filename = cfg.pop(BASE_KEY)
         if base_filename.startswith("~"):

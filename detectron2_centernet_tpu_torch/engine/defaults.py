@@ -1,12 +1,14 @@
 """Inference, training and evaluation from a config (counterpart of the JAX
-package's ``engine/defaults.py``: ``DefaultPredictor`` and
-``DefaultTrainer`` with its ``test``).
+package's ``engine/defaults.py``): the command-line plumbing
+(``default_argument_parser``, ``default_setup``, ``launch``),
+``DefaultPredictor`` and ``DefaultTrainer`` with its ``test``.
 """
 
+import argparse
 import logging
 import os
 from collections import OrderedDict
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -28,11 +30,78 @@ from ..evaluation import (
 )
 from ..models import build_model
 from ..solver import build_lr_scheduler, build_optimizer
+from ..utils.env import seed_all_rng
 from ..utils.events import CommonMetricPrinter, JSONWriter
+from ..utils.logger import setup_logger
 from . import hooks
 from .train_loop import SimpleTrainer
 
 logger = logging.getLogger(__name__)
+
+__all__ = ["DefaultPredictor", "DefaultTrainer", "default_argument_parser", "default_setup", "launch"]
+
+
+def default_argument_parser(epilog: Optional[str] = None) -> argparse.ArgumentParser:
+    """The reference's (and the JAX package's) flags: ``--config-file``,
+    ``--resume``, ``--eval-only``, ``--num-gpus``, ``--num-machines``,
+    ``--machine-rank``, ``--dist-url``, then "KEY VALUE" config overrides."""
+    parser = argparse.ArgumentParser(epilog=epilog or "detectron2_centernet_tpu_torch")
+    parser.add_argument("--config-file", default="", metavar="FILE", help="path to config file")
+    parser.add_argument("--resume", action="store_true", help="resume from OUTPUT_DIR")
+    parser.add_argument("--eval-only", action="store_true", help="perform evaluation only")
+    parser.add_argument("--num-gpus", type=int, default=1, help="cards per machine")
+    parser.add_argument("--num-machines", type=int, default=1, help="total number of machines")
+    parser.add_argument("--machine-rank", type=int, default=0, help="rank of this machine")
+    parser.add_argument("--dist-url", default="auto", help="address of the first machine")
+    parser.add_argument("opts", help="Modify config options using the command-line 'KEY VALUE' pairs",
+                        default=None, nargs=argparse.REMAINDER)
+    return parser
+
+
+def _devices(cfg: CfgNode) -> str:
+    device = torch.device(cfg.MODEL.DEVICE)
+    if device.type != "cuda":
+        return str(device)
+    if not torch.cuda.is_available():
+        return "cuda (no CUDA device available)"
+    return f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
+
+
+def default_setup(cfg: CfgNode, args) -> None:
+    """Create ``OUTPUT_DIR``, log to the console and ``OUTPUT_DIR/log.txt``,
+    log the card (name and count) and the full config, write it to
+    ``OUTPUT_DIR/config.yaml`` (``CfgNode.dump``; ``merge_from_file`` reads
+    it back), and seed every generator from ``SEED`` (from the clock when
+    negative). One process: rank 0."""
+    output_dir = cfg.OUTPUT_DIR
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+    setup_logger(output_dir)  # the package's logger, which this module's logs through
+    logger.info("Rank of current process: 0. World size: 1")
+    logger.info("Devices: %s (MODEL.DEVICE %s); torch %s, CUDA %s", _devices(cfg), cfg.MODEL.DEVICE,
+                torch.__version__, torch.version.cuda)
+    if getattr(args, "config_file", ""):
+        logger.info("Contents of args.config_file=%s", args.config_file)
+    logger.info("Running with full config:\n%s", cfg)
+    if output_dir:
+        path = os.path.join(output_dir, "config.yaml")
+        with open(path, "w") as f:
+            f.write(cfg.dump())
+        logger.info("Full config saved to %s", os.path.abspath(path))
+    seed_all_rng(None if cfg.SEED < 0 else cfg.SEED)
+
+
+def launch(main_func: Callable, num_gpus_per_machine: int = 1, num_machines: int = 1,
+           machine_rank: int = 0, dist_url: str = "auto", args=()):
+    """Run ``main_func(*args)`` in this process on one card and return what
+    it returns. More machines or cards raise: the multi-process path (the
+    JAX package's ``parallel/comm.py`` and ``jax.distributed``; DDP here)
+    is not ported yet (ROADMAP A19)."""
+    if num_machines > 1 or num_gpus_per_machine > 1:
+        raise NotImplementedError(
+            f"launch with {num_machines} machines and {num_gpus_per_machine} cards per machine: the "
+            "multi-process path (parallel/comm.py, DDP) is not ported yet (ROADMAP A19); run one card")
+    return main_func(*args)
 
 
 def load_weights(model: torch.nn.Module, path: str) -> None:

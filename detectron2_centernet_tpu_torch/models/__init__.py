@@ -1,5 +1,5 @@
-"""Models of the port. Importing this package registers the DLA-34 backbone
-and the CenterNet meta-architecture."""
+"""Models of the port. Importing this package registers the backbones
+(DLA-34, ResNet, ResNet-deconv, VoVNet) and the CenterNet meta-architecture."""
 
 from . import backbones, meta_arch  # noqa: F401  (registration)
 from .build import build_model, resolve_device

@@ -1,0 +1,203 @@
+"""ResNet trunks (NCHW), counterpart of the JAX package's
+``models/backbones/resnet.py``: ``BasicStem``, ``BasicBlock`` and
+``BottleneckBlock`` (``stride_in_1x1``, groups, dilation), stages for depths
+18/34/50/101/152, ``OUT_FEATURES`` and ``FREEZE_AT``.
+
+Module names are the reference detectron2 ResNet's (``stem.conv1``,
+``res2.0.conv1``, ``res2.0.conv1.norm``, ``res3.0.shortcut``, ...): a conv
+holds its normalization as ``.norm``, as detectron2's ``Conv2d`` does.
+Padding is explicit and symmetric, as in the JAX code (a SAME pad would
+differ at stride 2).
+
+``FREEZE_AT`` stops the gradient after the stem (≥ 1) and after each stage
+up to it, as the JAX package's ``stop_gradient`` does: the frozen
+parameters stay trainable and in the optimizer, with a gradient of 0, so
+weight decay and momentum still move them as they do under optax (ROADMAP
+C12; the reference sets ``requires_grad=False`` instead).
+
+CenterNet reads ``res4`` through its deconv neck (``meta_arch/centernet.py``):
+``build_resnet_backbone`` and ``build_resnet_deconv_backbone`` both give
+the trunk, the JAX package's ``DeconvNeck`` and ``ResNetDeconv`` compute the
+same network. Not ported here: ``DeformBottleneckBlock`` (ROADMAP A14) and
+the DeepLab stem and dilated res4 (A15); they raise.
+"""
+
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...config import CfgNode
+from ..layers import get_norm
+from ..registry import BACKBONE_REGISTRY
+
+__all__ = ["RESNET_SPECS", "BasicBlock", "BasicStem", "BottleneckBlock", "ConvNorm", "ResNet",
+           "build_resnet", "build_resnet_backbone", "build_resnet_deconv_backbone"]
+
+# depth -> (block type, blocks per stage res2..res5)
+RESNET_SPECS = {
+    18: ("basic", (2, 2, 2, 2)),
+    34: ("basic", (3, 4, 6, 3)),
+    50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
+}
+
+
+class ConvNorm(nn.Conv2d):
+    """A bias-free conv followed by its normalization ``.norm`` (none for
+    NORM ""): detectron2's ``Conv2d(..., norm=...)``."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1, padding: int = 0,
+                 dilation: int = 1, groups: int = 1, norm: str = "FrozenBN"):
+        super().__init__(cin, cout, kernel_size, stride, padding, dilation, groups, bias=False)
+        self.norm = get_norm(norm, cout)
+
+    def forward(self, x):
+        x = super().forward(x)
+        return self.norm(x) if self.norm is not None else x
+
+
+class BasicStem(nn.Module):
+    """7x7 s2 conv + norm + ReLU + 3x3 s2 max pool (JAX ``BasicStem``)."""
+
+    def __init__(self, cin: int = 3, cout: int = 64, norm: str = "FrozenBN"):
+        super().__init__()
+        self.conv1 = ConvNorm(cin, cout, 7, stride=2, padding=3, norm=norm)
+
+    def forward(self, x):
+        return F.max_pool2d(F.relu_(self.conv1(x)), 3, 2, 1)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs + identity or projection shortcut (JAX ``BasicBlock``)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, norm: str = "FrozenBN"):
+        super().__init__()
+        self.conv1 = ConvNorm(cin, cout, 3, stride, 1, norm=norm)
+        self.conv2 = ConvNorm(cout, cout, 3, 1, 1, norm=norm)
+        self.shortcut = ConvNorm(cin, cout, 1, stride, norm=norm) if cin != cout or stride != 1 else None
+
+    def forward(self, x):
+        out = self.conv2(F.relu_(self.conv1(x)))
+        sc = self.shortcut(x) if self.shortcut is not None else x
+        return F.relu_(out + sc)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 - 3x3 - 1x1 bottleneck (JAX ``BottleneckBlock``); the stride goes
+    in the first 1x1 when ``stride_in_1x1`` (the MSRA convention), else in
+    the 3x3, which also carries the groups and the dilation."""
+
+    def __init__(self, cin: int, cout: int, bottleneck: int, stride: int = 1,
+                 stride_in_1x1: bool = True, dilation: int = 1, num_groups: int = 1,
+                 norm: str = "FrozenBN"):
+        super().__init__()
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = ConvNorm(cin, bottleneck, 1, s1, norm=norm)
+        self.conv2 = ConvNorm(bottleneck, bottleneck, 3, s3, dilation, dilation, num_groups, norm=norm)
+        self.conv3 = ConvNorm(bottleneck, cout, 1, norm=norm)
+        self.shortcut = ConvNorm(cin, cout, 1, stride, norm=norm) if cin != cout or stride != 1 else None
+
+    def forward(self, x):
+        out = self.conv3(F.relu_(self.conv2(F.relu_(self.conv1(x)))))
+        sc = self.shortcut(x) if self.shortcut is not None else x
+        return F.relu_(out + sc)
+
+
+class ResNet(nn.Module):
+    """The trunk: ``stem``, then ``res2`` ... up to the deepest stage of
+    ``out_features`` (JAX ``ResNet``). ``forward`` returns
+    ``{name: map}`` for ``out_features`` ⊆ {stem, res2, ..., res5}."""
+
+    def __init__(self, depth: int = 50, out_features: Sequence[str] = ("res4",), num_groups: int = 1,
+                 width_per_group: int = 64, stem_out_channels: int = 64, res2_out_channels: int = 256,
+                 stride_in_1x1: bool = True, res5_dilation: int = 1, norm: str = "FrozenBN",
+                 freeze_at: int = 0):
+        super().__init__()
+        block_type, stage_blocks = RESNET_SPECS[depth]
+        self.out_features = tuple(out_features)
+        self.freeze_at = freeze_at
+        self.stem = BasicStem(3, stem_out_channels, norm)
+        self.out_feature_channels: Dict[str, int] = {"stem": stem_out_channels}
+        max_stage = max([int(f[-1]) for f in self.out_features if f.startswith("res")] or [5])
+        cin, cout, bottleneck = stem_out_channels, res2_out_channels, num_groups * width_per_group
+        self.stage_names = []
+        for idx, blocks in enumerate(stage_blocks):
+            stage = idx + 2
+            if stage > max_stage:
+                break
+            dilation = res5_dilation if stage == 5 else 1
+            first_stride = 1 if stage == 2 or dilation > 1 else 2
+            layers = []
+            for b in range(blocks):
+                stride = first_stride if b == 0 else 1
+                if block_type == "basic":  # the JAX BasicBlock takes no dilation
+                    layers.append(BasicBlock(cin, cout, stride, norm))
+                else:
+                    layers.append(BottleneckBlock(cin, cout, bottleneck, stride, stride_in_1x1,
+                                                  dilation, num_groups, norm))
+                cin = cout
+            self.add_module(f"res{stage}", nn.Sequential(*layers))
+            self.stage_names.append(f"res{stage}")
+            self.out_feature_channels[f"res{stage}"] = cout
+            cout *= 2
+            bottleneck *= 2
+
+    def forward(self, x, features: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+        """``features`` (default ``out_features``) by name. In eval mode the
+        stages after the last one asked for are skipped; in training every
+        stage runs, so BatchNorm statistics move in all of them, as in the
+        JAX package."""
+        features = tuple(features or self.out_features)
+        x = self.stem(x)
+        if self.freeze_at >= 1:
+            x = x.detach()
+        out = {"stem": x} if "stem" in features else {}
+        for stage, name in enumerate(self.stage_names, 2):
+            if not self.training and len(out) == len(features):
+                break
+            x = getattr(self, name)(x)
+            if self.freeze_at >= stage:
+                x = x.detach()
+            if name in features:
+                out[name] = x
+        return out
+
+
+def build_resnet(cfg: CfgNode, out_features: Optional[Sequence[str]] = None) -> ResNet:
+    """The trunk of ``cfg.MODEL.RESNETS`` and ``MODEL.BACKBONE.FREEZE_AT``."""
+    r = cfg.MODEL.RESNETS
+    if any(r.DEFORM_ON_PER_STAGE):
+        raise NotImplementedError(
+            "MODEL.RESNETS.DEFORM_ON_PER_STAGE: DeformBottleneckBlock (a stride-2, dilated DCN) "
+            "is not ported yet (ROADMAP A14)")
+    if r.STEM_TYPE != "basic" or r.RES4_DILATION != 1 or tuple(r.RES5_MULTI_GRID) != (1, 1, 1):
+        raise NotImplementedError(
+            "the DeepLab trunk (STEM_TYPE deeplab, RES4_DILATION, RES5_MULTI_GRID) is not ported yet "
+            "(ROADMAP A15)")
+    return ResNet(
+        depth=r.DEPTH, out_features=tuple(out_features or r.OUT_FEATURES), num_groups=r.NUM_GROUPS,
+        width_per_group=r.WIDTH_PER_GROUP, stem_out_channels=r.STEM_OUT_CHANNELS,
+        res2_out_channels=r.RES2_OUT_CHANNELS, stride_in_1x1=r.STRIDE_IN_1X1,
+        res5_dilation=r.RES5_DILATION, norm=r.NORM, freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+    )
+
+
+@BACKBONE_REGISTRY.register()
+def build_resnet_backbone(cfg: CfgNode) -> ResNet:
+    return build_resnet(cfg)
+
+
+@BACKBONE_REGISTRY.register()
+def build_resnet_deconv_backbone(cfg: CfgNode) -> ResNet:
+    """The trunk up to ``res4``, which CenterNet's deconv neck reads (JAX
+    ``ResNetDeconv``: 2 × [ConvTranspose 256, k4 s2 + BN + ReLU] on res4)."""
+    return build_resnet(cfg, out_features=("res4",))
+
+
+@BACKBONE_REGISTRY.register()
+def build_resnet_deeplab_backbone(cfg: CfgNode) -> ResNet:
+    raise NotImplementedError("build_resnet_deeplab_backbone (DeepLabStem, dilated res4/res5) is not "
+                              "ported yet (ROADMAP A15)")

@@ -144,6 +144,64 @@ class DeformConvV2(nn.Module):
         )
 
 
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with fixed statistics (JAX ``FrozenBatchNorm``,
+    layers.py:287-308): ``x · γ/√(var+ε) + (β − mean · γ/√(var+ε))``, the two
+    factors cast to x's width. As in the JAX package, γ and β (``weight``,
+    ``bias``) are trainable parameters; the statistics are buffers that
+    nothing updates. State-dict keys are the reference's FrozenBatchNorm2d's
+    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__()
+        self.num_features, self.eps = num_features, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a BatchNorm's counter (in a checkpoint trained with BN, or from
+        # state_dict_from_jax, which cannot tell the two apart) has no use here
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        shift = self.bias - self.running_mean * inv
+        return x * inv.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
+
+    def extra_repr(self) -> str:
+        return f"{self.num_features}, eps={self.eps}"
+
+
+GN_EPS = 1e-6  # flax GroupNorm's epsilon
+
+
+def get_norm(norm: str, channels: int):
+    """The normalization a config names (JAX ``get_norm``, layers.py:311-323):
+    ``BN``, ``SyncBN`` and ``NaiveSyncBN`` (one device here: plain batch
+    statistics) → the port's ``BatchNorm2d`` (flax's biased running
+    variance); ``FrozenBN`` → ``FrozenBatchNorm``; ``GN`` → 32 groups;
+    ``""`` → None."""
+    if norm == "":
+        return None
+    if norm in ("BN", "SyncBN", "NaiveSyncBN", "naiveSyncBN"):
+        return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+    if norm == "FrozenBN":
+        return FrozenBatchNorm(channels)
+    if norm == "GN":
+        return nn.GroupNorm(32, channels, eps=GN_EPS)
+    raise ValueError(f"Unknown norm: {norm!r}")
+
+
 def bilinear_kernel(f: int) -> np.ndarray:
     """(2f, 2f) bilinear interpolation stencil (reference fill_up_weights)."""
     size = 2 * f
@@ -175,20 +233,23 @@ class BilinearUpsample(nn.ConvTranspose2d):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """The JAX package's initializers, drawn from ``generator``: conv kernels
-    lecun-normal (flax's: a normal truncated at ±2σ, σ = 1/√fan_in / 0.8796
-    so the variance is 1/fan_in) with zero bias; DCN kernels uniform within
+    """The JAX package's initializers, drawn from ``generator``: conv and
+    transposed-conv kernels lecun-normal (flax's: a normal truncated at ±2σ,
+    σ = 1/√fan_in / 0.8796 so the variance is 1/fan_in) with zero bias; DCN kernels uniform within
     ±1/√fan_in with zero bias; ``conv_offset_mask`` zero (offsets start at 0,
-    masks at 0.5); BatchNorm γ=1, β=0, mean 0, var 1; upsamplers bilinear."""
+    masks at 0.5); BatchNorm, FrozenBatchNorm and GroupNorm γ=1, β=0 (mean
+    0, var 1); upsamplers bilinear."""
     for m in model.modules():
         if isinstance(m, BilinearUpsample):
             m.reset_parameters()
-        elif isinstance(m, nn.Conv2d):
-            std = 1.0 / math.sqrt(m.weight[0].numel()) / TRUNC_NORMAL_STD
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            # fan_in of the kernel: a transposed conv's weight is (Cin, Cout/groups, kh, kw)
+            fan_in = m.weight[0].numel() if isinstance(m, nn.Conv2d) else m.weight[:, 0].numel()
+            std = 1.0 / math.sqrt(fan_in) / TRUNC_NORMAL_STD
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm, FrozenBatchNorm)):
             m.reset_parameters()
     for m in model.modules():  # after the generic pass, which reached its convs
         if isinstance(m, DCNv2):

@@ -1,7 +1,8 @@
 """CenterNet ("Objects as Points", ctdet), counterpart of the JAX package's
 ``models/meta_arch/centernet.py``.
 
-``CenterNetModel`` is the network (backbone → hm/reg/wh heads, NCHW);
+``CenterNetModel`` is the network (backbone → hm/reg/wh heads, NCHW; a
+ResNet or VoVNet trunk through the deconv neck);
 ``CenterNet`` owns it on ``cfg.MODEL.DEVICE`` with the normalization, the
 training loss (``loss_fn``: targets rendered on the device, the CornerNet
 focal loss and the masked L1), the fixed-size decode (``predict_fn``) and the
@@ -26,34 +27,68 @@ from ...ops.photometric import device_color_jitter
 from ...ops.target_gen import gen_centernet_targets
 from ...structures import Boxes, Instances
 from ..build import resolve_device
-from ..layers import ieee_f32, init_weights
+from ..backbones import ResNet, VoVNet
+from ..layers import BN_EPS, BN_MOMENTUM, BatchNorm2d, ieee_f32, init_weights
 from ..registry import BACKBONE_REGISTRY, META_ARCH_REGISTRY
 
 HM_BIAS = -2.19  # -log((1 - 0.1) / 0.1): the initial heatmap probability is ~0.1
 
 
+class F32Conv2d(nn.Conv2d):
+    """A conv that runs in f32 whatever the model's width, as the JAX heads'
+    last convs do: head outputs stay f32 for the loss and the decode. Under
+    ``CenterNetModel.forward`` that f32 is IEEE f32, not TF32."""
+
+    def forward(self, x):
+        with torch.autocast(x.device.type, enabled=False):
+            return super().forward(x.float())
+
+
 class CenterNetHead(nn.Sequential):
-    """3x3 conv(head_conv) → ReLU → kxk conv, the reference's head tower
-    (keys ``.0`` and ``.2``). The last conv runs in f32 whatever the model's
-    width, as the JAX head does: head outputs stay f32 for the loss and the
-    decode. Under ``CenterNetModel.forward`` that f32 is IEEE f32, not
-    TF32."""
+    """3x3 conv(head_conv) → ReLU → kxk f32 conv, the reference's head tower
+    (keys ``.0`` and ``.2``)."""
 
     def __init__(self, cin: int, head_conv: int, nout: int, final_kernel: int):
         super().__init__(
             nn.Conv2d(cin, head_conv, 3, padding=1),
             nn.ReLU(inplace=True),
-            nn.Conv2d(head_conv, nout, final_kernel, padding=final_kernel // 2),
+            F32Conv2d(head_conv, nout, final_kernel, padding=final_kernel // 2),
         )
 
-    def forward(self, y):
-        h = self[1](self[0](y))
-        with torch.autocast(h.device.type, enabled=False):
-            return self[2](h.float())
+
+def head_out(head: nn.Module) -> nn.Conv2d:
+    """A head's last conv: the tower's ``.2``, or the head itself without a
+    tower."""
+    return head[-1] if isinstance(head, nn.Sequential) else head
+
+
+class DeconvNeck(nn.Sequential):
+    """The deconv upsampler of the dict-output trunks (JAX ``DeconvNeck``
+    and ``ResNetDeconv``): the stride-16 map → 2 × [ConvTranspose 256 (k4,
+    s2, pad 1; no bias) + BatchNorm + ReLU] → stride 4. The reference's
+    ``deconv_layers`` (keys ``.0``, ``.1``, ``.3``, ``.4``). flax's
+    ``ConvTranspose(k4, s2, "SAME")`` pads the dilated input by 2 on each
+    side as this does, but correlates with its kernel unflipped: a JAX
+    kernel crosses over flipped (``checkpoint/from_jax.py``)."""
+
+    def __init__(self, cin: int, channels: int = 256, num_deconv: int = 2):
+        mods = []
+        for _ in range(num_deconv):
+            mods += [nn.ConvTranspose2d(cin, channels, 4, stride=2, padding=1, bias=False),
+                     BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM), nn.ReLU(inplace=True)]
+            cin = channels
+        super().__init__(*mods)
+        self.out_channels = channels
 
 
 class CenterNetModel(nn.Module):
-    """backbone → heads. Input: normalized (N, 3, H, W) images.
+    """backbone (→ deconv neck) → heads. Input: normalized (N, 3, H, W)
+    images.
+
+    The backbone returns the stride-``DOWN_RATIO`` map (DLA-34), or it is a
+    dict-output trunk (ResNet, VoVNet) whose ``neck_feature`` map the
+    ``deconv_layers`` bring to stride 4. Heads are a tower
+    (``CenterNetHead``) at ``head_conv`` > 0, else one f32 conv each.
 
     Parameters and BatchNorm statistics are f32; the convolutions run at
     ``dtype`` (autocast), BatchNorm normalizes in f32 and rounds its output,
@@ -63,15 +98,19 @@ class CenterNetModel(nn.Module):
     the JAX package's f32 is, not the TF32 cuDNN takes by default."""
 
     def __init__(self, backbone: nn.Module, heads: Tuple[Tuple[str, int], ...],
-                 head_conv: int = 256, final_kernel: int = 1):
+                 head_conv: int = 256, final_kernel: int = 1, neck_feature: Optional[str] = None):
         super().__init__()
         self.dtype = torch.float32
-        if head_conv <= 0:
-            raise ValueError("the port's CenterNet heads need MODEL.CENTERNET.HEAD_CONV > 0")
         self.backbone = backbone
+        self.neck_feature = neck_feature
+        cin = getattr(backbone, "out_channels", None)
+        if neck_feature is not None:
+            self.deconv_layers = DeconvNeck(backbone.out_feature_channels[neck_feature])
+            cin = self.deconv_layers.out_channels
         self.head_names = tuple(name for name, _ in heads)
         for name, nout in heads:
-            setattr(self, name, CenterNetHead(backbone.out_channels, head_conv, nout, final_kernel))
+            setattr(self, name, CenterNetHead(cin, head_conv, nout, final_kernel) if head_conv > 0
+                    else F32Conv2d(cin, nout, final_kernel, padding=final_kernel // 2))
 
     def cast(self, dtype: torch.dtype) -> "CenterNetModel":
         """Compute width of everything but the heads' last convs (kept f32).
@@ -82,7 +121,11 @@ class CenterNetModel(nn.Module):
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         with ieee_f32(), torch.autocast(images.device.type, dtype=self.dtype,
                                         enabled=self.dtype != torch.float32):
-            y = self.backbone(images.to(self.dtype))
+            x = images.to(self.dtype)
+            if self.neck_feature is None:
+                y = self.backbone(x)
+            else:
+                y = self.deconv_layers(self.backbone(x, (self.neck_feature,))[self.neck_feature])
             return {name: getattr(self, name)(y) for name in self.head_names}
 
 
@@ -171,11 +214,13 @@ class CenterNet:
                                       device=self.device).view(1, -1, 1, 1)
 
         backbone = BACKBONE_REGISTRY.get(cfg.MODEL.BACKBONE.NAME)(cfg)
+        # dict-output trunks get the deconv neck on their stride-16 map
+        neck_feature = "res4" if isinstance(backbone, ResNet) else "stage4" if isinstance(backbone, VoVNet) else None
         heads = (("hm", self.num_classes), ("reg", 2), ("wh", 2))
-        self.model = CenterNetModel(backbone, heads, int(c.HEAD_CONV), int(c.FINAL_KERNEL))
+        self.model = CenterNetModel(backbone, heads, int(c.HEAD_CONV), int(c.FINAL_KERNEL), neck_feature)
         init_weights(self.model, torch.Generator().manual_seed(max(int(cfg.SEED), 0)))
         with torch.no_grad():
-            self.model.hm[2].bias.fill_(HM_BIAS)
+            head_out(self.model.hm).bias.fill_(HM_BIAS)
         self.model.to(self.device).cast(self.dtype).eval()
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:

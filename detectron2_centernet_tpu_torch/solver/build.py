@@ -19,11 +19,12 @@ import torch
 import torch.nn as nn
 
 from ..config import CfgNode
+from ..models.layers import FrozenBatchNorm
 from .lr_scheduler import warmup_cosine_lr, warmup_multistep_lr, warmup_poly_lr
 
 __all__ = ["build_lr_scheduler", "build_optimizer", "param_group_labels"]
 
-_NORM_TYPES = (nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm)
+_NORM_TYPES = (nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm, FrozenBatchNorm)
 
 
 def param_group_labels(model: nn.Module) -> Dict[str, str]:

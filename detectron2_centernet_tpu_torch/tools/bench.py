@@ -1,0 +1,234 @@
+#!/usr/bin/env python3
+"""Benchmark of one ctdet configuration on one card; prints one JSON line last,
+in the shape of the JAX package's ``bench.py``:
+
+  {"metric": "ctdet_<backbone>_<size>_infer_throughput", "value": img/s,
+   "unit": "img/s/chip", "vs_baseline": value / 104, "extra": {...}}
+
+``value`` is ``CenterNet.predict_fn``'s throughput at ``TEST.BATCH_SIZE``
+(CUDA events over ``ITERS`` calls after 2) on seeded random images at
+``INPUT.TEST_SIZE``. 104 img/s is ``bench.py``'s baseline (an A100's ctdet
+DLA-34 rate at 512², twice the paper's Titan Xp). ``extra`` holds:
+  * ``predictor_latency_ms``: ``DefaultPredictor`` on one 480x640 image,
+    median of ``REQUESTS`` requests after ``REQUEST_WARMUP`` (host clock;
+    the call returns host arrays);
+  * ``train_step_ms`` and ``train_img_s``: ``DefaultTrainer`` steps at
+    ``SOLVER.IMS_PER_BATCH`` on the synthetic stand-in for the train set,
+    the card synchronized at each step's start and end, median of the
+    ``TRAIN_STEPS`` steps after ``TRAIN_WARMUP`` warm-up steps;
+  * ``train_busy_share``: the card's kernel time in one more step, run
+    under ``torch.profiler`` after the timed ones, over ``train_step_ms``
+    (the profiler lengthens the step it traces, not its kernels);
+  * ``peak_memory_gib``: the training's peak of allocated device memory;
+  * ``dtype``, ``batch``, ``train_batch``, ``config``;
+  * ``card``: ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
+On the CPU (``MODEL.DEVICE cpu``, for tests at a tiny size) the numbers are
+host times and the card's entries are null.
+
+Weights are random, made from ``SEED`` (no trained checkpoint is in the
+repository). With no ``--config-file``: ctdet DLA-34
+(``configs/COCO-Detection/ctdet_dla_34_1x.yaml``) at 512², bf16.
+``Clock``, ``request_ms`` and ``StepClock`` are the clocks of these numbers;
+``chip_smoke.py`` times with them too.
+
+Usage:
+  python -m detectron2_centernet_tpu_torch.tools.bench [--config-file F] [KEY VALUE ...]
+"""
+
+import argparse
+import json
+import logging
+import os
+import re
+import statistics
+import subprocess
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import get_cfg
+from ..data.datasets import ensure_synthetic_datasets
+from ..engine import DefaultPredictor, DefaultTrainer, HookBase
+
+BASELINE_IMG_S = 104.0  # bench.py's baseline: an A100's ctdet DLA-34 512² img/s
+DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                              "configs", "COCO-Detection", "ctdet_dla_34_1x.yaml")
+ITERS = 10  # timed predict_fn calls, after 2
+TRAIN_WARMUP, TRAIN_STEPS = 2, 4  # then one more step runs under the profiler
+REQUESTS, REQUEST_WARMUP = 20, 3
+
+
+def backbone_tag(cfg) -> str:
+    """``dla34``, ``res18``, ``vovnet39``, ``vovnet19_slim``, ... from the
+    config's backbone."""
+    name = cfg.MODEL.BACKBONE.NAME
+    if "dla34" in name:
+        return "dla34"
+    if "resnet" in name:
+        return f"res{cfg.MODEL.RESNETS.DEPTH}"
+    if "vovnet" in name:
+        body = cfg.MODEL.VOVNET.CONV_BODY  # e.g. V-19-slim-dw-eSE
+        extra = [t for t in body.split("-")[2:] if t != "eSE"]
+        return "_".join(["vovnet" + re.sub(r"\D", "", body)] + extra)
+    return re.sub(r"^build_|_backbone$", "", name)
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+class Clock:
+    """Times on one device: CUDA events on a card, the host clock on the CPU."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+
+    def sync(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def ms(self, fn, iters: int, warmup: int = 2) -> float:
+        """Mean ms per call of ``fn`` over ``iters`` calls after ``warmup``."""
+        for _ in range(warmup):
+            fn()
+        self.sync()
+        if self.cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / iters
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def request_ms(predictor, image) -> list:
+    """Host ms of ``REQUESTS`` ``DefaultPredictor`` requests after
+    ``REQUEST_WARMUP`` (the call returns host arrays: the device work is
+    done)."""
+    for _ in range(REQUEST_WARMUP):
+        predictor(image)
+    latency = []
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        predictor(image)
+        latency.append((time.perf_counter() - t0) * 1e3)
+    return latency
+
+
+class StepClock(HookBase):
+    """Wall time of every train step but step ``profiled``, the device
+    synchronized at each step's start and end. Step ``profiled`` runs under
+    ``torch.profiler`` on a card: its wall time goes to ``profiled_ms``,
+    its ``key_averages()`` to ``events`` and their kernel time to
+    ``device_ms``."""
+
+    def __init__(self, clock: Clock, profiled: int):
+        self.clock, self.profiled = clock, profiled
+        self.times, self.profiled_ms, self.events, self.device_ms, self._prof = [], None, None, None, None
+
+    def before_step(self):
+        self.clock.sync()
+        if self.trainer.iter == self.profiled and self.clock.cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self._prof.__enter__()
+        self._t0 = time.perf_counter()
+
+    def after_step(self):
+        self.clock.sync()
+        ms = (time.perf_counter() - self._t0) * 1e3
+        if self.trainer.iter != self.profiled:
+            self.times.append(ms)
+            return
+        self.profiled_ms = ms
+        if self._prof is not None:
+            from torch.autograd import DeviceType
+
+            self._prof.__exit__(None, None, None)
+            self.events = self._prof.key_averages()
+            # as the table's "Self CUDA time total": kernels, not annotations
+            self.device_ms = sum(e.self_device_time_total for e in self.events
+                                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+            self._prof = None
+
+
+def bench_inference(predictor) -> dict:
+    """``predict_fn`` img/s at ``TEST.BATCH_SIZE`` and the request latency
+    of a ``DefaultPredictor``."""
+    model, cfg = predictor.model, predictor.cfg
+    clock = Clock(model.device)
+    rng = np.random.RandomState(0)
+    h, w = cfg.INPUT.TEST_SIZE
+    n = int(cfg.TEST.BATCH_SIZE)
+    images = torch.from_numpy(rng.randint(0, 256, (n, 3, h, w)).astype(np.float32)).to(model.device)
+    batch_ms = clock.ms(lambda: model.predict_fn(images), ITERS)
+    latency = request_ms(predictor, rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+    return {"img_s": n * 1e3 / batch_ms, "predict_fn_ms": batch_ms, "batch": n,
+            "predictor_latency_ms": statistics.median(latency)}
+
+
+def bench_training(cfg, weights: Optional[dict] = None):
+    """``TRAIN_WARMUP + TRAIN_STEPS + 1`` ``DefaultTrainer`` steps of ``cfg``
+    (``weights`` loaded when given), no evaluation, no output files:
+    (the training's entries of ``extra``, the trainer, its ``StepClock``)."""
+    cfg = cfg.clone()
+    cfg.DATASETS.TEST = ()  # the step alone
+    cfg.SOLVER.MAX_ITER = TRAIN_WARMUP + TRAIN_STEPS + 1
+    cfg.OUTPUT_DIR = ""  # no checkpoint, no metrics file
+    ensure_synthetic_datasets(cfg.DATASETS.TRAIN)
+    trainer = DefaultTrainer(cfg)
+    if weights is not None:
+        trainer.model.model.load_state_dict(weights)
+    trainer.resume_or_load(resume=False)
+    step_clock = StepClock(Clock(cfg.MODEL.DEVICE), profiled=cfg.SOLVER.MAX_ITER - 1)
+    trainer.register_hooks([step_clock])
+    cuda = step_clock.clock.cuda
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    trainer.train()
+    step_ms = statistics.median(step_clock.times[TRAIN_WARMUP:])
+    batch = int(cfg.SOLVER.IMS_PER_BATCH)
+    entries = {"train_step_ms": step_ms, "train_img_s": batch * 1e3 / step_ms, "train_batch": batch,
+               "train_busy_share": step_clock.device_ms / step_ms if cuda else None,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None}
+    return entries, trainer, step_clock
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config-file", default=DEFAULT_CONFIG, metavar="FILE")
+    parser.add_argument("opts", nargs=argparse.REMAINDER, help="'KEY VALUE' config overrides")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.WARNING)
+    cfg = get_cfg()
+    cfg.merge_from_file(args.config_file)
+    cfg.merge_from_list(["TPU.DTYPE", "bfloat16", "SEED", 0] + list(args.opts))
+    cfg.MODEL.WEIGHTS = ""  # weights from the seed
+
+    extra = {"config": os.path.relpath(args.config_file), "dtype": cfg.TPU.DTYPE,
+             "input_size": list(cfg.INPUT.TEST_SIZE)}
+    inference = bench_inference(DefaultPredictor(cfg))
+    extra.update({k: v for k, v in inference.items() if k != "img_s"})
+    extra.update(bench_training(cfg)[0])
+    extra["card"] = card() if torch.device(cfg.MODEL.DEVICE).type == "cuda" else None
+    value = inference["img_s"]
+    result = {"metric": f"ctdet_{backbone_tag(cfg)}_{cfg.INPUT.TEST_SIZE[0]}_infer_throughput",
+              "value": round(value, 2), "unit": "img/s/chip",
+              "vs_baseline": round(value / BASELINE_IMG_S, 3), "extra": extra}
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,36 +1,40 @@
 #!/usr/bin/env python3
-"""Training-accuracy run of ctdet DLA-34 on the card:
-``configs/quick_schedules/ctdet_dla_synth_training_acc_test.yaml``, built in
-code (the card's machine has no YAML parser; ``acc_cfg`` is held against
-``merge_from_file`` of the YAML by a CPU test), trained through
-``DefaultTrainer`` on the learnable synthetic scenes: Adam at LR 1e-3, 1500
-iterations, batch 8, 128², bf16, PreciseBN over 20 batches, then the COCO
-evaluation and ``verify_results`` against the YAML's
-``EXPECTED_RESULTS`` (bbox AP 93.2 ± 6).
+"""Training-accuracy run of a ctdet config on the card: a
+``configs/quick_schedules/*training_acc_test.yaml`` read as it is
+(``merge_from_file``) with only ``SEED``, ``MODEL.DEVICE``, ``OUTPUT_DIR``
+and, as a diagnostic, ``TPU.DTYPE`` set over it, trained through
+``DefaultTrainer`` on the learnable synthetic scenes, then the COCO
+evaluation and ``verify_results`` against the YAML's ``EXPECTED_RESULTS``.
 
-That bound was measured once on a TPU, in bf16, through the JAX package's
-drop-far Pallas DCN (the YAML's header); the port computes exact DCNv2. The
-run reports; it tunes nothing to reach the band.
+Two configs are meant:
+  * ``ctdet_dla_synth_training_acc_test.yaml`` (the default): DLA-34, Adam
+    at LR 1e-3, 1500 iterations, batch 8, 128², bf16, PreciseBN over 20
+    batches; band bbox AP 93.2 ± 6, measured once on a TPU through the JAX
+    package's drop-far Pallas DCN, whose offsets never trained (ROADMAP C1,
+    C11);
+  * ``ctdet_synth_training_acc_test.yaml``: ResNet-18-deconv (no DCN),
+    FREEZE_AT 0, BN, f32, EXACT_MODE, the same schedule; band 91.9 ± 6.
+The run reports; it tunes nothing to reach a band.
 
 Each seed trains in a subprocess of its own. For each, the bbox AP, the
 exit code (``verify_results`` exits 1 on a miss) and the wall time are
 printed (and, as a diagnostic, the AP with the training EMA's running
 statistics in place of PreciseBN's), and the whole summary goes to
 ``OUTPUT/summary.json``; the last line of the output is the summary as
-JSON. The script exits non-zero only
-when a seed's run did not reach its evaluation.
+JSON. The script exits non-zero only when a seed's run did not reach its
+evaluation.
 
-Two diagnostics, not the accuracy run: ``--dtype float32`` trains the same
-config at f32 in place of the YAML's bf16; ``--freeze-offsets`` zeroes the
-gradient of the 18 offset rows of every DCN's ``conv_offset_mask``, so the
+Two diagnostics, not the accuracy run: ``--dtype float32`` trains at f32
+in place of the YAML's width; ``--freeze-offsets`` zeroes the gradient of
+the 18 offset rows of every DCN's ``conv_offset_mask``, so the
 zero-initialised offsets stay 0 and only the masks train, as under the JAX
 package's TPU kernel, whose offset gradient is 0 at integer sample
 positions (ROADMAP C1).
 
 Usage:
-  python -m detectron2_centernet_tpu_torch.tools.train_acc [--seeds 42 43 44]
-      [--output-dir output/train_acc] [--device cuda] [--dtype bfloat16]
-      [--freeze-offsets]
+  python -m detectron2_centernet_tpu_torch.tools.train_acc [--config-file YAML]
+      [--seeds 42 43 44] [--output-dir output/train_acc] [--device cuda]
+      [--dtype bfloat16|float32] [--freeze-offsets]
 """
 
 import argparse
@@ -48,54 +52,25 @@ YAML = "configs/quick_schedules/ctdet_dla_synth_training_acc_test.yaml"
 SEEDS = (42, 43, 44)  # the YAML's SEED first
 
 
-def acc_cfg(seed: int = 42, device: str = "cuda", output_dir: Optional[str] = None,
-            dtype: str = "bfloat16"):
-    """The config of ``YAML`` over the defaults, key for key, with ``SEED``,
-    ``MODEL.DEVICE`` and ``TPU.DTYPE`` set, and ``OUTPUT_DIR`` when given."""
+def acc_cfg(config_file: str = YAML, seed: int = 42, device: str = "cuda",
+            output_dir: Optional[str] = None, dtype: Optional[str] = None):
+    """``config_file`` over the defaults, with ``SEED`` and ``MODEL.DEVICE``
+    set, ``TPU.DTYPE`` when ``dtype`` is given and ``OUTPUT_DIR`` when
+    ``output_dir`` is."""
     from ..config import get_cfg
 
     cfg = get_cfg()
-    cfg.merge_from_list([
-        "MODEL.META_ARCHITECTURE", "CenterNet",
-        "MODEL.BACKBONE.NAME", "build_dla34_backbone",
-        "MODEL.BACKBONE.FREEZE_AT", 0,
-        "MODEL.CENTERNET.NUM_CLASSES", 3,
-        "MODEL.CENTERNET.HEAD_CONV", 64,
-        "MODEL.CENTERNET.FOCAL_LOSS_ALPHA", [1],
-        "MODEL.CENTERNET.MAX_OBJS", 8,
-        "MODEL.CENTERNET.SCORE_THRESH_TEST", 0.25,
-        "MODEL.PIXEL_MEAN", [104.04, 113.985, 119.85],
-        "MODEL.PIXEL_STD", [73.695, 69.87, 70.89],
-        "MODEL.WEIGHTS", "",
-        "DATASETS.TRAIN", ("synth_learnable",),
-        "DATASETS.TEST", ("synth_learnable",),
-        "INPUT.TRAIN_SIZE", (128, 128),
-        "INPUT.TEST_SIZE", (128, 128),
-        "INPUT.COLOR_JITTER", False,
-        "SOLVER.OPTIMIZER", "ADAM",
-        "SOLVER.IMS_PER_BATCH", 8,
-        "SOLVER.BASE_LR", 0.001,
-        "SOLVER.MAX_ITER", 1500,
-        "SOLVER.STEPS", (1200,),
-        "SOLVER.WARMUP_ITERS", 50,
-        "SOLVER.CHECKPOINT_PERIOD", 100000,
-        "TEST.BATCH_SIZE", 8,
-        "TEST.PRECISE_BN.ENABLED", True,
-        "TEST.PRECISE_BN.NUM_ITER", 20,
-        "TEST.EXACT_MODE", False,
-        "TEST.EXPECTED_RESULTS", [["bbox", "AP", 93.2, 6.0]],
-        "TPU.DTYPE", "bfloat16",
-        "DATALOADER.NUM_WORKERS", 1,
-        "VERSION", 2,
-        "SEED", 42,
-    ])
-    cfg.merge_from_list(["SEED", seed, "MODEL.DEVICE", device, "TPU.DTYPE", dtype])
+    cfg.merge_from_file(config_file)
+    cfg.merge_from_list(["SEED", seed, "MODEL.DEVICE", device])
+    if dtype is not None:
+        cfg.TPU.DTYPE = dtype
     if output_dir is not None:
         cfg.OUTPUT_DIR = output_dir
     return cfg
 
 
-def run_one(seed: int, device: str, output_dir: str, dtype: str, freeze_offsets: bool) -> int:
+def run_one(config_file: str, seed: int, device: str, output_dir: str, dtype: Optional[str],
+            freeze_offsets: bool) -> int:
     """Train and evaluate one seed in this process; write ``result.json``
     (the results, whether they passed) before ``verify_results`` exits.
     Beside the verified AP (PreciseBN's statistics) it records, as a
@@ -105,12 +80,14 @@ def run_one(seed: int, device: str, output_dir: str, dtype: str, freeze_offsets:
     from ..engine import DefaultTrainer, hooks
     from ..models.layers import DCNv2
 
-    cfg = acc_cfg(seed, device, output_dir, dtype)
+    cfg = acc_cfg(config_file, seed, device, output_dir, dtype)
     ensure_synthetic_datasets(list(cfg.DATASETS.TRAIN) + list(cfg.DATASETS.TEST))
     trainer = DefaultTrainer(cfg)
     trainer.resume_or_load(resume=False)
     net = trainer.model.model
     if freeze_offsets:
+        if not any(isinstance(m, DCNv2) for m in net.modules()):
+            raise SystemExit(f"--freeze-offsets: the model of {config_file} has no DCN")
         for m in net.modules():
             if isinstance(m, DCNv2):
                 for p in (m.conv_offset_mask.weight, m.conv_offset_mask.bias):
@@ -146,17 +123,21 @@ def run_one(seed: int, device: str, output_dir: str, dtype: str, freeze_offsets:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config-file", default=YAML, metavar="YAML")
     parser.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     parser.add_argument("--output-dir", default="output/train_acc")
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), help="default: the YAML's TPU.DTYPE")
     parser.add_argument("--freeze-offsets", action="store_true")
     parser.add_argument("--one-seed", type=int, help=argparse.SUPPRESS)  # a child's seed
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     if args.one_seed is not None:
-        return run_one(args.one_seed, args.device, args.output_dir, args.dtype, args.freeze_offsets)
+        return run_one(args.config_file, args.one_seed, args.device, args.output_dir, args.dtype,
+                       args.freeze_offsets)
 
+    cfg = acc_cfg(args.config_file, device="cpu", dtype=args.dtype)
+    expected = [list(e) for e in cfg.TEST.EXPECTED_RESULTS]
     runs, crashed = [], False
     for seed in args.seeds:
         out = os.path.join(args.output_dir, f"seed_{seed}")
@@ -165,8 +146,9 @@ def main() -> int:
         with open(os.path.join(out, "log.txt"), "w") as log:
             proc = subprocess.run(
                 [sys.executable, "-m", "detectron2_centernet_tpu_torch.tools.train_acc",
-                 "--one-seed", str(seed), "--device", args.device, "--dtype", args.dtype,
-                 "--output-dir", out] + (["--freeze-offsets"] if args.freeze_offsets else []),
+                 "--config-file", args.config_file, "--one-seed", str(seed), "--device", args.device,
+                 "--output-dir", out] + (["--dtype", args.dtype] if args.dtype else [])
+                + (["--freeze-offsets"] if args.freeze_offsets else []),
                 stdout=log, stderr=subprocess.STDOUT)
         wall = time.perf_counter() - t0
         path = os.path.join(out, "result.json")
@@ -176,10 +158,10 @@ def main() -> int:
         crashed |= result is None or ap is None
         runs.append({"seed": seed, "bbox_AP": ap, "exit_code": proc.returncode, "wall_s": wall,
                      "bbox_AP_with_ema_statistics": ap_ema})
-        print(f"seed {seed}: bbox AP {ap}, exit code {proc.returncode}, {wall:.1f} s "
-              f"(bound 93.2 ± 6, measured on a TPU with the drop-far DCN); "
+        print(f"seed {seed}: bbox AP {ap}, exit code {proc.returncode}, {wall:.1f} s (expected {expected}); "
               f"AP with the EMA statistics in place of PreciseBN's {ap_ema}", flush=True)
-    summary = {"config": YAML, "dtype": args.dtype, "freeze_offsets": args.freeze_offsets, "expected": ["bbox", "AP", 93.2, 6.0], "runs": runs}
+    summary = {"config": args.config_file, "dtype": cfg.TPU.DTYPE, "freeze_offsets": args.freeze_offsets,
+               "expected": expected, "runs": runs}
     with open(os.path.join(args.output_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary))

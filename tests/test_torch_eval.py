@@ -504,14 +504,19 @@ def _flat(node, prefix=""):
     return out
 
 
-def test_train_acc_config_equals_yaml():
-    """``tools/train_acc.py`` builds the accuracy YAML in code (the card's
-    machine has no YAML parser): key for key equal to ``merge_from_file`` of
-    the YAML, in the port's config and in the JAX package's."""
-    built = _flat(acc_cfg())
+@pytest.mark.parametrize("yaml_file", [ACC_YAML, "configs/quick_schedules/ctdet_synth_training_acc_test.yaml"])
+def test_train_acc_config_equals_yaml(yaml_file):
+    """``tools/train_acc.py`` reads the accuracy YAML (DLA-34's, its default,
+    and ResNet-18-deconv's) with ``merge_from_file`` and sets only the seed,
+    the device, the output directory and, as a diagnostic, the dtype: key
+    for key equal to ``merge_from_file`` of the YAML, in the port's config
+    and in the JAX package's."""
+    path = os.path.join(REPO, yaml_file)
+    built = _flat(acc_cfg(path))
     for get in (get_cfg, jax_get_cfg):
         cfg = get()
-        cfg.merge_from_file(os.path.join(REPO, ACC_YAML))
+        cfg.merge_from_file(path)
         assert built == _flat(cfg)
     assert built["SEED"] == 42 and built["TEST.PRECISE_BN.NUM_ITER"] == 20
-    assert _flat(acc_cfg(7, "cpu", "out"))["SEED"] == 7
+    other = _flat(acc_cfg(path, 7, "cpu", "out", "float32"))
+    assert (other["SEED"], other["MODEL.DEVICE"], other["OUTPUT_DIR"], other["TPU.DTYPE"]) == (7, "cpu", "out", "float32")
