@@ -4,8 +4,8 @@ one NVIDIA card: ctdet DLA-34 at full width, inference through the port's
 ``DefaultPredictor`` and training through its ``DefaultTrainer``, with every
 DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward); then
 the ResNet-18/50-deconv and VoVNet-39 configs, ``tools/train_net`` and
-``tools/bench``. Every config is read from its YAML file
-(``configs/COCO-Detection/``) by the port's own reader.
+``tools/bench``, and RetinaNet R50-FPN. Every config is read from its YAML
+file (``configs/COCO-Detection/``) by the port's own reader.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -63,6 +63,20 @@ Phases (any failure raises and the script exits non-zero):
      on synthetic data), then ``--eval-only --resume`` on its checkpoint:
      resumed at iteration 6, the same evaluation dict, no DCN launch;
   8d. ``tools/bench`` on ctdet DLA-34; its JSON line is printed;
+  9. RetinaNet, ``retinanet_R_50_FPN_1x.yaml`` at full width (ResNet-50
+     FrozenBN, FPN 256, P6/P7, 80 classes, 9 anchors, 4-conv towers), bf16,
+     no DCN kernel launched anywhere in it: (a) ``DefaultPredictor`` on
+     three seeded images letterboxed to 800² and ``predict_fn`` on a batch
+     of 16, with seeded weights that detect (``retinanet_weights``), the
+     detections not empty; (b) the f32 ``cls_score`` and ``bbox_pred`` of
+     every level, card against CPU, and the port's NMS on the card and on
+     the CPU on the same candidates; (c) ``tools/bench`` on the config at
+     ``TEST.BATCH_SIZE`` 16: request latency, img/s, the train step at 16 ×
+     640², busy share, peak memory, every loss finite; (d)
+     ``tools/train_net`` 4 steps, then ``--eval-only --resume``: resumed at
+     4, the same finite COCO dict; (e) the batch-1 ``predict_fn`` profile,
+     the NMS loop's share of its time and launches, and the device time at
+     batch 16;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -108,6 +122,7 @@ from detectron2_centernet_tpu_torch.models import layers
 from detectron2_centernet_tpu_torch.models.layers import DCNv2, DeformConvV2
 from detectron2_centernet_tpu_torch.models.meta_arch import centernet
 from detectron2_centernet_tpu_torch.ops import dcn, fast_cocoeval
+from detectron2_centernet_tpu_torch.ops.nms import batched_nms_fixed
 from detectron2_centernet_tpu_torch.ops import deform_conv as plain
 from detectron2_centernet_tpu_torch.tools import bench
 
@@ -992,15 +1007,25 @@ def same_results(a, b) -> bool:
     return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
 
 
-def phase_train_net(report, out_dir):
-    print(f"== 8c. tools/train_net on ctdet_res_18_1x.yaml: 6 steps at batch {TRAIN_BATCH} (DETECTRON2_SYNTH_DATA), "
-          f"then --eval-only --resume on the {EVAL_IMAGES} synthetic coco_2017_val images")
+def fresh_synthetic_val():
+    """coco_2017_val as the synthetic stand-in, afresh (its metadata may name a
+    COCO json an earlier phase cached in a directory since removed)."""
+    os.environ["DETECTRON2_SYNTH_DATA"] = "1"
+    for catalog in (DatasetCatalog, MetadataCatalog):
+        if "coco_2017_val" in catalog:
+            catalog.remove("coco_2017_val")
+    register_synthetic_instances("coco_2017_val", num_images=EVAL_IMAGES, image_size=EVAL_SIZE)
+
+
+def run_train_net(argv, log_path):
+    """``tools/train_net`` with ``argv``, then ``--eval-only --resume`` with
+    the same, in this process, their output in ``log_path``: (the training's
+    results, the evaluation's, the iterations each run started at, training
+    seconds, evaluation seconds)."""
     from detectron2_centernet_tpu_torch.engine import default_argument_parser, launch
     from detectron2_centernet_tpu_torch.tools import train_net
     from detectron2_centernet_tpu_torch.utils.logger import setup_logger
 
-    argv = ["--config-file", "configs/COCO-Detection/ctdet_res_18_1x.yaml", "SOLVER.MAX_ITER", "6",
-            "SOLVER.IMS_PER_BATCH", str(TRAIN_BATCH), "OUTPUT_DIR", out_dir, "SEED", "0"]
     resumed = []
     resume_or_load = train_net.Trainer.resume_or_load
 
@@ -1008,13 +1033,6 @@ def phase_train_net(report, out_dir):
         resume_or_load(self, resume=resume)
         resumed.append(self.start_iter)
 
-    os.environ["DETECTRON2_SYNTH_DATA"] = "1"
-    # coco_2017_val afresh: its metadata still names the COCO json that phase 4d cached in a removed directory
-    DatasetCatalog.remove("coco_2017_val")
-    MetadataCatalog.remove("coco_2017_val")
-    register_synthetic_instances("coco_2017_val", num_images=EVAL_IMAGES, image_size=EVAL_SIZE)
-    log_path = "output/chip_smoke_train_net_log.txt"
-    reset_launches()
     train_net.Trainer.resume_or_load = recording
     try:
         with open(log_path, "w") as log, redirect_stdout(log):
@@ -1033,8 +1051,20 @@ def phase_train_net(report, out_dir):
     finally:
         train_net.Trainer.resume_or_load = resume_or_load
     torch.cuda.synchronize()
+    return trained, evaluated, resumed, t1 - t0, t2 - t1
+
+
+def phase_train_net(report, out_dir):
+    print(f"== 8c. tools/train_net on ctdet_res_18_1x.yaml: 6 steps at batch {TRAIN_BATCH} (DETECTRON2_SYNTH_DATA), "
+          f"then --eval-only --resume on the {EVAL_IMAGES} synthetic coco_2017_val images")
+    argv = ["--config-file", "configs/COCO-Detection/ctdet_res_18_1x.yaml", "SOLVER.MAX_ITER", "6",
+            "SOLVER.IMS_PER_BATCH", str(TRAIN_BATCH), "OUTPUT_DIR", out_dir, "SEED", "0"]
+    fresh_synthetic_val()
+    log_path = "output/chip_smoke_train_net_log.txt"
+    reset_launches()
+    trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
     launches = read_launches()
-    print(f"  train: {t1 - t0:.1f} s; eval-only: {t2 - t1:.1f} s; iterations resumed at {resumed}; "
+    print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
           f"bbox AP {trained['bbox']['AP']:.4f} / {evaluated['bbox']['AP']:.4f}; DCN launches {launches}")
     if resumed != [0, 6]:
         raise SystemExit(f"expected to start at iteration 0 and resume at 6, got {resumed}")
@@ -1047,7 +1077,7 @@ def phase_train_net(report, out_dir):
         raise SystemExit("default_setup did not write config.yaml")
     print(f"  the two evaluation dicts are identical ({len(trained['bbox'])} bbox entries); "
           f"config.yaml written; log in {log_path}")
-    report["train_net"] = dict(train_s=t1 - t0, eval_only_s=t2 - t1, resumed=resumed, bbox=trained["bbox"],
+    report["train_net"] = dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, bbox=trained["bbox"],
                                launches=launches)
     return launches
 
@@ -1073,6 +1103,236 @@ def phase_bench(report):
             and keys <= set(result["extra"]) and all(result["extra"][k] is not None for k in keys)):
         raise SystemExit(f"the bench's line is not complete: {result}")
     report["bench"] = dict(result=result, launches=launches)
+    return launches
+
+
+RETINA = "retinanet_R_50_FPN_1x"
+RETINA_YAML = os.path.join("configs", "COCO-Detection", RETINA + ".yaml")
+RETINA_BATCH = 16  # predict_fn's batch (the YAML keeps TEST.BATCH_SIZE 1) and SOLVER.IMS_PER_BATCH
+RETINA_STEPS = 4  # tools/train_net's steps in 9d
+
+
+def retinanet_cfg(dtype: str):
+    """``configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml`` (over
+    Base-RetinaNet.yaml) read by the port's own YAML reader, with the run's
+    compute width, output directory and seed over it and no weights file
+    (the YAML names ImageNet weights, which are not in the repository)."""
+    cfg = get_cfg()
+    cfg.merge_from_file(RETINA_YAML)
+    cfg.merge_from_list(["TPU.DTYPE", dtype, "OUTPUT_DIR", "output/chip_smoke", "SEED", 0, "MODEL.WEIGHTS", ""])
+    return cfg
+
+
+def retinanet_weights(cfg, images: torch.Tensor, seed: int) -> dict:
+    """Seeded weights under which the RetinaNet detects: ``seeded_weights``
+    (the model's own init, FrozenBN statistics measured on ``images``), then
+    the head's weights drawn anew from ``seed`` (tower convs N(0, 2/fan_in),
+    so the ReLU towers keep the FPN maps' scale) and its two predictors
+    scaled on the first image so that ``cls_score``'s logits spread with std
+    1 around the prior-prob bias of the init (-4.6: about 5% of the scores
+    above SCORE_THRESH_TEST 0.05, where the init's 0.01 everywhere leaves
+    the NMS nothing to pick) and ``bbox_pred``'s deltas with std 0.1 (boxes
+    near their anchors). Weights to serve with, not to train from: from
+    them, SGD at the config's LR on the synthetic train scenes reached a
+    NaN loss within 4 steps."""
+    state = seeded_weights(cfg, images, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for k, v in state.items():
+            if k.startswith("head.") and k.endswith(".weight"):
+                v.copy_(torch.randn(v.shape, generator=g) * math.sqrt(2.0 / v[0].numel()))
+        cfg = cfg.clone()
+        cfg.MODEL.DEVICE = "cpu"
+        host = build_model(cfg)
+        host.model.load_state_dict(state)
+        logits, deltas = host.model(host.normalize(images[:1]))
+        for name, maps, std in (("cls_score", logits, 1.0), ("bbox_pred", deltas, 0.1)):
+            spread = torch.cat([(t - state[f"head.{name}.bias"].view(1, -1, 1, 1)).flatten() for t in maps]).std()
+            state[f"head.{name}.weight"].mul_(std / spread.item())
+    return state
+
+
+def phase_retinanet(report, out_dir):
+    """Phase 9: RetinaNet R50-FPN at full width through the port's entry
+    points; no DCN kernel may launch on any of it."""
+    cfg = retinanet_cfg("bfloat16")
+    m, r = cfg.MODEL, cfg.MODEL.RETINANET
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    print(f"== 9a. RetinaNet ({RETINA}.yaml): {m.BACKBONE.NAME}, ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM} "
+          f"FREEZE_AT {m.BACKBONE.FREEZE_AT}, FPN {m.FPN.OUT_CHANNELS} from {list(m.FPN.IN_FEATURES)}, "
+          f"{r.NUM_CLASSES} classes, {r.NUM_CONVS}-conv towers, bf16: DefaultPredictor at {size[0]}², "
+          f"predict_fn at batch {RETINA_BATCH}")
+    if "yaml" in sys.modules:
+        raise SystemExit("PyYAML was imported: the port must read configs with its own reader")
+    rng = np.random.RandomState(9)
+    reset_launches()
+    weights = retinanet_weights(retinanet_cfg("float32"), letterboxed(rng, "cpu", 2, size), seed=0)
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    model.model.load_state_dict(weights)
+    anchors = sum(a.shape[0] for a in model.anchors_per_level(size))
+    if not (m.RESNETS.DEPTH == 50 and m.FPN.OUT_CHANNELS == 256 and r.NUM_CLASSES == 80 and r.NUM_CONVS == 4
+            and model.num_anchors_per_cell == 9 and model.dtype == torch.bfloat16 and size == (800, 800)):
+        raise SystemExit(f"{RETINA} is not at full width here: {m}")
+    requests = []
+    for h, w in ((480, 640), (800, 800), (375, 500)):
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        inst = predictor(img)["instances"]
+        check_detections(RETINA, img, inst, model.score_threshold)
+        requests.append(len(inst))
+        print(f"  request {h}x{w}: {len(inst)} detections, top score {inst.scores.max():.4f}")
+    batch = letterboxed(rng, model.device, RETINA_BATCH, size)
+    dets = model.predict_fn(batch)
+    valid = (dets["scores"] > model.score_threshold).sum(1).cpu()
+    if not (dets["boxes"].shape == (RETINA_BATCH, 100, 4) and dets["scores"].shape == (RETINA_BATCH, 100)
+            and bool(torch.isfinite(dets["boxes"]).all()) and bool(torch.isfinite(dets["scores"]).all())):
+        raise SystemExit("RetinaNet's predict_fn returned malformed detections")
+    if int(valid.min()) == 0:
+        raise SystemExit(f"RetinaNet detected nothing in some images of the batch: {valid.tolist()}")
+    print(f"  predict_fn batch {RETINA_BATCH}: boxes {tuple(dets['boxes'].shape)}, all finite; valid detections "
+          f"per image {int(valid.min())}-{int(valid.max())} of 100; {anchors} anchors per image")
+    out = dict(requests=requests, valid_per_image=valid.tolist(), anchors=anchors)
+
+    print("== 9b. f32 cls_score and bbox_pred of one image, card against CPU (the model's ieee_f32); "
+          "the NMS on the card and on the CPU on the same candidates")
+    cfg32 = retinanet_cfg("float32")
+    card = build_model(cfg32)
+    cfg32.MODEL.DEVICE = "cpu"
+    host = build_model(cfg32)
+    for mdl in (card, host):
+        mdl.model.load_state_dict(weights)
+    x = batch[:1]
+    with torch.inference_mode():
+        zc = card.model(card.normalize(x))
+        zh = host.model(host.normalize(x.cpu()))
+    heads = {}
+    for name, maps_c, maps_h in (("cls_score", zc[0], zh[0]), ("bbox_pred", zc[1], zh[1])):
+        for level, (c, h) in enumerate(zip(maps_c, maps_h), 3):
+            err = (c.float().cpu() - h).abs().max().item()
+            scale = h.abs().max().item()
+            ok = bool(torch.isfinite(c).all()) and err <= HEAD_TOL * max(scale, 1.0)
+            heads[f"{name}_p{level}"] = dict(max_abs_err=err, scale=scale)
+            print(f"  {name} p{level} {tuple(c.shape)}: max_abs_err={err:.3e} (scale {scale:.3e}, "
+                  f"tol {HEAD_TOL:.0e} x max(scale, 1)) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the card's f32 {name} at p{level} differs from the CPU's")
+    del card, host
+    with torch.inference_mode():
+        xb = model.normalize(batch[:4])
+        cands = model.candidates(*model.model(xb), xb.shape[2:])
+    keep_c, valid_c = batched_nms_fixed(*cands, model.nms_threshold, model.max_detections)
+    keep_h, valid_h = batched_nms_fixed(*(t.cpu() for t in cands), model.nms_threshold, model.max_detections)
+    same = torch.equal(keep_c.cpu(), keep_h) and torch.equal(valid_c.cpu(), valid_h)
+    print(f"  NMS of {cands[1].shape[1]} candidates x 4 images ({int(torch.isfinite(cands[1]).sum())} live): "
+          f"card and CPU keep {'the same' if same else 'DIFFERENT'} indices ({int(valid_c.sum())} valid picks)")
+    if not same:
+        raise SystemExit("the port's NMS keeps other indices on the card than on the CPU")
+    out.update(heads_card_vs_cpu=heads, nms_card_vs_cpu_equal=same, nms_candidates=int(cands[1].shape[1]))
+
+    print(f"== 9c. tools/bench --config-file {RETINA_YAML} TEST.BATCH_SIZE {RETINA_BATCH} (the model's own init)")
+    captured, bench_training = [], bench.bench_training
+    bench.bench_training = lambda c, w=None: captured.append(bench_training(c, w)) or captured[-1]
+    try:
+        result = bench.main(["--config-file", RETINA_YAML, "TEST.BATCH_SIZE", str(RETINA_BATCH)])
+    finally:
+        bench.bench_training = bench_training
+    extra = result["extra"]
+    _, trainer, clock = captured[0]
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in ("loss_cls", "loss_box_reg", "total_loss")}
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    keys = ("predictor_latency_ms", "train_step_ms", "train_busy_share", "peak_memory_gib")
+    if not (result["metric"] == "retinanet_res50_fpn_800_infer_throughput" and result["value"] > 0
+            and extra["batch"] == RETINA_BATCH and extra["train_batch"] == RETINA_BATCH
+            and all(extra.get(k) is not None for k in keys)):
+        raise SystemExit(f"the bench's RetinaNet line is not complete: {result}")
+    if any(len(v) != steps or not all(math.isfinite(x) for x in v) for v in losses.values()):
+        raise SystemExit(f"RetinaNet's bench losses are not finite at every step: {losses}")
+    print(f"  {result['metric']}: {result['value']} img/s (vs_baseline {result['vs_baseline']}, against "
+          f"1/0.056 s); request (480x640 → 800²) median {extra['predictor_latency_ms']:.3f} ms of {bench.REQUESTS}; "
+          f"predict_fn batch {extra['batch']} {extra['predict_fn_ms']:.3f} ms")
+    print(f"  train at {extra['train_batch']} x {cfg.INPUT.TRAIN_SIZE[0]}²: total loss "
+          f"{' '.join(f'{v:.4f}' for v in losses['total_loss'])}; step times (ms) "
+          f"{' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} "
+          f"{extra['train_step_ms']:.1f} ms = {extra['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = "
+          f"{extra['train_busy_share']:.0%} of the median step; peak memory {extra['peak_memory_gib']:.2f} GiB")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
+    out.update(bench=result, bench_losses=losses, bench_step_ms_all=clock.times,
+               bench_profiled_device_ms=clock.device_ms)
+    del trainer, captured
+
+    # from the model's own init (the seeded weights above detect but are no
+    # trained model: SGD at the config's LR diverges from them within 4
+    # steps); the init scores every (anchor, class)
+    # at the prior 0.0099, so the threshold goes under it for the evaluation
+    # to have detections to score
+    print(f"== 9d. tools/train_net on {RETINA}.yaml: {RETINA_STEPS} steps at batch {RETINA_BATCH} from the model's "
+          f"init (DETECTRON2_SYNTH_DATA), then --eval-only --resume on the {EVAL_IMAGES} synthetic coco_2017_val "
+          f"images, SCORE_THRESH_TEST 0.005")
+    argv = ["--config-file", RETINA_YAML, "SOLVER.MAX_ITER", str(RETINA_STEPS), "SOLVER.IMS_PER_BATCH",
+            str(RETINA_BATCH), "TEST.BATCH_SIZE", str(RETINA_BATCH), "MODEL.WEIGHTS", "",
+            "MODEL.RETINANET.SCORE_THRESH_TEST", "0.005", "OUTPUT_DIR", out_dir, "SEED", "0"]
+    fresh_synthetic_val()
+    log_path = "output/chip_smoke_retinanet_train_net_log.txt"
+    trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
+    bbox = trained["bbox"]
+    print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
+          + ", ".join(f"{k} {bbox[k]:.4f}" for k in BBOX_KEYS if k in bbox))
+    if resumed != [0, RETINA_STEPS]:
+        raise SystemExit(f"expected to start at iteration 0 and resume at {RETINA_STEPS}, got {resumed}")
+    if not same_results(trained, evaluated):
+        raise SystemExit(f"RetinaNet's evaluation after training and the --eval-only --resume one differ: "
+                         f"{trained['bbox']} vs {evaluated['bbox']}")
+    if not all(math.isfinite(bbox[k]) for k in BBOX_KEYS):
+        raise SystemExit(f"RetinaNet's bbox AP dict is not finite: {bbox}")
+    print(f"  the two evaluation dicts are identical ({len(bbox)} bbox entries); log in {log_path}")
+    out.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, bbox=bbox))
+
+    print("== 9e. predict_fn at batch 1 (800², bf16): its profile, and the NMS loop's share and launches; "
+          f"predict_fn's device time at batch {RETINA_BATCH}")
+    one = batch[:1].contiguous()
+    fwd1_ms = cuda_ms(lambda: model.predict_fn(one), iters=10)
+    with torch.inference_mode():
+        x1 = model.normalize(one)
+        cand1 = model.candidates(*model.model(x1), x1.shape[2:])
+    nms = lambda: batched_nms_fixed(*cand1, model.nms_threshold, model.max_detections)
+    nms_ms = cuda_ms(nms, iters=10)
+    profiles = {}
+    for name, fn in (("predict_fn", lambda: model.predict_fn(one)), ("nms", nms),
+                     ("predict_fn_b16", lambda: model.predict_fn(batch))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        profiles[name] = dict(launches=sum(e.count for e in kernels) / 3,
+                              device_ms=sum(e.self_device_time_total for e in kernels) / 3e3, events=events)
+    p, q = profiles["predict_fn"], profiles["nms"]
+    print(f"  predict_fn batch 1: {fwd1_ms:.3f} ms ({p['launches']:.0f} kernel launches, {p['device_ms']:.3f} ms "
+          f"on the card); the NMS loop alone ({model.max_detections} picks of {cand1[1].shape[1]} candidates): "
+          f"{nms_ms:.3f} ms = {nms_ms / fwd1_ms:.0%} of the call, {q['launches']:.0f} launches "
+          f"({q['launches'] / p['launches']:.0%} of them), {q['device_ms']:.3f} ms on the card "
+          f"({q['device_ms'] / p['device_ms']:.0%} of its device time)")
+    print(p["events"].table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
+    b16 = profiles["predict_fn_b16"]
+    f32_conv_ms = sum(e.self_device_time_total for e in b16["events"] if e.device_type == DeviceType.CUDA
+                      and "f32f32" in e.key and "bf16" not in e.key) / 3e3
+    print(f"  predict_fn batch {RETINA_BATCH}: {b16['device_ms']:.3f} ms on the card per call "
+          f"({b16['launches']:.0f} launches); cuDNN's f32 kernels (the f32 cls_score and bbox_pred) "
+          f"{f32_conv_ms:.3f} ms of it")
+    print(b16["events"].table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    out.update(predict_fn_b1_ms=fwd1_ms, nms_b1_ms=nms_ms, nms_share=nms_ms / fwd1_ms,
+               predict_fn_b1_launches=p["launches"], nms_launches=q["launches"],
+               predict_fn_b1_device_ms=p["device_ms"], nms_device_ms=q["device_ms"],
+               predict_fn_b16_device_ms=b16["device_ms"], predict_fn_b16_f32_conv_ms=f32_conv_ms)
+
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the RetinaNet path (9a-9e): {launches}")
+    if any(launches.values()):
+        raise SystemExit(f"the RetinaNet path launched DCN kernels: {launches}")
+    out["launches"] = launches
+    report["retinanet"] = out
     return launches
 
 
@@ -1137,6 +1397,11 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     bench_launches = phase_bench(report)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+    try:
+        retinanet_launches = phase_retinanet(report, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     totals = phase_kernel_timing(report)
 
     kernels = []
@@ -1154,6 +1419,7 @@ def main() -> int:
             # the ResNet-18/50 and VoVNet-39 paths (inference, training) and train_net on ResNet-18
             "launches_resnet_vovnet": sum(r["launches"][name] for r in report["new_backbones"].values())
             + train_net_launches[name],
+            "launches_retinanet": retinanet_launches[name],  # phase 9, asserted 0
             "max_abs_err": max_err[name], "ms": t["ms_b1"], "plain_ms": t["plain_ms_b1"],
             "bound_ms": t["bound_ms_b1"], "bound_by": t["bound_by_b1"], "library_ms": None,
             "per": "16 launches, the DLA-34 shapes at batch 1, bf16"

@@ -9,8 +9,15 @@ trunks (``backbone.stem.conv1``, ``backbone.res2.0.conv1.norm``,
 ``backbone.stage2.OSA2_1.layers.0.OSA2_1_0/conv``, ...) to the JAX trunk
 under ``backbone/trunk``; the deconv neck (``deconv_layers.N``) to
 ``backbone/deconvI`` and ``backbone/deconvI_bn``; heads with or without a
-tower. ``torch_key`` is its inverse, and ``state_dict_from_jax`` checks
-every key it makes against it.
+tower; RetinaNet's ResNet-FPN (``backbone.bottom_up.<ResNet keys>``,
+``backbone.fpn_lateral3``, ``backbone.top_block.p6``) to ``backbone/bottom_up``,
+``backbone/fpn_lateral3`` and ``backbone/top_block_p6``, its head
+(``head.cls_subnet.{2i}``, ``head.bbox_subnet.{2i}``, ``head.cls_score``,
+``head.bbox_pred``) to ``head/cls_tower{i}``, ``head/box_tower{i}``,
+``head/cls_score`` and ``head/bbox_pred``, and the ema loss normalizer
+(``loss_normalizer``) to ``batch_stats/loss_normalizer``. ``torch_key`` is
+its inverse, and ``state_dict_from_jax`` checks every key it makes against
+it.
 
 Layouts (the rules of the JAX package's ``checkpoint/torch_import.py``, run
 the other way):
@@ -184,6 +191,24 @@ def _trunk_to_torch(body):
     return f"{osa}.layers.{lm.group(1)}.OSA{s}_{b}_{lm.group(1)}/{name}"
 
 
+_RETINA_TOWERS = {"cls_subnet": "cls_tower", "bbox_subnet": "box_tower"}
+
+
+def _retinanet_to_flax(body):
+    """The FPN's own and the RetinaNet head's module path (torch tokens) →
+    its flax module tokens, or None for any other path."""
+    if len(body) == 2 and body[0] == "backbone" and re.fullmatch(r"fpn_(lateral|output)\d", body[1]):
+        return body
+    if len(body) == 3 and body[:2] == ["backbone", "top_block"] and body[2] in ("p6", "p7"):
+        return ["backbone", f"top_block_{body[2]}"]
+    if len(body) == 3 and body[0] == "head" and body[1] in _RETINA_TOWERS and body[2].isdigit() \
+            and int(body[2]) % 2 == 0:
+        return ["head", f"{_RETINA_TOWERS[body[1]]}{int(body[2]) // 2}"]
+    if len(body) == 2 and body[0] == "head" and body[1] in ("cls_score", "bbox_pred"):
+        return body
+    return None
+
+
 def canonical_key(key: str, norm: str = "bn") -> Optional[str]:
     """Torch key of any CenterNet backbone and its heads → flax variables
     path, or None when the key has no flax counterpart. ``norm`` is the
@@ -192,22 +217,29 @@ def canonical_key(key: str, norm: str = "bn") -> Optional[str]:
     parts = key.split(".")
     if parts and parts[0] == "module":
         parts = parts[1:]
+    if parts == ["loss_normalizer"]:
+        return "batch_stats/loss_normalizer"
     if len(parts) < 2:
         return canonical_dla_key(key)
     body, leaf = parts[:-1], parts[-1]
     if leaf == "num_batches_tracked":
         return None
+    retina = _retinanet_to_flax(body)
+    if retina is not None:
+        return _finish(retina, leaf, False)
     if body[0] == "deconv_layers" and len(body) == 2 and body[1].isdigit():
         stage, role = divmod(int(body[1]), 3)
         if role == 0:
             return _finish(["backbone", f"deconv{stage}"], leaf, False)
         return _finish(["backbone", f"deconv{stage}_bn"], leaf, True) if role == 1 else None
-    if body[0] == "backbone" and len(body) > 1 and re.fullmatch(r"stem|res\d|stage\d", body[1]):
-        mapped = _trunk_to_flax(body[1:], norm)
+    owner = "bottom_up" if body[:2] == ["backbone", "bottom_up"] else "trunk"  # the FPN's ResNet, or the trunk
+    trunk = body[2:] if owner == "bottom_up" else body[1:]
+    if body[0] == "backbone" and trunk and re.fullmatch(r"stem|res\d|stage\d", trunk[0]):
+        mapped = _trunk_to_flax(trunk, norm)
         if mapped is None:
             return None
         tokens, is_norm = mapped
-        return _finish(["backbone", "trunk"] + tokens, leaf, is_norm)
+        return _finish(["backbone", owner] + tokens, leaf, is_norm)
     return canonical_dla_key(key)
 
 
@@ -217,8 +249,17 @@ def torch_key(path: str, towers: bool = True) -> str:
     (``hm``)."""
     parts = path.split("/")[1:]  # drop the collection
     body, leaf = parts[:-1], parts[-1]
-    if body[:2] == ["backbone", "trunk"]:
-        return f"backbone.{_trunk_to_torch(body[2:])}.{_FLAX_LEAF[leaf]}"
+    if parts == ["loss_normalizer"]:
+        return "loss_normalizer"
+    if body[:2] in (["backbone", "trunk"], ["backbone", "bottom_up"]):
+        prefix = "backbone.bottom_up." if body[1] == "bottom_up" else "backbone."
+        return f"{prefix}{_trunk_to_torch(body[2:])}.{_FLAX_LEAF[leaf]}"
+    if len(body) == 2 and body[0] == "backbone" and re.fullmatch(r"top_block_p[67]", body[1]):
+        return f"backbone.top_block.{body[1][-2:]}.{_FLAX_LEAF[leaf]}"
+    m = re.fullmatch(r"(cls|box)_tower(\d+)", body[1]) if len(body) == 2 and body[0] == "head" else None
+    if m:
+        tower = "cls_subnet" if m.group(1) == "cls" else "bbox_subnet"
+        return f"head.{tower}.{2 * int(m.group(2))}.{_FLAX_LEAF[leaf]}"
     if len(body) == 2 and body[0] == "backbone" and re.fullmatch(r"deconv\d+(_bn)?", body[1]):
         stage = int(body[1][6:].removesuffix("_bn"))
         return f"deconv_layers.{3 * stage + body[1].endswith('_bn')}.{_FLAX_LEAF[leaf]}"
@@ -271,7 +312,7 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     back to its leaf through ``canonical_key``."""
     flat = _flatten(variables)
     towers = any("_tower/" in p for p in flat)
-    norm = "gn" if any("/trunk/" in p and "/gn/" in p for p in flat) else "bn"
+    norm = "gn" if any(("/trunk/" in p or "/bottom_up/" in p) and "/gn/" in p for p in flat) else "bn"
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
         key = torch_key(path, towers)
@@ -287,7 +328,7 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))  # (4, 4, Cin, Cout) → (Cin, Cout, 4, 4)
             else:
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)  # 0-d stays 0-d
         if key.endswith(".running_var"):  # a FrozenBatchNorm drops it when it loads
             out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return out

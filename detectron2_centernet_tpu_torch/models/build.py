@@ -3,6 +3,7 @@
 import torch
 
 from ..config import CfgNode
+from ..ops.photometric import device_color_aug_ssd, device_color_jitter
 from .registry import META_ARCH_REGISTRY
 
 
@@ -21,5 +22,16 @@ def resolve_device(name: str) -> torch.device:
 def build_model(cfg: CfgNode):
     """Instantiate the meta-architecture named by ``MODEL.META_ARCHITECTURE``
     on ``cfg.MODEL.DEVICE``, with weights drawn from ``cfg.SEED`` (0 when
-    negative)."""
-    return META_ARCH_REGISTRY.get(cfg.MODEL.META_ARCHITECTURE)(cfg)
+    negative), and attach the batch-level train augmentation of the step, as
+    the JAX package's ``build_model`` does for every meta-architecture: when
+    the model has none and ``DATALOADER.DEVICE_PHOTOMETRIC`` is on,
+    ``INPUT.COLOR_AUG_SSD`` selects the SSD distortion, else
+    ``INPUT.COLOR_JITTER`` the color jitter (the port has no host
+    photometric pass: with the flag off there is none)."""
+    model = META_ARCH_REGISTRY.get(cfg.MODEL.META_ARCHITECTURE)(cfg)
+    if getattr(model, "device_augment", None) is None and cfg.DATALOADER.DEVICE_PHOTOMETRIC:
+        if cfg.INPUT.COLOR_AUG_SSD:
+            model.device_augment = device_color_aug_ssd
+        elif cfg.INPUT.COLOR_JITTER:
+            model.device_augment = device_color_jitter
+    return model

@@ -1,3 +1,4 @@
 from .centernet import CenterNet, CenterNetModel
+from .retinanet import RetinaNet, RetinaNetModel
 
-__all__ = ["CenterNet", "CenterNetModel"]
+__all__ = ["CenterNet", "CenterNetModel", "RetinaNet", "RetinaNetModel"]

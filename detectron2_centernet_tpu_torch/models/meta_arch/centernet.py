@@ -23,7 +23,6 @@ from ...config import CfgNode
 from ...data.catalog import DatasetCatalog, MetadataCatalog
 from ...data.detection_utils import unwarp_boxes
 from ...ops.decode import ctdet_decode
-from ...ops.photometric import device_color_jitter
 from ...ops.target_gen import gen_centernet_targets
 from ...structures import Boxes, Instances
 from ..build import resolve_device
@@ -197,13 +196,7 @@ class CenterNet:
         self.wh_weight = float(c.WH_WEIGHT)
         self.off_weight = float(c.OFF_WEIGHT)
         self.alpha = torch.from_numpy(_resolve_alpha(c.FOCAL_LOSS_ALPHA, self.num_classes)).to(self.device)
-        # the batch-level train augmentation of the step (JAX models/build.py):
-        # INPUT.COLOR_JITTER on the device unless DATALOADER.DEVICE_PHOTOMETRIC
-        # is off (the port has no host jitter: then there is none)
-        self.device_augment = (
-            device_color_jitter
-            if cfg.DATALOADER.DEVICE_PHOTOMETRIC and cfg.INPUT.COLOR_JITTER else None
-        )
+        self.device_augment = None  # the step's batch augmentation; models/build.py attaches it
         # TEST.EXACT_MODE pins f32 decode scores; TPU.APPROX_TOPK has no
         # counterpart (top-k is always exact here)
         self.exact_mode = bool(cfg.TEST.EXACT_MODE)

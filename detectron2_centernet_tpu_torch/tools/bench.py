@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Benchmark of one ctdet configuration on one card; prints one JSON line last,
-in the shape of the JAX package's ``bench.py``:
+"""Benchmark of one detector configuration on one card; prints one JSON line
+last, in the shape of the JAX package's ``bench.py``:
 
-  {"metric": "ctdet_<backbone>_<size>_infer_throughput", "value": img/s,
-   "unit": "img/s/chip", "vs_baseline": value / 104, "extra": {...}}
+  {"metric": "<arch>_<backbone>_<size>_infer_throughput", "value": img/s,
+   "unit": "img/s/chip", "vs_baseline": value / baseline, "extra": {...}}
 
-``value`` is ``CenterNet.predict_fn``'s throughput at ``TEST.BATCH_SIZE``
-(CUDA events over ``ITERS`` calls after 2) on seeded random images at
-``INPUT.TEST_SIZE``. 104 img/s is ``bench.py``'s baseline (an A100's ctdet
-DLA-34 rate at 512², twice the paper's Titan Xp). ``extra`` holds:
+``<arch>`` is ``ctdet`` for CenterNet and ``retinanet`` for RetinaNet
+(``<backbone>`` then ends in ``_fpn``: ``retinanet_res50_fpn_800``).
+``value`` is the meta-architecture's ``predict_fn`` throughput at
+``TEST.BATCH_SIZE`` (CUDA events over ``ITERS`` calls after 2) on seeded
+random images at ``INPUT.TEST_SIZE``. The baselines are ``bench.py``'s: 104
+img/s for ctdet (an A100's ctdet DLA-34 rate at 512², twice the paper's
+Titan Xp), and for RetinaNet the reference MODEL_ZOO's R50-FPN inference
+time that ``bench.py`` names beside its family numbers, 0.056 s/im on a
+V100 (1 / 0.056 ≈ 17.9 img/s). ``extra`` holds:
   * ``predictor_latency_ms``: ``DefaultPredictor`` on one 480x640 image,
     median of ``REQUESTS`` requests after ``REQUEST_WARMUP`` (host clock;
     the call returns host arrays);
@@ -53,6 +58,8 @@ from ..data.datasets import ensure_synthetic_datasets
 from ..engine import DefaultPredictor, DefaultTrainer, HookBase
 
 BASELINE_IMG_S = 104.0  # bench.py's baseline: an A100's ctdet DLA-34 512² img/s
+# bench.py's per-family anchor for RetinaNet R50-FPN: the reference MODEL_ZOO's 0.056 s/im (V100)
+RETINANET_BASELINE_IMG_S = 1.0 / 0.056
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                               "configs", "COCO-Detection", "ctdet_dla_34_1x.yaml")
 ITERS = 10  # timed predict_fn calls, after 2
@@ -73,6 +80,20 @@ def backbone_tag(cfg) -> str:
         extra = [t for t in body.split("-")[2:] if t != "eSE"]
         return "_".join(["vovnet" + re.sub(r"\D", "", body)] + extra)
     return re.sub(r"^build_|_backbone$", "", name)
+
+
+def metric_name(cfg) -> str:
+    """``ctdet_<backbone>_<size>_infer_throughput`` for CenterNet,
+    ``retinanet_<backbone>_fpn_<size>_infer_throughput`` for RetinaNet."""
+    size = cfg.INPUT.TEST_SIZE[0]
+    if cfg.MODEL.META_ARCHITECTURE == "RetinaNet":
+        fpn = "_fpn" if "fpn" in cfg.MODEL.BACKBONE.NAME else ""
+        return f"retinanet_{backbone_tag(cfg)}{fpn}_{size}_infer_throughput"
+    return f"ctdet_{backbone_tag(cfg)}_{size}_infer_throughput"
+
+
+def baseline_img_s(cfg) -> float:
+    return RETINANET_BASELINE_IMG_S if cfg.MODEL.META_ARCHITECTURE == "RetinaNet" else BASELINE_IMG_S
 
 
 def card() -> str:
@@ -223,9 +244,8 @@ def main(argv=None) -> dict:
     extra.update(bench_training(cfg)[0])
     extra["card"] = card() if torch.device(cfg.MODEL.DEVICE).type == "cuda" else None
     value = inference["img_s"]
-    result = {"metric": f"ctdet_{backbone_tag(cfg)}_{cfg.INPUT.TEST_SIZE[0]}_infer_throughput",
-              "value": round(value, 2), "unit": "img/s/chip",
-              "vs_baseline": round(value / BASELINE_IMG_S, 3), "extra": extra}
+    result = {"metric": metric_name(cfg), "value": round(value, 2), "unit": "img/s/chip",
+              "vs_baseline": round(value / baseline_img_s(cfg), 3), "extra": extra}
     print(json.dumps(result), flush=True)
     return result
 

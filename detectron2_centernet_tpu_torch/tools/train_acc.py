@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Training-accuracy run of a ctdet config on the card: a
+"""Training-accuracy run of a detector config on the card: a
 ``configs/quick_schedules/*training_acc_test.yaml`` read as it is
 (``merge_from_file``) with only ``SEED``, ``MODEL.DEVICE``, ``OUTPUT_DIR``
 and, as a diagnostic, ``TPU.DTYPE`` set over it, trained through
 ``DefaultTrainer`` on the learnable synthetic scenes, then the COCO
 evaluation and ``verify_results`` against the YAML's ``EXPECTED_RESULTS``.
 
-Two configs are meant:
+Three configs are meant:
   * ``ctdet_dla_synth_training_acc_test.yaml`` (the default): DLA-34, Adam
     at LR 1e-3, 1500 iterations, batch 8, 128², bf16, PreciseBN over 20
     batches; band bbox AP 93.2 ± 6, measured once on a TPU through the JAX
     package's drop-far Pallas DCN, whose offsets never trained (ROADMAP C1,
     C11);
   * ``ctdet_synth_training_acc_test.yaml``: ResNet-18-deconv (no DCN),
-    FREEZE_AT 0, BN, f32, EXACT_MODE, the same schedule; band 91.9 ± 6.
+    FREEZE_AT 0, BN, f32, EXACT_MODE, the same schedule; band 91.9 ± 6;
+  * ``retinanet_synth_training_acc_test.yaml``: RetinaNet R18-FPN (no DCN),
+    BN, f32, SGD at LR 0.01 for 300 steps, batch 8, 128², no PreciseBN;
+    band 61.2 ± 8, a JAX measurement.
 The run reports; it tunes nothing to reach a band.
 
 Each seed trains in a subprocess of its own. For each, the bbox AP, the
 exit code (``verify_results`` exits 1 on a miss) and the wall time are
-printed (and, as a diagnostic, the AP with the training EMA's running
-statistics in place of PreciseBN's), and the whole summary goes to
+printed (and, as a diagnostic when the config runs PreciseBN, the AP with
+the training EMA's running statistics in place of PreciseBN's), and the
+whole summary goes to
 ``OUTPUT/summary.json``; the last line of the output is the summary as
 JSON. The script exits non-zero only when a seed's run did not reach its
 evaluation.
@@ -73,9 +77,9 @@ def run_one(config_file: str, seed: int, device: str, output_dir: str, dtype: Op
             freeze_offsets: bool) -> int:
     """Train and evaluate one seed in this process; write ``result.json``
     (the results, whether they passed) before ``verify_results`` exits.
-    Beside the verified AP (PreciseBN's statistics) it records, as a
+    When the config runs PreciseBN, it records beside the verified AP, as a
     diagnostic, the AP of the same weights with the running statistics that
-    PreciseBN replaced (the EMA of training)."""
+    PreciseBN replaced (the EMA of training); else that entry is null."""
     from ..data.datasets import ensure_synthetic_datasets
     from ..engine import DefaultTrainer, hooks
     from ..models.layers import DCNv2
@@ -96,25 +100,28 @@ def run_one(config_file: str, seed: int, device: str, output_dir: str, dtype: Op
                     p.register_hook(lambda g, keep=keep: g * keep)
     running = lambda: {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
     ema = {}
-    precise = next(h for h in trainer._hooks if isinstance(h, hooks.PreciseBN))
-    update = precise.update_stats
+    precise = next((h for h in trainer._hooks if isinstance(h, hooks.PreciseBN)), None)
+    if precise is not None:
+        update = precise.update_stats
 
-    def keep_ema_then_update():
-        ema.clear()
-        ema.update(running())
-        update()
+        def keep_ema_then_update():
+            ema.clear()
+            ema.update(running())
+            update()
 
-    precise.update_stats = keep_ema_then_update
+        precise.update_stats = keep_ema_then_update
     code = 0
     try:
         trainer.train()
     except SystemExit as e:  # verify_results' miss: recorded, then passed on
         code = int(e.code or 0)
     results = getattr(trainer, "_last_eval_results", None)
-    net.load_state_dict(ema, strict=False)
-    ema_cfg = cfg.clone()
-    ema_cfg.OUTPUT_DIR = os.path.join(output_dir, "ema_statistics")
-    results_ema = DefaultTrainer.test(ema_cfg, trainer.model)
+    results_ema = None
+    if precise is not None:
+        net.load_state_dict(ema, strict=False)
+        ema_cfg = cfg.clone()
+        ema_cfg.OUTPUT_DIR = os.path.join(output_dir, "ema_statistics")
+        results_ema = DefaultTrainer.test(ema_cfg, trainer.model)
     with open(os.path.join(output_dir, "result.json"), "w") as f:
         json.dump({"seed": seed, "results": results, "verify_exit_code": code,
                    "results_with_ema_statistics": results_ema}, f)

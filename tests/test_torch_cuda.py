@@ -2,9 +2,10 @@
 and the four backward kernels) against their plain PyTorch versions, the
 small DLA-34 CenterNet on the card against itself on the CPU, at inference
 and for one training step, the f32 heads at PyTorch's default TF32 flags,
-a short evaluation through ``DefaultTrainer.test``, and one f32 training
+a short evaluation through ``DefaultTrainer.test``, one f32 training
 step of small ResNet- and VoVNet-deconv CenterNets (card against CPU, and
-at the default TF32 flags against TF32 off).
+at the default TF32 flags against TF32 off), and a small RetinaNet's heads,
+loss and detections and the port's NMS, card against CPU.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -482,3 +483,73 @@ def test_small_trunk_train_step_on_card_matches_cpu(card, trunk):
         assert (tf32 - got).abs().max().item() <= 2 * spread + 1e-5 * got.abs().max().item(), k
         if trunk not in _F32_GRADIENTS_MEANINGLESS:
             assert (got - g).abs().max().item() <= 1e-2 * g.abs().max().item() + floor, k
+
+
+_SMALL_RETINANET = ["MODEL.META_ARCHITECTURE", "RetinaNet", "MODEL.BACKBONE.NAME", "build_retinanet_resnet_fpn_backbone",
+                    "MODEL.RESNETS.DEPTH", 18, "MODEL.RESNETS.RES2_OUT_CHANNELS", 16,
+                    "MODEL.RESNETS.STEM_OUT_CHANNELS", 8, "MODEL.RESNETS.OUT_FEATURES", ["res3", "res4", "res5"],
+                    "MODEL.FPN.IN_FEATURES", ["res3", "res4", "res5"], "MODEL.FPN.OUT_CHANNELS", 32,
+                    "MODEL.RETINANET.NUM_CLASSES", 5, "MODEL.RETINANET.NUM_CONVS", 2, "TPU.DTYPE", "float32",
+                    "INPUT.TEST_SIZE", (96, 96), "DATASETS.TRAIN", (),
+                    "MODEL.PIXEL_MEAN", [103.53, 116.28, 123.675], "MODEL.PIXEL_STD", [57.375, 57.12, 58.395]]
+
+
+def test_small_retinanet_heads_and_loss_on_card_match_cpu(card):
+    """A small RetinaNet (ResNet-18-FPN, 32 channels, 5 classes) in f32 on
+    96² images, the same weights on the card and on the CPU: every level's
+    ``cls_score`` and ``bbox_pred`` within 1e-4 of their scale (the model's
+    ``ieee_f32``: no TF32), the training loss terms within 1e-4 relative,
+    and ``predict_fn``'s detections (slots, classes, scores within 1e-4)."""
+    cfg = get_cfg()
+    cfg.merge_from_list(_SMALL_RETINANET + ["MODEL.DEVICE", "cpu"])
+    host = build_model(cfg)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    with torch.no_grad():  # a cls_score bias that lets scores clear the threshold
+        host.model.head.cls_score.bias.fill_(-2.0)
+    dev.model.load_state_dict(host.model.state_dict())
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(2, 3, 96, 96, generator=g) * 255
+    with torch.no_grad():
+        zh = host.model(host.normalize(x))
+        zc = dev.model(dev.normalize(x.to(card)))
+    for maps_h, maps_c in zip(zh, zc):
+        for h, c in zip(maps_h, maps_c):
+            assert c.dtype == torch.float32
+            assert (c.cpu() - h).abs().max().item() <= 1e-4 * max(h.abs().max().item(), 1e-6)
+    batch = {"image": x, "gt_boxes": torch.tensor([[[8.0, 10.0, 60.0, 70.0], [40.0, 30.0, 90.0, 80.0]]] * 2),
+             "gt_classes": torch.tensor([[1, 4]] * 2), "gt_valid": torch.tensor([[True, True], [True, False]])}
+    for m in (host, dev):
+        m.model.train()
+    _, lh = host.loss_fn(batch)
+    _, lc = dev.loss_fn({k: v.to(card) for k, v in batch.items()})
+    for k in lh:
+        assert abs(lc[k].item() - lh[k].item()) <= 1e-4 * abs(lh[k].item()), k
+    for m in (host, dev):
+        m.model.eval()
+    dh = host.predict_fn(x)
+    dc = {k: v.cpu() for k, v in dev.predict_fn(x.to(card)).items()}
+    assert (dh["scores"] > host.score_threshold).sum() > 20
+    assert torch.equal(dc["classes"], dh["classes"])
+    assert (dc["scores"] - dh["scores"]).abs().max().item() <= 1e-4
+    assert (dc["boxes"] - dh["boxes"]).abs().max().item() <= 1e-2
+
+
+def test_nms_on_card_keeps_the_cpus_indices(card):
+    """The port's fixed-K NMS (``ops/nms.py``) on the card and on the CPU,
+    on the same candidates: 16 images × 4441 boxes (RetinaNet's count at
+    800²), 80 classes, a third of the scores dead; equal kept indices and
+    validity."""
+    from detectron2_centernet_tpu_torch.ops.nms import batched_nms_fixed
+
+    g = torch.Generator().manual_seed(0)
+    n, c = 16, 4441
+    xy = torch.rand(n, c, 2, generator=g) * 700
+    boxes = torch.cat([xy, xy + 8 + torch.rand(n, c, 2, generator=g) * 200], -1)
+    scores = torch.rand(n, c, generator=g)
+    scores[torch.rand(n, c, generator=g) < 0.33] = float("-inf")
+    classes = torch.randint(0, 80, (n, c), generator=g)
+    keep_h, valid_h = batched_nms_fixed(boxes, scores, classes, 0.5, 100)
+    keep_c, valid_c = batched_nms_fixed(boxes.to(card), scores.to(card), classes.to(card), 0.5, 100)
+    assert torch.equal(valid_c.cpu(), valid_h) and torch.equal(keep_c.cpu(), keep_h)
+    assert valid_h.all()

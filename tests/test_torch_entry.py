@@ -328,6 +328,49 @@ def test_bench_prints_one_json_line_in_bench_py_shape(capsys, monkeypatch):
     assert extra["train_step_ms"] == clock.times[1]
 
 
+@pytest.mark.parametrize("config, metric, baseline", [
+    ("ctdet_dla_34_1x.yaml", "ctdet_dla34_512_infer_throughput", 104.0),
+    ("ctdet_res_50_1x.yaml", "ctdet_res50_512_infer_throughput", 104.0),
+    ("retinanet_R_50_FPN_1x.yaml", "retinanet_res50_fpn_800_infer_throughput", 1 / 0.056),
+    ("retinanet_R_101_FPN_3x.yaml", "retinanet_res101_fpn_800_infer_throughput", 1 / 0.056),
+])
+def test_bench_metric_and_baseline_follow_the_meta_architecture(config, metric, baseline):
+    """ctdet keeps its names and ``bench.py``'s 104 img/s; a RetinaNet is
+    named ``retinanet_<backbone>_fpn_<size>`` and held against the
+    reference MODEL_ZOO's 0.056 s/im that ``bench.py`` gives RetinaNet
+    R50-FPN."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "COCO-Detection", config))
+    assert bench.metric_name(cfg) == metric
+    assert bench.baseline_img_s(cfg) == pytest.approx(baseline)
+
+
+def test_bench_prints_a_retinanet_line(capsys, monkeypatch):
+    """``retinanet_R_50_FPN_1x.yaml`` through the bench on the CPU, cut in
+    width (ResNet-18, FPN 32) and size (64²), with fewer calls, requests and
+    steps: the line names RetinaNet, ``vs_baseline`` is value × 0.056, and
+    the training's losses are the RetinaNet's."""
+    for name, value in (("ITERS", 1), ("REQUESTS", 2), ("REQUEST_WARMUP", 1), ("TRAIN_WARMUP", 1),
+                        ("TRAIN_STEPS", 1)):
+        monkeypatch.setattr(bench, name, value)
+    trained = []
+    bench_training = bench.bench_training
+    monkeypatch.setattr(bench, "bench_training", lambda cfg: trained.append(bench_training(cfg)) or trained[-1])
+    bench.main(["--config-file", os.path.join(REPO, "configs", "COCO-Detection", "retinanet_R_50_FPN_1x.yaml"),
+                "MODEL.DEVICE", "cpu", "MODEL.RESNETS.DEPTH", "18", "MODEL.RESNETS.RES2_OUT_CHANNELS", "16",
+                "MODEL.RESNETS.STEM_OUT_CHANNELS", "8", "MODEL.FPN.OUT_CHANNELS", "32", "MODEL.RETINANET.NUM_CONVS", "1",
+                "INPUT.TEST_SIZE", "(64, 64)", "INPUT.TRAIN_SIZE", "(64, 64)", "TEST.BATCH_SIZE", "2",
+                "SOLVER.IMS_PER_BATCH", "2", "DATALOADER.NUM_WORKERS", "1", "TPU.DTYPE", "float32",
+                "DATASETS.TRAIN", "('test_torch_entry_bench',)"])
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["metric"] == "retinanet_res18_fpn_64_infer_throughput" and result["value"] > 0
+    assert result["vs_baseline"] == round(result["value"] * 0.056, 3)
+    assert result["extra"]["batch"] == 2 and result["extra"]["train_batch"] == 2
+    _, trainer, _ = trained[0]
+    assert type(trainer.model).__name__ == "RetinaNet"
+    assert all(math.isfinite(v) for v, _ in trainer.storage.history("loss_cls").values())
+
+
 def test_chip_smoke_reads_its_configs_as_the_jax_package_does():
     """``chip_smoke.py`` reads its configs from their YAML files (no copy in
     code) with the run's dtype, output directory and seed over them: key
