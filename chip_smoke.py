@@ -4,13 +4,15 @@ one NVIDIA card: ctdet DLA-34 at full width, inference through the port's
 ``DefaultPredictor`` and training through its ``DefaultTrainer``, with every
 DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward); then
 the ResNet-18/50-deconv and VoVNet-39 configs, ``tools/train_net`` and
-``tools/bench``, and RetinaNet R50-FPN. Every config is read from its YAML
-file (``configs/COCO-Detection/``) by the port's own reader.
+``tools/bench``, RetinaNet R50-FPN, and Faster R-CNN R50-FPN with the
+ProposalNetwork, every NMS of the last two on the hand-written NMS kernel
+(``ops/csrc/nms.cu``). Every config is read from its YAML file
+(``configs/COCO-Detection/``) by the port's own reader.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build both kernel libraries (``ops/csrc/dcn_fwd.cu``, ``dcn_bwd.cu``),
-     one nvcc each, at once, and the COCO matcher (``ops/csrc/cocoeval.cpp``,
+  2. build the three kernel libraries (``ops/csrc/dcn_fwd.cu``,
+     ``dcn_bwd.cu``, ``nms.cu``), one nvcc each, at once, and the COCO matcher (``ops/csrc/cocoeval.cpp``,
      g++) beside them, and print each kernel's registers and spills,
      and the shared memory and resident warps per SM of K1 (at each Cout
      tile) and of the backward kernels;
@@ -75,8 +77,33 @@ Phases (any failure raises and the script exits non-zero):
      640², busy share, peak memory, every loss finite; (d)
      ``tools/train_net`` 4 steps, then ``--eval-only --resume``: resumed at
      4, the same finite COCO dict; (e) the batch-1 ``predict_fn`` profile,
-     the NMS loop's share of its time and launches, and the device time at
-     batch 16;
+     the NMS's share of its time and launches, through the kernel and
+     through the plain loop, and the device time at batch 16 (every phase-9
+     path launches the NMS kernel once per call, counted);
+  10. Faster R-CNN, ``faster_rcnn_R_50_FPN_1x.yaml`` at full width (ResNet-50
+     FrozenBN, FPN 256 with the max-pool P6, RPN on p2-p6 with 3 anchors per
+     cell, 1000/1000 proposals at test and 2000/1000 at training, 512 rois,
+     80 classes), bf16, no DCN kernel anywhere: (a) ``DefaultPredictor``
+     requests (median of 20, 480x640 → 800²) and ``predict_fn`` at batch 16
+     with seeded weights that detect (``rcnn_weights``), the batch-1
+     call's profile with the NMS kernel's share, and the same call through
+     the plain NMS loop; (b) f32 at batch 2, card against CPU, each stage
+     fed the card's inputs on both sides: the RPN heads, the proposals, the
+     box predictor (rois that the two devices' log2 puts on different FPN
+     levels are counted and left out), the detections; (c) the NMS kernel
+     against its plain loop on the card, indices and validity equal, on
+     the inputs the main paths gave it: RetinaNet's batch 16, the RPN's
+     level rows at test and at training, the box head's batch 16 served
+     (rows compacted into shared memory) and in (e)'s evaluation (rows
+     swept in place), each timed beside its bound; (d) ``tools/bench`` on the config at
+     ``TEST.BATCH_SIZE`` 16: request latency, img/s against 1/0.038 s, the
+     train step at 16 × 800², busy share, peak memory, every loss finite;
+     (e) ``tools/train_net`` 4 steps from the model's init with calibrated
+     FrozenBN statistics, then ``--eval-only --resume``: resumed at 4, the
+     same finite COCO dict;
+     (f) ``rpn_R_50_FPN_1x.yaml``'s ProposalNetwork: one forward and one
+     loss with its backward. Each path's NMS kernel launches are counted
+     from 0 and checked;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -104,6 +131,7 @@ import sys
 import tempfile
 import time
 from contextlib import contextmanager, nullcontext, redirect_stdout
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -121,9 +149,13 @@ from detectron2_centernet_tpu_torch.models import build_model
 from detectron2_centernet_tpu_torch.models import layers
 from detectron2_centernet_tpu_torch.models.layers import DCNv2, DeformConvV2
 from detectron2_centernet_tpu_torch.models.meta_arch import centernet
-from detectron2_centernet_tpu_torch.ops import dcn, fast_cocoeval
+from detectron2_centernet_tpu_torch.ops import cuda_lib, dcn, fast_cocoeval
+from detectron2_centernet_tpu_torch.ops import nms as nms_ops
 from detectron2_centernet_tpu_torch.ops.nms import batched_nms_fixed
 from detectron2_centernet_tpu_torch.ops import deform_conv as plain
+from detectron2_centernet_tpu_torch.models.proposal_generator import rpn as rpn_ops
+from detectron2_centernet_tpu_torch.models.roi_heads import roi_heads as roi_heads_ops
+from detectron2_centernet_tpu_torch.ops import roi_align as roi_ops
 from detectron2_centernet_tpu_torch.tools import bench
 
 # DLA-34 at 512x512: the 16 DCN launches of one forward as (Cin, Cout, H=W, count)
@@ -1175,14 +1207,21 @@ def phase_retinanet(report, out_dir):
             and model.num_anchors_per_cell == 9 and model.dtype == torch.bfloat16 and size == (800, 800)):
         raise SystemExit(f"{RETINA} is not at full width here: {m}")
     requests = []
+    batch = letterboxed(rng, model.device, RETINA_BATCH, size)
+    nms_launches, nms_inputs = {}, []
+    nms_ops.greedy_nms.launches = 0
     for h, w in ((480, 640), (800, 800), (375, 500)):
         img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
         inst = predictor(img)["instances"]
         check_detections(RETINA, img, inst, model.score_threshold)
         requests.append(len(inst))
         print(f"  request {h}x{w}: {len(inst)} detections, top score {inst.scores.max():.4f}")
-    batch = letterboxed(rng, model.device, RETINA_BATCH, size)
-    dets = model.predict_fn(batch)
+    with capture_nms(nms_inputs):
+        dets = model.predict_fn(batch)
+    torch.cuda.synchronize()
+    nms_launches["serving"] = nms_ops.greedy_nms.launches
+    if nms_launches["serving"] != 4:
+        raise SystemExit(f"expected one NMS kernel launch per request and batch (4), got {nms_launches}")
     valid = (dets["scores"] > model.score_threshold).sum(1).cpu()
     if not (dets["boxes"].shape == (RETINA_BATCH, 100, 4) and dets["scores"].shape == (RETINA_BATCH, 100)
             and bool(torch.isfinite(dets["boxes"]).all()) and bool(torch.isfinite(dets["scores"]).all())):
@@ -1190,7 +1229,8 @@ def phase_retinanet(report, out_dir):
     if int(valid.min()) == 0:
         raise SystemExit(f"RetinaNet detected nothing in some images of the batch: {valid.tolist()}")
     print(f"  predict_fn batch {RETINA_BATCH}: boxes {tuple(dets['boxes'].shape)}, all finite; valid detections "
-          f"per image {int(valid.min())}-{int(valid.max())} of 100; {anchors} anchors per image")
+          f"per image {int(valid.min())}-{int(valid.max())} of 100; {anchors} anchors per image; NMS kernel "
+          f"launches {nms_launches['serving']} (one per call)")
     out = dict(requests=requests, valid_per_image=valid.tolist(), anchors=anchors)
 
     print("== 9b. f32 cls_score and bbox_pred of one image, card against CPU (the model's ieee_f32); "
@@ -1224,18 +1264,25 @@ def phase_retinanet(report, out_dir):
     keep_h, valid_h = batched_nms_fixed(*(t.cpu() for t in cands), model.nms_threshold, model.max_detections)
     same = torch.equal(keep_c.cpu(), keep_h) and torch.equal(valid_c.cpu(), valid_h)
     print(f"  NMS of {cands[1].shape[1]} candidates x 4 images ({int(torch.isfinite(cands[1]).sum())} live): "
-          f"card and CPU keep {'the same' if same else 'DIFFERENT'} indices ({int(valid_c.sum())} valid picks)")
+          f"the kernel on the card and the plain version on the CPU keep {'the same' if same else 'DIFFERENT'} "
+          f"indices ({int(valid_c.sum())} valid picks)")
     if not same:
-        raise SystemExit("the port's NMS keeps other indices on the card than on the CPU")
+        raise SystemExit("the NMS kernel keeps other indices on the card than the plain version on the CPU")
     out.update(heads_card_vs_cpu=heads, nms_card_vs_cpu_equal=same, nms_candidates=int(cands[1].shape[1]))
 
     print(f"== 9c. tools/bench --config-file {RETINA_YAML} TEST.BATCH_SIZE {RETINA_BATCH} (the model's own init)")
     captured, bench_training = [], bench.bench_training
     bench.bench_training = lambda c, w=None: captured.append(bench_training(c, w)) or captured[-1]
+    nms_ops.greedy_nms.launches = 0
     try:
         result = bench.main(["--config-file", RETINA_YAML, "TEST.BATCH_SIZE", str(RETINA_BATCH)])
     finally:
         bench.bench_training = bench_training
+    torch.cuda.synchronize()
+    nms_launches["bench"] = nms_ops.greedy_nms.launches
+    calls = 2 + bench.ITERS + bench.REQUEST_WARMUP + bench.REQUESTS
+    if nms_launches["bench"] != calls:
+        raise SystemExit(f"expected one NMS kernel launch per bench call ({calls}), got {nms_launches['bench']}")
     extra = result["extra"]
     _, trainer, clock = captured[0]
     losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in ("loss_cls", "loss_box_reg", "total_loss")}
@@ -1273,7 +1320,11 @@ def phase_retinanet(report, out_dir):
             "MODEL.RETINANET.SCORE_THRESH_TEST", "0.005", "OUTPUT_DIR", out_dir, "SEED", "0"]
     fresh_synthetic_val()
     log_path = "output/chip_smoke_retinanet_train_net_log.txt"
+    nms_ops.greedy_nms.launches = 0
     trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
+    nms_launches["train_net"] = nms_ops.greedy_nms.launches
+    if nms_launches["train_net"] != 2 * -(-EVAL_IMAGES // RETINA_BATCH):
+        raise SystemExit(f"expected one NMS kernel launch per evaluated batch, got {nms_launches['train_net']}")
     bbox = trained["bbox"]
     print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
           + ", ".join(f"{k} {bbox[k]:.4f}" for k in BBOX_KEYS if k in bbox))
@@ -1287,32 +1338,28 @@ def phase_retinanet(report, out_dir):
     print(f"  the two evaluation dicts are identical ({len(bbox)} bbox entries); log in {log_path}")
     out.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, bbox=bbox))
 
-    print("== 9e. predict_fn at batch 1 (800², bf16): its profile, and the NMS loop's share and launches; "
-          f"predict_fn's device time at batch {RETINA_BATCH}")
+    print("== 9e. predict_fn at batch 1 (800², bf16): its profile, and the NMS's share and launches, through the "
+          f"kernel and through the plain loop; predict_fn's device time at batch {RETINA_BATCH}")
     one = batch[:1].contiguous()
     fwd1_ms = cuda_ms(lambda: model.predict_fn(one), iters=10)
     with torch.inference_mode():
         x1 = model.normalize(one)
         cand1 = model.candidates(*model.model(x1), x1.shape[2:])
     nms = lambda: batched_nms_fixed(*cand1, model.nms_threshold, model.max_detections)
+    with plain_nms_route():
+        nms_plain_ms = cuda_ms(nms, iters=10)
+        plain_profile = profiled(nms)
     nms_ms = cuda_ms(nms, iters=10)
-    profiles = {}
-    for name, fn in (("predict_fn", lambda: model.predict_fn(one)), ("nms", nms),
-                     ("predict_fn_b16", lambda: model.predict_fn(batch))):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        profiles[name] = dict(launches=sum(e.count for e in kernels) / 3,
-                              device_ms=sum(e.self_device_time_total for e in kernels) / 3e3, events=events)
+    profiles = {name: profiled(fn) for name, fn in (("predict_fn", lambda: model.predict_fn(one)), ("nms", nms),
+                                                    ("predict_fn_b16", lambda: model.predict_fn(batch)))}
     p, q = profiles["predict_fn"], profiles["nms"]
     print(f"  predict_fn batch 1: {fwd1_ms:.3f} ms ({p['launches']:.0f} kernel launches, {p['device_ms']:.3f} ms "
-          f"on the card); the NMS loop alone ({model.max_detections} picks of {cand1[1].shape[1]} candidates): "
-          f"{nms_ms:.3f} ms = {nms_ms / fwd1_ms:.0%} of the call, {q['launches']:.0f} launches "
-          f"({q['launches'] / p['launches']:.0%} of them), {q['device_ms']:.3f} ms on the card "
-          f"({q['device_ms'] / p['device_ms']:.0%} of its device time)")
+          f"on the card); the NMS alone ({model.max_detections} picks of {cand1[1].shape[1]} candidates, class "
+          f"offsets and the kernel): {nms_ms:.3f} ms = {nms_ms / fwd1_ms:.0%} of the call, {q['launches']:.0f} "
+          f"launches ({q['launches'] / p['launches']:.0%} of them), {q['device_ms']:.3f} ms on the card "
+          f"({q['device_ms'] / p['device_ms']:.0%} of its device time); through the plain loop instead: "
+          f"{nms_plain_ms:.3f} ms, {plain_profile['launches']:.0f} launches, {plain_profile['device_ms']:.3f} ms "
+          f"on the card")
     print(p["events"].table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
     b16 = profiles["predict_fn_b16"]
     f32_conv_ms = sum(e.self_device_time_total for e in b16["events"] if e.device_type == DeviceType.CUDA
@@ -1324,16 +1371,447 @@ def phase_retinanet(report, out_dir):
     out.update(predict_fn_b1_ms=fwd1_ms, nms_b1_ms=nms_ms, nms_share=nms_ms / fwd1_ms,
                predict_fn_b1_launches=p["launches"], nms_launches=q["launches"],
                predict_fn_b1_device_ms=p["device_ms"], nms_device_ms=q["device_ms"],
+               nms_plain_b1_ms=nms_plain_ms, nms_plain_launches=plain_profile["launches"],
+               nms_plain_device_ms=plain_profile["device_ms"],
                predict_fn_b16_device_ms=b16["device_ms"], predict_fn_b16_f32_conv_ms=f32_conv_ms)
 
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"  DCN kernel launches on the RetinaNet path (9a-9e): {launches}")
+    print(f"  DCN kernel launches on the RetinaNet path (9a-9e): {launches}; NMS kernel launches on its paths "
+          f"{nms_launches}")
     if any(launches.values()):
         raise SystemExit(f"the RetinaNet path launched DCN kernels: {launches}")
-    out["launches"] = launches
+    out.update(launches=launches, nms_kernel_launches=nms_launches)
     report["retinanet"] = out
-    return launches
+    return launches, nms_launches, nms_inputs[0]
+
+
+@contextmanager
+def capture_nms(into):
+    """Record the arguments of every ``greedy_nms`` call (the RPN's and the
+    class-aware NMS's) into ``into``, the call going on to the kernel. The
+    wrapper counts its launches on the module's ``greedy_nms``, here the
+    recorder: they join the real count on the way out."""
+    real = nms_ops.greedy_nms
+
+    def recording(boxes, scores, iou_threshold, max_out=100):
+        counts = max_out if isinstance(max_out, int) else tuple(int(c) for c in max_out)
+        into.append((boxes.clone(), scores.clone(), float(iou_threshold), counts))
+        return real(boxes, scores, iou_threshold, max_out)
+
+    recording.launches = 0
+    nms_ops.greedy_nms = rpn_ops.greedy_nms = recording
+    try:
+        yield
+    finally:
+        nms_ops.greedy_nms = rpn_ops.greedy_nms = real
+        real.launches += recording.launches
+
+
+@contextmanager
+def plain_nms_route():
+    """Every NMS of the port through the plain loop (``nms_fixed``), on the card."""
+    real = nms_ops.greedy_nms
+    nms_ops.greedy_nms = rpn_ops.greedy_nms = nms_ops.nms_fixed
+    try:
+        yield
+    finally:
+        nms_ops.greedy_nms = rpn_ops.greedy_nms = real
+
+
+def profiled(fn, calls=3):
+    """``fn`` run ``calls`` times under the profiler: per call its kernel
+    launches and device ms, the NMS kernel's device ms, and the events."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return dict(launches=sum(e.count for e in kernels) / calls, events=events,
+                device_ms=sum(e.self_device_time_total for e in kernels) / calls / 1e3,
+                nms_kernel_ms=sum(e.self_device_time_total for e in kernels if "nms_kernel" in e.key) / calls / 1e3)
+
+
+def nms_work(boxes, scores, iou_threshold, counts):
+    """(live candidates summed over every valid pick, valid picks) of the
+    greedy NMS of these inputs: the plain loop replayed on the card."""
+    live = torch.isfinite(scores)
+    keep, valid = nms_ops.nms_fixed(boxes, scores, iou_threshold, counts)
+    total = 0
+    areas = nms_ops._areas(boxes)
+    rows = torch.arange(boxes.shape[0], device=boxes.device)
+    for p in range(keep.shape[1]):
+        ok = valid[:, p]
+        total += int((live.sum(1) * ok).sum())
+        j = keep[:, p]
+        box = boxes[rows, j][:, None]
+        lt = torch.maximum(box[..., :2], boxes[..., :2])
+        rb = torch.minimum(box[..., 2:], boxes[..., 2:])
+        wh = torch.clamp(rb - lt, min=0)
+        inter = wh[..., 0] * wh[..., 1]
+        iou = nms_ops._iou(inter, areas[rows, j][:, None] + areas - inter)
+        live &= ~((iou > iou_threshold) & ok[:, None])
+        live[rows[ok], j[ok]] = False
+    return total, int(valid.sum())
+
+
+def phase_nms_kernel(report, cases):
+    """The NMS kernel against its plain loop on the card, on the inputs the
+    main paths gave it: indices and validity exactly equal; both timed;
+    the bound of each shape."""
+    print("== 10c. the NMS kernel (ops/csrc/nms.cu) against the plain loop on the card, on the main paths' inputs")
+    out = {}
+    for name, (boxes, scores, thr, counts) in cases.items():
+        got = nms_ops.greedy_nms(boxes, scores, thr, counts)
+        want = nms_ops.nms_fixed(boxes, scores, thr, counts)
+        torch.cuda.synchronize()
+        equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        rows, cands = scores.shape
+        k = got[0].shape[1]
+        kernel_ms = cuda_ms(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts), iters=20)
+        plain_ms = cuda_ms(lambda: nms_ops.nms_fixed(boxes, scores, thr, counts), iters=2, warmup=1)
+        live, picks = nms_work(boxes, scores, thr, counts)
+        alive = torch.isfinite(scores)
+        n_live, row_live = int(alive.sum()), int(alive.sum(1).max())
+        # every score read once (a dead candidate's score is all that says it is dead),
+        # a live candidate's box once, the per-row counts, each output written once;
+        # ~20 f32 operations per (valid pick, live candidate): the IoU in its rounded
+        # steps and the argmax's compare
+        in_bytes = rows * cands * 4 + n_live * 16 + (0 if isinstance(counts, int) else rows * 4)
+        bytes_ms = (in_bytes + rows * k * 9) / PEAK_BYTES * 1e3
+        ops_ms = 20 * live / PEAK_F32 * 1e3
+        per_pick_ms = live * 20 / PEAK_BYTES * 1e3  # every pick reads each live candidate's score and box
+        bound, by = bound_of(ops_ms, bytes_ms)
+        max_out = counts if isinstance(counts, int) else sorted(set(counts), reverse=True)
+        shared = row_live <= cuda_lib.library("nms", nms_ops._SIGNATURES).nms_fixed_shared_cap()
+        row = dict(rows=rows, candidates=cands, max_out=max_out, live_candidates=n_live, most_live_in_a_row=row_live,
+                   path="shared memory" if shared else "in place", valid_picks=picks, live_per_pick_sum=live,
+                   equal=equal, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, bytes_ms=bytes_ms,
+                   ops_ms=ops_ms, per_pick_read_ms=per_pick_ms, shared_memory=shared)
+        out[name] = row
+        print(f"  {name}: {rows} rows x {cands} candidates ({n_live} live, at most {row_live} in a row: "
+              f"{row['path']}), picks {max_out}, {picks} valid picks: {'equal' if equal else 'DIFFERENT'}; kernel "
+              f"{kernel_ms:.3f} ms, plain loop {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}: bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}; reading every live candidate at every pick: {per_pick_ms:.4f} ms)")
+        if not equal:
+            raise SystemExit(f"the NMS kernel disagrees with its plain version on {name}")
+    if out["box_head_eval"]["shared_memory"]:
+        raise SystemExit("the evaluation's box-head NMS, the case of the kernel's in-place path, fit in shared memory")
+    report["nms_kernel"] = out
+    return out
+
+
+FASTER = "faster_rcnn_R_50_FPN_1x"
+PROPOSALS = "rpn_R_50_FPN_1x"
+RCNN_BATCH = 16  # predict_fn's batch (the YAML keeps TEST.BATCH_SIZE 1); SOLVER.IMS_PER_BATCH of Base-RCNN-FPN
+RCNN_STEPS = 4  # tools/train_net's steps in 10e
+
+
+def rcnn_cfg(name: str, dtype: str):
+    """``configs/COCO-Detection/<name>.yaml`` (over Base-RCNN-FPN.yaml) read
+    by the port's own YAML reader, with the run's compute width, output
+    directory and seed over it and no weights file (the YAML names ImageNet
+    weights, which are not in the repository)."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join("configs", "COCO-Detection", name + ".yaml"))
+    cfg.merge_from_list(["TPU.DTYPE", dtype, "OUTPUT_DIR", "output/chip_smoke", "SEED", 0, "MODEL.WEIGHTS", ""])
+    return cfg
+
+
+def rcnn_weights(cfg, images: torch.Tensor, seed: int) -> Tuple[dict, dict]:
+    """(``seeded_weights``: the model's own init with FrozenBN statistics
+    measured on ``images``, what a model initialised from ImageNet weights
+    starts from; the same with the box predictor scaled on the first
+    image's proposals so that ``cls_score``'s logits spread with std 2 and
+    ``bbox_pred``'s deltas with std 0.5, weights that detect to serve with).
+    The init's N(0, 0.01) predictor puts every class near 1/81, under
+    SCORE_THRESH_TEST 0.05: served, its NMS would get no candidate."""
+    init = seeded_weights(cfg, images, seed)
+    state = dict(init)
+    cfg = cfg.clone()
+    cfg.MODEL.DEVICE = "cpu"
+    host = build_model(cfg)
+    host.model.load_state_dict(state)
+    with torch.no_grad():
+        x = host.normalize(images[:1])
+        feats, logits, deltas = host.model(x)
+        boxes, _, _ = host.proposals(logits, deltas, x.shape[2:], "test")
+        head = host.model.roi_heads.box_head(host.pool(feats, boxes[0], boxes.shape[1]))
+        for name, std in (("cls_score", 2.0), ("bbox_pred", 0.5)):
+            key = f"roi_heads.box_predictor.{name}.weight"
+            state[key] = init[key] * (std / (head @ init[key].T).std().item())
+    return init, state
+
+
+def phase_faster_rcnn(report, out_dir):
+    """Phase 10: Faster R-CNN R50-FPN and the ProposalNetwork at full width
+    through the port's entry points; every NMS through the kernel, no DCN
+    kernel anywhere."""
+    cfg = rcnn_cfg(FASTER, "bfloat16")
+    m = cfg.MODEL
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    print(f"== 10a. Faster R-CNN ({FASTER}.yaml): {m.BACKBONE.NAME}, ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM} "
+          f"FREEZE_AT {m.BACKBONE.FREEZE_AT}, FPN {m.FPN.OUT_CHANNELS}, RPN on {list(m.RPN.IN_FEATURES)} "
+          f"({m.RPN.PRE_NMS_TOPK_TEST}/{m.RPN.POST_NMS_TOPK_TEST} proposals at test, {m.RPN.PRE_NMS_TOPK_TRAIN}/"
+          f"{m.RPN.POST_NMS_TOPK_TRAIN} at train), {m.ROI_HEADS.NUM_CLASSES} classes, "
+          f"{m.ROI_HEADS.BATCH_SIZE_PER_IMAGE} rois per image, bf16: DefaultPredictor at {size[0]}², "
+          f"predict_fn at batch {RCNN_BATCH}")
+    if "yaml" in sys.modules:
+        raise SystemExit("PyYAML was imported: the port must read configs with its own reader")
+    rng = np.random.RandomState(10)
+    reset_launches()
+    init, weights = rcnn_weights(rcnn_cfg(FASTER, "float32"), letterboxed(rng, "cpu", 2, size), seed=0)
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    model.model.load_state_dict(weights)
+    anchors = [a.shape[0] for a in model.anchors_per_level(size)]
+    if not (m.RESNETS.DEPTH == 50 and m.FPN.OUT_CHANNELS == 256 and m.ROI_HEADS.NUM_CLASSES == 80
+            and model.anchor_generator.num_anchors == [3] * 5 and model.dtype == torch.bfloat16
+            and size == (800, 800) and m.ROI_HEADS.BATCH_SIZE_PER_IMAGE == 512
+            and (m.RPN.POST_NMS_TOPK_TEST, m.RPN.PRE_NMS_TOPK_TRAIN) == (1000, 2000)):
+        raise SystemExit(f"{FASTER} is not at full width here: {m}")
+    batch = letterboxed(rng, model.device, RCNN_BATCH, size)
+    nms_launches, nms_inputs = {}, []
+    nms_ops.greedy_nms.launches = 0
+    requests = []
+    for h, w in ((480, 640), (800, 800), (375, 500)):
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        inst = predictor(im)["instances"]
+        check_detections(FASTER, im, inst, model.score_threshold)
+        requests.append(len(inst))
+        print(f"  request {h}x{w}: {len(inst)} detections, top score {inst.scores.max():.4f}")
+    latency = bench.request_ms(predictor, rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+    with capture_nms(nms_inputs):
+        dets = model.predict_fn(batch)
+        with torch.inference_mode():  # the training's proposals: 2000 per level, 1000 picks
+            x = model.normalize(batch)
+            model.proposals(*model.model(x)[1:], size, "train")
+    torch.cuda.synchronize()
+    nms_launches["serving"] = nms_ops.greedy_nms.launches
+    calls = 3 + bench.REQUEST_WARMUP + bench.REQUESTS + 1
+    if nms_launches["serving"] != 2 * calls + 1:
+        raise SystemExit(f"expected two NMS kernel launches per call (RPN, boxes) and one for the training's "
+                         f"proposals, {2 * calls + 1}, got {nms_launches['serving']}")
+    valid = (dets["scores"] > model.score_threshold).sum(1).cpu()
+    if not (dets["boxes"].shape == (RCNN_BATCH, 100, 4) and bool(torch.isfinite(dets["boxes"]).all())
+            and bool(torch.isfinite(dets["scores"]).all()) and int(valid.min()) > 0):
+        raise SystemExit(f"Faster R-CNN's predict_fn returned malformed or empty detections: {valid.tolist()}")
+    predict_ms = cuda_ms(lambda: model.predict_fn(batch), iters=5)
+    print(f"  request (480x640 → 800²) median {statistics.median(latency):.3f} ms of {bench.REQUESTS}; predict_fn "
+          f"batch {RCNN_BATCH}: {predict_ms:.3f} ms = {RCNN_BATCH * 1e3 / predict_ms:.2f} img/s; valid detections "
+          f"per image {int(valid.min())}-{int(valid.max())} of 100; anchors per level {anchors}; NMS kernel "
+          f"launches {nms_launches['serving']}")
+    out = dict(requests=requests, request_ms=latency, request_median_ms=statistics.median(latency),
+               predict_fn_b16_ms=predict_ms, valid_per_image=valid.tolist(), anchors=anchors)
+    rpn_test, box_head, rpn_train = nms_inputs[0], nms_inputs[1], nms_inputs[2]
+
+    one = batch[:1].contiguous()
+    fwd1_ms = cuda_ms(lambda: model.predict_fn(one), iters=10)
+    p = profiled(lambda: model.predict_fn(one))
+    with plain_nms_route():
+        plain1_ms = cuda_ms(lambda: model.predict_fn(one), iters=3, warmup=1)
+        q = profiled(lambda: model.predict_fn(one), calls=1)
+    b16 = profiled(lambda: model.predict_fn(batch))
+    print(f"  predict_fn batch 1: {fwd1_ms:.3f} ms, {p['launches']:.0f} kernel launches, {p['device_ms']:.3f} ms on "
+          f"the card, of it the NMS kernel {p['nms_kernel_ms']:.3f} ms ({p['nms_kernel_ms'] / p['device_ms']:.0%}); "
+          f"with the plain NMS loop instead: {plain1_ms:.3f} ms, {q['launches']:.0f} launches; predict_fn batch "
+          f"{RCNN_BATCH}: {b16['device_ms']:.3f} ms on the card, the NMS kernel {b16['nms_kernel_ms']:.3f} ms")
+    print(p["events"].table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
+    print(b16["events"].table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    out.update(predict_fn_b1_ms=fwd1_ms, predict_fn_b1_launches=p["launches"], predict_fn_b1_device_ms=p["device_ms"],
+               predict_fn_b1_nms_kernel_ms=p["nms_kernel_ms"], predict_fn_b1_plain_nms_ms=plain1_ms,
+               predict_fn_b1_plain_nms_launches=q["launches"], predict_fn_b16_device_ms=b16["device_ms"],
+               predict_fn_b16_nms_kernel_ms=b16["nms_kernel_ms"])
+    del predictor
+
+    print("== 10b. f32, batch 2, card against CPU: the RPN heads, the proposals, the box predictor, the detections "
+          "(each stage fed the card's inputs on both sides)")
+    cfg32 = rcnn_cfg(FASTER, "float32")
+    card = build_model(cfg32)
+    cfg32.MODEL.DEVICE = "cpu"
+    host = build_model(cfg32)
+    for mdl in (card, host):
+        mdl.model.load_state_dict(weights)
+    x = batch[:2]
+    checks = {}
+    with torch.inference_mode():
+        xc = card.normalize(x)
+        feats_c, lg_c, dl_c = card.model(xc)
+        feats_h, lg_h, dl_h = host.model(host.normalize(x.cpu()))
+        for name, maps_c, maps_h in (("objectness_logits", lg_c, lg_h), ("anchor_deltas", dl_c, dl_h)):
+            for level, (c, h) in enumerate(zip(maps_c, maps_h), 2):
+                err, scale = (c.cpu() - h).abs().max().item(), h.abs().max().item()
+                checks[f"{name}_p{level}"] = dict(max_abs_err=err, scale=scale, tol=HEAD_TOL * max(scale, 1.0))
+        props_c = card.proposals(lg_c, dl_c, size, "test")
+        props_h = host.proposals([t.cpu() for t in lg_c], [t.cpu() for t in dl_c], size, "test")
+        same_slots = torch.equal(props_c[2].cpu(), props_h[2]) and torch.equal(props_c[1].cpu(), props_h[1])
+        box_err = (props_c[0].cpu() - props_h[0]).abs().max().item()
+        p_boxes = props_c[0].reshape(-1, 4)
+        levels_c = roi_ops.assign_boxes_to_levels(p_boxes, 2, 5).cpu()
+        levels_h = roi_ops.assign_boxes_to_levels(p_boxes.cpu(), 2, 5)
+        same_level = levels_c == levels_h
+        sc_c, bd_c = card.model.box_predict(card.pool(feats_c, p_boxes, props_c[0].shape[1]))
+        sc_h, bd_h = host.model.box_predict(host.pool(feats_h, p_boxes.cpu(), props_c[0].shape[1]))
+        for name, c, h in (("cls_score", sc_c, sc_h), ("bbox_pred", bd_c, bd_h)):
+            err, scale = (c.cpu() - h)[same_level].abs().max().item(), h.abs().max().item()
+            checks[name] = dict(max_abs_err=err, scale=scale, tol=HEAD_TOL * max(scale, 1.0))
+        n, pp = props_c[0].shape[:2]
+        det_c = roi_ops_inference(card, props_c, sc_c, bd_c, n, pp, size)
+        det_h = roi_ops_inference(host, [t.cpu() for t in props_c], sc_c.cpu(), bd_c.cpu(), n, pp, size)
+    same_dets = torch.equal(det_c["classes"].cpu(), det_h["classes"]) and \
+        torch.equal(det_c["scores"].cpu() > 0, det_h["scores"] > 0)
+    det_box_err = (det_c["boxes"].cpu() - det_h["boxes"]).abs().max().item()
+    det_score_err = (det_c["scores"].cpu() - det_h["scores"]).abs().max().item()
+    for k, v in checks.items():
+        ok = v["max_abs_err"] <= v["tol"]
+        print(f"  {k}: max_abs_err={v['max_abs_err']:.3e} (scale {v['scale']:.3e}, tol {v['tol']:.1e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the card's f32 {k} differs from the CPU's")
+    print(f"  proposals (the card's heads through the CPU's plain path): slots {'equal' if same_slots else 'DIFFERENT'}"
+          f", boxes within {box_err:.2e} px (tol 1e-3); {int((~same_level).sum())} of {len(same_level)} proposals "
+          f"assigned another FPN level by the card's log2 than by the CPU's (excluded from the box predictor's "
+          f"check; tol 0.1%); detections: {'equal' if same_dets else 'DIFFERENT'} classes and validity, boxes "
+          f"within {det_box_err:.2e} px (tol 1e-3), scores within {det_score_err:.2e} (tol 1e-6)")
+    if not (same_slots and box_err <= 1e-3 and (~same_level).float().mean() <= 1e-3 and same_dets
+            and det_box_err <= 1e-3 and det_score_err <= 1e-6):
+        raise SystemExit("Faster R-CNN's proposals or detections differ between the card and the CPU")
+    out.update(card_vs_cpu=checks, proposal_box_err=box_err, level_flips=int((~same_level).sum()),
+               detection_box_err=det_box_err, detection_score_err=det_score_err)
+    del card, host, feats_c, feats_h
+
+    print(f"== 10d. tools/bench --config-file {FASTER}.yaml TEST.BATCH_SIZE {RCNN_BATCH} (the model's own init; "
+          f"train at {RCNN_BATCH} x 800²)")
+    captured, bench_training = [], bench.bench_training
+    bench.bench_training = lambda c, w=None: captured.append(bench_training(c, w)) or captured[-1]
+    nms_ops.greedy_nms.launches = 0
+    try:
+        result = bench.main(["--config-file", os.path.join("configs", "COCO-Detection", FASTER + ".yaml"),
+                             "TEST.BATCH_SIZE", str(RCNN_BATCH)])
+    finally:
+        bench.bench_training = bench_training
+    torch.cuda.synchronize()
+    nms_launches["bench"] = nms_ops.greedy_nms.launches
+    calls = 2 + bench.ITERS + bench.REQUEST_WARMUP + bench.REQUESTS
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    if nms_launches["bench"] != 2 * calls + steps:
+        raise SystemExit(f"expected 2 NMS launches per bench call and 1 per step ({2 * calls + steps}), "
+                         f"got {nms_launches['bench']}")
+    extra = result["extra"]
+    _, trainer, clock = captured[0]
+    names = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "total_loss")
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in names}
+    keys = ("predictor_latency_ms", "train_step_ms", "train_busy_share", "peak_memory_gib")
+    if not (result["metric"] == "faster_rcnn_res50_fpn_800_infer_throughput" and result["value"] > 0
+            and extra["batch"] == RCNN_BATCH and extra["train_batch"] == RCNN_BATCH
+            and all(extra.get(k) is not None for k in keys)):
+        raise SystemExit(f"the bench's Faster R-CNN line is not complete: {result}")
+    if any(len(v) != steps or not all(math.isfinite(x) for x in v) for v in losses.values()):
+        raise SystemExit(f"Faster R-CNN's bench losses are not finite at every step: {losses}")
+    print(f"  {result['metric']}: {result['value']} img/s (vs_baseline {result['vs_baseline']}, against 1/0.038 s); "
+          f"request median {extra['predictor_latency_ms']:.3f} ms; predict_fn batch {extra['batch']} "
+          f"{extra['predict_fn_ms']:.3f} ms; NMS kernel launches {nms_launches['bench']}")
+    total = " ".join(f"{v:.4f}" for v in losses["total_loss"])
+    print(f"  train at {extra['train_batch']} x 800²: total loss {total}; "
+          f"step times (ms) {' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} "
+          f"{extra['train_step_ms']:.1f} ms = {extra['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = "
+          f"{extra['train_busy_share']:.0%} of the median step; peak memory {extra['peak_memory_gib']:.2f} GiB")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
+    out.update(bench=result, bench_losses=losses, bench_step_ms_all=clock.times,
+               bench_profiled_device_ms=clock.device_ms)
+    del trainer, captured
+
+    # from the init with calibrated FrozenBN statistics (MODEL.WEIGHTS, a bare
+    # state dict; the stand-in for ImageNet weights), which the warm-up's small
+    # steps barely move: its box predictor scores every class near 1/81, over
+    # the threshold of 0.005, so the evaluation has detections to score and
+    # its box-head NMS ~80 000 live candidates per row, more than shared
+    # memory holds (with FrozenBN's identity statistics the activations grow
+    # through the trunk, the softmax peaks and no class reaches 0.005)
+    init_path = os.path.join(out_dir, "init_weights.pth")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(init, init_path)
+    print(f"== 10e. tools/train_net on {FASTER}.yaml: {RCNN_STEPS} steps at batch {RCNN_BATCH} from the init with "
+          f"calibrated FrozenBN statistics (MODEL.WEIGHTS; DETECTRON2_SYNTH_DATA), then --eval-only --resume on the "
+          f"{EVAL_IMAGES} synthetic coco_2017_val images, ROI_HEADS.SCORE_THRESH_TEST 0.005")
+    argv = ["--config-file", os.path.join("configs", "COCO-Detection", FASTER + ".yaml"), "SOLVER.MAX_ITER",
+            str(RCNN_STEPS), "SOLVER.IMS_PER_BATCH", str(RCNN_BATCH), "TEST.BATCH_SIZE", str(RCNN_BATCH),
+            "MODEL.WEIGHTS", init_path, "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.005", "OUTPUT_DIR", out_dir,
+            "SEED", "0"]
+    fresh_synthetic_val()
+    log_path = "output/chip_smoke_faster_rcnn_train_net_log.txt"
+    nms_ops.greedy_nms.launches = 0
+    eval_nms = []
+    with capture_nms(eval_nms):
+        trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
+    nms_launches["train_net"] = nms_ops.greedy_nms.launches
+    # the evaluation's box-head NMS with the most live candidates in a row
+    # (every (proposal, class) pair over 0.005): the kernel's in-place path, for 10c
+    box_head_eval = max((c for c in eval_nms if c[1].shape == box_head[1].shape),
+                        key=lambda c: int(torch.isfinite(c[1]).sum(1).max()))
+    del eval_nms
+    want = RCNN_STEPS + 2 * 2 * -(-EVAL_IMAGES // RCNN_BATCH)
+    if nms_launches["train_net"] != want:
+        raise SystemExit(f"expected {want} NMS kernel launches in train_net, got {nms_launches['train_net']}")
+    bbox = trained["bbox"]
+    print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
+          + ", ".join(f"{k} {bbox[k]:.4f}" for k in BBOX_KEYS if k in bbox))
+    if resumed != [0, RCNN_STEPS]:
+        raise SystemExit(f"expected to start at iteration 0 and resume at {RCNN_STEPS}, got {resumed}")
+    if not same_results(trained, evaluated):
+        raise SystemExit(f"Faster R-CNN's evaluation after training and the --eval-only --resume one differ: "
+                         f"{trained['bbox']} vs {evaluated['bbox']}")
+    if not all(math.isfinite(bbox[k]) for k in BBOX_KEYS):
+        raise SystemExit(f"Faster R-CNN's bbox AP dict is not finite: {bbox}")
+    print(f"  the two evaluation dicts are identical ({len(bbox)} bbox entries); NMS kernel launches "
+          f"{nms_launches['train_net']}; log in {log_path}")
+    out.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, bbox=bbox))
+
+    print(f"== 10f. ProposalNetwork ({PROPOSALS}.yaml, bf16): predict_fn and loss_fn on 2 images of 800²")
+    pcfg = rcnn_cfg(PROPOSALS, "bfloat16")
+    rpn_model = build_model(pcfg)
+    own = rpn_model.model.state_dict()
+    rpn_model.model.load_state_dict({k: v for k, v in weights.items() if k in own})
+    nms_ops.greedy_nms.launches = 0
+    props = rpn_model.predict_fn(batch[:2])
+    post = pcfg.MODEL.RPN.POST_NMS_TOPK_TEST
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xy = torch.rand(2, 8, 2, generator=g, device="cuda") * 600
+    gt = torch.cat([xy, xy + 32 + torch.rand(2, 8, 2, generator=g, device="cuda") * 160], -1)
+    rpn_model.model.train()
+    total, rpn_losses = rpn_model.loss_fn({"image": batch[:2], "gt_boxes": gt, "gt_valid": torch.ones(
+        2, 8, dtype=torch.bool, device="cuda"), "generator": g})
+    total.backward()
+    torch.cuda.synchronize()
+    nms_launches["proposal_network"] = nms_ops.greedy_nms.launches
+    grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in rpn_model.model.parameters() if p.grad is not None)
+    valid = (props["scores"] > 0).sum(1).tolist()
+    print(f"  proposals {tuple(props['boxes'].shape)}, valid per image {valid}; losses "
+          f"{ {k: round(v.item(), 5) for k, v in rpn_losses.items()} }, gradients finite: {grads_finite}; NMS kernel "
+          f"launches {nms_launches['proposal_network']}")
+    if not (props["boxes"].shape == (2, post, 4) and min(valid) > 0 and bool(torch.isfinite(total))
+            and grads_finite and nms_launches["proposal_network"] == 1):
+        raise SystemExit("the ProposalNetwork's forward or loss failed")
+    out.update(proposal_network=dict(valid=valid, losses={k: v.item() for k, v in rpn_losses.items()}))
+    del rpn_model
+
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the Faster R-CNN path (10a-10f): {launches}; NMS kernel launches {nms_launches}")
+    if any(launches.values()):
+        raise SystemExit(f"the Faster R-CNN path launched DCN kernels: {launches}")
+    out.update(launches=launches, nms_kernel_launches=nms_launches)
+    report["faster_rcnn"] = out
+    return launches, nms_launches, dict(rpn_test=rpn_test, rpn_train=rpn_train, box_head=box_head,
+                                        box_head_eval=box_head_eval)
+
+
+def roi_ops_inference(model, props, scores, deltas, n, p, size):
+    """``fast_rcnn_inference`` of the box predictor's outputs on (N, P) proposals."""
+    return roi_heads_ops.fast_rcnn_inference(props[0], props[2], scores.view(n, p, -1), deltas.view(n, p, -1),
+                                             model.box2box, model.num_classes, size, model.score_threshold,
+                                             model.nms_threshold, model.max_detections)
 
 
 def main() -> int:
@@ -1355,7 +1833,7 @@ def main() -> int:
     report["card"] = smi
 
     print("== 2. build (one nvcc per source, started together)")
-    built = dcn.build_libraries()
+    built = cuda_lib.build_libraries()
     for name, b in built.items():
         print(f"  {b['path'].name}: {b['seconds']:.1f} s")
         for line in b["log"].splitlines():
@@ -1399,9 +1877,15 @@ def main() -> int:
     bench_launches = phase_bench(report)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
     try:
-        retinanet_launches = phase_retinanet(report, scratch)
+        retinanet_launches, retinanet_nms, retinanet_case = phase_retinanet(report, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+    try:
+        rcnn_launches, rcnn_nms, rcnn_cases = phase_faster_rcnn(report, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases))
     totals = phase_kernel_timing(report)
 
     kernels = []
@@ -1420,6 +1904,7 @@ def main() -> int:
             "launches_resnet_vovnet": sum(r["launches"][name] for r in report["new_backbones"].values())
             + train_net_launches[name],
             "launches_retinanet": retinanet_launches[name],  # phase 9, asserted 0
+            "launches_faster_rcnn": rcnn_launches[name],  # phase 10, asserted 0
             "max_abs_err": max_err[name], "ms": t["ms_b1"], "plain_ms": t["plain_ms_b1"],
             "bound_ms": t["bound_ms_b1"], "bound_by": t["bound_by_b1"], "library_ms": None,
             "per": "16 launches, the DLA-34 shapes at batch 1, bf16"
@@ -1428,6 +1913,22 @@ def main() -> int:
             **{f"bound_ms_b{b}": t[f"bound_ms_b{b}"] for b in t["big_batches"]},
             **({"ms_by_regime": t["regimes"]} if "regimes" in t else {}),
         })
+    main_rpn = nms_rows["rpn_test"]
+    kernels.append({
+        "name": "nms_fixed", "route": "cuda", "source": CSRC + "nms.cu",
+        "replaces": "detectron2_centernet_tpu/ops/nms.py:51",
+        "launches": sum(retinanet_nms.values()) + sum(rcnn_nms.values()),
+        "launches_from": "RetinaNet (phase 9: requests and batch 16, the bench, train_net) and Faster R-CNN "
+        "(phase 10: requests and batch 16, the bench, train_net, the ProposalNetwork)",
+        "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
+        "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
+        "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
+        "bound_by": main_rpn["bound_by"], "library_ms": None,
+        "per": f"one launch for the RPN's {main_rpn['rows']} level rows of a batch-16 800² test forward "
+        "(indices and validity compared exactly; max_abs_err 0 means equal)",
+        **{f"{k}_{name}": r[k] for name, r in nms_rows.items()
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "most_live_in_a_row", "path")},
+    })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     if args.json:

@@ -14,16 +14,25 @@ tower; RetinaNet's ResNet-FPN (``backbone.bottom_up.<ResNet keys>``,
 ``backbone/fpn_lateral3`` and ``backbone/top_block_p6``, its head
 (``head.cls_subnet.{2i}``, ``head.bbox_subnet.{2i}``, ``head.cls_score``,
 ``head.bbox_pred``) to ``head/cls_tower{i}``, ``head/box_tower{i}``,
-``head/cls_score`` and ``head/bbox_pred``, and the ema loss normalizer
-(``loss_normalizer``) to ``batch_stats/loss_normalizer``. ``torch_key`` is
-its inverse, and ``state_dict_from_jax`` checks every key it makes against
-it.
+``head/cls_score`` and ``head/bbox_pred``, the ema loss normalizer
+(``loss_normalizer``) to ``batch_stats/loss_normalizer``; R-CNN's RPN head
+(``proposal_generator.rpn_head.{conv,objectness_logits,anchor_deltas}``) to
+``rpn_head/...``, its box head (``roi_heads.box_head.fc{i}``,
+``roi_heads.box_head.conv{i}``) to ``box_head/...`` and predictor
+(``roi_heads.box_predictor.{cls_score,bbox_pred}``) to ``box_predictor/...``.
+``torch_key`` is its inverse, and ``state_dict_from_jax`` checks every key
+it makes against it.
 
 Layouts (the rules of the JAX package's ``checkpoint/torch_import.py``, run
 the other way):
   * conv kernel HWIO → OIHW;
   * BatchNorm ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
     ``running_mean``/``running_var``;
+  * dense kernel (I, O) → (O, I); the box head's ``fc1`` consumes pooled
+    rois flattened NHWC in the JAX package and NCHW here (as in the
+    reference), so its input dim is permuted from (H, W, C) to (C, H, W)
+    order, C the width of the map it flattens (the last box-head conv's, or
+    the RPN head's input, the FPN's);
   * the depthwise ``up_*`` kernel (2f, 2f, 1, C) → (C, 1, 2f, 2f) and the
     neck's transposed-conv kernel (4, 4, Cin, Cout) → (Cin, Cout, 4, 4), both
     flipped spatially: torch's transposed conv correlates with the reversed
@@ -192,6 +201,18 @@ def _trunk_to_torch(body):
 
 
 _RETINA_TOWERS = {"cls_subnet": "cls_tower", "bbox_subnet": "box_tower"}
+_RCNN_OWNERS = {("proposal_generator", "rpn_head"): "rpn_head", ("roi_heads", "box_head"): "box_head",
+                ("roi_heads", "box_predictor"): "box_predictor"}
+_RCNN_MODULES = {"rpn_head": r"conv|objectness_logits|anchor_deltas", "box_head": r"(conv|fc)\d+",
+                 "box_predictor": r"cls_score|bbox_pred"}
+
+
+def _rcnn_to_flax(body):
+    """R-CNN's RPN and box heads (torch tokens) → flax module tokens, or None."""
+    owner = _RCNN_OWNERS.get(tuple(body[:2])) if len(body) == 3 else None
+    if owner is None or not re.fullmatch(_RCNN_MODULES[owner], body[2]):
+        return None
+    return [owner, body[2]]
 
 
 def _retinanet_to_flax(body):
@@ -224,9 +245,9 @@ def canonical_key(key: str, norm: str = "bn") -> Optional[str]:
     body, leaf = parts[:-1], parts[-1]
     if leaf == "num_batches_tracked":
         return None
-    retina = _retinanet_to_flax(body)
-    if retina is not None:
-        return _finish(retina, leaf, False)
+    head = _retinanet_to_flax(body) or _rcnn_to_flax(body)
+    if head is not None:
+        return _finish(head, leaf, False)
     if body[0] == "deconv_layers" and len(body) == 2 and body[1].isdigit():
         stage, role = divmod(int(body[1]), 3)
         if role == 0:
@@ -254,6 +275,9 @@ def torch_key(path: str, towers: bool = True) -> str:
     if body[:2] in (["backbone", "trunk"], ["backbone", "bottom_up"]):
         prefix = "backbone.bottom_up." if body[1] == "bottom_up" else "backbone."
         return f"{prefix}{_trunk_to_torch(body[2:])}.{_FLAX_LEAF[leaf]}"
+    owners = {v: ".".join(k) for k, v in _RCNN_OWNERS.items()}
+    if len(body) == 2 and body[0] in owners:
+        return f"{owners[body[0]]}.{body[1]}.{_FLAX_LEAF[leaf]}"
     if len(body) == 2 and body[0] == "backbone" and re.fullmatch(r"top_block_p[67]", body[1]):
         return f"backbone.top_block.{body[1][-2:]}.{_FLAX_LEAF[leaf]}"
     m = re.fullmatch(r"(cls|box)_tower(\d+)", body[1]) if len(body) == 2 and body[0] == "head" else None
@@ -305,6 +329,14 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def _flattened_channels(flat: Mapping[str, np.ndarray]) -> int:
+    """The width of the pooled map R-CNN's box head flattens: its last
+    conv's output, else the RPN head's input (the FPN's width)."""
+    convs = sorted((int(m.group(1)), p) for p in flat
+                   if (m := re.fullmatch(r"params/box_head/conv(\d+)/kernel", p)))
+    return flat[convs[-1][1]].shape[-1] if convs else flat["params/rpn_head/conv/kernel"].shape[2]
+
+
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``{'params', 'batch_stats'}`` tree (numpy leaves) as the
     port's ``state_dict``, f32, with ``num_batches_tracked`` = 0 for every
@@ -328,6 +360,12 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))  # (4, 4, Cin, Cout) → (Cin, Cout, 4, 4)
             else:
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
+        elif arr.ndim == 2:
+            if key == "roi_heads.box_head.fc1.weight":
+                c = _flattened_channels(flat)
+                side = int(round((arr.shape[0] // c) ** 0.5))
+                arr = arr.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(arr.shape)  # HWC → CHW rows
+            arr = arr.T  # (I, O) → (O, I)
         out[key] = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)  # 0-d stays 0-d
         if key.endswith(".running_var"):  # a FrozenBatchNorm drops it when it loads
             out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)

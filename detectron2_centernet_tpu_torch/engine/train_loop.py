@@ -3,7 +3,8 @@
 ``detectron2/engine/train_loop.py`` contract).
 
 ``SimpleTrainer.run_step`` is one eager PyTorch step: the batch to the
-device, the color jitter there, the forward at the model's width with f32
+device, the color jitter there (drawn from the step's generator, which
+``loss_fn`` gets as ``batch["generator"]`` for its own draws), the forward at the model's width with f32
 parameters, ``loss_fn``, the backward (through the DCN backward kernels on a
 card; its f32 convolutions in IEEE f32, as the forward's), the optimizer
 step and the scheduler step. Loss values stay on the
@@ -149,9 +150,10 @@ class SimpleTrainer(TrainerBase):
         data_time = time.perf_counter() - start
 
         batch = self.to_device(data)
+        self._generator.manual_seed(AUGMENT_SEED * 1_000_003 + self.iter)
         if self.model.device_augment is not None:
-            self._generator.manual_seed(AUGMENT_SEED * 1_000_003 + self.iter)
             batch["image"] = self.model.device_augment(batch["image"], self._generator)
+        batch["generator"] = self._generator  # the step's further draws (R-CNN's samplers)
         self.model.model.train()
         total, losses = self.model.loss_fn(batch)
         self.optimizer.zero_grad(set_to_none=False)

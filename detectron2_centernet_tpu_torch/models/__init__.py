@@ -1,6 +1,6 @@
 """Models of the port. Importing this package registers the backbones
-(DLA-34, ResNet, ResNet-deconv, ResNet-FPN, VoVNet) and the CenterNet and
-RetinaNet meta-architectures."""
+(DLA-34, ResNet, ResNet-deconv, ResNet-FPN, VoVNet) and the CenterNet,
+RetinaNet, GeneralizedRCNN and ProposalNetwork meta-architectures."""
 
 from . import backbones, meta_arch  # noqa: F401  (registration)
 from .build import build_model, resolve_device

@@ -233,8 +233,8 @@ class BilinearUpsample(nn.ConvTranspose2d):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """The JAX package's initializers, drawn from ``generator``: conv and
-    transposed-conv kernels lecun-normal (flax's: a normal truncated at ±2σ,
+    """The JAX package's initializers, drawn from ``generator``: conv,
+    transposed-conv and linear kernels lecun-normal (flax's: a normal truncated at ±2σ,
     σ = 1/√fan_in / 0.8796 so the variance is 1/fan_in) with zero bias; DCN kernels uniform within
     ±1/√fan_in with zero bias; ``conv_offset_mask`` zero (offsets start at 0,
     masks at 0.5); BatchNorm, FrozenBatchNorm and GroupNorm γ=1, β=0 (mean
@@ -242,9 +242,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     for m in model.modules():
         if isinstance(m, BilinearUpsample):
             m.reset_parameters()
-        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             # fan_in of the kernel: a transposed conv's weight is (Cin, Cout/groups, kh, kw)
-            fan_in = m.weight[0].numel() if isinstance(m, nn.Conv2d) else m.weight[:, 0].numel()
+            fan_in = m.weight[:, 0].numel() if isinstance(m, nn.ConvTranspose2d) else m.weight[0].numel()
             std = 1.0 / math.sqrt(fan_in) / TRUNC_NORMAL_STD
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
             if m.bias is not None:

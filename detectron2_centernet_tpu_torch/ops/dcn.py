@@ -22,22 +22,19 @@ wherever its offset points. The TPU kernels' "drop-far" rule (samples beyond
 
 The libraries are built at first use with ``nvcc`` into ``_build/`` beside
 this package (a plain C interface loaded with ``ctypes``), one process per
-source, all started together, and cached by the hash of source and flags.
+source, all started together, and cached by the hash of source and flags
+(``ops/cuda_lib.py``, which builds the NMS kernel beside them).
 """
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
+from . import cuda_lib
 from . import deform_conv as plain
+from .cuda_lib import build_libraries  # noqa: F401  (tools/dcn_ab.py calls it on parent trees too)
 from .deform_conv import modulated_deform_conv as modulated_deform_conv_plain
 
 __all__ = [
@@ -54,13 +51,6 @@ __all__ = [
     "modulated_deform_conv_plain",
 ]
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"fwd": CSRC / "dcn_fwd.cu", "bwd": CSRC / "dcn_bwd.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: pointers, then ints, then the stream
@@ -89,65 +79,8 @@ FWD_BLOCKS_PER_SM = 2
 FWD_PARTIAL_CAP = 16 << 20
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home:
-        return str(Path(home) / "bin" / "nvcc")
-    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-
-
-def _library_path(name: str) -> Path:
-    source = SOURCES[name]
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
-
-
-def build_libraries() -> Dict[str, dict]:
-    """Compile every source in ``SOURCES`` that has no library built from the
-    same source and flags, one ``nvcc`` each, all at once. Returns
-    {name: {"path", "seconds", "log"}}: ``log`` is nvcc's ``-Xptxas -v``
-    report (registers, shared memory, spills), empty for a cached library."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out, running = {}, {}
-    t0 = time.perf_counter()
-    for name, source in SOURCES.items():
-        path = _library_path(name)
-        if path.exists():
-            out[name] = {"path": path, "seconds": 0.0, "log": ""}
-            continue
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        )
-        running[name] = (proc, tmp, path)
-    failures = []
-    for name, (proc, tmp, path) in running.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed on {SOURCES[name].name}:\n{stdout}{stderr}")
-            continue
-        os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
-        out[name] = {"path": path, "seconds": time.perf_counter() - t0, "log": stderr}
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return out
-
-
-_LIBS: Dict[str, ctypes.CDLL] = {}
-
-
 def _library(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        path = _library_path(name)
-        if not path.exists():
-            path = build_libraries()[name]["path"]
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
+    return cuda_lib.library(name, _SIGNATURES[name])
 
 
 def _check(x, offset, mask, weight=None, g=None, cout=None) -> None:
@@ -184,13 +117,7 @@ def _check(x, offset, mask, weight=None, g=None, cout=None) -> None:
 
 def _launch(lib: str, fn: str, x: torch.Tensor, *args) -> None:
     """Call a kernel's C entry point on x's device and current stream."""
-    if x.device.index != torch.cuda.current_device():
-        with torch.cuda.device(x.device):
-            return _launch(lib, fn, x, *args)
-    # the raw stream handle, without building a torch.cuda.Stream per call
-    err = getattr(_library(lib), fn)(*args, torch._C._cuda_getCurrentRawStream(x.device.index))
-    if err != 0:
-        raise RuntimeError(f"{fn} kernel launch failed with CUDA error {err}")
+    cuda_lib.launch(_library(lib), fn, x.device, *args)
 
 
 def fwd_plan(n: int, cin: int, h: int, w: int, cout: int, sms: int, itemsize: int = 2) -> Dict[str, int]:

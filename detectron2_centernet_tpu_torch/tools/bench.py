@@ -5,15 +5,19 @@ last, in the shape of the JAX package's ``bench.py``:
   {"metric": "<arch>_<backbone>_<size>_infer_throughput", "value": img/s,
    "unit": "img/s/chip", "vs_baseline": value / baseline, "extra": {...}}
 
-``<arch>`` is ``ctdet`` for CenterNet and ``retinanet`` for RetinaNet
-(``<backbone>`` then ends in ``_fpn``: ``retinanet_res50_fpn_800``).
+``<arch>`` is ``ctdet`` for CenterNet, ``retinanet`` for RetinaNet,
+``faster_rcnn`` for GeneralizedRCNN and ``rpn`` for ProposalNetwork
+(``<backbone>`` ends in ``_fpn`` on an FPN: ``retinanet_res50_fpn_800``,
+``faster_rcnn_res50_fpn_800``).
 ``value`` is the meta-architecture's ``predict_fn`` throughput at
 ``TEST.BATCH_SIZE`` (CUDA events over ``ITERS`` calls after 2) on seeded
 random images at ``INPUT.TEST_SIZE``. The baselines are ``bench.py``'s: 104
 img/s for ctdet (an A100's ctdet DLA-34 rate at 512², twice the paper's
-Titan Xp), and for RetinaNet the reference MODEL_ZOO's R50-FPN inference
-time that ``bench.py`` names beside its family numbers, 0.056 s/im on a
-V100 (1 / 0.056 ≈ 17.9 img/s). ``extra`` holds:
+Titan Xp), and for RetinaNet and Faster R-CNN the reference MODEL_ZOO's
+R50-FPN inference times (``BASELINE.md``): 0.056 s/im and 0.038 s/im on a
+V100 (1 / 0.056 ≈ 17.9 and 1 / 0.038 ≈ 26.3 img/s). ``BASELINE.md`` has
+no number for the ProposalNetwork: its ``vs_baseline`` is null. ``extra``
+holds:
   * ``predictor_latency_ms``: ``DefaultPredictor`` on one 480x640 image,
     median of ``REQUESTS`` requests after ``REQUEST_WARMUP`` (host clock;
     the call returns host arrays);
@@ -57,9 +61,11 @@ from ..config import get_cfg
 from ..data.datasets import ensure_synthetic_datasets
 from ..engine import DefaultPredictor, DefaultTrainer, HookBase
 
-BASELINE_IMG_S = 104.0  # bench.py's baseline: an A100's ctdet DLA-34 512² img/s
-# bench.py's per-family anchor for RetinaNet R50-FPN: the reference MODEL_ZOO's 0.056 s/im (V100)
-RETINANET_BASELINE_IMG_S = 1.0 / 0.056
+# META_ARCHITECTURE -> (the metric's <arch>, its baseline img/s): bench.py's
+# A100 ctdet DLA-34 512² rate, and the reference MODEL_ZOO's R50-FPN V100
+# inference times, 0.056 s/im for RetinaNet and 0.038 s/im for Faster R-CNN
+ARCHS = {"CenterNet": ("ctdet", 104.0), "RetinaNet": ("retinanet", 1.0 / 0.056),
+         "GeneralizedRCNN": ("faster_rcnn", 1.0 / 0.038), "ProposalNetwork": ("rpn", None)}
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                               "configs", "COCO-Detection", "ctdet_dla_34_1x.yaml")
 ITERS = 10  # timed predict_fn calls, after 2
@@ -82,18 +88,21 @@ def backbone_tag(cfg) -> str:
     return re.sub(r"^build_|_backbone$", "", name)
 
 
+def _arch(cfg):
+    name = cfg.MODEL.META_ARCHITECTURE
+    if name not in ARCHS:
+        raise ValueError(f"tools/bench has no metric for META_ARCHITECTURE {name!r}; it benches {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
 def metric_name(cfg) -> str:
-    """``ctdet_<backbone>_<size>_infer_throughput`` for CenterNet,
-    ``retinanet_<backbone>_fpn_<size>_infer_throughput`` for RetinaNet."""
-    size = cfg.INPUT.TEST_SIZE[0]
-    if cfg.MODEL.META_ARCHITECTURE == "RetinaNet":
-        fpn = "_fpn" if "fpn" in cfg.MODEL.BACKBONE.NAME else ""
-        return f"retinanet_{backbone_tag(cfg)}{fpn}_{size}_infer_throughput"
-    return f"ctdet_{backbone_tag(cfg)}_{size}_infer_throughput"
+    """``<arch>_<backbone>[_fpn]_<size>_infer_throughput``."""
+    fpn = "_fpn" if "fpn" in cfg.MODEL.BACKBONE.NAME else ""
+    return f"{_arch(cfg)[0]}_{backbone_tag(cfg)}{fpn}_{cfg.INPUT.TEST_SIZE[0]}_infer_throughput"
 
 
-def baseline_img_s(cfg) -> float:
-    return RETINANET_BASELINE_IMG_S if cfg.MODEL.META_ARCHITECTURE == "RetinaNet" else BASELINE_IMG_S
+def baseline_img_s(cfg) -> Optional[float]:
+    return _arch(cfg)[1]
 
 
 def card() -> str:
@@ -243,9 +252,9 @@ def main(argv=None) -> dict:
     extra.update({k: v for k, v in inference.items() if k != "img_s"})
     extra.update(bench_training(cfg)[0])
     extra["card"] = card() if torch.device(cfg.MODEL.DEVICE).type == "cuda" else None
-    value = inference["img_s"]
+    value, baseline = inference["img_s"], baseline_img_s(cfg)
     result = {"metric": metric_name(cfg), "value": round(value, 2), "unit": "img/s/chip",
-              "vs_baseline": round(value / baseline_img_s(cfg), 3), "extra": extra}
+              "vs_baseline": round(value / baseline, 3) if baseline else None, "extra": extra}
     print(json.dumps(result), flush=True)
     return result
 

@@ -25,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-from detectron2_centernet_tpu_torch.ops import dcn
+from detectron2_centernet_tpu_torch.ops import cuda_lib, dcn
 
 BWD_SHAPES = [(64, 64, 128, 32), (128, 64, 64, 32), (256, 256, 32, 32)]  # (Cin, Cout, H = W, batch)
 FWD_SHAPES = [(64, 64, 128, 16), (256, 256, 32, 16), (512, 256, 16, 1)]
@@ -89,7 +89,7 @@ def build_all(kernels):
     """{(variant, "fwd" | "bwd"): CDLL} for every variant of ``kernels`` that
     touches that source (and "all phases" for both), and the full backward
     build's path (None when no backward kernel is timed)."""
-    out_dir = dcn.BUILD_DIR / "phases"
+    out_dir = cuda_lib.BUILD_DIR / "phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, (kernel, edits)) in enumerate(VARIANTS.items()):
@@ -99,8 +99,8 @@ def build_all(kernels):
             if not any((k == "dcn_fwd") == (lib == "fwd") for k in timed):
                 continue
             cu, so = out_dir / f"v{i}_{lib}.cu", out_dir / f"v{i}_{lib}.so"
-            cu.write_text(patched(dcn.SOURCES[lib].read_text(), edits, lib == "fwd"))
-            procs[name, lib] = (subprocess.Popen([dcn._nvcc(), *dcn.NVCC_FLAGS, "-o", str(so), str(cu)],
+            cu.write_text(patched(cuda_lib.SOURCES[lib].read_text(), edits, lib == "fwd"))
+            procs[name, lib] = (subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(so), str(cu)],
                                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so)
     libs = {}
     for (name, lib), (proc, so) in procs.items():
@@ -183,7 +183,7 @@ def main() -> None:
     kernels = args.kernels.split(",")
     libs, full = build_all(kernels)
     sass = "" if full is None else subprocess.run(
-        [str(Path(dcn._nvcc()).parent / "cuobjdump"), "-sass", str(full)], capture_output=True, text=True).stdout
+        [str(Path(cuda_lib._nvcc()).parent / "cuobjdump"), "-sass", str(full)], capture_output=True, text=True).stdout
     atomics = collections.Counter(re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", sass))
     print(f"atomic instructions in the full build: {dict(atomics)}")
     stream = torch.cuda.current_stream().cuda_stream

@@ -29,7 +29,7 @@ from detectron2_centernet_tpu_torch.config import get_cfg
 from detectron2_centernet_tpu_torch.data import warp_image
 from detectron2_centernet_tpu_torch.engine import DefaultPredictor
 from detectron2_centernet_tpu_torch.models import build_model
-from detectron2_centernet_tpu_torch.ops import ctdet_decode, dcn
+from detectron2_centernet_tpu_torch.ops import ctdet_decode, cuda_lib, dcn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(REPO, "configs", "COCO-Detection", "ctdet_dla_34_1x.yaml")
@@ -281,7 +281,7 @@ def test_port_imports_no_jax():
 
 def test_port_builds_only_its_own_sources(tmp_path, monkeypatch):
     """Every source the port compiles lies inside the port: the argument
-    lists that ``ops/dcn.py::build_libraries`` hands nvcc (run here with a
+    lists that ``ops/cuda_lib.py::build_libraries`` hands nvcc (run here with a
     stand-in for nvcc, which the CPU machine lacks) and that
     ``ops/fast_cocoeval.py::build_library`` hands g++ (run for real) name
     sources under ``detectron2_centernet_tpu_torch/`` and nothing of the JAX
@@ -307,10 +307,11 @@ def test_port_builds_only_its_own_sources(tmp_path, monkeypatch):
             return "", ""
 
     with monkeypatch.context() as m:  # Popen is the subprocess module's: undone before g++ runs
-        m.setattr(dcn, "BUILD_DIR", tmp_path / "dcn")
-        m.setattr(dcn.subprocess, "Popen", FakeNvcc)
-        built = dcn.build_libraries()
-    assert set(built) == set(dcn.SOURCES) and len(commands) == len(dcn.SOURCES) == 2
+        m.setattr(cuda_lib, "BUILD_DIR", tmp_path / "cuda")
+        m.setattr(cuda_lib.subprocess, "Popen", FakeNvcc)
+        built = cuda_lib.build_libraries()
+    assert set(built) == set(cuda_lib.SOURCES) and len(commands) == len(cuda_lib.SOURCES) == 3
+    assert dcn.build_libraries is cuda_lib.build_libraries
 
     real_run = fast_cocoeval.subprocess.run
 
@@ -322,13 +323,13 @@ def test_port_builds_only_its_own_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(fast_cocoeval, "_LIB", None)
     monkeypatch.setattr(fast_cocoeval.subprocess, "run", recording_run)
     library = fast_cocoeval.build_library()
-    assert library.exists() and len(commands) == 3
+    assert library.exists() and len(commands) == 4
     sources = [pathlib.Path(a).resolve() for argv in commands for a in argv
                if a.endswith((".cu", ".cpp", ".cc", ".c"))]
-    assert len(sources) == 3, [shlex.join(c) for c in commands]
+    assert len(sources) == 4, [shlex.join(c) for c in commands]
     for src in sources:
         assert src.is_relative_to(port) and src.exists(), src
-    assert {s.name for s in sources} == {"dcn_fwd.cu", "dcn_bwd.cu", "cocoeval.cpp"}
+    assert {s.name for s in sources} == {"dcn_fwd.cu", "dcn_bwd.cu", "nms.cu", "cocoeval.cpp"}
 
     spec = importlib.util.spec_from_file_location(
         "_cocoeval_oracle", os.path.join(REPO, "tests", "evaluation", "test_cocoeval_oracle.py"))

@@ -4,8 +4,11 @@ small DLA-34 CenterNet on the card against itself on the CPU, at inference
 and for one training step, the f32 heads at PyTorch's default TF32 flags,
 a short evaluation through ``DefaultTrainer.test``, one f32 training
 step of small ResNet- and VoVNet-deconv CenterNets (card against CPU, and
-at the default TF32 flags against TF32 off), and a small RetinaNet's heads,
-loss and detections and the port's NMS, card against CPU.
+at the default TF32 flags against TF32 off), a small RetinaNet's heads,
+loss and detections and the port's NMS, card against CPU, the NMS kernel
+(``ops/csrc/nms.cu``) against its plain loop at the RetinaNet, RPN and box
+head shapes, and a small Faster R-CNN's RPN heads, losses and detections,
+card against CPU.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -553,3 +556,108 @@ def test_nms_on_card_keeps_the_cpus_indices(card):
     keep_c, valid_c = batched_nms_fixed(boxes.to(card), scores.to(card), classes.to(card), 0.5, 100)
     assert torch.equal(valid_c.cpu(), valid_h) and torch.equal(keep_c.cpu(), keep_h)
     assert valid_h.all()
+
+
+def _nms_rows(g, rows, cands, live, spread=700.0, ties=False):
+    xy = torch.rand(rows, cands, 2, generator=g) * spread
+    boxes = torch.cat([xy, xy + 4 + torch.rand(rows, cands, 2, generator=g) * spread / 4], -1)
+    scores = torch.rand(rows, cands, generator=g)
+    if ties:  # many equal scores, and some boxes of no area
+        scores = torch.floor(scores * 8) / 8
+        boxes[:, ::7, 2:] = boxes[:, ::7, :2]
+    scores[torch.rand(rows, cands, generator=g) >= live] = float("-inf")
+    return boxes, scores
+
+
+@pytest.mark.parametrize("case", ["retinanet", "rpn", "rpn_train", "box_head", "box_head_sparse", "ties"])
+def test_nms_kernel_matches_plain_on_card(card, case):
+    """The NMS kernel (``ops/csrc/nms.cu``) against the plain loop, both on
+    the card, at the main paths' shapes: RetinaNet's 16 × 4441 candidates,
+    100 picks; the RPN's 16 images × 5 level rows of 1000 (2000 at
+    training) with 1000 picks on p2-p5 and 507 on p6 (13 × 13 × 3
+    anchors); the box head's 16 × 80 000 (1000 proposals × 80 classes), 100
+    picks, with a fifth of them live (more than shared memory holds: the
+    row is swept in place) and with a twentieth (compacted into shared
+    memory); and ties: scores on 8 values and boxes of no area. Indices and
+    validity exactly equal; one launch per call."""
+    from detectron2_centernet_tpu_torch.ops import nms
+
+    g = torch.Generator().manual_seed(1)
+    rows, cands, counts, live, thr = {
+        "retinanet": (16, 4441, 100, 0.3, 0.5), "rpn": (80, 1000, [1000] * 4 + [507], 1.0, 0.7),
+        "rpn_train": (80, 2000, [1000] * 4 + [507], 1.0, 0.7), "box_head": (16, 80000, 100, 0.2, 0.5),
+        "box_head_sparse": (16, 80000, 100, 0.05, 0.5), "ties": (8, 3000, 300, 0.8, 0.5)}[case]
+    boxes, scores = _nms_rows(g, rows, cands, live, ties=case == "ties")
+    if isinstance(counts, list):
+        counts = torch.tensor(counts * (rows // len(counts)), dtype=torch.int32)
+    boxes, scores = boxes.to(card), scores.to(card)
+    before = nms.greedy_nms.launches
+    keep, valid = nms.greedy_nms(boxes, scores, thr, counts)
+    torch.cuda.synchronize()
+    assert nms.greedy_nms.launches == before + 1
+    want_keep, want_valid = nms.nms_fixed(boxes, scores, thr, counts)
+    assert torch.equal(valid, want_valid) and torch.equal(keep, want_keep)
+    assert valid.sum() > rows
+
+
+_SMALL_RCNN = ["MODEL.META_ARCHITECTURE", "GeneralizedRCNN", "MODEL.BACKBONE.NAME", "build_resnet_fpn_backbone",
+               "MODEL.RESNETS.DEPTH", 18, "MODEL.RESNETS.RES2_OUT_CHANNELS", 16, "MODEL.RESNETS.STEM_OUT_CHANNELS", 8,
+               "MODEL.RESNETS.OUT_FEATURES", ["res2", "res3", "res4", "res5"],
+               "MODEL.FPN.IN_FEATURES", ["res2", "res3", "res4", "res5"], "MODEL.FPN.OUT_CHANNELS", 32,
+               "MODEL.RPN.IN_FEATURES", ["p2", "p3", "p4", "p5", "p6"], "MODEL.RPN.PRE_NMS_TOPK_TEST", 200,
+               "MODEL.RPN.POST_NMS_TOPK_TEST", 100, "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 200,
+               "MODEL.RPN.POST_NMS_TOPK_TRAIN", 100, "MODEL.ANCHOR_GENERATOR.SIZES", [[32], [64], [128], [256], [512]],
+               "MODEL.ROI_HEADS.NAME", "StandardROIHeads", "MODEL.ROI_HEADS.NUM_CLASSES", 5,
+               "MODEL.ROI_HEADS.IN_FEATURES", ["p2", "p3", "p4", "p5"], "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 64,
+               "MODEL.ROI_BOX_HEAD.NUM_FC", 2, "MODEL.ROI_BOX_HEAD.FC_DIM", 64, "TPU.DTYPE", "float32",
+               "INPUT.TEST_SIZE", (96, 96), "DATASETS.TRAIN", ()]
+
+
+def test_small_faster_rcnn_on_card_matches_cpu(card):
+    """A small Faster R-CNN (ResNet-18-FPN, 32 channels, 5 classes) in f32
+    on 96² images, the same weights on the card and on the CPU: the RPN's
+    f32 logits and deltas within 1e-4 of their scale, the four training
+    losses on the same draws within 1e-3 relative, and ``predict_fn``'s
+    detections (classes equal, scores within 1e-3: the class logits, 30
+    times the init's, magnify the two convolution libraries' ~1e-5
+    differences in the pooled features; boxes within 1e-2 px), through two
+    NMS kernel launches per call on the card."""
+    from detectron2_centernet_tpu_torch.ops import nms
+
+    cfg = get_cfg()
+    cfg.merge_from_list(_SMALL_RCNN + ["MODEL.DEVICE", "cpu"])
+    host = build_model(cfg)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    with torch.no_grad():  # scores spread, so that classes clear the threshold
+        host.model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
+    dev.model.load_state_dict(host.model.state_dict())
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(2, 3, 96, 96, generator=g) * 255
+    with torch.no_grad():
+        _, lh, dh = host.model(host.normalize(x))
+        _, lc, dc = dev.model(dev.normalize(x.to(card)))
+    for h, c in zip(lh + dh, lc + dc):
+        assert c.dtype == torch.float32
+        assert (c.cpu() - h).abs().max().item() <= 1e-4 * max(h.abs().max().item(), 1e-6)
+    anchors = sum(a.shape[0] for a in host.anchors_per_level((96, 96)))
+    draws = {"rpn": torch.rand(2, anchors, generator=g), "roi_sub": torch.rand(2, 102, generator=g),
+             "roi_tie": torch.rand(2, 102, generator=g)}
+    batch = {"image": x, "gt_boxes": torch.tensor([[[8.0, 10.0, 60.0, 70.0], [40.0, 30.0, 90.0, 80.0]]] * 2),
+             "gt_classes": torch.tensor([[1, 4]] * 2), "gt_valid": torch.tensor([[True, True], [True, False]])}
+    for m in (host, dev):
+        m.model.train()
+    _, losses_h = host.loss_fn(dict(batch, draws=draws))
+    _, losses_c = dev.loss_fn(dict({k: v.to(card) for k, v in batch.items()}, draws=draws))
+    for k in losses_h:
+        assert abs(losses_c[k].item() - losses_h[k].item()) <= 1e-3 * abs(losses_h[k].item()), k
+    for m in (host, dev):
+        m.model.eval()
+    det_h = host.predict_fn(x)
+    before = nms.greedy_nms.launches
+    det_c = {k: v.cpu() for k, v in dev.predict_fn(x.to(card)).items()}
+    assert nms.greedy_nms.launches == before + 2
+    assert (det_h["scores"] > host.score_threshold).sum() > 20
+    assert torch.equal(det_c["classes"], det_h["classes"])
+    assert (det_c["scores"] - det_h["scores"]).abs().max().item() <= 1e-3
+    assert (det_c["boxes"] - det_h["boxes"]).abs().max().item() <= 1e-2

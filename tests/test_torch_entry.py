@@ -333,16 +333,52 @@ def test_bench_prints_one_json_line_in_bench_py_shape(capsys, monkeypatch):
     ("ctdet_res_50_1x.yaml", "ctdet_res50_512_infer_throughput", 104.0),
     ("retinanet_R_50_FPN_1x.yaml", "retinanet_res50_fpn_800_infer_throughput", 1 / 0.056),
     ("retinanet_R_101_FPN_3x.yaml", "retinanet_res101_fpn_800_infer_throughput", 1 / 0.056),
+    ("faster_rcnn_R_50_FPN_1x.yaml", "faster_rcnn_res50_fpn_800_infer_throughput", 1 / 0.038),
+    ("faster_rcnn_R_101_FPN_3x.yaml", "faster_rcnn_res101_fpn_800_infer_throughput", 1 / 0.038),
+    ("rpn_R_50_FPN_1x.yaml", "rpn_res50_fpn_800_infer_throughput", None),
 ])
 def test_bench_metric_and_baseline_follow_the_meta_architecture(config, metric, baseline):
     """ctdet keeps its names and ``bench.py``'s 104 img/s; a RetinaNet is
     named ``retinanet_<backbone>_fpn_<size>`` and held against the
     reference MODEL_ZOO's 0.056 s/im that ``bench.py`` gives RetinaNet
-    R50-FPN."""
+    R50-FPN; a Faster R-CNN ``faster_rcnn_<backbone>_fpn_<size>``, against
+    the MODEL_ZOO's 0.038 s/im for R50-FPN (``BASELINE.md``); a
+    ProposalNetwork ``rpn_...``, against nothing (``BASELINE.md`` has no
+    number for it)."""
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(REPO, "configs", "COCO-Detection", config))
     assert bench.metric_name(cfg) == metric
-    assert bench.baseline_img_s(cfg) == pytest.approx(baseline)
+    assert bench.baseline_img_s(cfg) == (baseline if baseline is None else pytest.approx(baseline))
+
+
+def test_bench_prints_a_faster_rcnn_line(capsys, monkeypatch):
+    """``faster_rcnn_R_50_FPN_1x.yaml`` through the bench on the CPU, cut in
+    width (ResNet-18, FPN 32, FC_DIM 64) and size (64², RPN top-ks 100/50,
+    64 rois), with fewer calls, requests and steps: the line names Faster
+    R-CNN, ``vs_baseline`` is value × 0.038, and the training's losses are
+    the four of GeneralizedRCNN."""
+    for name, value in (("ITERS", 1), ("REQUESTS", 2), ("REQUEST_WARMUP", 1), ("TRAIN_WARMUP", 1),
+                        ("TRAIN_STEPS", 1)):
+        monkeypatch.setattr(bench, name, value)
+    trained = []
+    bench_training = bench.bench_training
+    monkeypatch.setattr(bench, "bench_training", lambda cfg: trained.append(bench_training(cfg)) or trained[-1])
+    bench.main(["--config-file", os.path.join(REPO, "configs", "COCO-Detection", "faster_rcnn_R_50_FPN_1x.yaml"),
+                "MODEL.DEVICE", "cpu", "MODEL.RESNETS.DEPTH", "18", "MODEL.RESNETS.RES2_OUT_CHANNELS", "16",
+                "MODEL.RESNETS.STEM_OUT_CHANNELS", "8", "MODEL.FPN.OUT_CHANNELS", "32",
+                "MODEL.ROI_BOX_HEAD.FC_DIM", "64",
+                "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "100", "MODEL.RPN.POST_NMS_TOPK_TRAIN", "50",
+                "MODEL.RPN.PRE_NMS_TOPK_TEST", "100", "MODEL.RPN.POST_NMS_TOPK_TEST", "50",
+                "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "64", "INPUT.TEST_SIZE", "(64, 64)",
+                "INPUT.TRAIN_SIZE", "(64, 64)", "TEST.BATCH_SIZE", "2", "SOLVER.IMS_PER_BATCH", "2",
+                "DATALOADER.NUM_WORKERS", "1", "TPU.DTYPE", "float32", "DATASETS.TRAIN", "('test_torch_entry_bench',)"])
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["metric"] == "faster_rcnn_res18_fpn_64_infer_throughput" and result["value"] > 0
+    assert result["vs_baseline"] == round(result["value"] * 0.038, 3)
+    _, trainer, _ = trained[0]
+    assert type(trainer.model).__name__ == "GeneralizedRCNN"
+    for name in ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg"):
+        assert all(math.isfinite(v) for v, _ in trainer.storage.history(name).values()), name
 
 
 def test_bench_prints_a_retinanet_line(capsys, monkeypatch):
