@@ -4,10 +4,12 @@ one NVIDIA card: ctdet DLA-34 at full width, inference through the port's
 ``DefaultPredictor`` and training through its ``DefaultTrainer``, with every
 DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward); then
 the ResNet-18/50-deconv and VoVNet-39 configs, ``tools/train_net`` and
-``tools/bench``, RetinaNet R50-FPN, and Faster R-CNN R50-FPN with the
-ProposalNetwork, every NMS of the last two on the hand-written NMS kernel
-(``ops/csrc/nms.cu``). Every config is read from its YAML file
-(``configs/COCO-Detection/``) by the port's own reader.
+``tools/bench``, RetinaNet R50-FPN, Faster R-CNN R50-FPN with the
+ProposalNetwork, Mask R-CNN and Keypoint R-CNN R50-FPN, every NMS of the R-CNN
+and RetinaNet paths on the hand-written NMS kernel (``ops/csrc/nms.cu``).
+Every config is read from its YAML file (``configs/COCO-Detection/``,
+``COCO-InstanceSegmentation/``, ``COCO-Keypoints/``) by the port's own
+reader.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -95,7 +97,9 @@ Phases (any failure raises and the script exits non-zero):
      the inputs the main paths gave it: RetinaNet's batch 16, the RPN's
      level rows at test and at training, the box head's batch 16 served
      (rows compacted into shared memory) and in (e)'s evaluation (rows
-     swept in place), each timed beside its bound; (d) ``tools/bench`` on the config at
+     swept in place), and the same three of Mask and Keypoint R-CNN (11,
+     12: Keypoint R-CNN's box head of one class, its 1500 proposals at
+     training), each timed beside its bound; (d) ``tools/bench`` on the config at
      ``TEST.BATCH_SIZE`` 16: request latency, img/s against 1/0.038 s, the
      train step at 16 × 800², busy share, peak memory, every loss finite;
      (e) ``tools/train_net`` 4 steps from the model's init with calibrated
@@ -104,6 +108,30 @@ Phases (any failure raises and the script exits non-zero):
      (f) ``rpn_R_50_FPN_1x.yaml``'s ProposalNetwork: one forward and one
      loss with its backward. Each path's NMS kernel launches are counted
      from 0 and checked;
+  11. Mask R-CNN, ``COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml``
+     (phase 10's model with the mask head: 4 convs of 256 at 14², the
+     deconv, 80 per-class 28² masks), and 12. Keypoint R-CNN,
+     ``COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml`` (one class, 1500
+     proposals at training, 8 convs of 512 at 14², 17 heatmaps of 56²),
+     bf16, no DCN kernel anywhere, each: (a) ``DefaultPredictor`` requests
+     (median of 20, 480x640 → 800²; the pasted bool masks, or the decoded
+     keypoints inside their boxes, checked) and ``predict_fn`` at batch 16
+     with seeded weights that detect; (b) f32 at batch 2, card against
+     CPU: the head's outputs (mask logits at the detected class, or the
+     heatmaps) on the card's top 16 detection boxes of each image within
+     HEAD_TOL times their scale, and out of it with cuDNN's TF32 on and
+     the model's ``ieee_f32`` bypassed (the control that shows the check
+     sees TF32), and the host boundary on the card's outputs (the pasted
+     masks; the keypoint positions, but at ties in at most 1%) equal on
+     both devices;
+     (c) ``tools/bench`` at ``TEST.BATCH_SIZE`` 16 with its train steps at
+     16 × 800² (busy share, peak memory, ROIAlign's ``embedding_bag``
+     forward and backward in the profiled step); (d) ``tools/train_net`` 4
+     steps from the calibrated init, then ``--eval-only --resume``: resumed
+     at 4, the same dict with ``segm`` (or ``keypoints``) in it; the NMS
+     kernel's launches counted per path, and its inputs at test (the
+     RPN's, the box head's) and for the training's proposals recorded for
+     10c;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -148,7 +176,7 @@ from detectron2_centernet_tpu_torch.evaluation import evaluator as eval_loop
 from detectron2_centernet_tpu_torch.models import build_model
 from detectron2_centernet_tpu_torch.models import layers
 from detectron2_centernet_tpu_torch.models.layers import DCNv2, DeformConvV2
-from detectron2_centernet_tpu_torch.models.meta_arch import centernet
+from detectron2_centernet_tpu_torch.models.meta_arch import centernet, rcnn
 from detectron2_centernet_tpu_torch.ops import cuda_lib, dcn, fast_cocoeval
 from detectron2_centernet_tpu_torch.ops import nms as nms_ops
 from detectron2_centernet_tpu_torch.ops.nms import batched_nms_fixed
@@ -156,6 +184,8 @@ from detectron2_centernet_tpu_torch.ops import deform_conv as plain
 from detectron2_centernet_tpu_torch.models.proposal_generator import rpn as rpn_ops
 from detectron2_centernet_tpu_torch.models.roi_heads import roi_heads as roi_heads_ops
 from detectron2_centernet_tpu_torch.ops import roi_align as roi_ops
+from detectron2_centernet_tpu_torch.structures.keypoints import heatmaps_to_keypoints
+from detectron2_centernet_tpu_torch.structures.masks import paste_masks_in_image
 from detectron2_centernet_tpu_torch.tools import bench
 
 # DLA-34 at 512x512: the 16 DCN launches of one forward as (Cin, Cout, H=W, count)
@@ -515,15 +545,16 @@ def pytorch_default_tf32():
 
 
 @contextmanager
-def bypass_ieee_f32():
-    """CenterNetModel.forward without its ``ieee_f32`` context (what the
-    repair of ROADMAP C9 prevents), within the block."""
-    saved = centernet.ieee_f32
-    centernet.ieee_f32 = nullcontext
+def bypass_ieee_f32(module=centernet):
+    """``module``'s model (CenterNetModel's by default) without its
+    ``ieee_f32`` context (what the repair of ROADMAP C9 prevents), within
+    the block."""
+    saved = module.ieee_f32
+    module.ieee_f32 = nullcontext
     try:
         yield
     finally:
-        centernet.ieee_f32 = saved
+        module.ieee_f32 = saved
 
 
 EVAL_IMAGES, EVAL_SIZE = 64, (480, 640)  # the synthetic stand-in for coco_2017_val
@@ -1039,14 +1070,16 @@ def same_results(a, b) -> bool:
     return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
 
 
-def fresh_synthetic_val():
-    """coco_2017_val as the synthetic stand-in, afresh (its metadata may name a
-    COCO json an earlier phase cached in a directory since removed)."""
+def fresh_synthetic_val(name: str = "coco_2017_val", keypoints: bool = False):
+    """``name`` (coco_2017_val, or with ``keypoints`` the person-keypoint
+    keypoints_coco_2017_val) as the synthetic stand-in, afresh (its metadata
+    may name a COCO json an earlier phase cached in a directory since
+    removed)."""
     os.environ["DETECTRON2_SYNTH_DATA"] = "1"
     for catalog in (DatasetCatalog, MetadataCatalog):
-        if "coco_2017_val" in catalog:
-            catalog.remove("coco_2017_val")
-    register_synthetic_instances("coco_2017_val", num_images=EVAL_IMAGES, image_size=EVAL_SIZE)
+        if name in catalog:
+            catalog.remove(name)
+    register_synthetic_instances(name, num_images=EVAL_IMAGES, image_size=EVAL_SIZE, keypoints=keypoints)
 
 
 def run_train_net(argv, log_path):
@@ -1508,13 +1541,13 @@ RCNN_BATCH = 16  # predict_fn's batch (the YAML keeps TEST.BATCH_SIZE 1); SOLVER
 RCNN_STEPS = 4  # tools/train_net's steps in 10e
 
 
-def rcnn_cfg(name: str, dtype: str):
-    """``configs/COCO-Detection/<name>.yaml`` (over Base-RCNN-FPN.yaml) read
-    by the port's own YAML reader, with the run's compute width, output
-    directory and seed over it and no weights file (the YAML names ImageNet
-    weights, which are not in the repository)."""
+def rcnn_cfg(name: str, dtype: str, folder: str = "COCO-Detection"):
+    """``configs/<folder>/<name>.yaml`` (over Base-RCNN-FPN.yaml) read by the
+    port's own YAML reader, with the run's compute width, output directory
+    and seed over it and no weights file (the YAML names ImageNet weights,
+    which are not in the repository)."""
     cfg = get_cfg()
-    cfg.merge_from_file(os.path.join("configs", "COCO-Detection", name + ".yaml"))
+    cfg.merge_from_file(os.path.join("configs", folder, name + ".yaml"))
     cfg.merge_from_list(["TPU.DTYPE", dtype, "OUTPUT_DIR", "output/chip_smoke", "SEED", 0, "MODEL.WEIGHTS", ""])
     return cfg
 
@@ -1807,6 +1840,295 @@ def phase_faster_rcnn(report, out_dir):
                                         box_head_eval=box_head_eval)
 
 
+HEADS = {  # phase: (config folder, config name, the head's output, its evaluation's task)
+    "mask": ("COCO-InstanceSegmentation", "mask_rcnn_R_50_FPN_1x", "masks", "segm"),
+    "keypoint": ("COCO-Keypoints", "keypoint_rcnn_R_50_FPN_1x", "keypoint_heatmaps", "keypoints"),
+}
+
+
+def embedding_bag_ms(events) -> dict:
+    """Device ms under the ROIAlign's ``embedding_bag`` ops in a profile
+    (``ops/roi_align.py``), forward and backward apart: the kernels each op
+    launched, whatever their names."""
+    ops = {"forward": ("aten::embedding_bag",), "backward": ("aten::_embedding_bag_backward",)}
+    return {k: sum(e.device_time_total for e in events if e.key in names) / 1e3 for k, names in ops.items()}
+
+
+def keypoint_ties(maps, rois, got, want) -> dict:
+    """Where the card's decode (``got``, (D, K, 4)) puts a keypoint
+    elsewhere than the CPU's (``want``): whether it is another cell that
+    ties the CPU's f64 bicubic maximum, its value within 1e-9 of the map's
+    scale of it (both argmaxes pick the first maximum; at a tie the two
+    devices' roundings, ~1e-16 apart, pick different cells). The same cell
+    at another position is no tie: a failure."""
+    moved, ties = 0, True
+    for d, k in (got[..., :2] != want[..., :2]).any(-1).nonzero().tolist():
+        moved += 1
+        x0, y0, x1, y1 = rois[d].tolist()
+        rw, rh = max(x1 - x0, 1.0), max(y1 - y0, 1.0)
+        uw, uh = max(math.ceil(rw), 1), max(math.ceil(rh), 1)
+        up = torch.nn.functional.interpolate(maps[d: d + 1].double(), size=(uh, uw), mode="bicubic",
+                                             align_corners=False)[0, k]
+        cells = [(min(max(round((p[d, k, 1].item() - y0) * uh / rh - 0.5), 0), uh - 1),
+                  min(max(round((p[d, k, 0].item() - x0) * uw / rw - 0.5), 0), uw - 1)) for p in (got, want)]
+        ties &= cells[0] != cells[1] and bool(up[cells[0]] >= up.max() - 1e-9 * up.abs().max())
+    return {"moved": moved, "all_ties": ties}
+
+
+def phase_rcnn_head(report, out_dir, kind: str):
+    """Phases 11 (Mask R-CNN) and 12 (Keypoint R-CNN) at full width through
+    the port's entry points: requests and predict_fn at batch 16, the head's
+    f32 outputs card against CPU at batch 2, tools/bench with its train
+    steps at 16 × 800², tools/train_net 4 steps then --eval-only --resume;
+    every NMS through the kernel, no DCN kernel anywhere."""
+    folder, name, output, task = HEADS[kind]
+    number = {"mask": 11, "keypoint": 12}[kind]
+    cfg = rcnn_cfg(name, "bfloat16", folder)
+    m = cfg.MODEL
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    head = (f"mask head of {m.ROI_MASK_HEAD.NUM_CONV} convs of {m.ROI_MASK_HEAD.CONV_DIM} at "
+            f"{m.ROI_MASK_HEAD.POOLER_RESOLUTION}² → {2 * m.ROI_MASK_HEAD.POOLER_RESOLUTION}²" if kind == "mask" else
+            f"keypoint head of {len(m.ROI_KEYPOINT_HEAD.CONV_DIMS)} convs of {m.ROI_KEYPOINT_HEAD.CONV_DIMS[0]} at "
+            f"{m.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION}² → {m.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS} heatmaps of "
+            f"{4 * m.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION}²")
+    print(f"== {number}a. {name}.yaml: ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM}, FPN {m.FPN.OUT_CHANNELS}, "
+          f"{m.ROI_HEADS.NUM_CLASSES} classes, {head}, {m.RPN.POST_NMS_TOPK_TRAIN} proposals at training, bf16: "
+          f"DefaultPredictor at {size[0]}², predict_fn at batch {RCNN_BATCH}")
+    if not (m.RESNETS.DEPTH == 50 and m.FPN.OUT_CHANNELS == 256 and size == (800, 800)
+            and m.ROI_HEADS.BATCH_SIZE_PER_IMAGE == 512
+            and ((kind == "mask" and m.MASK_ON and m.ROI_HEADS.NUM_CLASSES == 80 and m.ROI_MASK_HEAD.NUM_CONV == 4
+                  and m.ROI_MASK_HEAD.CONV_DIM == 256 and m.ROI_MASK_HEAD.POOLER_RESOLUTION == 14)
+                 or (kind == "keypoint" and m.KEYPOINT_ON and m.ROI_HEADS.NUM_CLASSES == 1
+                     and list(m.ROI_KEYPOINT_HEAD.CONV_DIMS) == [512] * 8 and m.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS == 17
+                     and m.RPN.POST_NMS_TOPK_TRAIN == 1500))):
+        raise SystemExit(f"{name} is not at full width here: {m}")
+    rng = np.random.RandomState(10 + number)
+    reset_launches()
+    init, weights = rcnn_weights(rcnn_cfg(name, "float32", folder), letterboxed(rng, "cpu", 2, size), seed=0)
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    model.model.load_state_dict(weights)
+    batch = letterboxed(rng, model.device, RCNN_BATCH, size)
+    nms_launches = {}
+    nms_ops.greedy_nms.launches = 0
+    requests = []
+    for h, w in ((480, 640), (800, 800), (375, 500)):
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        inst = predictor(im)["instances"]
+        check_detections(name, im, inst, model.score_threshold)
+        if kind == "mask":
+            got = inst.pred_masks
+            if not (got.dtype == bool and got.shape == (len(inst), h, w) and got.any()):
+                raise SystemExit(f"{name}: bad pred_masks for a {h}x{w} image: {got.dtype} {got.shape}")
+            extra = f"{int(got.sum(axis=(1, 2)).mean())} mask pixels per detection"
+        else:
+            got = inst.pred_keypoints
+            b = inst.pred_boxes.tensor[:, None]  # the decode grows a box to at least 1 px a side
+            inside = ((got[..., 0] >= b[..., 0]) & (got[..., 0] <= b[..., 0] + np.maximum(b[..., 2] - b[..., 0], 1))
+                      & (got[..., 1] >= b[..., 1]) & (got[..., 1] <= b[..., 1] + np.maximum(b[..., 3] - b[..., 1], 1)))
+            if not (got.shape == (len(inst), 17, 3) and np.isfinite(got).all() and inside.all()):
+                raise SystemExit(f"{name}: bad pred_keypoints for a {h}x{w} image: {got.shape}")
+            extra = f"keypoint scores {got[..., 2].min():.3g}-{got[..., 2].max():.3g}"
+        requests.append(len(inst))
+        print(f"  request {h}x{w}: {len(inst)} detections, top score {inst.scores.max():.4f}, {extra}")
+    latency = bench.request_ms(predictor, rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+    nms_inputs = []
+    with capture_nms(nms_inputs):
+        dets = model.predict_fn(batch)
+        with torch.inference_mode():  # the training's proposals (Keypoint R-CNN: 1500 picks)
+            model.proposals(*model.model(model.normalize(batch))[1:], size, "train")
+    torch.cuda.synchronize()
+    nms_launches["serving"] = nms_ops.greedy_nms.launches
+    calls = 3 + bench.REQUEST_WARMUP + bench.REQUESTS + 1
+    if nms_launches["serving"] != 2 * calls + 1:
+        raise SystemExit(f"expected two NMS kernel launches per call (RPN, boxes) and one for the training's "
+                         f"proposals, {2 * calls + 1}, got {nms_launches['serving']}")
+    short = {"mask": "mask", "keypoint": "kp"}[kind]
+    nms_cases = {f"{k}_{short}": c for k, c in zip(("rpn_test", "box_head", "rpn_train"), nms_inputs)}
+    valid = (dets["scores"] > model.score_threshold).sum(1).cpu()
+    want_shape = (RCNN_BATCH, 100, 28, 28) if kind == "mask" else (RCNN_BATCH, 100, 17, 56, 56)
+    if not (tuple(dets[output].shape) == want_shape and bool(torch.isfinite(dets[output]).all())
+            and int(valid.min()) > 0):
+        raise SystemExit(f"{name}'s predict_fn returned a malformed {output} or no detections: "
+                         f"{tuple(dets[output].shape)}, {valid.tolist()}")
+    predict_ms = cuda_ms(lambda: model.predict_fn(batch), iters=5)
+    b16 = profiled(lambda: model.predict_fn(batch), calls=1)
+    print(f"  request (480x640 → 800²) median {statistics.median(latency):.3f} ms of {bench.REQUESTS}; predict_fn "
+          f"batch {RCNN_BATCH}: {predict_ms:.3f} ms = {RCNN_BATCH * 1e3 / predict_ms:.2f} img/s, {b16['device_ms']:.3f} "
+          f"ms on the card; valid detections per image {int(valid.min())}-{int(valid.max())} of 100; NMS kernel "
+          f"launches {nms_launches['serving']}")
+    print(b16["events"].table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    out = dict(requests=requests, request_ms=latency, request_median_ms=statistics.median(latency),
+               predict_fn_b16_ms=predict_ms, predict_fn_b16_device_ms=b16["device_ms"],
+               valid_per_image=valid.tolist())
+    del predictor, dets
+
+    top = 16  # the best-scored detection slots of each image (the keypoint head costs ~9 GFLOP a roi on the CPU)
+    print(f"== {number}b. f32, batch 2, card against CPU: the {kind} head on the card's top {top} detection boxes "
+          f"of each image (rois the two devices' log2 puts on other FPN levels left out), and the host boundary "
+          f"on the card's outputs")
+    cfg32 = rcnn_cfg(name, "float32", folder)
+    card = build_model(cfg32)
+    cfg32.MODEL.DEVICE = "cpu"
+    host = build_model(cfg32)
+    for mdl in (card, host):
+        mdl.model.load_state_dict(weights)
+    x = batch[:2]
+    with torch.inference_mode():
+        dets = card.predict_fn(x)
+        feats_c = card.model(card.normalize(x))[0]
+        feats_h = host.model(host.normalize(x.cpu()))[0]
+        boxes = dets["boxes"][:, :top].reshape(-1, 4)
+        same_level = (roi_ops.assign_boxes_to_levels(boxes, 2, 5).cpu()
+                      == roi_ops.assign_boxes_to_levels(boxes.cpu(), 2, 5))
+        if kind == "mask":
+            res = card.mask_pooler_resolution
+            cls = torch.clamp(dets["classes"][:, :top].reshape(-1), 0, card.num_classes - 1)
+            rows = torch.arange(len(cls), device=cls.device)
+            got_c = card.model.mask_predict(card.pool(feats_c, boxes, top, res))[rows, cls].cpu()
+            got_h = host.model.mask_predict(host.pool(feats_h, boxes.cpu(), top, res))[rows.cpu(), cls.cpu()]
+        else:
+            res = card.keypoint_pooler_resolution
+            got_c = card.model.keypoint_predict(card.pool(feats_c, boxes, top, res)).cpu()
+            got_h = host.model.keypoint_predict(host.pool(feats_h, boxes.cpu(), top, res))
+        err = (got_c - got_h)[same_level].abs().max().item()
+        scale = got_h.abs().max().item()
+        tol = HEAD_TOL * scale
+        # the control: cuDNN's TF32 on and the model's ieee_f32 bypassed, the
+        # same boxes; the check must see it (as phase 4b's C9 control)
+        with pytorch_default_tf32(), bypass_ieee_f32(rcnn):
+            feats_t = card.model(card.normalize(x))[0]
+            if kind == "mask":
+                got_t = card.model.mask_predict(card.pool(feats_t, boxes, top, res))[rows, cls].cpu()
+            else:
+                got_t = card.model.keypoint_predict(card.pool(feats_t, boxes, top, res)).cpu()
+        tf32_err = (got_t - got_h)[same_level].abs().max().item()
+        b0 = dets["boxes"][0, :top]  # the first image's, in the 800² frame
+        if kind == "mask":
+            on_card = paste_masks_in_image(dets["masks"][0, :top], b0, size)
+            on_host = paste_masks_in_image(dets["masks"][0, :top].cpu(), b0.cpu(), size)
+            boundary = ("pasted masks", torch.equal(on_card.cpu(), on_host), int(on_card.sum()))
+        else:
+            maps = dets["keypoint_heatmaps"][0, :top]
+            on_card = heatmaps_to_keypoints(maps, b0)
+            on_host = heatmaps_to_keypoints(maps.cpu(), b0.cpu())
+            ties = keypoint_ties(maps.cpu(), b0.cpu(), on_card, on_host)
+            boundary = ("keypoint positions", ties["all_ties"] and ties["moved"] <= 0.01 * on_host[..., 0].numel(),
+                        float((on_card[..., 3] - on_host[..., 3]).abs().max() / on_host[..., 3].abs().max()))
+            print(f"  keypoints decoded elsewhere on the card than on the CPU: {ties['moved']} of "
+                  f"{on_host[..., 0].numel()}, each at another cell tying the CPU's f64 upsampled maximum "
+                  f"(within 1e-9 of its scale): {ties['all_ties']} (tol: ties only, at most 1%)")
+            out["keypoint_ties"] = ties
+    flips = int((~same_level).sum())
+    print(f"  {output} head: max_abs_err={err:.3e} (scale {scale:.3e}, tol {HEAD_TOL:.0e} x scale = {tol:.1e}) "
+          f"{'ok' if err <= tol else 'FAIL'}; with cuDNN's TF32 on and ieee_f32 bypassed {tf32_err:.3e} "
+          f"{'(over the tol: the check sees TF32)' if tf32_err > tol else '(NOT over the tol: FAIL)'}; "
+          f"{flips} of {len(same_level)} rois on another FPN level (tol 0.1%); {boundary[0]} of the top {top} "
+          f"detections of image 0 on the card and on the CPU: "
+          f"{('equal' if kind == 'mask' or not ties['moved'] else 'equal but at ties') if boundary[1] else 'DIFFERENT'} "
+          f"({boundary[2]:.4g} {'mask pixels' if kind == 'mask' else 'largest relative score difference'})")
+    if not (err <= tol and flips <= 1e-3 * len(same_level) and boundary[1]):
+        raise SystemExit(f"{name}'s f32 {kind} head or host boundary differs between the card and the CPU")
+    if not tf32_err > tol:
+        raise SystemExit(f"{name}'s f32 {kind} head check did not see TF32: {tf32_err:.3e} <= {tol:.3e}")
+    out.update(card_vs_cpu=dict(max_abs_err=err, scale=scale, tol=tol, tf32_bypass_err=tf32_err, level_flips=flips,
+                                host_boundary_equal=boundary[1], host_boundary_extra=boundary[2]))
+    del card, host, feats_c, feats_h, feats_t, dets
+
+    print(f"== {number}c. tools/bench --config-file {folder}/{name}.yaml TEST.BATCH_SIZE {RCNN_BATCH} (the model's "
+          f"own init; train at {RCNN_BATCH} x 800²)")
+    captured, bench_training = [], bench.bench_training
+    bench.bench_training = lambda c, w=None: captured.append(bench_training(c, w)) or captured[-1]
+    nms_ops.greedy_nms.launches = 0
+    try:
+        result = bench.main(["--config-file", os.path.join("configs", folder, name + ".yaml"),
+                             "TEST.BATCH_SIZE", str(RCNN_BATCH)])
+    finally:
+        bench.bench_training = bench_training
+    torch.cuda.synchronize()
+    nms_launches["bench"] = nms_ops.greedy_nms.launches
+    calls = 2 + bench.ITERS + bench.REQUEST_WARMUP + bench.REQUESTS
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    if nms_launches["bench"] != 2 * calls + steps:
+        raise SystemExit(f"expected 2 NMS launches per bench call and 1 per step ({2 * calls + steps}), "
+                         f"got {nms_launches['bench']}")
+    extra = result["extra"]
+    _, trainer, clock = captured[0]
+    loss = "loss_mask" if kind == "mask" else "loss_keypoint"
+    names = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", loss, "total_loss")
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in names}
+    keys = ("predictor_latency_ms", "train_step_ms", "train_busy_share", "peak_memory_gib")
+    metric = f"{'mask' if kind == 'mask' else 'keypoint'}_rcnn_res50_fpn_800_infer_throughput"
+    if not (result["metric"] == metric and result["value"] > 0 and extra["batch"] == RCNN_BATCH
+            and extra["train_batch"] == RCNN_BATCH and all(extra.get(k) is not None for k in keys)
+            and (result["vs_baseline"] is None) == (kind == "keypoint")):
+        raise SystemExit(f"the bench's {name} line is not complete: {result}")
+    if any(len(v) != steps or not all(math.isfinite(x) for x in v) for v in losses.values()):
+        raise SystemExit(f"{name}'s bench losses are not finite at every step: {losses}")
+    roi_align = embedding_bag_ms(clock.events)
+    print(f"  {result['metric']}: {result['value']} img/s (vs_baseline {result['vs_baseline']}); request median "
+          f"{extra['predictor_latency_ms']:.3f} ms; predict_fn batch {extra['batch']} {extra['predict_fn_ms']:.3f} ms; "
+          f"NMS kernel launches {nms_launches['bench']}")
+    print(f"  train at {extra['train_batch']} x 800²: {loss} {' '.join(f'{v:.4f}' for v in losses[loss])}; total "
+          f"{' '.join(f'{v:.4f}' for v in losses['total_loss'])}; step times (ms) "
+          f"{' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} {extra['train_step_ms']:.1f} ms = "
+          f"{extra['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = {extra['train_busy_share']:.0%} "
+          f"of the median step; peak memory {extra['peak_memory_gib']:.2f} GiB; ROIAlign's embedding_bag in the "
+          f"profiled step: forward {roi_align['forward']:.2f} ms, backward {roi_align['backward']:.2f} ms")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
+    out.update(bench=result, bench_losses=losses, bench_step_ms_all=clock.times,
+               bench_profiled_device_ms=clock.device_ms, bench_roi_align_ms=roi_align)
+    del trainer, captured
+
+    init_path = os.path.join(out_dir, "init_weights.pth")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(init, init_path)
+    val = cfg.DATASETS.TEST[0]
+    # from the init with calibrated FrozenBN statistics, as 10e; Mask R-CNN's
+    # 80 classes score near 1/81 there, so its threshold goes to 0.005 for
+    # detections to evaluate; Keypoint R-CNN's one class scores near 1/2
+    thresh = ["MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.005"] if kind == "mask" else []
+    print(f"== {number}d. tools/train_net on {name}.yaml: {RCNN_STEPS} steps at batch {RCNN_BATCH} from the init with "
+          f"calibrated FrozenBN statistics (MODEL.WEIGHTS; DETECTRON2_SYNTH_DATA), then --eval-only --resume on the "
+          f"{EVAL_IMAGES} synthetic {val} images {' '.join(thresh)}")
+    argv = ["--config-file", os.path.join("configs", folder, name + ".yaml"), "SOLVER.MAX_ITER", str(RCNN_STEPS),
+            "SOLVER.IMS_PER_BATCH", str(RCNN_BATCH), "TEST.BATCH_SIZE", str(RCNN_BATCH), "MODEL.WEIGHTS", init_path,
+            "OUTPUT_DIR", out_dir, "SEED", "0"] + thresh
+    fresh_synthetic_val(val, keypoints=kind == "keypoint")
+    log_path = f"output/chip_smoke_{kind}_rcnn_train_net_log.txt"
+    nms_ops.greedy_nms.launches = 0
+    trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
+    nms_launches["train_net"] = nms_ops.greedy_nms.launches
+    want = RCNN_STEPS + 2 * 2 * -(-EVAL_IMAGES // RCNN_BATCH)
+    if nms_launches["train_net"] != want:
+        raise SystemExit(f"expected {want} NMS kernel launches in train_net, got {nms_launches['train_net']}")
+    print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
+          + "; ".join(f"{t} " + ", ".join(f"{k} {trained[t][k]:.4f}" for k in ("AP", "AP50", "AP75") if k in trained[t])
+                      for t in trained))
+    if resumed != [0, RCNN_STEPS]:
+        raise SystemExit(f"expected to start at iteration 0 and resume at {RCNN_STEPS}, got {resumed}")
+    if set(trained) != {"bbox", task}:
+        raise SystemExit(f"{name}'s evaluation has no {task} results: {sorted(trained)}")
+    if not same_results(trained, evaluated):
+        raise SystemExit(f"{name}'s evaluation after training and the --eval-only --resume one differ: "
+                         f"{trained} vs {evaluated}")
+    if not all(math.isfinite(trained[t][k]) for t in trained for k in ("AP", "AP50", "AP75")):
+        raise SystemExit(f"{name}'s AP dicts are not finite: {trained}")
+    print(f"  the two evaluation dicts are identical (bbox and {task}); NMS kernel launches "
+          f"{nms_launches['train_net']}; log in {log_path}")
+    out.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, results=trained))
+
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the {name} path ({number}a-{number}d): {launches}; NMS kernel launches "
+          f"{nms_launches}")
+    if any(launches.values()):
+        raise SystemExit(f"the {name} path launched DCN kernels: {launches}")
+    out.update(launches=launches, nms_kernel_launches=nms_launches)
+    report[f"{kind}_rcnn"] = out
+    return launches, nms_launches, nms_cases
+
+
 def roi_ops_inference(model, props, scores, deltas, n, p, size):
     """``fast_rcnn_inference`` of the box predictor's outputs on (N, P) proposals."""
     return roi_heads_ops.fast_rcnn_inference(props[0], props[2], scores.view(n, p, -1), deltas.view(n, p, -1),
@@ -1885,7 +2207,15 @@ def main() -> int:
         rcnn_launches, rcnn_nms, rcnn_cases = phase_faster_rcnn(report, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases))
+    head_launches, head_nms, head_cases = {}, {}, {}
+    for kind in HEADS:
+        scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+        try:
+            head_launches[kind], head_nms[kind], cases = phase_rcnn_head(report, scratch, kind)
+            head_cases.update(cases)
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+    nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases, **head_cases))
     totals = phase_kernel_timing(report)
 
     kernels = []
@@ -1905,6 +2235,8 @@ def main() -> int:
             + train_net_launches[name],
             "launches_retinanet": retinanet_launches[name],  # phase 9, asserted 0
             "launches_faster_rcnn": rcnn_launches[name],  # phase 10, asserted 0
+            "launches_mask_rcnn": head_launches["mask"][name],  # phase 11, asserted 0
+            "launches_keypoint_rcnn": head_launches["keypoint"][name],  # phase 12, asserted 0
             "max_abs_err": max_err[name], "ms": t["ms_b1"], "plain_ms": t["plain_ms_b1"],
             "bound_ms": t["bound_ms_b1"], "bound_by": t["bound_by_b1"], "library_ms": None,
             "per": "16 launches, the DLA-34 shapes at batch 1, bf16"
@@ -1917,10 +2249,14 @@ def main() -> int:
     kernels.append({
         "name": "nms_fixed", "route": "cuda", "source": CSRC + "nms.cu",
         "replaces": "detectron2_centernet_tpu/ops/nms.py:51",
-        "launches": sum(retinanet_nms.values()) + sum(rcnn_nms.values()),
-        "launches_from": "RetinaNet (phase 9: requests and batch 16, the bench, train_net) and Faster R-CNN "
-        "(phase 10: requests and batch 16, the bench, train_net, the ProposalNetwork)",
+        "launches": sum(retinanet_nms.values()) + sum(rcnn_nms.values())
+        + sum(sum(v.values()) for v in head_nms.values()),
+        "launches_from": "RetinaNet (phase 9: requests and batch 16, the bench, train_net), Faster R-CNN "
+        "(phase 10: requests and batch 16, the training's proposals, the bench, train_net, the ProposalNetwork), "
+        "Mask R-CNN and Keypoint R-CNN (phases 11 and 12: requests and batch 16, the training's proposals, the "
+        "bench, train_net)",
         "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
+        "launches_mask_rcnn": head_nms["mask"], "launches_keypoint_rcnn": head_nms["keypoint"],
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,

@@ -19,7 +19,11 @@ tower; RetinaNet's ResNet-FPN (``backbone.bottom_up.<ResNet keys>``,
 (``proposal_generator.rpn_head.{conv,objectness_logits,anchor_deltas}``) to
 ``rpn_head/...``, its box head (``roi_heads.box_head.fc{i}``,
 ``roi_heads.box_head.conv{i}``) to ``box_head/...`` and predictor
-(``roi_heads.box_predictor.{cls_score,bbox_pred}``) to ``box_predictor/...``.
+(``roi_heads.box_predictor.{cls_score,bbox_pred}``) to ``box_predictor/...``,
+the mask head (``roi_heads.mask_head.{mask_fcn{i},deconv,predictor}``) to
+``mask_head/...`` and the keypoint head
+(``roi_heads.keypoint_head.{conv_fcn{i},score_lowres}``) to
+``keypoint_head/...``.
 ``torch_key`` is its inverse, and ``state_dict_from_jax`` checks every key
 it makes against it.
 
@@ -33,10 +37,14 @@ the other way):
     reference), so its input dim is permuted from (H, W, C) to (C, H, W)
     order, C the width of the map it flattens (the last box-head conv's, or
     the RPN head's input, the FPN's);
-  * the depthwise ``up_*`` kernel (2f, 2f, 1, C) → (C, 1, 2f, 2f) and the
-    neck's transposed-conv kernel (4, 4, Cin, Cout) → (Cin, Cout, 4, 4), both
+  * the depthwise ``up_*`` kernel (2f, 2f, 1, C) → (C, 1, 2f, 2f), the
+    neck's transposed-conv kernel (4, 4, Cin, Cout) → (Cin, Cout, 4, 4) and
+    the mask head's ``deconv`` (2, 2, Cin, Cout) → (Cin, Cout, 2, 2), all
     flipped spatially: torch's transposed conv correlates with the reversed
-    kernel, flax's with the kernel as stored.
+    kernel, flax's with the kernel as stored;
+  * the keypoint head's ``score_lowres``, a flax ``ConvTranspose`` with
+    ``transpose_kernel``, (4, 4, K, C) → (C, K, 4, 4), not flipped: flax
+    flips a transposed kernel itself, as torch does.
 """
 
 import re
@@ -202,13 +210,16 @@ def _trunk_to_torch(body):
 
 _RETINA_TOWERS = {"cls_subnet": "cls_tower", "bbox_subnet": "box_tower"}
 _RCNN_OWNERS = {("proposal_generator", "rpn_head"): "rpn_head", ("roi_heads", "box_head"): "box_head",
-                ("roi_heads", "box_predictor"): "box_predictor"}
+                ("roi_heads", "box_predictor"): "box_predictor", ("roi_heads", "mask_head"): "mask_head",
+                ("roi_heads", "keypoint_head"): "keypoint_head"}
 _RCNN_MODULES = {"rpn_head": r"conv|objectness_logits|anchor_deltas", "box_head": r"(conv|fc)\d+",
-                 "box_predictor": r"cls_score|bbox_pred"}
+                 "box_predictor": r"cls_score|bbox_pred", "mask_head": r"mask_fcn\d+|deconv|predictor",
+                 "keypoint_head": r"conv_fcn\d+|score_lowres"}
 
 
 def _rcnn_to_flax(body):
-    """R-CNN's RPN and box heads (torch tokens) → flax module tokens, or None."""
+    """R-CNN's RPN, box, mask and keypoint heads (torch tokens) → flax module
+    tokens, or None."""
     owner = _RCNN_OWNERS.get(tuple(body[:2])) if len(body) == 3 else None
     if owner is None or not re.fullmatch(_RCNN_MODULES[owner], body[2]):
         return None
@@ -356,8 +367,10 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         if arr.ndim == 4:
             if key.split(".")[-2].startswith("up_"):
                 arr = np.transpose(arr[::-1, ::-1], (3, 2, 0, 1))  # (2f, 2f, 1, C) → (C, 1, 2f, 2f)
-            elif key.startswith("deconv_layers."):
-                arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))  # (4, 4, Cin, Cout) → (Cin, Cout, 4, 4)
+            elif key.startswith("deconv_layers.") or key == "roi_heads.mask_head.deconv.weight":
+                arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))  # (k, k, Cin, Cout) → (Cin, Cout, k, k)
+            elif key == "roi_heads.keypoint_head.score_lowres.weight":
+                arr = np.transpose(arr, (3, 2, 0, 1))  # (4, 4, K, C) → (C, K, 4, 4), flax flips it itself
             else:
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
         elif arr.ndim == 2:

@@ -7,7 +7,13 @@ Train: one affine warp (random scale, shift and flip) to
 and padded to ``MODEL.CENTERNET.MAX_OBJS`` slots with a validity mask. The
 gaussian targets are rendered on the device in the train step
 (``ops/target_gen.py``) and the color jitter runs there too
-(``ops/photometric.py``).
+(``ops/photometric.py``). With ``MODEL.MASK_ON`` each kept instance's
+polygons go through the same matrix and are filled into a fixed
+``INPUT.MASK_RASTER``² raster relative to its box (``gt_masks``, uint8, the
+JAX package's ``:253-271``); with ``MODEL.KEYPOINT_ON`` its keypoints go
+through it too, a point warped off the image turning invisible, the left
+and right ones swapped by the train dataset's ``keypoint_flip_map`` when
+the warp mirrors (``gt_keypoints``, ``:273-293``).
 
 Eval: the ctdet letterbox to ``INPUT.TEST_SIZE``, by resize and paste
 (``fast_letterbox``) when ``INPUT.FAST_LETTERBOX`` is on, the image is uint8
@@ -16,8 +22,8 @@ carries the warp actually applied, for un-mapping the boxes.
 
 The warps are the port's PyTorch ones (the card's machine has no cv2),
 rounded to uint8 as cv2 rounds a uint8 warp, so a batch ships 1 byte per
-pixel. Masks, keypoints, sem-seg, crop, extent, rotation and proposals are
-not ported: nothing on the port's path reads them.
+pixel. Sem-seg, crop, extent, rotation and proposals are not ported:
+nothing on the port's path reads them.
 """
 
 import copy
@@ -27,7 +33,9 @@ import numpy as np
 import torch
 
 from ..config import CfgNode
+from ..structures.masks import rasterize_in_box
 from . import detection_utils as utils
+from .catalog import MetadataCatalog
 from .transforms import CenterAffineAug, letterbox_transform
 
 __all__ = ["DatasetMapper"]
@@ -38,6 +46,20 @@ class DatasetMapper:
         self.is_train = is_train
         self.image_format = cfg.INPUT.FORMAT
         self.max_objs = int(cfg.MODEL.CENTERNET.MAX_OBJS)
+        self.mask_on = bool(cfg.MODEL.MASK_ON)
+        self.mask_raster = int(cfg.INPUT.MASK_RASTER)
+        self.keypoint_on = bool(cfg.MODEL.KEYPOINT_ON)
+        self.num_keypoints = int(cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS)
+        self.kp_flip_indices = None  # the permutation a mirroring warp applies, from the train set's metadata
+        if self.keypoint_on and len(cfg.DATASETS.TRAIN):
+            meta = MetadataCatalog.get(cfg.DATASETS.TRAIN[0])
+            names, flip_map = meta.get("keypoint_names"), meta.get("keypoint_flip_map")
+            if names and flip_map:
+                idx = {name: i for i, name in enumerate(names)}
+                perm = list(range(len(names)))
+                for a, b in flip_map:
+                    perm[idx[a]], perm[idx[b]] = idx[b], idx[a]
+                self.kp_flip_indices = np.asarray(perm)
         self.train_size = tuple(cfg.INPUT.TRAIN_SIZE)
         self.test_size = tuple(cfg.INPUT.TEST_SIZE)
         # the exact mode keeps the affine warp, as in the JAX package
@@ -86,5 +108,41 @@ class DatasetMapper:
             np.clip(boxes[:, 0::2], 0, out_size[1] - 1, out=boxes[:, 0::2])
             np.clip(boxes[:, 1::2], 0, out_size[0] - 1, out=boxes[:, 1::2])
         keep = (boxes[:, 2] - boxes[:, 0] > 1e-5) & (boxes[:, 3] - boxes[:, 1] > 1e-5)
-        out.update(utils.pad_to_capacity(boxes[keep], classes[keep], self.max_objs))
+        boxes = boxes[keep]
+        out.update(utils.pad_to_capacity(boxes, classes[keep], self.max_objs))
+        kept = [a for a, k in zip(annos, keep) if k][: self.max_objs]
+        if self.mask_on:
+            out["gt_masks"] = self._masks(kept, boxes, m)
+        if self.keypoint_on:
+            out["gt_keypoints"] = self._keypoints(kept, m, out_size)
         return out
+
+    def _masks(self, annos, boxes: np.ndarray, m: np.ndarray) -> np.ndarray:
+        """(MAX_OBJS, R, R) uint8: each instance's warped polygons filled
+        relative to its warped, clipped box (0 for an RLE or no polygon)."""
+        r = self.mask_raster
+        rasters = np.zeros((self.max_objs, r, r), np.uint8)
+        for i, (a, box) in enumerate(zip(annos, boxes)):
+            segm = a.get("segmentation")
+            if not segm or isinstance(segm, dict):
+                continue
+            polys = [utils.apply_affine_to_points(m, np.asarray(p, np.float64).reshape(-1, 2)).reshape(-1)
+                     for p in segm]
+            rasters[i] = (rasterize_in_box(polys, box, r) > 0.5).astype(np.uint8)
+        return rasters
+
+    def _keypoints(self, annos, m: np.ndarray, out_size) -> np.ndarray:
+        """(MAX_OBJS, K, 3) f32 warped (x, y, visibility)."""
+        kp = np.zeros((self.max_objs, self.num_keypoints, 3), np.float32)
+        for i, a in enumerate(annos):
+            pts = a.get("keypoints")
+            if not pts:
+                continue
+            arr = np.asarray(pts, np.float32).reshape(-1, 3)[: self.num_keypoints]
+            xy = utils.apply_affine_to_points(m, arr[:, :2])
+            inside = (xy[:, 0] >= 0) & (xy[:, 0] < out_size[1]) & (xy[:, 1] >= 0) & (xy[:, 1] < out_size[0])
+            row = np.concatenate([xy, np.where(inside, arr[:, 2], 0)[:, None]], axis=1)
+            if m[0, 0] < 0 and self.kp_flip_indices is not None:
+                row = row[self.kp_flip_indices]  # a mirroring warp: left and right swap
+            kp[i, : len(row)] = row
+        return kp

@@ -1,5 +1,6 @@
-"""COCO's 80 thing classes in official category-id order (a copy of the
-class table of the JAX package's ``data/datasets/builtin_meta.py``)."""
+"""COCO's 80 thing classes in official category-id order and its 17 person
+keypoints with their left/right flip map (copies of the tables of the JAX
+package's ``data/datasets/builtin_meta.py``)."""
 
 from typing import List
 
@@ -25,3 +26,17 @@ COCO_CATEGORIES: List[tuple] = [
     (89, "hair drier"), (90, "toothbrush"),
 ]
 
+
+COCO_PERSON_KEYPOINT_NAMES = (
+    "nose", "left_eye", "right_eye", "left_ear", "right_ear",
+    "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
+    "left_wrist", "right_wrist", "left_hip", "right_hip",
+    "left_knee", "right_knee", "left_ankle", "right_ankle",
+)
+
+COCO_PERSON_KEYPOINT_FLIP_MAP = (
+    ("left_eye", "right_eye"), ("left_ear", "right_ear"),
+    ("left_shoulder", "right_shoulder"), ("left_elbow", "right_elbow"),
+    ("left_wrist", "right_wrist"), ("left_hip", "right_hip"),
+    ("left_knee", "right_knee"), ("left_ankle", "right_ankle"),
+)

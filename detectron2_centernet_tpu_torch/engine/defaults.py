@@ -216,7 +216,7 @@ class DefaultTrainer(SimpleTrainer):
 
     @classmethod
     def build_evaluator(cls, cfg: CfgNode, dataset_name: str) -> DatasetEvaluator:
-        return COCOEvaluator(dataset_name, output_dir=cfg.OUTPUT_DIR)
+        return COCOEvaluator(dataset_name, output_dir=cfg.OUTPUT_DIR, cfg=cfg)
 
     @classmethod
     def test(cls, cfg: CfgNode, trainer_or_model, evaluators=None):

@@ -118,6 +118,7 @@ class SimpleTrainer(TrainerBase):
     """
 
     BATCH_KEYS = ("gt_boxes", "gt_classes", "gt_valid")
+    OPTIONAL_KEYS = ("gt_masks", "gt_keypoints")  # the mapper's, with MODEL.MASK_ON / KEYPOINT_ON
 
     def __init__(self, model, data_loader, optimizer, scheduler, metrics_period: int = 20) -> None:
         super().__init__()
@@ -137,9 +138,11 @@ class SimpleTrainer(TrainerBase):
                 p.grad = torch.zeros_like(p)
 
     def to_device(self, data: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """The host batch as the loss takes it: image (N, 3, H, W) f32."""
+        """The host batch as the loss takes it: image (N, 3, H, W) f32, the
+        gt arrays as they are (masks and keypoints when the mapper made them)."""
         dev = self.model.device
-        batch = {k: torch.from_numpy(data[k]).to(dev, non_blocking=True) for k in self.BATCH_KEYS}
+        keys = self.BATCH_KEYS + tuple(k for k in self.OPTIONAL_KEYS if k in data)
+        batch = {k: torch.from_numpy(data[k]).to(dev, non_blocking=True) for k in keys}
         image = torch.from_numpy(data["image"]).to(dev, non_blocking=True)
         batch["image"] = image.permute(0, 3, 1, 2).to(torch.float32)
         return batch

@@ -10,8 +10,12 @@ matcher when ``use_fast_impl`` (the reference's ``COCOeval_opt``; a failed
 build raises), else the numpy ``COCOEval``. The port runs in one process,
 so nothing is gathered across ranks.
 
-Box results are evaluated. Predicted masks and keypoints raise: no port
-model makes them yet (ROADMAP A14, A15).
+Boxes are evaluated always; with predicted masks (uncompressed RLE in the
+results json) the ``segm`` IoU type too, against the ground truth's polygons
+filled at the image's size (``_gt_segm_rles``, pycocotools' ``annToRLE``);
+with predicted keypoints the ``keypoints`` type (OKS, with
+``TEST.KEYPOINT_OKS_SIGMAS`` when the config gives them, else COCO's 17),
+through the numpy ``COCOEval`` as the JAX package and the reference do.
 """
 
 import copy
@@ -26,6 +30,8 @@ import numpy as np
 
 from ..data import MetadataCatalog
 from ..data.datasets.coco import convert_to_coco_dict, convert_to_coco_json
+from ..structures.masks import polygons_to_bitmask
+from ..structures.rle import mask_to_rle
 from .cocoeval_np import COCOEval
 from .evaluator import DatasetEvaluator
 
@@ -35,22 +41,31 @@ __all__ = ["COCOEvaluator", "instances_to_coco_json"]
 
 
 def instances_to_coco_json(instances, img_id: int) -> List[dict]:
-    """Instances -> list of COCO-format detection dicts (reference :321-354)."""
+    """Instances -> list of COCO-format detection dicts (reference :321-354);
+    masks as uncompressed COCO RLE, keypoints with -0.5 on x and y (the
+    reference's pixel-index convention, :371-378)."""
     num_instance = len(instances)
     if num_instance == 0:
         return []
-    if instances.has("pred_masks") or instances.has("pred_keypoints"):
-        raise NotImplementedError("mask and keypoint results are not ported yet (ROADMAP A14, A15)")
     boxes = np.asarray(instances.pred_boxes.tensor, np.float64).copy()
     # XYXY -> XYWH
     boxes[:, 2] -= boxes[:, 0]
     boxes[:, 3] -= boxes[:, 1]
     scores = np.asarray(instances.scores).tolist()
     classes = np.asarray(instances.pred_classes).tolist()
-    return [
+    results = [
         {"image_id": img_id, "category_id": classes[k], "bbox": boxes[k].tolist(), "score": scores[k]}
         for k in range(num_instance)
     ]
+    if instances.has("pred_masks"):
+        for r, m in zip(results, instances.pred_masks):
+            r["segmentation"] = mask_to_rle(np.asarray(m))
+    if instances.has("pred_keypoints"):
+        kpts = np.asarray(instances.pred_keypoints, np.float64).copy()
+        kpts[:, :, :2] -= 0.5
+        for r, k in zip(results, kpts):
+            r["keypoints"] = k.flatten().tolist()
+    return results
 
 
 class COCOEvaluator(DatasetEvaluator):
@@ -60,10 +75,12 @@ class COCOEvaluator(DatasetEvaluator):
     memory."""
 
     def __init__(self, dataset_name: str, output_dir: Optional[str] = None,
-                 use_fast_impl: bool = True) -> None:
+                 use_fast_impl: bool = True, cfg=None) -> None:
         self._dataset_name = dataset_name
         self._output_dir = output_dir
         self._use_fast_impl = use_fast_impl
+        self._kpt_oks_sigmas = (list(cfg.TEST.KEYPOINT_OKS_SIGMAS)
+                                if cfg is not None and len(cfg.TEST.KEYPOINT_OKS_SIGMAS) else None)
         self._metadata = MetadataCatalog.get(dataset_name)
         self._predictions: List[dict] = []
 
@@ -123,21 +140,57 @@ class COCOEvaluator(DatasetEvaluator):
             self._coco_gt["annotations"], coco_results, img_ids, cat_ids
         )
         out["bbox"] = self._derive_coco_results(coco_eval)
+        if any("segmentation" in r for r in coco_results):
+            dt_segm = [r for r in coco_results if "segmentation" in r]
+            segm_eval = self._evaluate_predictions_on_coco(self._gt_segm_rles(), dt_segm, img_ids, cat_ids,
+                                                           iou_type="segm")
+            out["segm"] = self._derive_coco_results(segm_eval)
+        if any("keypoints" in r for r in coco_results):
+            gt_kp = [a for a in self._coco_gt["annotations"] if a.get("keypoints")]
+            dt_kp = [r for r in coco_results if "keypoints" in r]
+            kp_eval = self._evaluate_predictions_on_coco(gt_kp, dt_kp, img_ids, cat_ids, iou_type="keypoints")
+            out["keypoints"] = self._derive_coco_results(kp_eval, iou_type="keypoints")
         return out
 
-    def _evaluate_predictions_on_coco(self, gt_anns, coco_results, img_ids, cat_ids):
-        # imported here: ops.fast_cocoeval imports this package's cocoeval_np
-        from ..ops.fast_cocoeval import FastCOCOEval
+    def _gt_segm_rles(self) -> List[dict]:
+        """The ground truth's annotations with a segmentation, polygons filled
+        at the image's size as RLE (pycocotools' ``annToRLE``)."""
+        sizes = {im["id"]: (im["height"], im["width"]) for im in self._coco_gt["images"]}
+        out = []
+        for a in self._coco_gt["annotations"]:
+            segm = a.get("segmentation")
+            if not segm:
+                continue
+            g = dict(a)
+            if isinstance(segm, list):
+                g["segmentation"] = mask_to_rle(polygons_to_bitmask(segm, *sizes[a["image_id"]]))
+            out.append(g)
+        return out
 
-        ev = (FastCOCOEval if self._use_fast_impl else COCOEval)(gt_anns, coco_results, img_ids, cat_ids)
+    def _evaluate_predictions_on_coco(self, gt_anns, coco_results, img_ids, cat_ids, iou_type="bbox"):
+        if iou_type == "keypoints":
+            # the C++ matcher covers bbox and segm; keypoints go through the
+            # numpy evaluator, as in the JAX package and the reference
+            nk = len(coco_results[0]["keypoints"]) // 3
+            if self._kpt_oks_sigmas is not None and len(self._kpt_oks_sigmas) != nk:
+                raise ValueError(f"TEST.KEYPOINT_OKS_SIGMAS has {len(self._kpt_oks_sigmas)} entries but "
+                                 f"predictions carry {nk} keypoints")
+            ev = COCOEval(gt_anns, coco_results, img_ids, cat_ids, iou_type, kpt_oks_sigmas=self._kpt_oks_sigmas)
+        else:
+            # imported here: ops.fast_cocoeval imports this package's cocoeval_np
+            from ..ops.fast_cocoeval import FastCOCOEval
+
+            ev = (FastCOCOEval if self._use_fast_impl else COCOEval)(gt_anns, coco_results, img_ids, cat_ids,
+                                                                      iou_type)
         ev.evaluate()
         ev.summarize()
         return ev
 
-    def _derive_coco_results(self, coco_eval) -> Dict[str, float]:
-        metrics = ["AP", "AP50", "AP75", "APs", "APm", "APl"]
+    def _derive_coco_results(self, coco_eval, iou_type: str = "bbox") -> Dict[str, float]:
+        metrics = ["AP", "AP50", "AP75", "APm", "APl"] if iou_type == "keypoints" else \
+            ["AP", "AP50", "AP75", "APs", "APm", "APl"]
         results = {metric: float(coco_eval.stats[idx] * 100) for idx, metric in enumerate(metrics)}
-        logger.info("Evaluation results for bbox:\n" + str(results))
+        logger.info(f"Evaluation results for {iou_type}:\n" + str(results))
 
         # per-category table (reference :262-300)
         thing_classes = self._metadata.get("thing_classes")

@@ -12,10 +12,10 @@ Semantics (COCOeval's defaults for ``iou_type="bbox"``):
     ignored rather than counted as false positives
   * 101-point interpolated precision averaging
 
-``iou_type="keypoints"`` (OKS, pycocotools' keypoint parameters) is carried
-too: it is plain numpy. ``segm`` needs RLE masks and ``rotated_bbox`` the
-rotated IoU, which the port does not have yet: both raise (ROADMAP A15 and
-A16).
+``iou_type="keypoints"`` (OKS, pycocotools' keypoint parameters) and
+``"segm"`` (the mask IoU of RLE masks, ``structures/rle.py::rle_iou``) are
+carried too. ``rotated_bbox`` needs the rotated IoU, which the port does not
+have yet: it raises (ROADMAP A16).
 """
 
 from collections import defaultdict
@@ -23,10 +23,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..structures.rle import rle_area, rle_iou
+
 __all__ = ["COCOEval", "iou_xywh"]
-
-_SEGM = "mask (segm) COCO evaluation is not ported yet (ROADMAP A15)"
-
 
 def iou_xywh(dets: np.ndarray, gts: np.ndarray, iscrowd: Sequence[int]) -> np.ndarray:
     """Pairwise IoU of XYWH boxes; crowd GT -> intersection / det area."""
@@ -92,8 +91,6 @@ class COCOEval:
         assert iou_type in (
             ("bbox", "segm", "rotated_bbox", "keypoints") + self.EXTRA_IOU_TYPES
         ), iou_type
-        if iou_type == "segm":
-            raise NotImplementedError(_SEGM)
         if iou_type == "rotated_bbox":
             raise NotImplementedError(
                 "rotated-box COCO evaluation is not ported yet (ROADMAP A16)"
@@ -120,7 +117,7 @@ class COCOEval:
             if "bbox" in g:
                 g.setdefault("area", abs(g["bbox"][2] * g["bbox"][3]))
             else:
-                raise NotImplementedError(_SEGM)
+                g.setdefault("area", rle_area(g["segmentation"]))
             g.setdefault("iscrowd", 0)
             g["ignore"] = g.get("ignore", 0) or g["iscrowd"]
             if iou_type == "keypoints":
@@ -136,7 +133,7 @@ class COCOEval:
             if "bbox" in d:
                 d.setdefault("area", d["bbox"][2] * d["bbox"][3])
             else:
-                raise NotImplementedError(_SEGM)
+                d.setdefault("area", rle_area(d["segmentation"]))
             self._dts[(d["image_id"], d["category_id"])].append(d)
         self.eval: Optional[dict] = None
         self.stats: Optional[np.ndarray] = None
@@ -207,6 +204,8 @@ class COCOEval:
     def _compute_iou(self, dts, gts, iscrowd) -> np.ndarray:
         if self.iou_type == "keypoints":
             return self._compute_oks(dts, gts)
+        if self.iou_type == "segm":
+            return rle_iou([d["segmentation"] for d in dts], [g["segmentation"] for g in gts], iscrowd)
         g_boxes = np.array([g["bbox"] for g in gts], np.float64).reshape(-1, 4)
         d_boxes = np.array([d["bbox"] for d in dts], np.float64).reshape(-1, 4)
         return iou_xywh(d_boxes, g_boxes, iscrowd)

@@ -4,15 +4,31 @@
 
 ``RCNNModel`` is the network, NCHW: the ResNet-FPN backbone, the RPN head
 (``proposal_generator.rpn_head``) and, for GeneralizedRCNN, the box head and
-predictor (``roi_heads.box_head``, ``roi_heads.box_predictor``), under the
-reference's module names. ``GeneralizedRCNN`` owns it on
+predictor (``roi_heads.box_head``, ``roi_heads.box_predictor``) and, with
+``MODEL.MASK_ON`` / ``MODEL.KEYPOINT_ON``, the mask head
+(``roi_heads.mask_head``) and the keypoint head (``roi_heads.keypoint_head``),
+under the reference's module names. ``GeneralizedRCNN`` owns it on
 ``cfg.MODEL.DEVICE`` with the normalization, the anchors (numpy, moved to
 the device once per input size), the training loss (``loss_fn``: RPN
 matching and sampling over every anchor, the fixed-size proposals, ROI
 sampling with the gt boxes appended, multi-level ROIAlign, the Fast R-CNN
-losses), the fixed-size inference (``predict_fn``: proposals, ROIAlign, the
-per-class decode and one class-aware fixed-K NMS) and the host boundary
-(``postprocess``, RetinaNet's: boxes only).
+losses; the mask and keypoint losses on the foreground rois), the
+fixed-size inference (``predict_fn``: proposals, ROIAlign, the per-class
+decode and one class-aware fixed-K NMS; then the mask logits at each
+detection's class and the keypoint heatmaps, pooled at 14×14 on the
+detections' boxes) and the host boundary (``postprocess``: the detections
+above the threshold in the original image, their masks pasted there and
+their keypoints decoded, both on the model's device).
+
+The mask and keypoint losses: the JAX package runs both heads on all N·S
+sampled rois and weights each by whether it is foreground. The sampler puts
+its positives first and takes at most ``int(S · POSITIVE_FRACTION)`` of
+them (``rpn.py::subsample_labels``), so every foreground roi lies in the
+first ``int(S · POSITIVE_FRACTION)`` slots of its image: the port runs the
+heads on that fixed block only (128 of 512 rois per image at the configs'
+defaults), with no host sync. The rois it leaves out weigh 0 in JAX's
+losses, so the losses and every gradient are JAX's
+(``tests/test_torch_mask.py``, ``tests/test_torch_keypoint.py``).
 
 The RPN head's NCHW outputs are permuted to (N, H, W, A·k) before any
 flatten (``retinanet.nhwc_flat``), so anchors run in ``grid_anchors``'
@@ -26,8 +42,8 @@ tests hand in JAX's own), else from ``batch["generator"]`` (the step's
 step), in that order: rpn, roi_sub, roi_tie. A batch with neither
 raises.
 
-Not ported (each raises naming its ROADMAP item): the mask and keypoint
-heads, Cascade, Res5/C4 and DC5, PointRend, DensePose and other ROI-head
+Not ported (each raises naming its ROADMAP item): Cascade, Res5/C4 and
+DC5, PointRend (its mask heads included), DensePose and other ROI-head
 extensions, precomputed proposals, and rotated proposals.
 """
 
@@ -47,6 +63,8 @@ from ..matcher import Matcher
 from ..proposal_generator.rpn import StandardRPNHead, find_top_rpn_proposals, rpn_losses
 from ..registry import BACKBONE_REGISTRY, META_ARCH_REGISTRY
 from ..roi_heads.box_head import FastRCNNConvFCHead, FastRCNNOutputLayers
+from ..roi_heads.keypoint_head import KRCNNConvDeconvUpsampleHead, encode_keypoint_targets, keypoint_rcnn_loss
+from ..roi_heads.mask_head import MaskRCNNConvUpsampleHead, crop_gt_masks, mask_rcnn_loss
 from ..roi_heads.roi_heads import fast_rcnn_inference, fast_rcnn_losses, label_and_sample_proposals
 from . import retinanet
 from .retinanet import RetinaNet, nhwc_flat
@@ -70,12 +88,19 @@ class RPN(nn.Module):
 
 
 class StandardROIHeads(nn.Module):
-    """Holds the box head and predictor under the reference's ``roi_heads``."""
+    """Holds the box head and predictor, and the mask and keypoint heads
+    when they are on, under the reference's ``roi_heads``."""
 
-    def __init__(self, box_head: FastRCNNConvFCHead, box_predictor: FastRCNNOutputLayers):
+    def __init__(self, box_head: FastRCNNConvFCHead, box_predictor: FastRCNNOutputLayers,
+                 mask_head: Optional[MaskRCNNConvUpsampleHead] = None,
+                 keypoint_head: Optional[KRCNNConvDeconvUpsampleHead] = None):
         super().__init__()
         self.box_head = box_head
         self.box_predictor = box_predictor
+        if mask_head is not None:
+            self.mask_head = mask_head
+        if keypoint_head is not None:
+            self.keypoint_head = keypoint_head
 
 
 class RCNNModel(nn.Module):
@@ -116,14 +141,23 @@ class RCNNModel(nn.Module):
         with ieee_f32(), self._autocast(pooled.device):
             return self.roi_heads.box_predictor(self.roi_heads.box_head(pooled))
 
+    def mask_predict(self, pooled: torch.Tensor) -> torch.Tensor:
+        """Pooled (R, C, P, P) f32 → f32 mask logits (R, classes, 2P, 2P)."""
+        with ieee_f32(), self._autocast(pooled.device):
+            return self.roi_heads.mask_head(pooled)
+
+    def keypoint_predict(self, pooled: torch.Tensor) -> torch.Tensor:
+        """Pooled (R, C, P, P) f32 → f32 keypoint logits (R, K, 4P, 4P)."""
+        with ieee_f32(), self._autocast(pooled.device):
+            return self.roi_heads.keypoint_head(pooled)
+
 
 def _check_supported(cfg: CfgNode, with_roi_heads: bool) -> None:
     m = cfg.MODEL
     queued = []
-    if m.MASK_ON:
-        queued.append("MODEL.MASK_ON: the mask head (ROADMAP A14)")
-    if m.KEYPOINT_ON:
-        queued.append("MODEL.KEYPOINT_ON: the keypoint head (ROADMAP A14)")
+    if m.MASK_ON and (m.ROI_MASK_HEAD.NAME != "MaskRCNNConvUpsampleHead" or m.ROI_MASK_HEAD.POINT_HEAD_ON):
+        queued.append(f"ROI_MASK_HEAD.NAME {m.ROI_MASK_HEAD.NAME} / POINT_HEAD_ON: PointRend's mask heads "
+                      "(ROADMAP A15)")
     if m.LOAD_PROPOSALS or m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals":
         queued.append("MODEL.LOAD_PROPOSALS / PrecomputedProposals: precomputed proposals (ROADMAP A14)")
     elif m.PROPOSAL_GENERATOR.NAME != "RPN" or m.RPN.HEAD_NAME != "StandardRPNHead":
@@ -144,8 +178,9 @@ def _check_supported(cfg: CfgNode, with_roi_heads: bool) -> None:
 
 @META_ARCH_REGISTRY.register()
 class GeneralizedRCNN:
-    """Faster R-CNN: the network on its device, the normalization, the
-    anchors, the loss, the fixed-size inference and the host boundary."""
+    """Faster, Mask and Keypoint R-CNN: the network on its device, the
+    normalization, the anchors, the loss, the fixed-size inference and the
+    host boundary."""
 
     with_roi_heads = True
 
@@ -199,6 +234,13 @@ class GeneralizedRCNN:
             logger.warning("ROI_BOX_HEAD.POOLER_SAMPLING_RATIO=0 (adaptive) is approximated with a fixed 2x2 "
                            "sample grid, as in the JAX package.")
             self.pooler_sampling_ratio = 2
+        self.mask_on = self.with_roi_heads and bool(cfg.MODEL.MASK_ON)
+        self.keypoint_on = self.with_roi_heads and bool(cfg.MODEL.KEYPOINT_ON)
+        mh, kh = cfg.MODEL.ROI_MASK_HEAD, cfg.MODEL.ROI_KEYPOINT_HEAD
+        self.mask_pooler_resolution = int(mh.POOLER_RESOLUTION)
+        self.num_keypoints = int(kh.NUM_KEYPOINTS)
+        self.keypoint_pooler_resolution = int(kh.POOLER_RESOLUTION)
+        self.keypoint_loss_weight = float(kh.LOSS_WEIGHT)
 
         channels = backbone.out_channels
         rpn_head = StandardRPNHead(channels, num_anchors)
@@ -211,14 +253,21 @@ class GeneralizedRCNN:
                 num_fc = 2
             box_head = FastRCNNConvFCHead(channels, self.pooler_resolution, num_conv, int(bh.CONV_DIM), num_fc,
                                           int(bh.FC_DIM))
+            mask_head = MaskRCNNConvUpsampleHead(channels, self.num_classes, int(mh.NUM_CONV),
+                                                 int(mh.CONV_DIM)) if self.mask_on else None
+            keypoint_head = KRCNNConvDeconvUpsampleHead(channels, self.num_keypoints, [int(d) for d in kh.CONV_DIMS]) \
+                if self.keypoint_on else None
             roi_heads = StandardROIHeads(box_head, FastRCNNOutputLayers(box_head.out_dim, self.num_classes,
-                                                                        bool(bh.CLS_AGNOSTIC_BBOX_REG)))
+                                                                        bool(bh.CLS_AGNOSTIC_BBOX_REG)),
+                                         mask_head, keypoint_head)
         self.model = RCNNModel(backbone, self.rpn_in_features, rpn_head, roi_heads)
         generator = torch.Generator().manual_seed(max(int(cfg.SEED), 0))
         init_weights(self.model, generator)
         rpn_head.init_parameters(generator)
         if roi_heads is not None:
             roi_heads.box_predictor.init_parameters(generator)
+            for head in (roi_heads.get_submodule(h) for h in ("mask_head", "keypoint_head") if hasattr(roi_heads, h)):
+                head.init_parameters(generator)
         self.model.to(self.device).cast(self.dtype).eval()
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
@@ -226,7 +275,6 @@ class GeneralizedRCNN:
         return (images.to(self.device, torch.float32) - self.pixel_mean) / self.pixel_std
 
     anchors_per_level = RetinaNet.anchors_per_level
-    postprocess = RetinaNet.postprocess
 
     def _flatten_rpn(self, logits, deltas):
         """Per level (N, H·W·A) logits and (N, H·W·A, 4) deltas."""
@@ -239,11 +287,13 @@ class GeneralizedRCNN:
                                       nms_thresh=self.rpn_nms_thresh, pre_nms_topk=self.pre_nms_topk[mode],
                                       post_nms_topk=self.post_nms_topk[mode])
 
-    def pool(self, feats: Dict[str, torch.Tensor], boxes: torch.Tensor, per_image: int) -> torch.Tensor:
-        """(N·per_image, 4) boxes, image-major → pooled (R, C, P, P) f32."""
+    def pool(self, feats: Dict[str, torch.Tensor], boxes: torch.Tensor, per_image: int,
+             resolution: Optional[int] = None) -> torch.Tensor:
+        """(N·per_image, 4) boxes, image-major → pooled (R, C, P, P) f32, P
+        ``resolution`` (the box head's by default)."""
         batch_idx = torch.arange(boxes.shape[0] // per_image, device=boxes.device).repeat_interleave(per_image)
         return multilevel_roi_align([feats[f] for f in self.roi_in_features], self.roi_strides, boxes, batch_idx,
-                                    self.pooler_resolution, self.pooler_sampling_ratio)
+                                    resolution or self.pooler_resolution, self.pooler_sampling_ratio)
 
     def _uniform(self, batch: Dict, generator: torch.Generator, name: str, shape) -> torch.Tensor:
         draws = batch.get("draws")
@@ -270,10 +320,12 @@ class GeneralizedRCNN:
 
     # -- training ------------------------------------------------------------------
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(total, {"loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg"})
-        of one train batch on the device: ``image`` (N, 3, H, W) 0..255,
-        ``gt_boxes`` (N, M, 4) XYXY in input pixels, ``gt_classes`` (N, M),
-        ``gt_valid`` (N, M), and the draws' source (module docstring)."""
+        """(total, {"loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg"}
+        and, with their heads, "loss_mask" and "loss_keypoint") of one train
+        batch on the device: ``image`` (N, 3, H, W) 0..255, ``gt_boxes`` (N,
+        M, 4) XYXY in input pixels, ``gt_classes`` (N, M), ``gt_valid`` (N,
+        M), ``gt_masks`` (N, M, R, R) gt-box-relative rasters, ``gt_keypoints``
+        (N, M, K, 3), and the draws' source (module docstring)."""
         images = self.normalize(batch["image"])
         n, _, h, w = images.shape
         feats, logits, deltas = self.model(images)
@@ -298,23 +350,64 @@ class GeneralizedRCNN:
         scores, box_deltas = self.model.box_predict(self.pool(feats, flat["boxes"], s))
         losses.update(fast_rcnn_losses(scores, box_deltas, flat, self.box2box, self.num_classes,
                                        self.smooth_l1_beta))
+        if (self.mask_on and "gt_masks" in batch) or (self.keypoint_on and "gt_keypoints" in batch):
+            losses.update(self._roi_extra_losses(batch, feats, sampled, gt_boxes))
         return sum(losses.values()), losses
+
+    def _roi_extra_losses(self, batch, feats, sampled, gt_boxes) -> Dict[str, torch.Tensor]:
+        """The mask and keypoint losses on the first ``int(S · POSITIVE_FRACTION)``
+        slots of each image, which hold all its foreground rois (module docstring)."""
+        n = gt_boxes.shape[0]
+        k = min(int(self.roi_batch_size * self.roi_positive_fraction), sampled["boxes"].shape[1])
+        boxes = sampled["boxes"][:, :k]
+        matched = sampled["matched_idx"][:, :k]
+        fg = (sampled["is_pos"][:, :k] & (sampled["weights"][:, :k] > 0)).reshape(-1).to(torch.float32)
+        flat_boxes = boxes.reshape(n * k, 4)
+        losses = {}
+        if self.mask_on and "gt_masks" in batch:
+            logits = self.model.mask_predict(self.pool(feats, flat_boxes, k, self.mask_pooler_resolution))
+            targets = crop_gt_masks(batch["gt_masks"].to(self.device), gt_boxes, matched, boxes, logits.shape[-1])
+            losses["loss_mask"] = mask_rcnn_loss(logits, targets, sampled["classes"][:, :k].reshape(-1), fg)
+        if self.keypoint_on and "gt_keypoints" in batch:
+            logits = self.model.keypoint_predict(self.pool(feats, flat_boxes, k, self.keypoint_pooler_resolution))
+            gt_kp = batch["gt_keypoints"].to(self.device, torch.float32)
+            img = torch.arange(n, device=self.device)[:, None].expand(n, k)
+            idx, valid = encode_keypoint_targets(gt_kp[img, matched].reshape(n * k, -1, 3), flat_boxes,
+                                                 logits.shape[-2])
+            losses["loss_keypoint"] = keypoint_rcnn_loss(logits, idx, valid, fg) * self.keypoint_loss_weight
+        return losses
 
     # -- inference -----------------------------------------------------------------
     @torch.inference_mode()
     def predict_fn(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Raw (N, 3, H, W) 0..255 images → fixed-size detections on the
         device: boxes (N, K, 4), scores (N, K) (0 in an invalid slot),
-        classes (N, K)."""
+        classes (N, K); with the mask head ``masks`` (N, K, 2P, 2P), the
+        sigmoid of the logits at each detection's class; with the keypoint
+        head ``keypoint_heatmaps`` (N, K, keypoints, 4P, 4P) logits."""
         x = self.normalize(images)
         n, _, h, w = x.shape
         feats, logits, deltas = self.model(x)
         boxes, _, valid = self.proposals(logits, deltas, (h, w), "test")
         p = boxes.shape[1]
         scores, box_deltas = self.model.box_predict(self.pool(feats, boxes.reshape(n * p, 4), p))
-        return fast_rcnn_inference(boxes, valid, scores.view(n, p, -1), box_deltas.view(n, p, -1), self.box2box,
+        dets = fast_rcnn_inference(boxes, valid, scores.view(n, p, -1), box_deltas.view(n, p, -1), self.box2box,
                                    self.num_classes, (h, w), self.score_threshold, self.nms_threshold,
                                    self.max_detections)
+        k = dets["boxes"].shape[1]
+        det_boxes = dets["boxes"].reshape(n * k, 4)
+        if self.mask_on:
+            mask_logits = self.model.mask_predict(self.pool(feats, det_boxes, k, self.mask_pooler_resolution))
+            cls = torch.clamp(dets["classes"].reshape(n * k), 0, self.num_classes - 1)
+            side = mask_logits.shape[-1]
+            sel = torch.gather(mask_logits, 1, cls.view(-1, 1, 1, 1).expand(-1, 1, side, side))[:, 0]
+            dets["masks"] = torch.sigmoid(sel).view(n, k, side, side)
+        if self.keypoint_on:
+            kp = self.model.keypoint_predict(self.pool(feats, det_boxes, k, self.keypoint_pooler_resolution))
+            dets["keypoint_heatmaps"] = kp.view(n, k, *kp.shape[1:])
+        return dets
+
+    postprocess = RetinaNet.postprocess
 
 
 @META_ARCH_REGISTRY.register()

@@ -36,6 +36,8 @@ from ...config import CfgNode
 from ...data.detection_utils import unwarp_boxes
 from ...ops.nms import batched_nms_fixed, pairwise_iou_xyxy
 from ...structures import Boxes, Instances
+from ...structures.keypoints import heatmaps_to_keypoints
+from ...structures.masks import paste_masks_in_image
 from ..anchors import build_anchor_generator
 from ..box_regression import Box2BoxTransform
 from ..build import resolve_device
@@ -311,22 +313,31 @@ class RetinaNet:
     ) -> List[Dict[str, Instances]]:
         """Fixed-size detections (numpy) → per-image Instances in original
         image coordinates: every one of the K slots above the score
-        threshold, un-warped, clipped, empty boxes dropped."""
-        boxes = np.asarray(dets["boxes"])
-        scores = np.asarray(dets["scores"])
-        classes = np.asarray(dets["classes"])
+        threshold, un-warped, clipped, empty boxes dropped. Where ``dets``
+        carries them (an R-CNN with its mask or keypoint head), the kept
+        slots' ``pred_masks`` (D, H, W) bool, pasted at the original size,
+        and ``pred_keypoints`` (D, keypoints, 3) (x, y, score), decoded in
+        the original boxes, both computed on the model's device."""
+        boxes, scores, classes = (np.asarray(dets[k]) for k in ("boxes", "scores", "classes"))
         results = []
         for i, (oh, ow) in enumerate(orig_sizes):
             keep = scores[i] > self.score_threshold
-            b, s, c = boxes[i][keep], scores[i][keep], classes[i][keep]
+            b = boxes[i][keep]
             if warps is not None:
                 b = unwarp_boxes(warps[i], b)
-            inst = Instances((oh, ow))
             bx = Boxes(b.astype(np.float32))
             bx.clip((oh, ow))
             ne = bx.nonempty()
+            slots = np.flatnonzero(keep)[ne]
+            inst = Instances((oh, ow))
             inst.pred_boxes = bx[ne]
-            inst.scores = s[ne].astype(np.float32)
-            inst.pred_classes = c[ne].astype(np.int64)
+            inst.scores = scores[i][slots].astype(np.float32)
+            inst.pred_classes = classes[i][slots].astype(np.int64)
+            if "masks" in dets:
+                masks = torch.from_numpy(np.asarray(dets["masks"][i][slots])).to(self.device)
+                inst.pred_masks = paste_masks_in_image(masks, inst.pred_boxes.tensor, (oh, ow)).cpu().numpy()
+            if "keypoint_heatmaps" in dets:
+                maps = torch.from_numpy(np.asarray(dets["keypoint_heatmaps"][i][slots])).to(self.device)
+                inst.pred_keypoints = heatmaps_to_keypoints(maps, inst.pred_boxes.tensor)[:, :, [0, 1, 3]].cpu().numpy()
             results.append({"instances": inst})
         return results

@@ -6,18 +6,19 @@ last, in the shape of the JAX package's ``bench.py``:
    "unit": "img/s/chip", "vs_baseline": value / baseline, "extra": {...}}
 
 ``<arch>`` is ``ctdet`` for CenterNet, ``retinanet`` for RetinaNet,
-``faster_rcnn`` for GeneralizedRCNN and ``rpn`` for ProposalNetwork
-(``<backbone>`` ends in ``_fpn`` on an FPN: ``retinanet_res50_fpn_800``,
-``faster_rcnn_res50_fpn_800``).
+``faster_rcnn`` for GeneralizedRCNN, ``mask_rcnn`` for it with
+``MODEL.MASK_ON``, ``keypoint_rcnn`` with ``MODEL.KEYPOINT_ON``, and ``rpn``
+for ProposalNetwork (``<backbone>`` ends in ``_fpn`` on an FPN:
+``retinanet_res50_fpn_800``, ``faster_rcnn_res50_fpn_800``).
 ``value`` is the meta-architecture's ``predict_fn`` throughput at
 ``TEST.BATCH_SIZE`` (CUDA events over ``ITERS`` calls after 2) on seeded
 random images at ``INPUT.TEST_SIZE``. The baselines are ``bench.py``'s: 104
 img/s for ctdet (an A100's ctdet DLA-34 rate at 512², twice the paper's
-Titan Xp), and for RetinaNet and Faster R-CNN the reference MODEL_ZOO's
-R50-FPN inference times (``BASELINE.md``): 0.056 s/im and 0.038 s/im on a
-V100 (1 / 0.056 ≈ 17.9 and 1 / 0.038 ≈ 26.3 img/s). ``BASELINE.md`` has
-no number for the ProposalNetwork: its ``vs_baseline`` is null. ``extra``
-holds:
+Titan Xp), and for RetinaNet, Faster R-CNN and Mask R-CNN the reference
+MODEL_ZOO's R50-FPN inference times (``BASELINE.md``): 0.056, 0.038 and
+0.043 s/im on a V100 (1 / 0.056 ≈ 17.9, 1 / 0.038 ≈ 26.3 and 1 / 0.043 ≈
+23.3 img/s). ``BASELINE.md`` has no number for the ProposalNetwork or
+Keypoint R-CNN: their ``vs_baseline`` is null. ``extra`` holds:
   * ``predictor_latency_ms``: ``DefaultPredictor`` on one 480x640 image,
     median of ``REQUESTS`` requests after ``REQUEST_WARMUP`` (host clock;
     the call returns host arrays);
@@ -61,11 +62,14 @@ from ..config import get_cfg
 from ..data.datasets import ensure_synthetic_datasets
 from ..engine import DefaultPredictor, DefaultTrainer, HookBase
 
-# META_ARCHITECTURE -> (the metric's <arch>, its baseline img/s): bench.py's
-# A100 ctdet DLA-34 512² rate, and the reference MODEL_ZOO's R50-FPN V100
-# inference times, 0.056 s/im for RetinaNet and 0.038 s/im for Faster R-CNN
+# META_ARCHITECTURE (with its R-CNN heads) -> (the metric's <arch>, its
+# baseline img/s): bench.py's A100 ctdet DLA-34 512² rate, and the reference
+# MODEL_ZOO's R50-FPN V100 inference times, 0.056 s/im for RetinaNet, 0.038
+# s/im for Faster R-CNN and 0.043 s/im for Mask R-CNN (BASELINE.md:13, :16,
+# :17); none for the ProposalNetwork or Keypoint R-CNN
 ARCHS = {"CenterNet": ("ctdet", 104.0), "RetinaNet": ("retinanet", 1.0 / 0.056),
-         "GeneralizedRCNN": ("faster_rcnn", 1.0 / 0.038), "ProposalNetwork": ("rpn", None)}
+         "GeneralizedRCNN": ("faster_rcnn", 1.0 / 0.038), "GeneralizedRCNN+mask": ("mask_rcnn", 1.0 / 0.043),
+         "GeneralizedRCNN+keypoint": ("keypoint_rcnn", None), "ProposalNetwork": ("rpn", None)}
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                               "configs", "COCO-Detection", "ctdet_dla_34_1x.yaml")
 ITERS = 10  # timed predict_fn calls, after 2
@@ -90,6 +94,10 @@ def backbone_tag(cfg) -> str:
 
 def _arch(cfg):
     name = cfg.MODEL.META_ARCHITECTURE
+    if name == "GeneralizedRCNN" and cfg.MODEL.KEYPOINT_ON:
+        name += "+keypoint"
+    elif name == "GeneralizedRCNN" and cfg.MODEL.MASK_ON:
+        name += "+mask"
     if name not in ARCHS:
         raise ValueError(f"tools/bench has no metric for META_ARCHITECTURE {name!r}; it benches {sorted(ARCHS)}")
     return ARCHS[name]

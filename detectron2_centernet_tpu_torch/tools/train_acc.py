@@ -6,7 +6,7 @@ and, as a diagnostic, ``TPU.DTYPE`` set over it, trained through
 ``DefaultTrainer`` on the learnable synthetic scenes, then the COCO
 evaluation and ``verify_results`` against the YAML's ``EXPECTED_RESULTS``.
 
-Three configs are meant:
+Five configs are meant:
   * ``ctdet_dla_synth_training_acc_test.yaml`` (the default): DLA-34, Adam
     at LR 1e-3, 1500 iterations, batch 8, 128², bf16, PreciseBN over 20
     batches; band bbox AP 93.2 ± 6, measured once on a TPU through the JAX
@@ -16,10 +16,19 @@ Three configs are meant:
     FREEZE_AT 0, BN, f32, EXACT_MODE, the same schedule; band 91.9 ± 6;
   * ``retinanet_synth_training_acc_test.yaml``: RetinaNet R18-FPN (no DCN),
     BN, f32, SGD at LR 0.01 for 300 steps, batch 8, 128², no PreciseBN;
-    band 61.2 ± 8, a JAX measurement.
-The run reports; it tunes nothing to reach a band.
+    band 61.2 ± 8, a JAX measurement;
+  * ``mask_rcnn_synth_training_acc_test.yaml``: Mask R-CNN R18-FPN (FPN 32,
+    a 2-conv mask head of 32), BN, f32, SGD at LR 0.005 for 300 steps,
+    batch 8, 128²; bands bbox AP 87.5 ± 7 and segm AP 84.2 ± 8;
+  * ``keypoint_rcnn_synth_training_acc_test.yaml``: Keypoint R-CNN R18-FPN,
+    one class, the 8-conv keypoint head of 512, f32, SGD at LR 0.005 for
+    1200 steps on ``synth_learnable_kp``; bands bbox AP 92.1 ± 7 and
+    keypoints AP 93.3 ± 8.
+The bands are the YAMLs' ``TEST.EXPECTED_RESULTS``, measured by the JAX
+package on a TPU. The run reports; it tunes nothing to reach a band.
 
-Each seed trains in a subprocess of its own. For each, the bbox AP, the
+Each seed trains in a subprocess of its own. For each, the AP of every
+task the YAML's ``EXPECTED_RESULTS`` names (bbox, segm, keypoints), the
 exit code (``verify_results`` exits 1 on a miss) and the wall time are
 printed (and, as a diagnostic when the config runs PreciseBN, the AP with
 the training EMA's running statistics in place of PreciseBN's), and the
@@ -160,13 +169,15 @@ def main() -> int:
         wall = time.perf_counter() - t0
         path = os.path.join(out, "result.json")
         result = json.load(open(path)) if os.path.exists(path) else None
-        ap = ((result or {}).get("results") or {}).get("bbox", {}).get("AP")
+        results = (result or {}).get("results") or {}
+        ap = results.get("bbox", {}).get("AP")
+        measured = {f"{task}_{metric}": results.get(task, {}).get(metric) for task, metric, _, _ in expected}
         ap_ema = ((result or {}).get("results_with_ema_statistics") or {}).get("bbox", {}).get("AP")
-        crashed |= result is None or ap is None
-        runs.append({"seed": seed, "bbox_AP": ap, "exit_code": proc.returncode, "wall_s": wall,
+        crashed |= result is None or ap is None or any(v is None for v in measured.values())
+        runs.append({"seed": seed, "bbox_AP": ap, **measured, "exit_code": proc.returncode, "wall_s": wall,
                      "bbox_AP_with_ema_statistics": ap_ema})
-        print(f"seed {seed}: bbox AP {ap}, exit code {proc.returncode}, {wall:.1f} s (expected {expected}); "
-              f"AP with the EMA statistics in place of PreciseBN's {ap_ema}", flush=True)
+        print(f"seed {seed}: {measured}, exit code {proc.returncode}, {wall:.1f} s (expected {expected}); "
+              f"bbox AP with the EMA statistics in place of PreciseBN's {ap_ema}", flush=True)
     summary = {"config": args.config_file, "dtype": cfg.TPU.DTYPE, "freeze_offsets": args.freeze_offsets,
                "expected": expected, "runs": runs}
     with open(os.path.join(args.output_dir, "summary.json"), "w") as f:

@@ -40,7 +40,7 @@ class Trainer(DefaultTrainer):
             output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
         evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
         if evaluator_type == "coco":
-            return COCOEvaluator(dataset_name, output_dir=output_folder)
+            return COCOEvaluator(dataset_name, output_dir=output_folder, cfg=cfg)
         if evaluator_type in QUEUED_EVALUATORS:
             raise RuntimeError(
                 f"dataset {dataset_name}: the evaluator of evaluator_type '{evaluator_type}' is not "

@@ -250,14 +250,15 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_port_imports_no_jax():
-    """No file of the port, and not chip_smoke.py, names jax, flax or the JAX
-    package in an import; importing every port module in a fresh interpreter
-    loads none of them."""
+    """No file of the port, and not chip_smoke.py, names jax, flax, the JAX
+    package, cv2, pycocotools or PyYAML in an import; importing every port
+    module in a fresh interpreter loads none of them (the card's machine has
+    none of them: the port keeps its own fill, resizes, RLE and YAML reader)."""
     pkg = os.path.join(REPO, "detectron2_centernet_tpu_torch")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    banned = ("jax", "flax", "detectron2_centernet_tpu")
+    banned = ("jax", "flax", "detectron2_centernet_tpu", "cv2", "pycocotools", "yaml")
     for path in files:
         with open(path) as f:
             for line in f:
@@ -271,7 +272,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'detectron2_centernet_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'detectron2_centernet_tpu', 'cv2', 'pycocotools', 'yaml')]\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

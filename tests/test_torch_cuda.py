@@ -7,8 +7,9 @@ step of small ResNet- and VoVNet-deconv CenterNets (card against CPU, and
 at the default TF32 flags against TF32 off), a small RetinaNet's heads,
 loss and detections and the port's NMS, card against CPU, the NMS kernel
 (``ops/csrc/nms.cu``) against its plain loop at the RetinaNet, RPN and box
-head shapes, and a small Faster R-CNN's RPN heads, losses and detections,
-card against CPU.
+head shapes, a small Faster R-CNN's RPN heads, losses and detections,
+card against CPU, and the mask paste, the keypoint decode and a small R-CNN
+with the mask and keypoint heads, card against CPU.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -661,3 +662,82 @@ def test_small_faster_rcnn_on_card_matches_cpu(card):
     assert torch.equal(det_c["classes"], det_h["classes"])
     assert (det_c["scores"] - det_h["scores"]).abs().max().item() <= 1e-3
     assert (det_c["boxes"] - det_h["boxes"]).abs().max().item() <= 1e-2
+
+
+def test_paste_masks_on_card_equals_cpu(card, monkeypatch):
+    """``paste_masks_in_image`` on the card in f64 (every operation its own
+    IEEE kernel) against the same on the CPU: the bool masks equal bit for
+    bit, in one chunk and in small ones."""
+    from detectron2_centernet_tpu_torch.structures import masks
+    from detectron2_centernet_tpu_torch.structures.masks import paste_masks_in_image
+
+    g = torch.Generator().manual_seed(4)
+    probs = torch.rand(40, 28, 28, generator=g)
+    xy = torch.rand(40, 2, generator=g) * 700 - 50
+    boxes = torch.cat([xy, xy + torch.rand(40, 2, generator=g) * 300], 1)
+    want = paste_masks_in_image(probs, boxes, (600, 800))
+    for chunk in (1 << 24, 1 << 16):
+        monkeypatch.setattr(masks, "PASTE_CHUNK", chunk)
+        got = paste_masks_in_image(probs.to(card), boxes.to(card), (600, 800))
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert want.any()
+
+
+def test_heatmaps_to_keypoints_on_card_equals_cpu(card):
+    """The keypoint decode on the card (bicubic in f64) against the CPU's on
+    random maps (no ties): the positions equal, the logits and scores within
+    1e-9 relative."""
+    from detectron2_centernet_tpu_torch.structures.keypoints import heatmaps_to_keypoints
+
+    g = torch.Generator().manual_seed(5)
+    maps = torch.randn(30, 17, 56, 56, generator=g) * 3
+    xy = torch.rand(30, 2, generator=g) * 400
+    rois = torch.cat([xy, xy + torch.rand(30, 2, generator=g) * 300 + 0.5], 1)
+    want = heatmaps_to_keypoints(maps, rois)
+    got = heatmaps_to_keypoints(maps.to(card), rois.to(card))
+    assert torch.equal(got[..., :2], want[..., :2])
+    torch.testing.assert_close(got[..., 2:], want[..., 2:], rtol=1e-9, atol=0)
+
+
+def test_small_mask_and_keypoint_rcnn_on_card_matches_cpu(card):
+    """A small R-CNN with both heads (ResNet-18-FPN, 32 channels, 5
+    classes, a mask head of 32, a keypoint head of 2 convs of 64) in f32 on
+    96² images, the same weights on both devices: the six training losses on
+    the same draws within 1e-3 relative; ``predict_fn``'s masks within 1e-3
+    and its heatmaps within 1e-3 of their scale, with the classes equal."""
+    cfg = get_cfg()
+    cfg.merge_from_list(_SMALL_RCNN + ["MODEL.DEVICE", "cpu", "MODEL.MASK_ON", True, "MODEL.KEYPOINT_ON", True,
+                                       "MODEL.ROI_MASK_HEAD.CONV_DIM", 32, "MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS", [64, 64],
+                                       "INPUT.MASK_RASTER", 16])
+    host = build_model(cfg)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    with torch.no_grad():
+        host.model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
+    dev.model.load_state_dict(host.model.state_dict())
+    g = torch.Generator().manual_seed(6)
+    x = torch.rand(2, 3, 96, 96, generator=g) * 255
+    anchors = sum(a.shape[0] for a in host.anchors_per_level((96, 96)))
+    draws = {"rpn": torch.rand(2, anchors, generator=g), "roi_sub": torch.rand(2, 102, generator=g),
+             "roi_tie": torch.rand(2, 102, generator=g)}
+    gt = torch.tensor([[[8.0, 10.0, 60.0, 70.0], [40.0, 30.0, 90.0, 80.0]]] * 2)
+    kp = torch.cat([gt[..., None, :2] + torch.rand(2, 2, 17, 2, generator=g) * (gt[..., None, 2:] - gt[..., None, :2]),
+                    torch.full((2, 2, 17, 1), 2.0)], -1)
+    batch = {"image": x, "gt_boxes": gt, "gt_classes": torch.tensor([[1, 4]] * 2),
+             "gt_valid": torch.tensor([[True, True], [True, False]]),
+             "gt_masks": (torch.rand(2, 2, 16, 16, generator=g) > 0.4).to(torch.uint8), "gt_keypoints": kp}
+    for m in (host, dev):
+        m.model.train()
+    _, losses_h = host.loss_fn(dict(batch, draws=draws))
+    _, losses_c = dev.loss_fn(dict({k: v.to(card) for k, v in batch.items()}, draws=draws))
+    assert {"loss_mask", "loss_keypoint"} <= set(losses_h)
+    for k in losses_h:
+        assert abs(losses_c[k].item() - losses_h[k].item()) <= 1e-3 * abs(losses_h[k].item()), k
+    for m in (host, dev):
+        m.model.eval()
+    det_h = host.predict_fn(x)
+    det_c = {k: v.cpu() for k, v in dev.predict_fn(x.to(card)).items()}
+    assert torch.equal(det_c["classes"], det_h["classes"])
+    assert (det_c["masks"] - det_h["masks"]).abs().max().item() <= 1e-3
+    hm = det_h["keypoint_heatmaps"]
+    assert (det_c["keypoint_heatmaps"] - hm).abs().max().item() <= 1e-3 * hm.abs().max().item()
