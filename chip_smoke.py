@@ -5,11 +5,12 @@ one NVIDIA card: ctdet DLA-34 at full width, inference through the port's
 DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward); then
 the ResNet-18/50-deconv and VoVNet-39 configs, ``tools/train_net`` and
 ``tools/bench``, RetinaNet R50-FPN, Faster R-CNN R50-FPN with the
-ProposalNetwork, Mask R-CNN and Keypoint R-CNN R50-FPN, every NMS of the R-CNN
-and RetinaNet paths on the hand-written NMS kernel (``ops/csrc/nms.cu``).
-Every config is read from its YAML file (``configs/COCO-Detection/``,
-``COCO-InstanceSegmentation/``, ``COCO-Keypoints/``) by the port's own
-reader.
+ProposalNetwork, Mask R-CNN and Keypoint R-CNN R50-FPN, Cascade Mask R-CNN
+R50-FPN, Mask R-CNN R50-C4 with the C4 ProposalNetwork and Faster R-CNN
+R50-DC5, every NMS of the R-CNN and RetinaNet paths on the hand-written NMS
+kernel (``ops/csrc/nms.cu``). Every config is read from its YAML file
+(``configs/COCO-Detection/``, ``COCO-InstanceSegmentation/``,
+``COCO-Keypoints/``, ``Misc/``) by the port's own reader.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -132,6 +133,28 @@ Phases (any failure raises and the script exits non-zero):
      kernel's launches counted per path, and its inputs at test (the
      RPN's, the box head's) and for the training's proposals recorded for
      10c;
+  13. Cascade Mask R-CNN, ``Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml`` (3
+     class-agnostic stages at IoU 0.5/0.6/0.7, 2000 proposals at training,
+     phase 11's mask head), 14. Mask R-CNN R50-C4,
+     ``COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml`` (the trunk to
+     res4, the RPN on it with 6000/1000 proposals at test, the res5 head on
+     14² rois feeding the predictor and the 14² mask head), and 15. Faster
+     R-CNN R50-DC5, ``COCO-Detection/faster_rcnn_R_50_DC5_1x.yaml`` (res5
+     dilated, at stride 16, the RPN and a 7² pooler on it; 800², which the
+     YAML leaves unset), bf16, no DCN kernel anywhere, each: (a)
+     ``DefaultPredictor`` requests and ``predict_fn`` at batch 16 with
+     seeded weights that detect (C4: ROIAlign's and the res5 head's time at
+     batch 16, each alone); (b) f32 at batch 2, card against CPU within
+     HEAD_TOL times each output's scale, each stage fed the card's boxes:
+     every Cascade stage's ``cls_score`` and ``bbox_pred``, C4's res5 output
+     and predictor, DC5's RPN on res5 and predictor, the mask logits on the
+     top 16 detections and the pasted masks equal; the TF32 control must
+     exceed the limit; (c) ``tools/bench`` at ``TEST.BATCH_SIZE`` 16 with its
+     train steps at 16 × 800²; (d) ``tools/train_net`` 4 steps, then
+     ``--eval-only --resume``: resumed at 4, the same dict; (14e) the C4
+     ProposalNetwork's forward and loss. NMS launches: 2 per served call, 1
+     per train step; the inputs go to 10c (C4's and DC5's RPN rows of 12 000
+     at training take the kernel's in-place path, asserted);
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -1529,8 +1552,10 @@ def phase_nms_kernel(report, cases):
               f"operations {ops_ms:.4f}; reading every live candidate at every pick: {per_pick_ms:.4f} ms)")
         if not equal:
             raise SystemExit(f"the NMS kernel disagrees with its plain version on {name}")
-    if out["box_head_eval"]["shared_memory"]:
-        raise SystemExit("the evaluation's box-head NMS, the case of the kernel's in-place path, fit in shared memory")
+    in_place = [k for k in ("box_head_eval", "rpn_train_c4", "rpn_train_dc5") if k in out]
+    if any(out[k]["shared_memory"] for k in in_place):
+        raise SystemExit(f"a case of the kernel's in-place path fit in shared memory: "
+                         f"{ {k: out[k]['most_live_in_a_row'] for k in in_place} }")
     report["nms_kernel"] = out
     return out
 
@@ -1541,39 +1566,71 @@ RCNN_BATCH = 16  # predict_fn's batch (the YAML keeps TEST.BATCH_SIZE 1); SOLVER
 RCNN_STEPS = 4  # tools/train_net's steps in 10e
 
 
-def rcnn_cfg(name: str, dtype: str, folder: str = "COCO-Detection"):
-    """``configs/<folder>/<name>.yaml`` (over Base-RCNN-FPN.yaml) read by the
-    port's own YAML reader, with the run's compute width, output directory
-    and seed over it and no weights file (the YAML names ImageNet weights,
-    which are not in the repository)."""
+def rcnn_cfg(name: str, dtype: str, folder: str = "COCO-Detection", extra=()):
+    """``configs/<folder>/<name>.yaml`` (over its base YAML) read by the
+    port's own YAML reader, with ``extra`` KEY VALUE pairs, the run's
+    compute width, output directory and seed over it and no weights file
+    (the YAML names ImageNet weights, which are not in the repository)."""
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join("configs", folder, name + ".yaml"))
-    cfg.merge_from_list(["TPU.DTYPE", dtype, "OUTPUT_DIR", "output/chip_smoke", "SEED", 0, "MODEL.WEIGHTS", ""])
+    cfg.merge_from_list(list(extra) + ["TPU.DTYPE", dtype, "OUTPUT_DIR", "output/chip_smoke", "SEED", 0,
+                                       "MODEL.WEIGHTS", ""])
     return cfg
+
+
+CALIB_ROIS = 200  # C4: proposals of the first image that calibrate the res5 head and scale its predictor
+
+
+def predictor_inputs(model, feats, boxes: torch.Tensor):
+    """(state-dict prefix of each box predictor, the features it reads for
+    the (R, 4) ``boxes`` of one image): the box head's output, each Cascade
+    stage's, or C4's res5 output averaged."""
+    pooled = model.pool(feats, boxes, boxes.shape[0])
+    heads = model.model.roi_heads
+    if hasattr(heads, "res5"):
+        return [("roi_heads.box_predictor", heads.res5(pooled).mean((2, 3)))]
+    if isinstance(heads.box_head, torch.nn.ModuleList):
+        return [(f"roi_heads.box_predictor.{t}", head(pooled)) for t, head in enumerate(heads.box_head)]
+    return [("roi_heads.box_predictor", heads.box_head(pooled))]
 
 
 def rcnn_weights(cfg, images: torch.Tensor, seed: int) -> Tuple[dict, dict]:
     """(``seeded_weights``: the model's own init with FrozenBN statistics
-    measured on ``images``, what a model initialised from ImageNet weights
-    starts from; the same with the box predictor scaled on the first
-    image's proposals so that ``cls_score``'s logits spread with std 2 and
-    ``bbox_pred``'s deltas with std 0.5, weights that detect to serve with).
-    The init's N(0, 0.01) predictor puts every class near 1/81, under
-    SCORE_THRESH_TEST 0.05: served, its NMS would get no candidate."""
+    measured on ``images`` (C4's res5 head's on the first image's proposals
+    too), what a model initialised from ImageNet weights starts from; the
+    same with each box predictor scaled on those proposals so that
+    ``cls_score``'s logits spread with std 2 and ``bbox_pred``'s deltas with
+    std 0.5, weights that detect to serve with). The init's N(0, 0.01)
+    predictor puts every class near 1/81, under SCORE_THRESH_TEST 0.05:
+    served, its NMS would get no candidate."""
     init = seeded_weights(cfg, images, seed)
-    state = dict(init)
     cfg = cfg.clone()
     cfg.MODEL.DEVICE = "cpu"
     host = build_model(cfg)
-    host.model.load_state_dict(state)
+    host.model.load_state_dict(init)
     with torch.no_grad():
         x = host.normalize(images[:1])
         feats, logits, deltas = host.model(x)
-        boxes, _, _ = host.proposals(logits, deltas, x.shape[2:], "test")
-        head = host.model.roi_heads.box_head(host.pool(feats, boxes[0], boxes.shape[1]))
-        for name, std in (("cls_score", 2.0), ("bbox_pred", 0.5)):
-            key = f"roi_heads.box_predictor.{name}.weight"
-            state[key] = init[key] * (std / (head @ init[key].T).std().item())
+        boxes = host.proposals(logits, deltas, x.shape[2:], "test")[0][0]
+        res5 = getattr(host.model.roi_heads, "res5", None)
+        if res5 is not None:  # the trunk's calibration does not reach the head
+            boxes = boxes[:CALIB_ROIS]  # the head costs ~1.5 GFLOP a roi on the CPU
+
+            def calibrate(frozen, inputs):
+                frozen.running_mean.copy_(inputs[0].float().mean((0, 2, 3)))
+                frozen.running_var.copy_(inputs[0].float().var((0, 2, 3), unbiased=False))
+
+            hooks = [m.register_forward_pre_hook(calibrate) for m in res5.modules()
+                     if isinstance(m, layers.FrozenBatchNorm)]
+            res5(host.pool(feats, boxes, boxes.shape[0]))
+            for h in hooks:
+                h.remove()
+            init = host.model.state_dict()
+        state = dict(init)
+        for prefix, head in predictor_inputs(host, feats, boxes):
+            for name, std in (("cls_score", 2.0), ("bbox_pred", 0.5)):
+                key = f"{prefix}.{name}.weight"
+                state[key] = init[key] * (std / (head @ init[key].T).std().item())
     return init, state
 
 
@@ -2129,6 +2186,376 @@ def phase_rcnn_head(report, out_dir, kind: str):
     return launches, nms_launches, nms_cases
 
 
+VARIANTS = {  # phase: (number, config folder, config name, its evaluation's mask task or None, extra KEY VALUE pairs)
+    "cascade": (13, "Misc", "cascade_mask_rcnn_R_50_FPN_1x", "segm", ()),
+    "c4": (14, "COCO-InstanceSegmentation", "mask_rcnn_R_50_C4_1x", "segm", ()),
+    # the DC5 YAML sets no INPUT size (its reference resizes by MIN_SIZE_TRAIN, up to 800): 800² here, as the others
+    "dc5": (15, "COCO-Detection", "faster_rcnn_R_50_DC5_1x", None,
+            ("INPUT.TRAIN_SIZE", "(800, 800)", "INPUT.TEST_SIZE", "(800, 800)")),
+}
+C4_PROPOSALS = "rpn_R_50_C4_1x"
+HEAD_ROIS = 64  # 14b/15b: the card's first proposals of each image that feed both devices' box heads
+
+
+def card_vs_cpu(checks, name, got, want, keep=None):
+    """Record |card − CPU| against HEAD_TOL of the CPU's scale (over the rows ``keep``)."""
+    diff = (got.cpu() - want).abs()
+    err = (diff[keep] if keep is not None else diff).max().item()
+    scale = want.abs().max().item()
+    checks[name] = dict(max_abs_err=err, scale=scale, tol=HEAD_TOL * scale)
+
+
+def variant_heads(model, feats, boxes, size, stage_boxes=None):
+    """The f32 box-head outputs of 13b-15b on ``boxes`` (N, P, 4): the box
+    predictor's (every Cascade stage's, each later stage on the previous
+    one's refinements clipped, or on ``stage_boxes[t]`` when given: the
+    card's, fed to the CPU; C4's res5 output before it)."""
+    n, p = boxes.shape[:2]
+    out = {}
+    heads = model.model.roi_heads
+    if isinstance(getattr(heads, "box_head", None), torch.nn.ModuleList):
+        cur = boxes
+        for t, b2b in enumerate(model.cascade_box2box):
+            if t > 0:
+                cur = rcnn.clip_boxes(out[f"stage{t - 1}_next"], size) if stage_boxes is None else \
+                    stage_boxes[t].to(boxes.device)
+            out[f"stage{t}_boxes"] = cur
+            sc, dl = model.model.box_predict(model.pool(feats, cur.reshape(-1, 4), p), t)
+            out[f"cls_score_stage{t}"], out[f"bbox_pred_stage{t}"] = sc, dl
+            out[f"stage{t}_next"] = b2b.apply_deltas(dl, cur.reshape(-1, 4)).view(n, p, 4)
+    elif hasattr(heads, "res5"):
+        shared = model.model.res5_transform(model.pool(feats, boxes.reshape(-1, 4), p))
+        out["res5_head"] = shared
+        out["cls_score"], out["bbox_pred"] = model.model.box_predict_shared(shared)
+    else:
+        out["cls_score"], out["bbox_pred"] = model.model.box_predict(model.pool(feats, boxes.reshape(-1, 4), p))
+    return out
+
+
+def phase_rcnn_variant(report, out_dir, kind: str):
+    """Phases 13 (Cascade Mask R-CNN R50-FPN), 14 (Mask R-CNN R50-C4, with
+    the C4 ProposalNetwork) and 15 (Faster R-CNN R50-DC5) at full width
+    through the port's entry points: (a) requests and predict_fn at batch
+    16; (b) the f32 heads card against CPU at batch 2 with the TF32 control;
+    (c) tools/bench with its train steps at 16 × 800²; (d) tools/train_net
+    4 steps then --eval-only --resume. Every NMS through the kernel, no DCN
+    kernel anywhere."""
+    number, folder, name, task, extra = VARIANTS[kind]
+    cfg = rcnn_cfg(name, "bfloat16", folder, extra)
+    m = cfg.MODEL
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    trunk = {"cascade": f"FPN {m.FPN.OUT_CHANNELS}, {len(m.ROI_BOX_CASCADE_HEAD.IOUS)} class-agnostic stages at IoU "
+                        f"{list(m.ROI_BOX_CASCADE_HEAD.IOUS)}",
+             "c4": f"the trunk to res4, the res5 head on {m.ROI_BOX_HEAD.POOLER_RESOLUTION}² rois",
+             "dc5": f"res5 dilated {m.RESNETS.RES5_DILATION}, the RPN and a {m.ROI_BOX_HEAD.POOLER_RESOLUTION}² "
+                    f"pooler on it"}[kind]
+    print(f"== {number}a. {name}.yaml: ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM}, {trunk}, {m.ROI_HEADS.NUM_CLASSES} "
+          f"classes, RPN {m.RPN.PRE_NMS_TOPK_TEST}/{m.RPN.POST_NMS_TOPK_TEST} at test and {m.RPN.PRE_NMS_TOPK_TRAIN}/"
+          f"{m.RPN.POST_NMS_TOPK_TRAIN} at training, mask head {'on' if m.MASK_ON else 'off'}, bf16: DefaultPredictor "
+          f"at {size[0]}², predict_fn at batch {RCNN_BATCH}")
+    full = (m.RESNETS.DEPTH == 50 and m.ROI_HEADS.NUM_CLASSES == 80 and size == (800, 800)
+            and tuple(cfg.INPUT.TRAIN_SIZE) == (800, 800) and m.ROI_HEADS.BATCH_SIZE_PER_IMAGE == 512
+            and m.RESNETS.RES2_OUT_CHANNELS == 256 and m.RESNETS.WIDTH_PER_GROUP == 64)
+    full &= {"cascade": m.FPN.OUT_CHANNELS == 256 and m.ROI_HEADS.NAME == "CascadeROIHeads" and m.MASK_ON
+             and len(m.ROI_BOX_CASCADE_HEAD.IOUS) == 3 and m.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG
+             and m.RPN.POST_NMS_TOPK_TRAIN == 2000 and m.ROI_MASK_HEAD.NUM_CONV == 4,
+             "c4": m.ROI_HEADS.NAME == "Res5ROIHeads" and m.MASK_ON and m.ROI_BOX_HEAD.POOLER_RESOLUTION == 14
+             and (m.RPN.PRE_NMS_TOPK_TEST, m.RPN.POST_NMS_TOPK_TEST) == (6000, 1000)
+             and list(m.RESNETS.OUT_FEATURES) == ["res4"],
+             "dc5": m.RESNETS.RES5_DILATION == 2 and m.ROI_BOX_HEAD.POOLER_RESOLUTION == 7
+             and list(m.RPN.IN_FEATURES) == ["res5"] and not m.MASK_ON}[kind]
+    if not full:
+        raise SystemExit(f"{name} is not at full width here: {m}")
+    rng = np.random.RandomState(10 + number)
+    reset_launches()
+    init, weights = rcnn_weights(rcnn_cfg(name, "float32", folder, extra), letterboxed(rng, "cpu", 2, size), seed=0)
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    model.model.load_state_dict(weights)
+    if kind != "cascade" and not (model.strides == model.roi_strides == [16]):
+        raise SystemExit(f"{name}: the RPN and the pooler should read a stride-16 map, got {model.strides}")
+    anchors = [a.shape[0] for a in model.anchors_per_level(size)]
+    batch = letterboxed(rng, model.device, RCNN_BATCH, size)
+    nms_launches = {}
+    nms_ops.greedy_nms.launches = 0
+    requests = []
+    for h, w in ((480, 640), (800, 800), (375, 500)):
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        inst = predictor(im)["instances"]
+        check_detections(name, im, inst, model.score_threshold)
+        extra_text = ""
+        if m.MASK_ON:
+            got = inst.pred_masks
+            if not (got.dtype == bool and got.shape == (len(inst), h, w) and got.any()):
+                raise SystemExit(f"{name}: bad pred_masks for a {h}x{w} image: {got.dtype} {got.shape}")
+            extra_text = f", {int(got.sum(axis=(1, 2)).mean())} mask pixels per detection"
+        requests.append(len(inst))
+        print(f"  request {h}x{w}: {len(inst)} detections, top score {inst.scores.max():.4f}{extra_text}")
+    latency = bench.request_ms(predictor, rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+    nms_inputs = []
+    with capture_nms(nms_inputs):
+        dets = model.predict_fn(batch)
+        with torch.inference_mode():  # the training's proposals
+            model.proposals(*model.model(model.normalize(batch))[1:], size, "train")
+    torch.cuda.synchronize()
+    nms_launches["serving"] = nms_ops.greedy_nms.launches
+    calls = 3 + bench.REQUEST_WARMUP + bench.REQUESTS + 1
+    if nms_launches["serving"] != 2 * calls + 1:
+        raise SystemExit(f"expected two NMS kernel launches per call (RPN, boxes) and one for the training's "
+                         f"proposals, {2 * calls + 1}, got {nms_launches['serving']}")
+    nms_cases = {f"{k}_{kind}": c for k, c in zip(("rpn_test", "box_head", "rpn_train"), nms_inputs)}
+    valid = (dets["scores"] > model.score_threshold).sum(1).cpu()
+    side = 2 * (m.ROI_MASK_HEAD.POOLER_RESOLUTION if kind == "cascade" else m.ROI_BOX_HEAD.POOLER_RESOLUTION // 2)
+    if not (dets["boxes"].shape == (RCNN_BATCH, 100, 4) and bool(torch.isfinite(dets["boxes"]).all())
+            and bool(torch.isfinite(dets["scores"]).all()) and int(valid.min()) > 0
+            and (not m.MASK_ON or (tuple(dets["masks"].shape) == (RCNN_BATCH, 100, side, side)
+                                   and bool(torch.isfinite(dets["masks"]).all())))):
+        raise SystemExit(f"{name}'s predict_fn returned malformed or empty detections: {valid.tolist()}, "
+                         f"{ {k: tuple(v.shape) for k, v in dets.items()} }")
+    predict_ms = cuda_ms(lambda: model.predict_fn(batch), iters=5)
+    b16 = profiled(lambda: model.predict_fn(batch), calls=1)
+    print(f"  request (480x640 → 800²) median {statistics.median(latency):.3f} ms of {bench.REQUESTS}; predict_fn "
+          f"batch {RCNN_BATCH}: {predict_ms:.3f} ms = {RCNN_BATCH * 1e3 / predict_ms:.2f} img/s, {b16['device_ms']:.3f} "
+          f"ms on the card (NMS kernel {b16['nms_kernel_ms']:.3f} ms); valid detections per image "
+          f"{int(valid.min())}-{int(valid.max())} of 100; anchors per level {anchors}; NMS kernel launches "
+          f"{nms_launches['serving']}; NMS rows: RPN {tuple(nms_inputs[0][1].shape)} at test, "
+          f"{tuple(nms_inputs[2][1].shape)} at training, box head {tuple(nms_inputs[1][1].shape)}")
+    print(b16["events"].table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    out = dict(requests=requests, request_ms=latency, request_median_ms=statistics.median(latency),
+               predict_fn_b16_ms=predict_ms, predict_fn_b16_device_ms=b16["device_ms"],
+               predict_fn_b16_nms_kernel_ms=b16["nms_kernel_ms"], valid_per_image=valid.tolist(), anchors=anchors,
+               predict_fn_b16_roi_align_ms=embedding_bag_ms(b16["events"])["forward"])
+    if kind == "c4":  # ROIAlign's and the res5 head's shares of a batch-16 call, each timed alone
+        with torch.inference_mode():
+            feats = model.model(model.normalize(batch))[0]
+            boxes, _, _ = model.proposals(*model.model(model.normalize(batch))[1:], size, "test")
+            flat = boxes.reshape(-1, 4)
+            pool_ms = cuda_ms(lambda: model.pool(feats, flat, boxes.shape[1]), iters=3, warmup=1)
+            pooled = model.pool(feats, flat, boxes.shape[1])
+            res5_ms = cuda_ms(lambda: model.model.res5_transform(pooled), iters=3, warmup=1)
+            del feats, pooled
+        print(f"  of a batch-{RCNN_BATCH} call ({predict_ms:.3f} ms): ROIAlign of the {flat.shape[0]} proposals at 14² "
+              f"{pool_ms:.3f} ms ({pool_ms / predict_ms:.0%}), the res5 head on them {res5_ms:.3f} ms "
+              f"({res5_ms / predict_ms:.0%}), each alone; in the profile above ROIAlign's embedding_bag took "
+              f"{out['predict_fn_b16_roi_align_ms']:.3f} ms")
+        out.update(roi_align_b16_ms=pool_ms, res5_head_b16_ms=res5_ms)
+    del predictor, dets
+
+    top = 16  # the best-scored detection slots of each image for the mask check
+    print(f"== {number}b. f32, batch 2, card against CPU: the box heads on the card's first {HEAD_ROIS} proposals of "
+          f"each image (each stage fed the card's boxes; rois the two devices' log2 puts on other FPN levels left "
+          f"out){', the RPN on res5' if kind == 'dc5' else ''}"
+          f"{f', the mask logits on the top {top} detections and the pasted masks' if m.MASK_ON else ''}")
+    cfg32 = rcnn_cfg(name, "float32", folder, extra)
+    card = build_model(cfg32)
+    cfg32.MODEL.DEVICE = "cpu"
+    host = build_model(cfg32)
+    for mdl in (card, host):
+        mdl.model.load_state_dict(weights)
+    x = batch[:2]
+    checks = {}
+
+    def heads_on(mdl, feats, boxes, dets_boxes=None, cls=None, stage_boxes=None):
+        got = variant_heads(mdl, feats, boxes, size, stage_boxes)
+        if dets_boxes is not None:
+            mask_in = mdl.pool(feats, dets_boxes, top, None if kind == "c4" else mdl.mask_pooler_resolution)
+            if kind == "c4":
+                mask_in = mdl.model.res5_transform(mask_in)
+            logits = mdl.model.mask_predict(mask_in)
+            got["mask_logits"] = logits[torch.arange(len(cls), device=cls.device), cls]
+        return got
+
+    with torch.inference_mode():
+        feats_c, lg_c, dl_c = card.model(card.normalize(x))
+        feats_h, lg_h, dl_h = host.model(host.normalize(x.cpu()))
+        if kind == "dc5":
+            for label, c, h in (("objectness_logits_res5", lg_c[0], lg_h[0]), ("anchor_deltas_res5", dl_c[0], dl_h[0])):
+                card_vs_cpu(checks, label, c, h)
+        props = card.proposals(lg_c, dl_c, size, "test")[0][:, :HEAD_ROIS].contiguous()
+        dets = card.predict_fn(x)
+        det_boxes = dets["boxes"][:, :top].reshape(-1, 4) if m.MASK_ON else None
+        cls = torch.clamp(dets["classes"][:, :top].reshape(-1), 0, card.num_classes - 1) if m.MASK_ON else None
+        got_c = heads_on(card, feats_c, props, det_boxes, cls)
+        stage_boxes = [got_c.get(f"stage{t}_boxes") for t in range(len(card.cascade_box2box))]
+        got_h = heads_on(host, feats_h, props.cpu(), None if det_boxes is None else det_boxes.cpu(),
+                         None if cls is None else cls.cpu(), stage_boxes if kind == "cascade" else None)
+        flips = 0
+        if kind == "cascade":
+            for t in range(len(card.cascade_box2box)):
+                b = got_c[f"stage{t}_boxes"].reshape(-1, 4)
+                same = roi_ops.assign_boxes_to_levels(b, 2, 5).cpu() == roi_ops.assign_boxes_to_levels(b.cpu(), 2, 5)
+                flips += int((~same).sum())
+                for k in (f"cls_score_stage{t}", f"bbox_pred_stage{t}"):
+                    card_vs_cpu(checks, k, got_c[k], got_h[k], same)
+        else:
+            for k in ("res5_head", "cls_score", "bbox_pred"):
+                if k in got_c:
+                    card_vs_cpu(checks, k, got_c[k], got_h[k])
+        if m.MASK_ON:
+            same = torch.ones(len(cls), dtype=torch.bool)
+            if kind == "cascade":
+                same = roi_ops.assign_boxes_to_levels(det_boxes, 2, 5).cpu() == \
+                    roi_ops.assign_boxes_to_levels(det_boxes.cpu(), 2, 5)
+                flips += int((~same).sum())
+            card_vs_cpu(checks, "mask_logits", got_c["mask_logits"], got_h["mask_logits"], same)
+        # the control: cuDNN's TF32 on and the model's ieee_f32 bypassed, the same
+        # inputs; the check must see it (as phase 4b's C9 control)
+        with pytorch_default_tf32(), bypass_ieee_f32(rcnn):
+            feats_t, lg_t, _ = card.model(card.normalize(x))
+            got_t = heads_on(card, feats_t, props, det_boxes, cls, stage_boxes if kind == "cascade" else None)
+        tf32 = {}
+        for k in checks:
+            if k in got_t:
+                card_vs_cpu(tf32, k, got_t[k], got_h[k])
+        if kind == "dc5":
+            card_vs_cpu(tf32, "objectness_logits_res5", lg_t[0], lg_h[0])
+        boundary = None
+        if m.MASK_ON:
+            b0 = dets["boxes"][0, :top]
+            on_card = paste_masks_in_image(dets["masks"][0, :top], b0, size)
+            on_host = paste_masks_in_image(dets["masks"][0, :top].cpu(), b0.cpu(), size)
+            boundary = (torch.equal(on_card.cpu(), on_host), int(on_card.sum()))
+    for k, v in checks.items():
+        ok = v["max_abs_err"] <= v["tol"]
+        print(f"  {k}: max_abs_err={v['max_abs_err']:.3e} (scale {v['scale']:.3e}, tol {HEAD_TOL:.0e} x scale = "
+              f"{v['tol']:.1e}) {'ok' if ok else 'FAIL'}; with cuDNN's TF32 on and ieee_f32 bypassed "
+              f"{tf32[k]['max_abs_err']:.3e}" if k in tf32 else f"  {k}: max_abs_err={v['max_abs_err']:.3e} (tol "
+              f"{v['tol']:.1e}) {'ok' if ok else 'FAIL'}")
+    over = {k: v["max_abs_err"] / checks[k]["tol"] for k, v in tf32.items()}
+    print(f"  {flips} rois on another FPN level (tol 0.1%); the TF32 control's largest error is "
+          f"{max(over.values()):.1f}x its tol ({max(over, key=over.get)}){'' if max(over.values()) > 1 else ': FAIL'}"
+          + (f"; pasted masks of the top {top} detections of image 0 on the card and on the CPU: "
+             f"{'equal' if boundary[0] else 'DIFFERENT'} ({boundary[1]} mask pixels)" if boundary else ""))
+    rois = 2 * HEAD_ROIS * len(card.cascade_box2box) + 2 * top if kind == "cascade" else 0
+    if not all(v["max_abs_err"] <= v["tol"] for v in checks.values()) or flips > 1e-3 * max(rois, 1) \
+            or (boundary is not None and not boundary[0]):
+        raise SystemExit(f"{name}'s f32 heads or host boundary differ between the card and the CPU")
+    if not max(over.values()) > 1:
+        raise SystemExit(f"{name}'s f32 head check did not see TF32: {over}")
+    out.update(card_vs_cpu=checks, tf32_bypass=tf32, level_flips=flips,
+               host_boundary_equal=None if boundary is None else boundary[0])
+    del card, host, feats_c, feats_h, feats_t
+
+    config_file = os.path.join("configs", folder, name + ".yaml")
+    print(f"== {number}c. tools/bench --config-file {folder}/{name}.yaml TEST.BATCH_SIZE {RCNN_BATCH} {' '.join(extra)} "
+          f"(the model's own init; train at {RCNN_BATCH} x 800²)")
+    captured, bench_training = [], bench.bench_training
+    bench.bench_training = lambda c, w=None: captured.append(bench_training(c, w)) or captured[-1]
+    nms_ops.greedy_nms.launches = 0
+    try:
+        result = bench.main(["--config-file", config_file, "TEST.BATCH_SIZE", str(RCNN_BATCH)] + list(extra))
+    finally:
+        bench.bench_training = bench_training
+    torch.cuda.synchronize()
+    nms_launches["bench"] = nms_ops.greedy_nms.launches
+    calls = 2 + bench.ITERS + bench.REQUEST_WARMUP + bench.REQUESTS
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    if nms_launches["bench"] != 2 * calls + steps:
+        raise SystemExit(f"expected 2 NMS launches per bench call and 1 per step ({2 * calls + steps}), "
+                         f"got {nms_launches['bench']}")
+    extra_out = result["extra"]
+    _, trainer, clock = captured[0]
+    names = ["loss_rpn_cls", "loss_rpn_loc"]
+    names += ([f"{k}_stage{t}" for t in range(3) for k in ("loss_cls", "loss_box_reg")] if kind == "cascade"
+              else ["loss_cls", "loss_box_reg"]) + (["loss_mask"] if m.MASK_ON else []) + ["total_loss"]
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in names}
+    keys = ("predictor_latency_ms", "train_step_ms", "train_busy_share", "peak_memory_gib")
+    if not (result["metric"] == bench.metric_name(cfg) and result["value"] > 0 and extra_out["batch"] == RCNN_BATCH
+            and extra_out["train_batch"] == RCNN_BATCH and all(extra_out.get(k) is not None for k in keys)):
+        raise SystemExit(f"the bench's {name} line is not complete: {result}")
+    if any(len(v) != steps or not all(math.isfinite(x) for x in v) for v in losses.values()):
+        raise SystemExit(f"{name}'s bench losses are not finite at every step: {losses}")
+    roi_align = embedding_bag_ms(clock.events)
+    print(f"  {result['metric']}: {result['value']} img/s; request median {extra_out['predictor_latency_ms']:.3f} ms; "
+          f"predict_fn batch {extra_out['batch']} {extra_out['predict_fn_ms']:.3f} ms; NMS kernel launches "
+          f"{nms_launches['bench']}")
+    print(f"  train at {extra_out['train_batch']} x 800²: total {' '.join(f'{v:.4f}' for v in losses['total_loss'])}; "
+          f"step times (ms) {' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} "
+          f"{extra_out['train_step_ms']:.1f} ms = {extra_out['train_img_s']:.1f} img/s; card busy "
+          f"{clock.device_ms:.1f} ms = {extra_out['train_busy_share']:.0%} of the median step; peak memory "
+          f"{extra_out['peak_memory_gib']:.2f} GiB; ROIAlign's embedding_bag in the profiled step: forward "
+          f"{roi_align['forward']:.2f} ms, backward {roi_align['backward']:.2f} ms")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
+    out.update(bench=result, bench_losses=losses, bench_step_ms_all=clock.times,
+               bench_profiled_device_ms=clock.device_ms, bench_roi_align_ms=roi_align)
+    del trainer, captured
+
+    init_path = os.path.join(out_dir, "init_weights.pth")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(init, init_path)
+    val = cfg.DATASETS.TEST[0]
+    # from the init with calibrated FrozenBN statistics, as 10e; its 80 classes
+    # score near 1/81 there, so the threshold goes to 0.005 for detections to evaluate
+    print(f"== {number}d. tools/train_net on {name}.yaml: {RCNN_STEPS} steps at batch {RCNN_BATCH} from the init with "
+          f"calibrated FrozenBN statistics (MODEL.WEIGHTS; DETECTRON2_SYNTH_DATA), then --eval-only --resume on the "
+          f"{EVAL_IMAGES} synthetic {val} images, ROI_HEADS.SCORE_THRESH_TEST 0.005")
+    argv = ["--config-file", config_file, "SOLVER.MAX_ITER", str(RCNN_STEPS), "SOLVER.IMS_PER_BATCH", str(RCNN_BATCH),
+            "TEST.BATCH_SIZE", str(RCNN_BATCH), "MODEL.WEIGHTS", init_path, "MODEL.ROI_HEADS.SCORE_THRESH_TEST",
+            "0.005", "OUTPUT_DIR", out_dir, "SEED", "0"] + list(extra)
+    fresh_synthetic_val(val)
+    log_path = f"output/chip_smoke_{kind}_rcnn_train_net_log.txt"
+    nms_ops.greedy_nms.launches = 0
+    trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
+    nms_launches["train_net"] = nms_ops.greedy_nms.launches
+    want = RCNN_STEPS + 2 * 2 * -(-EVAL_IMAGES // RCNN_BATCH)
+    if nms_launches["train_net"] != want:
+        raise SystemExit(f"expected {want} NMS kernel launches in train_net, got {nms_launches['train_net']}")
+    print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
+          + "; ".join(f"{t} " + ", ".join(f"{k} {trained[t][k]:.4f}" for k in ("AP", "AP50", "AP75") if k in trained[t])
+                      for t in trained))
+    if resumed != [0, RCNN_STEPS]:
+        raise SystemExit(f"expected to start at iteration 0 and resume at {RCNN_STEPS}, got {resumed}")
+    if set(trained) != ({"bbox", task} if task else {"bbox"}):
+        raise SystemExit(f"{name}'s evaluation has other tasks than expected: {sorted(trained)}")
+    if not same_results(trained, evaluated):
+        raise SystemExit(f"{name}'s evaluation after training and the --eval-only --resume one differ: "
+                         f"{trained} vs {evaluated}")
+    if not all(math.isfinite(trained[t][k]) for t in trained for k in ("AP", "AP50", "AP75")):
+        raise SystemExit(f"{name}'s AP dicts are not finite: {trained}")
+    print(f"  the two evaluation dicts are identical ({', '.join(sorted(trained))}); NMS kernel launches "
+          f"{nms_launches['train_net']}; log in {log_path}")
+    out.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, results=trained))
+
+    if kind == "c4":
+        print(f"== {number}e. ProposalNetwork ({C4_PROPOSALS}.yaml, bf16): predict_fn and loss_fn on 2 images of 800²")
+        pcfg = rcnn_cfg(C4_PROPOSALS, "bfloat16")
+        rpn_model = build_model(pcfg)
+        own = rpn_model.model.state_dict()
+        rpn_model.model.load_state_dict({k: v for k, v in weights.items() if k in own})
+        nms_ops.greedy_nms.launches = 0
+        props = rpn_model.predict_fn(batch[:2])
+        g = torch.Generator(device="cuda").manual_seed(0)
+        xy = torch.rand(2, 8, 2, generator=g, device="cuda") * 600
+        gt = torch.cat([xy, xy + 32 + torch.rand(2, 8, 2, generator=g, device="cuda") * 160], -1)
+        rpn_model.model.train()
+        total, rpn_losses = rpn_model.loss_fn({"image": batch[:2], "gt_boxes": gt, "gt_valid": torch.ones(
+            2, 8, dtype=torch.bool, device="cuda"), "generator": g})
+        total.backward()
+        torch.cuda.synchronize()
+        nms_launches["proposal_network"] = nms_ops.greedy_nms.launches
+        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in rpn_model.model.parameters()
+                           if p.grad is not None)
+        pvalid = (props["scores"] > 0).sum(1).tolist()
+        print(f"  proposals {tuple(props['boxes'].shape)}, valid per image {pvalid}; losses "
+              f"{ {k: round(v.item(), 5) for k, v in rpn_losses.items()} }, gradients finite: {grads_finite}; NMS "
+              f"kernel launches {nms_launches['proposal_network']}")
+        if not (props["boxes"].shape == (2, pcfg.MODEL.RPN.POST_NMS_TOPK_TEST, 4) and min(pvalid) > 0
+                and bool(torch.isfinite(total)) and grads_finite and nms_launches["proposal_network"] == 1):
+            raise SystemExit("the C4 ProposalNetwork's forward or loss failed")
+        out.update(proposal_network=dict(valid=pvalid, losses={k: v.item() for k, v in rpn_losses.items()}))
+        del rpn_model
+
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the {name} path ({number}a-{number}{'e' if kind == 'c4' else 'd'}): {launches}; "
+          f"NMS kernel launches {nms_launches}")
+    if any(launches.values()):
+        raise SystemExit(f"the {name} path launched DCN kernels: {launches}")
+    out.update(launches=launches, nms_kernel_launches=nms_launches)
+    report[f"{kind}_rcnn"] = out
+    return launches, nms_launches, nms_cases
+
+
 def roi_ops_inference(model, props, scores, deltas, n, p, size):
     """``fast_rcnn_inference`` of the box predictor's outputs on (N, P) proposals."""
     return roi_heads_ops.fast_rcnn_inference(props[0], props[2], scores.view(n, p, -1), deltas.view(n, p, -1),
@@ -2215,6 +2642,13 @@ def main() -> int:
             head_cases.update(cases)
         finally:
             shutil.rmtree(scratch, ignore_errors=True)
+    for kind in VARIANTS:
+        scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+        try:
+            head_launches[kind], head_nms[kind], cases = phase_rcnn_variant(report, scratch, kind)
+            head_cases.update(cases)
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
     nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases, **head_cases))
     totals = phase_kernel_timing(report)
 
@@ -2237,6 +2671,9 @@ def main() -> int:
             "launches_faster_rcnn": rcnn_launches[name],  # phase 10, asserted 0
             "launches_mask_rcnn": head_launches["mask"][name],  # phase 11, asserted 0
             "launches_keypoint_rcnn": head_launches["keypoint"][name],  # phase 12, asserted 0
+            "launches_cascade_rcnn": head_launches["cascade"][name],  # phase 13, asserted 0
+            "launches_c4_rcnn": head_launches["c4"][name],  # phase 14, asserted 0
+            "launches_dc5_rcnn": head_launches["dc5"][name],  # phase 15, asserted 0
             "max_abs_err": max_err[name], "ms": t["ms_b1"], "plain_ms": t["plain_ms_b1"],
             "bound_ms": t["bound_ms_b1"], "bound_by": t["bound_by_b1"], "library_ms": None,
             "per": "16 launches, the DLA-34 shapes at batch 1, bf16"
@@ -2254,9 +2691,12 @@ def main() -> int:
         "launches_from": "RetinaNet (phase 9: requests and batch 16, the bench, train_net), Faster R-CNN "
         "(phase 10: requests and batch 16, the training's proposals, the bench, train_net, the ProposalNetwork), "
         "Mask R-CNN and Keypoint R-CNN (phases 11 and 12: requests and batch 16, the training's proposals, the "
-        "bench, train_net)",
+        "bench, train_net), Cascade Mask R-CNN, Mask R-CNN C4 with the C4 ProposalNetwork and Faster R-CNN DC5 "
+        "(phases 13-15: the same)",
         "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
         "launches_mask_rcnn": head_nms["mask"], "launches_keypoint_rcnn": head_nms["keypoint"],
+        "launches_cascade_rcnn": head_nms["cascade"], "launches_c4_rcnn": head_nms["c4"],
+        "launches_dc5_rcnn": head_nms["dc5"],
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,

@@ -23,7 +23,11 @@ tower; RetinaNet's ResNet-FPN (``backbone.bottom_up.<ResNet keys>``,
 the mask head (``roi_heads.mask_head.{mask_fcn{i},deconv,predictor}``) to
 ``mask_head/...`` and the keypoint head
 (``roi_heads.keypoint_head.{conv_fcn{i},score_lowres}``) to
-``keypoint_head/...``.
+``keypoint_head/...``; Cascade's stages (``roi_heads.box_head.{t}.fc1``,
+``roi_heads.box_predictor.{t}.cls_score``) to ``box_head_stage{t}/fc1`` and
+``box_predictor_stage{t}/cls_score``, and C4's res5 head
+(``roi_heads.res5.{b}.conv1``, ``roi_heads.res5.{b}.conv1.norm``) to
+``res5_block{b}/conv1`` and ``res5_block{b}/conv1_norm/bn``.
 ``torch_key`` is its inverse, and ``state_dict_from_jax`` checks every key
 it makes against it.
 
@@ -36,7 +40,7 @@ the other way):
     rois flattened NHWC in the JAX package and NCHW here (as in the
     reference), so its input dim is permuted from (H, W, C) to (C, H, W)
     order, C the width of the map it flattens (the last box-head conv's, or
-    the RPN head's input, the FPN's);
+    the RPN head's input, the FPN's), each Cascade stage's ``fc1`` too;
   * the depthwise ``up_*`` kernel (2f, 2f, 1, C) → (C, 1, 2f, 2f), the
     neck's transposed-conv kernel (4, 4, Cin, Cout) → (Cin, Cout, 4, 4) and
     the mask head's ``deconv`` (2, 2, Cin, Cout) → (Cin, Cout, 2, 2), all
@@ -218,12 +222,26 @@ _RCNN_MODULES = {"rpn_head": r"conv|objectness_logits|anchor_deltas", "box_head"
 
 
 def _rcnn_to_flax(body):
-    """R-CNN's RPN, box, mask and keypoint heads (torch tokens) → flax module
-    tokens, or None."""
+    """R-CNN's RPN, box, mask and keypoint heads and Cascade's stages (torch
+    tokens) → flax module tokens, or None."""
+    stage = None
+    if len(body) == 4 and body[:2] in (["roi_heads", "box_head"], ["roi_heads", "box_predictor"]) \
+            and body[2].isdigit():
+        stage, body = body[2], body[:2] + body[3:]
     owner = _RCNN_OWNERS.get(tuple(body[:2])) if len(body) == 3 else None
     if owner is None or not re.fullmatch(_RCNN_MODULES[owner], body[2]):
         return None
-    return [owner, body[2]]
+    return [owner if stage is None else f"{owner}_stage{stage}", body[2]]
+
+
+def _res5_head_to_flax(body, norm: str):
+    """C4's res5 head (``roi_heads.res5.{b}.<conv>[.norm]``) → (flax tokens,
+    whether it is a normalization), or None."""
+    if len(body) in (4, 5) and body[:2] == ["roi_heads", "res5"] and body[2].isdigit() \
+            and re.fullmatch(r"conv\d|shortcut", body[3]) and body[4:] in ([], ["norm"]):
+        block = f"res5_block{body[2]}"
+        return ([block, body[3] + "_norm", norm], True) if body[4:] else ([block, body[3]], False)
+    return None
 
 
 def _retinanet_to_flax(body):
@@ -241,11 +259,13 @@ def _retinanet_to_flax(body):
     return None
 
 
-def canonical_key(key: str, norm: str = "bn") -> Optional[str]:
-    """Torch key of any CenterNet backbone and its heads → flax variables
+def canonical_key(key: str, norm: str = "bn", trunk: str = "trunk") -> Optional[str]:
+    """Torch key of any ported backbone and its heads → flax variables
     path, or None when the key has no flax counterpart. ``norm`` is the
     flax name of the ResNet trunk's normalization: ``bn`` (BatchNorm and
-    FrozenBatchNorm) or ``gn`` (GroupNorm)."""
+    FrozenBatchNorm) or ``gn`` (GroupNorm). ``trunk`` is the flax module
+    that holds a bare trunk under ``backbone``: ``trunk`` in CenterNet, ""
+    in R-CNN's C4 and DC5, whose backbone is the ResNet itself."""
     parts = key.split(".")
     if parts and parts[0] == "module":
         parts = parts[1:]
@@ -259,19 +279,22 @@ def canonical_key(key: str, norm: str = "bn") -> Optional[str]:
     head = _retinanet_to_flax(body) or _rcnn_to_flax(body)
     if head is not None:
         return _finish(head, leaf, False)
+    res5 = _res5_head_to_flax(body, norm)
+    if res5 is not None:
+        return _finish(res5[0], leaf, res5[1])
     if body[0] == "deconv_layers" and len(body) == 2 and body[1].isdigit():
         stage, role = divmod(int(body[1]), 3)
         if role == 0:
             return _finish(["backbone", f"deconv{stage}"], leaf, False)
         return _finish(["backbone", f"deconv{stage}_bn"], leaf, True) if role == 1 else None
-    owner = "bottom_up" if body[:2] == ["backbone", "bottom_up"] else "trunk"  # the FPN's ResNet, or the trunk
+    owner = "bottom_up" if body[:2] == ["backbone", "bottom_up"] else trunk  # the FPN's ResNet, or the trunk
     trunk = body[2:] if owner == "bottom_up" else body[1:]
     if body[0] == "backbone" and trunk and re.fullmatch(r"stem|res\d|stage\d", trunk[0]):
         mapped = _trunk_to_flax(trunk, norm)
         if mapped is None:
             return None
         tokens, is_norm = mapped
-        return _finish(["backbone", owner] + tokens, leaf, is_norm)
+        return _finish(["backbone"] + ([owner] if owner else []) + tokens, leaf, is_norm)
     return canonical_dla_key(key)
 
 
@@ -286,9 +309,19 @@ def torch_key(path: str, towers: bool = True) -> str:
     if body[:2] in (["backbone", "trunk"], ["backbone", "bottom_up"]):
         prefix = "backbone.bottom_up." if body[1] == "bottom_up" else "backbone."
         return f"{prefix}{_trunk_to_torch(body[2:])}.{_FLAX_LEAF[leaf]}"
+    if len(body) > 2 and body[0] == "backbone" and re.fullmatch(r"stem|res\d_block\d+", body[1]):  # R-CNN's trunk
+        return f"backbone.{_trunk_to_torch(body[1:])}.{_FLAX_LEAF[leaf]}"
     owners = {v: ".".join(k) for k, v in _RCNN_OWNERS.items()}
     if len(body) == 2 and body[0] in owners:
         return f"{owners[body[0]]}.{body[1]}.{_FLAX_LEAF[leaf]}"
+    m = re.fullmatch(r"(box_head|box_predictor)_stage(\d+)", body[0]) if len(body) == 2 else None
+    if m:
+        return f"roi_heads.{m.group(1)}.{m.group(2)}.{body[1]}.{_FLAX_LEAF[leaf]}"
+    m = re.fullmatch(r"res5_block(\d+)", body[0]) if len(body) in (2, 3) else None
+    if m:
+        conv = body[1].removesuffix("_norm")
+        return f"roi_heads.res5.{m.group(1)}.{conv}" + (".norm" if body[1].endswith("_norm") else "") \
+            + f".{_FLAX_LEAF[leaf]}"
     if len(body) == 2 and body[0] == "backbone" and re.fullmatch(r"top_block_p[67]", body[1]):
         return f"backbone.top_block.{body[1][-2:]}.{_FLAX_LEAF[leaf]}"
     m = re.fullmatch(r"(cls|box)_tower(\d+)", body[1]) if len(body) == 2 and body[0] == "head" else None
@@ -340,11 +373,12 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _flattened_channels(flat: Mapping[str, np.ndarray]) -> int:
-    """The width of the pooled map R-CNN's box head flattens: its last
-    conv's output, else the RPN head's input (the FPN's width)."""
+def _flattened_channels(flat: Mapping[str, np.ndarray], owner: str) -> int:
+    """The width of the pooled map the box head ``owner`` (``box_head``, or
+    Cascade's ``box_head_stage{t}``) flattens: its last conv's output, else
+    the RPN head's input (the width of the map the rois pool from)."""
     convs = sorted((int(m.group(1)), p) for p in flat
-                   if (m := re.fullmatch(r"params/box_head/conv(\d+)/kernel", p)))
+                   if (m := re.fullmatch(rf"params/{owner}/conv(\d+)/kernel", p)))
     return flat[convs[-1][1]].shape[-1] if convs else flat["params/rpn_head/conv/kernel"].shape[2]
 
 
@@ -355,12 +389,13 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     back to its leaf through ``canonical_key``."""
     flat = _flatten(variables)
     towers = any("_tower/" in p for p in flat)
-    norm = "gn" if any(("/trunk/" in p or "/bottom_up/" in p) and "/gn/" in p for p in flat) else "bn"
+    norm = "gn" if any("_norm/gn/" in p for p in flat) else "bn"
+    trunk = "" if any(re.match(r"params/backbone/(stem|res\d_block\d+)/", p) for p in flat) else "trunk"
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
         key = torch_key(path, towers)
-        if canonical_key(key, norm) != path:
-            raise ValueError(f"{path} maps to {key}, which maps back to {canonical_key(key, norm)}")
+        if canonical_key(key, norm, trunk) != path:
+            raise ValueError(f"{path} maps to {key}, which maps back to {canonical_key(key, norm, trunk)}")
         if key in out:
             raise ValueError(f"two leaves map to {key}")
         arr = np.array(arr, np.float32)  # a writable copy
@@ -374,8 +409,9 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
         elif arr.ndim == 2:
-            if key == "roi_heads.box_head.fc1.weight":
-                c = _flattened_channels(flat)
+            fc1 = re.fullmatch(r"roi_heads\.box_head\.(?:(\d+)\.)?fc1\.weight", key)
+            if fc1:
+                c = _flattened_channels(flat, "box_head" if fc1.group(1) is None else f"box_head_stage{fc1.group(1)}")
                 side = int(round((arr.shape[0] // c) ** 0.5))
                 arr = arr.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(arr.shape)  # HWC → CHW rows
             arr = arr.T  # (I, O) → (O, I)

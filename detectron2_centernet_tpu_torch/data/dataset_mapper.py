@@ -1,29 +1,38 @@
 """DatasetMapper: dataset dict → fixed-shape model-input arrays
-(counterpart of the JAX package's ``data/dataset_mapper.py``, ``:128-206``
-and ``:240-251``).
+(counterpart of the JAX package's ``data/dataset_mapper.py``, ``:40-206``
+and ``:240-293``).
 
-Train: one affine warp (random scale, shift and flip) to
-``INPUT.TRAIN_SIZE``, the boxes through the same matrix, clipped, filtered
-and padded to ``MODEL.CENTERNET.MAX_OBJS`` slots with a validity mask. The
-gaussian targets are rendered on the device in the train step
-(``ops/target_gen.py``) and the color jitter runs there too
-(``ops/photometric.py``). With ``MODEL.MASK_ON`` each kept instance's
-polygons go through the same matrix and are filled into a fixed
-``INPUT.MASK_RASTER``² raster relative to its box (``gt_masks``, uint8, the
-JAX package's ``:253-271``); with ``MODEL.KEYPOINT_ON`` its keypoints go
-through it too, a point warped off the image turning invisible, the left
-and right ones swapped by the train dataset's ``keypoint_flip_map`` when
-the warp mirrors (``gt_keypoints``, ``:273-293``).
+Train: the host photometric jitter when ``INPUT.COLOR_JITTER`` is on and
+``DATALOADER.DEVICE_PHOTOMETRIC`` off (else it runs on the device in the
+train step, ``ops/photometric.py``), then one affine warp to
+``INPUT.TRAIN_SIZE`` composed of ``INPUT.ROTATION``, ``INPUT.CROP`` or
+``INPUT.EXTENT`` and the flip, or else the random scale, shift and flip
+(``_train_geometry``, the JAX package's ``:128-161``); the boxes go through
+the same matrix, clipped, filtered and padded to
+``MODEL.CENTERNET.MAX_OBJS`` slots with a validity mask. Every draw comes
+from the one ``RandomState`` in the JAX package's order (jitter, rotation,
+crop or extent, flip), so a seed gives the JAX matrix. The gaussian targets
+are rendered on the device in the train step (``ops/target_gen.py``). With
+``MODEL.MASK_ON`` each kept instance's polygons go through the same matrix
+and are filled into a fixed ``INPUT.MASK_RASTER``² raster relative to its
+box (``gt_masks``, uint8, the JAX package's ``:253-271``); with
+``MODEL.KEYPOINT_ON`` its keypoints go through it too, a point warped off
+the image turning invisible, the left and right ones swapped by the train
+dataset's ``keypoint_flip_map`` when the warp mirrors (``gt_keypoints``,
+``:273-293``).
 
 Eval: the ctdet letterbox to ``INPUT.TEST_SIZE``, by resize and paste
 (``fast_letterbox``) when ``INPUT.FAST_LETTERBOX`` is on, the image is uint8
 and ``TEST.EXACT_MODE`` is off, else by the exact affine warp; the output
 carries the warp actually applied, for un-mapping the boxes.
 
-The warps are the port's PyTorch ones (the card's machine has no cv2),
-rounded to uint8 as cv2 rounds a uint8 warp, so a batch ships 1 byte per
-pixel. Sem-seg, crop, extent, rotation and proposals are not ported:
-nothing on the port's path reads them.
+The warps are the port's PyTorch ones (the card's machine has no cv2), a
+uint8 image rounded to uint8 as cv2 rounds a uint8 warp, so a batch ships 1
+byte per pixel; a jittered image is float32 and stays so. Not ported: the
+``sem_seg`` output and reading ``sem_seg_file_name`` (the crop's category
+constraint takes a ``sem_seg`` array from the dict; a file name raises,
+ROADMAP A15), and precomputed proposals (A14.6; the model raises for
+``MODEL.LOAD_PROPOSALS``).
 """
 
 import copy
@@ -36,7 +45,16 @@ from ..config import CfgNode
 from ..structures.masks import rasterize_in_box
 from . import detection_utils as utils
 from .catalog import MetadataCatalog
-from .transforms import CenterAffineAug, letterbox_transform
+from .transforms import (
+    CenterAffineAug,
+    PhotometricAug,
+    RandomCropCategoryAreaConstraint,
+    RandomExtentAug,
+    RandomRotationAug,
+    compose_affine,
+    letterbox_transform,
+    window_to_output_transform,
+)
 
 __all__ = ["DatasetMapper"]
 
@@ -70,6 +88,43 @@ class DatasetMapper:
             shift_range=float(cfg.INPUT.SHIFT_RANGE),
             flip_prob=0.5 if cfg.INPUT.RANDOM_FLIP != "none" else 0.0,
         )
+        on_host = is_train and cfg.INPUT.COLOR_JITTER and not cfg.DATALOADER.DEVICE_PHOTOMETRIC
+        self.photometric = PhotometricAug() if on_host else None
+        self.flip_prob = 0.5 if cfg.INPUT.RANDOM_FLIP != "none" else 0.0
+        i = cfg.INPUT
+        self.rotation = RandomRotationAug(tuple(i.ROTATION.ANGLE), expand=bool(i.ROTATION.EXPAND),
+                                          sample_style=str(i.ROTATION.SAMPLE_STYLE)) if i.ROTATION.ENABLED else None
+        self.crop = RandomCropCategoryAreaConstraint(
+            str(i.CROP.TYPE), tuple(i.CROP.SIZE), float(i.CROP.SINGLE_CATEGORY_MAX_AREA),
+            ignored_category=255) if i.CROP.ENABLED else None
+        self.extent = RandomExtentAug(tuple(i.EXTENT.SCALE_RANGE), tuple(i.EXTENT.SHIFT_RANGE)) \
+            if i.EXTENT.ENABLED else None
+
+    def _train_geometry(self, dataset_dict: dict, h: int, w: int, rng: np.random.RandomState,
+                        out_size) -> np.ndarray:
+        """The rotation, then the crop or extent and the flip, or else the
+        scale/shift/flip, as ONE source → network 2x3 matrix (the JAX
+        package's ``_train_geometry``, draw for draw)."""
+        m_pre = np.array([[1.0, 0, 0], [0, 1.0, 0]], np.float64)
+        cur_h, cur_w = h, w
+        if self.rotation is not None:
+            m_pre, (cur_h, cur_w) = self.rotation(h, w, rng)
+        if self.crop is None and self.extent is None:
+            return compose_affine(self.affine_aug(cur_h, cur_w, rng), m_pre)
+        if self.crop is not None:
+            sem = dataset_dict.get("sem_seg")
+            if sem is None and "sem_seg_file_name" in dataset_dict:
+                raise NotImplementedError(
+                    "INPUT.CROP with sem_seg_file_name: reading sem-seg files is not ported yet (ROADMAP A15); "
+                    "give the dict a sem_seg array")
+            # the category constraint reads the source frame: with a rotation the window is drawn unconstrained
+            window = self.crop(cur_h, cur_w, rng, sem_seg=sem if self.rotation is None else None)
+        else:
+            window = self.extent(cur_h, cur_w, rng)
+        m = compose_affine(window_to_output_transform(window, out_size), m_pre)
+        if rng.rand() < self.flip_prob:
+            m = compose_affine(np.array([[-1, 0, out_size[1] - 1], [0, 1, 0]], np.float64), m)
+        return m
 
     def __call__(self, dataset_dict: dict, rng: Optional[np.random.RandomState] = None) -> Dict[str, np.ndarray]:
         dataset_dict = copy.deepcopy(dataset_dict)
@@ -84,7 +139,10 @@ class DatasetMapper:
         else:
             if self.is_train:
                 out_size = self.train_size
-                m = self.affine_aug(h, w, rng if rng is not None else np.random.RandomState())
+                rng = rng if rng is not None else np.random.RandomState()
+                if self.photometric is not None:  # before the geometry, as the JAX mapper draws
+                    image = self.photometric(image, rng)
+                m = self._train_geometry(dataset_dict, h, w, rng, out_size)
             else:
                 out_size = self.test_size
                 m = letterbox_transform(h, w, out_size)

@@ -78,6 +78,11 @@ class FPN(nn.Module):
         extra = top_block.num_levels if top_block is not None else 0
         self.out_features = [f"p{l}" for l in self.levels] + [f"p{last + i + 1}" for i in range(extra)]
         self.out_channels = out_channels
+        self.out_feature_channels = {f: out_channels for f in self.out_features}
+        top = bottom_up.out_feature_strides[self.in_features[-1]]
+        self.out_feature_strides = {**{f"p{l}": bottom_up.out_feature_strides[f]
+                                       for l, f in zip(self.levels, self.in_features)},
+                                    **{f"p{last + i + 1}": top * 2 ** (i + 1) for i in range(extra)}}
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         top_in = getattr(self.top_block, "in_feature", None)

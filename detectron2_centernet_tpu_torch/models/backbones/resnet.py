@@ -18,8 +18,8 @@ C12; the reference sets ``requires_grad=False`` instead).
 CenterNet reads ``res4`` through its deconv neck (``meta_arch/centernet.py``):
 ``build_resnet_backbone`` and ``build_resnet_deconv_backbone`` both give
 the trunk, the JAX package's ``DeconvNeck`` and ``ResNetDeconv`` compute the
-same network. Not ported here: ``DeformBottleneckBlock`` (ROADMAP A14) and
-the DeepLab stem and dilated res4 (A15); they raise.
+same network. Not ported here: ``DeformBottleneckBlock`` (ROADMAP A14.5)
+and the DeepLab stem and dilated res4 (A15); they raise.
 """
 
 from typing import Dict, Optional, Sequence
@@ -109,7 +109,12 @@ class BottleneckBlock(nn.Module):
 class ResNet(nn.Module):
     """The trunk: ``stem``, then ``res2`` ... up to the deepest stage of
     ``out_features`` (JAX ``ResNet``). ``forward`` returns
-    ``{name: map}`` for ``out_features`` ⊆ {stem, res2, ..., res5}."""
+    ``{name: map}`` for ``out_features`` ⊆ {stem, res2, ..., res5}.
+
+    ``out_feature_strides`` are the strides the blocks take: a dilated
+    stage's first block does not stride, so DC5's res5 stays at 16, as in
+    the reference (the JAX package reports 32 for it whatever its dilation,
+    ROADMAP C20)."""
 
     def __init__(self, depth: int = 50, out_features: Sequence[str] = ("res4",), num_groups: int = 1,
                  width_per_group: int = 64, stem_out_channels: int = 64, res2_out_channels: int = 256,
@@ -121,6 +126,8 @@ class ResNet(nn.Module):
         self.freeze_at = freeze_at
         self.stem = BasicStem(3, stem_out_channels, norm)
         self.out_feature_channels: Dict[str, int] = {"stem": stem_out_channels}
+        self.out_feature_strides: Dict[str, int] = {"stem": 4}
+        feature_stride = 4
         max_stage = max([int(f[-1]) for f in self.out_features if f.startswith("res")] or [5])
         cin, cout, bottleneck = stem_out_channels, res2_out_channels, num_groups * width_per_group
         self.stage_names = []
@@ -142,6 +149,8 @@ class ResNet(nn.Module):
             self.add_module(f"res{stage}", nn.Sequential(*layers))
             self.stage_names.append(f"res{stage}")
             self.out_feature_channels[f"res{stage}"] = cout
+            feature_stride *= first_stride
+            self.out_feature_strides[f"res{stage}"] = feature_stride
             cout *= 2
             bottleneck *= 2
 
@@ -172,7 +181,7 @@ def build_resnet(cfg: CfgNode, out_features: Optional[Sequence[str]] = None) -> 
     if any(r.DEFORM_ON_PER_STAGE):
         raise NotImplementedError(
             "MODEL.RESNETS.DEFORM_ON_PER_STAGE: DeformBottleneckBlock (a stride-2, dilated DCN) "
-            "is not ported yet (ROADMAP A14)")
+            "is not ported yet (ROADMAP A14.5)")
     if r.STEM_TYPE != "basic" or r.RES4_DILATION != 1 or tuple(r.RES5_MULTI_GRID) != (1, 1, 1):
         raise NotImplementedError(
             "the DeepLab trunk (STEM_TYPE deeplab, RES4_DILATION, RES5_MULTI_GRID) is not ported yet "

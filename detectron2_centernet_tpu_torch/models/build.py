@@ -26,8 +26,9 @@ def build_model(cfg: CfgNode):
     the JAX package's ``build_model`` does for every meta-architecture: when
     the model has none and ``DATALOADER.DEVICE_PHOTOMETRIC`` is on,
     ``INPUT.COLOR_AUG_SSD`` selects the SSD distortion, else
-    ``INPUT.COLOR_JITTER`` the color jitter (the port has no host
-    photometric pass: with the flag off there is none)."""
+    ``INPUT.COLOR_JITTER`` the color jitter. With the flag off none is
+    attached: the train mapper jitters on the host instead
+    (``data/transforms.py::PhotometricAug``), as the JAX mapper does."""
     model = META_ARCH_REGISTRY.get(cfg.MODEL.META_ARCHITECTURE)(cfg)
     if getattr(model, "device_augment", None) is None and cfg.DATALOADER.DEVICE_PHOTOMETRIC:
         if cfg.INPUT.COLOR_AUG_SSD:

@@ -1,34 +1,53 @@
 """GeneralizedRCNN and ProposalNetwork, counterpart of the JAX package's
-``models/meta_arch/rcnn.py`` (its ``standard`` ROI-head branch; reference
-``modeling/meta_arch/rcnn.py``).
+``models/meta_arch/rcnn.py`` (its ``standard``, ``cascade`` and ``res5``
+ROI-head branches; reference ``modeling/meta_arch/rcnn.py``,
+``roi_heads/roi_heads.py`` and ``roi_heads/cascade_rcnn.py``).
 
-``RCNNModel`` is the network, NCHW: the ResNet-FPN backbone, the RPN head
-(``proposal_generator.rpn_head``) and, for GeneralizedRCNN, the box head and
-predictor (``roi_heads.box_head``, ``roi_heads.box_predictor``) and, with
+``RCNNModel`` is the network, NCHW: the backbone (ResNet-FPN, or the plain
+ResNet trunk of C4 and DC5), the RPN head (``proposal_generator.rpn_head``)
+and, for GeneralizedRCNN, the ROI heads under the reference's module names
+(``roi_heads``): ``StandardROIHeads``' box head and predictor
+(``box_head``, ``box_predictor``); ``CascadeROIHeads``' one class-agnostic
+head and predictor per stage (``box_head.{t}``, ``box_predictor.{t}``);
+``Res5ROIHeads``' res5 stage on 14² rois (``res5.{b}``, the trunk stopping
+at res4) feeding the predictor through a global average; and, with
 ``MODEL.MASK_ON`` / ``MODEL.KEYPOINT_ON``, the mask head
-(``roi_heads.mask_head``) and the keypoint head (``roi_heads.keypoint_head``),
-under the reference's module names. ``GeneralizedRCNN`` owns it on
-``cfg.MODEL.DEVICE`` with the normalization, the anchors (numpy, moved to
-the device once per input size), the training loss (``loss_fn``: RPN
-matching and sampling over every anchor, the fixed-size proposals, ROI
-sampling with the gt boxes appended, multi-level ROIAlign, the Fast R-CNN
-losses; the mask and keypoint losses on the foreground rois), the
-fixed-size inference (``predict_fn``: proposals, ROIAlign, the per-class
-decode and one class-aware fixed-K NMS; then the mask logits at each
-detection's class and the keypoint heatmaps, pooled at 14×14 on the
-detections' boxes) and the host boundary (``postprocess``: the detections
-above the threshold in the original image, their masks pasted there and
-their keypoints decoded, both on the model's device).
+(``roi_heads.mask_head``) and the keypoint head (``roi_heads.keypoint_head``).
+``GeneralizedRCNN`` owns it on ``cfg.MODEL.DEVICE`` with the normalization,
+the anchors (numpy, moved to the device once per input size, at the strides
+the backbone reports: DC5's res5 is at 16, ROADMAP C20), the training loss
+(``loss_fn``: RPN matching and sampling over every anchor, the fixed-size
+proposals, ROI sampling with the gt boxes appended, ROIAlign, the Fast
+R-CNN losses, per stage for Cascade; the mask and keypoint losses on the
+foreground rois), the fixed-size inference (``predict_fn``: proposals,
+ROIAlign, the box head (every Cascade stage, their softmaxes averaged), the
+per-class decode and one class-aware fixed-K NMS; then the mask logits at
+each detection's class and the keypoint heatmaps, pooled on the detections'
+boxes) and the host boundary (``postprocess``: the detections above the
+threshold in the original image, their masks pasted there and their
+keypoints decoded, both on the model's device).
+
+Cascade (JAX ``:572-611``, ``:774-797``): stage t > 0 takes the previous
+stage's refined boxes, detached and clipped to the image, an empty box
+weighing 0, relabelled against the gt at the stage's IoU
+(``cascade_relabel``); each stage's pooled features pass through
+``scale_gradient(1 / stages)``, so the summed stage losses send the
+features the gradient of their mean. At inference the last stage's boxes
+go unclipped to ``fast_rcnn_inference`` with zero deltas and the log of the
+stages' mean softmax as scores.
 
 The mask and keypoint losses: the JAX package runs both heads on all N·S
-sampled rois and weights each by whether it is foreground. The sampler puts
-its positives first and takes at most ``int(S · POSITIVE_FRACTION)`` of
-them (``rpn.py::subsample_labels``), so every foreground roi lies in the
-first ``int(S · POSITIVE_FRACTION)`` slots of its image: the port runs the
-heads on that fixed block only (128 of 512 rois per image at the configs'
-defaults), with no host sync. The rois it leaves out weigh 0 in JAX's
-losses, so the losses and every gradient are JAX's
-(``tests/test_torch_mask.py``, ``tests/test_torch_keypoint.py``).
+sampled rois (stage 0's for Cascade) and weights each by whether it is
+foreground. The sampler puts its positives first and takes at most
+``int(S · POSITIVE_FRACTION)`` of them (``rpn.py::subsample_labels``), so
+every foreground roi lies in the first ``int(S · POSITIVE_FRACTION)`` slots
+of its image: the port runs the heads on that fixed block only (128 of 512
+rois per image at the configs' defaults), with no host sync; for C4 the
+mask head takes that block of the res5 output the box predictor read. The
+rois it leaves out weigh 0 in JAX's losses, so the losses and every
+gradient are JAX's (``tests/test_torch_mask.py``,
+``tests/test_torch_keypoint.py``, ``tests/test_torch_cascade.py``,
+``tests/test_torch_c4.py``).
 
 The RPN head's NCHW outputs are permuted to (N, H, W, A·k) before any
 flatten (``retinanet.nhwc_flat``), so anchors run in ``grid_anchors``'
@@ -42,9 +61,11 @@ tests hand in JAX's own), else from ``batch["generator"]`` (the step's
 step), in that order: rpn, roi_sub, roi_tie. A batch with neither
 raises.
 
-Not ported (each raises naming its ROADMAP item): Cascade, Res5/C4 and
-DC5, PointRend (its mask heads included), DensePose and other ROI-head
-extensions, precomputed proposals, and rotated proposals.
+Not ported (each raises naming its ROADMAP item): PointRend (its mask heads
+included), DensePose and other ROI-head extensions, precomputed proposals,
+rotated proposals, ``DeformBottleneckBlock``, and any other
+``ROI_HEADS.NAME`` (the JAX package builds Res5ROIHeads for a name it does
+not know; the port raises).
 """
 
 import logging
@@ -55,7 +76,9 @@ import torch.nn as nn
 
 from ...config import CfgNode
 from ...ops.roi_align import multilevel_roi_align
+from ...ops.nms import pairwise_iou_xyxy
 from ..anchors import build_anchor_generator
+from ..backbones.resnet import RESNET_SPECS, BottleneckBlock
 from ..box_regression import Box2BoxTransform
 from ..build import resolve_device
 from ..layers import ieee_f32, init_weights
@@ -66,17 +89,15 @@ from ..roi_heads.box_head import FastRCNNConvFCHead, FastRCNNOutputLayers
 from ..roi_heads.keypoint_head import KRCNNConvDeconvUpsampleHead, encode_keypoint_targets, keypoint_rcnn_loss
 from ..roi_heads.mask_head import MaskRCNNConvUpsampleHead, crop_gt_masks, mask_rcnn_loss
 from ..roi_heads.roi_heads import fast_rcnn_inference, fast_rcnn_losses, label_and_sample_proposals
-from . import retinanet
 from .retinanet import RetinaNet, nhwc_flat
 
-__all__ = ["GeneralizedRCNN", "ProposalNetwork", "RCNNModel"]
+__all__ = ["GeneralizedRCNN", "ProposalNetwork", "RCNNModel", "cascade_relabel", "clip_boxes", "scale_gradient"]
 
 logger = logging.getLogger(__name__)
 
-STRIDES = {**retinanet.STRIDES, "res2": 4, "res3": 8, "res4": 16, "res5": 32}
+ROI_TYPES = {"StandardROIHeads": "standard", "CascadeROIHeads": "cascade", "Res5ROIHeads": "res5"}
 # ROI_HEADS.NAME -> the ROADMAP item that ports it
-QUEUED_ROI_HEADS = {"CascadeROIHeads": "A14", "Res5ROIHeads": "A14", "PointRendROIHeads": "A15",
-                    "DensePoseROIHeads": "A18", "RROIHeads": "A16"}
+QUEUED_ROI_HEADS = {"PointRendROIHeads": "A15", "DensePoseROIHeads": "A18", "RROIHeads": "A16"}
 
 
 class RPN(nn.Module):
@@ -87,31 +108,68 @@ class RPN(nn.Module):
         self.rpn_head = rpn_head
 
 
-class StandardROIHeads(nn.Module):
-    """Holds the box head and predictor, and the mask and keypoint heads
-    when they are on, under the reference's ``roi_heads``."""
+class ROIHeads(nn.Module):
+    """Holds the ROI heads that are not None under the reference's names:
+    ``box_head`` and ``box_predictor`` (``nn.ModuleList``s of one per stage
+    for Cascade), ``res5`` (C4), ``mask_head``, ``keypoint_head``."""
 
-    def __init__(self, box_head: FastRCNNConvFCHead, box_predictor: FastRCNNOutputLayers,
-                 mask_head: Optional[MaskRCNNConvUpsampleHead] = None,
-                 keypoint_head: Optional[KRCNNConvDeconvUpsampleHead] = None):
+    def __init__(self, **heads: Optional[nn.Module]):
         super().__init__()
-        self.box_head = box_head
-        self.box_predictor = box_predictor
-        if mask_head is not None:
-            self.mask_head = mask_head
-        if keypoint_head is not None:
-            self.keypoint_head = keypoint_head
+        for name, head in heads.items():
+            if head is not None:
+                self.add_module(name, head)
+
+
+class _ScaleGradient(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: float) -> torch.Tensor:
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad * ctx.scale, None
+
+
+def scale_gradient(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """The identity, whose backward multiplies the gradient by ``scale``
+    (JAX ``_scale_gradient``; reference cascade ``_ScaleGradient``)."""
+    return _ScaleGradient.apply(x, scale)
+
+
+def clip_boxes(boxes: torch.Tensor, image_hw: Tuple[int, int]) -> torch.Tensor:
+    """XYXY boxes clipped to [0, w] × [0, h] (JAX ``_clip_boxes``)."""
+    h, w = image_hw
+    return torch.stack([boxes[..., 0].clamp(0, w), boxes[..., 1].clamp(0, h),
+                        boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h)], dim=-1)
+
+
+def cascade_relabel(boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor, gt_valid: torch.Tensor,
+                    weights: torch.Tensor, iou_threshold: float, num_classes: int) -> Dict[str, torch.Tensor]:
+    """A later Cascade stage's labels (JAX ``_cascade_relabel``; reference
+    ``_match_and_label_boxes``): each of the (N, S) boxes matched to its
+    highest-IoU valid gt (the first on ties; an invalid gt at IoU −1),
+    foreground at IoU ≥ ``iou_threshold``. Returns the flat (N·S, ...)
+    sampled dict ``fast_rcnn_losses`` takes, ``weights`` as given."""
+    n, s = boxes.shape[:2]
+    iou = torch.where(gt_valid[:, :, None].to(torch.bool), pairwise_iou_xyxy(gt_boxes, boxes), -1.0)  # (N, M, S)
+    matched = torch.argmax(iou, dim=1)  # the first maximal gt
+    is_pos = iou.amax(dim=1) >= iou_threshold
+    img = torch.arange(n, device=boxes.device)[:, None].expand(n, s)
+    out = {"boxes": boxes, "classes": torch.where(is_pos, gt_classes.to(torch.int64)[img, matched], num_classes),
+           "weights": weights, "target_boxes": gt_boxes[img, matched], "matched_idx": matched, "is_pos": is_pos}
+    return {k: v.reshape(n * s, *v.shape[2:]) for k, v in out.items()}
 
 
 class RCNNModel(nn.Module):
-    """backbone (FPN) → RPN head on ``rpn_in_features``; the box head on
-    pooled rois. Parameters stay f32; convolutions and the box head's fc
-    layers run at ``dtype`` under autocast, every f32 convolution on the
-    card in IEEE f32 (``ieee_f32``); the RPN's 1x1 predictors and the box
-    predictor in f32."""
+    """backbone → RPN head on ``rpn_in_features``; the ROI heads on pooled
+    rois. Parameters stay f32; convolutions and the box head's fc layers
+    run at ``dtype`` under autocast, every f32 convolution on the card in
+    IEEE f32 (``ieee_f32``); the RPN's 1x1 predictors and the box predictor
+    in f32."""
 
     def __init__(self, backbone: nn.Module, rpn_in_features: Tuple[str, ...], rpn_head: StandardRPNHead,
-                 roi_heads: Optional[StandardROIHeads] = None):
+                 roi_heads: Optional[ROIHeads] = None):
         super().__init__()
         self.dtype = torch.float32
         self.backbone = backbone
@@ -129,20 +187,37 @@ class RCNNModel(nn.Module):
         return torch.autocast(device.type, dtype=self.dtype, enabled=self.dtype != torch.float32)
 
     def forward(self, images: torch.Tensor):
-        """Normalized (N, 3, H, W) → (the FPN's {level: map}, per RPN level
-        the f32 (N, A, H, W) logits and (N, A·4, H, W) deltas)."""
+        """Normalized (N, 3, H, W) → (the backbone's {name: map}, per RPN
+        level the f32 (N, A, H, W) logits and (N, A·4, H, W) deltas)."""
         with ieee_f32(), self._autocast(images.device):
             feats = self.backbone(images.to(self.dtype))
             logits, deltas = self.proposal_generator.rpn_head([feats[f] for f in self.rpn_in_features])
         return feats, logits, deltas
 
-    def box_predict(self, pooled: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pooled (R, C, P, P) f32 → f32 (scores (R, C+1), deltas (R, 4C))."""
+    def box_predict(self, pooled: torch.Tensor, stage: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pooled (R, C, P, P) f32 → f32 (scores (R, C+1), deltas (R, 4C or
+        4)): the box head and predictor (Cascade: ``stage``'s), or C4's res5
+        head and the predictor."""
+        heads = self.roi_heads
         with ieee_f32(), self._autocast(pooled.device):
-            return self.roi_heads.box_predictor(self.roi_heads.box_head(pooled))
+            if hasattr(heads, "res5"):
+                return heads.box_predictor(heads.res5(pooled))
+            if isinstance(heads.box_head, nn.ModuleList):
+                return heads.box_predictor[stage](heads.box_head[stage](pooled))
+            return heads.box_predictor(heads.box_head(pooled))
+
+    def res5_transform(self, pooled: torch.Tensor) -> torch.Tensor:
+        """C4's shared per-roi transform: pooled (R, C, 14, 14) → the res5
+        stage's (R, 8·RES2, 7, 7), at the model's width."""
+        with ieee_f32(), self._autocast(pooled.device):
+            return self.roi_heads.res5(pooled)
+
+    def box_predict_shared(self, shared: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The predictor on ``res5_transform``'s output (its global average)."""
+        return self.roi_heads.box_predictor(shared)
 
     def mask_predict(self, pooled: torch.Tensor) -> torch.Tensor:
-        """Pooled (R, C, P, P) f32 → f32 mask logits (R, classes, 2P, 2P)."""
+        """Pooled (R, C, P, P) → f32 mask logits (R, classes, 2P, 2P)."""
         with ieee_f32(), self._autocast(pooled.device):
             return self.roi_heads.mask_head(pooled)
 
@@ -159,16 +234,19 @@ def _check_supported(cfg: CfgNode, with_roi_heads: bool) -> None:
         queued.append(f"ROI_MASK_HEAD.NAME {m.ROI_MASK_HEAD.NAME} / POINT_HEAD_ON: PointRend's mask heads "
                       "(ROADMAP A15)")
     if m.LOAD_PROPOSALS or m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals":
-        queued.append("MODEL.LOAD_PROPOSALS / PrecomputedProposals: precomputed proposals (ROADMAP A14)")
+        queued.append("MODEL.LOAD_PROPOSALS / PrecomputedProposals: precomputed proposals (ROADMAP A14.6)")
     elif m.PROPOSAL_GENERATOR.NAME != "RPN" or m.RPN.HEAD_NAME != "StandardRPNHead":
         queued.append(f"PROPOSAL_GENERATOR {m.PROPOSAL_GENERATOR.NAME} / RPN.HEAD_NAME {m.RPN.HEAD_NAME}: "
                       "rotated proposals (ROADMAP A16)")
-    if m.RESNETS.RES5_DILATION != 1:
-        queued.append("MODEL.RESNETS.RES5_DILATION: the DC5 trunk (ROADMAP A14)")
+    if any(m.RESNETS.DEFORM_ON_PER_STAGE):
+        queued.append("MODEL.RESNETS.DEFORM_ON_PER_STAGE: DeformBottleneckBlock (ROADMAP A14.5)")
     if with_roi_heads:
         name = m.ROI_HEADS.NAME
-        if name != "StandardROIHeads":
-            queued.append(f"ROI_HEADS.NAME {name} (ROADMAP {QUEUED_ROI_HEADS.get(name, 'A14')})")
+        if name in QUEUED_ROI_HEADS:
+            queued.append(f"ROI_HEADS.NAME {name} (ROADMAP {QUEUED_ROI_HEADS[name]})")
+        elif name not in ROI_TYPES:
+            raise ValueError(f"unknown ROI_HEADS.NAME {name!r}: the port builds {sorted(ROI_TYPES)} (the JAX "
+                             "package would build Res5ROIHeads for it)")
         if list(m.ROI_HEADS.EXTENSIONS):
             queued.append(f"ROI_HEADS.EXTENSIONS {list(m.ROI_HEADS.EXTENSIONS)}: ROI-head extensions "
                           "(ROADMAP A18)")
@@ -178,9 +256,9 @@ def _check_supported(cfg: CfgNode, with_roi_heads: bool) -> None:
 
 @META_ARCH_REGISTRY.register()
 class GeneralizedRCNN:
-    """Faster, Mask and Keypoint R-CNN: the network on its device, the
-    normalization, the anchors, the loss, the fixed-size inference and the
-    host boundary."""
+    """Faster, Mask, Keypoint and Cascade R-CNN, FPN, C4 or DC5: the network
+    on its device, the normalization, the anchors, the loss, the
+    fixed-size inference and the host boundary."""
 
     with_roi_heads = True
 
@@ -194,10 +272,11 @@ class GeneralizedRCNN:
         self.pixel_std = torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32,
                                       device=self.device).view(1, -1, 1, 1)
         backbone = BACKBONE_REGISTRY.get(cfg.MODEL.BACKBONE.NAME)(cfg)
+        strides, channels = backbone.out_feature_strides, backbone.out_feature_channels
 
         r = cfg.MODEL.RPN
         self.rpn_in_features = tuple(r.IN_FEATURES)
-        self.strides = [STRIDES[f] for f in self.rpn_in_features]  # anchors_per_level reads them
+        self.strides = [strides[f] for f in self.rpn_in_features]  # anchors_per_level reads them
         self.anchor_generator = build_anchor_generator(cfg, self.strides)
         num_anchors = self.anchor_generator.num_anchors[0]
         if any(a != num_anchors for a in self.anchor_generator.num_anchors):
@@ -214,9 +293,10 @@ class GeneralizedRCNN:
         self._anchors: Dict[Tuple[int, int], List[torch.Tensor]] = {}
 
         rh, bh = cfg.MODEL.ROI_HEADS, cfg.MODEL.ROI_BOX_HEAD
+        self.roi_type = ROI_TYPES[rh.NAME] if self.with_roi_heads else None
         self.num_classes = int(rh.NUM_CLASSES)
         self.roi_in_features = tuple(rh.IN_FEATURES)
-        self.roi_strides = [STRIDES[f] for f in self.roi_in_features]
+        self.roi_strides = [strides[f] for f in self.roi_in_features]
         self.roi_matcher = Matcher(list(rh.IOU_THRESHOLDS), list(rh.IOU_LABELS), allow_low_quality_matches=False)
         self.roi_batch_size = int(rh.BATCH_SIZE_PER_IMAGE)
         self.roi_positive_fraction = float(rh.POSITIVE_FRACTION)
@@ -225,6 +305,9 @@ class GeneralizedRCNN:
         self.max_detections = int(cfg.TEST.DETECTIONS_PER_IMAGE)
         self.proposal_append_gt = bool(rh.PROPOSAL_APPEND_GT)
         self.box2box = Box2BoxTransform(tuple(bh.BBOX_REG_WEIGHTS))
+        ch = cfg.MODEL.ROI_BOX_CASCADE_HEAD
+        self.cascade_ious = [float(t) for t in ch.IOUS]
+        self.cascade_box2box = [Box2BoxTransform(tuple(w)) for w in ch.BBOX_REG_WEIGHTS]
         self.smooth_l1_beta = float(bh.SMOOTH_L1_BETA)
         self.pooler_resolution = int(bh.POOLER_RESOLUTION)
         # the reference's SAMPLING_RATIO 0 picks ceil(roi / bin) samples per
@@ -242,33 +325,63 @@ class GeneralizedRCNN:
         self.keypoint_pooler_resolution = int(kh.POOLER_RESOLUTION)
         self.keypoint_loss_weight = float(kh.LOSS_WEIGHT)
 
-        channels = backbone.out_channels
-        rpn_head = StandardRPNHead(channels, num_anchors)
-        roi_heads = None
-        if self.with_roi_heads:
-            num_conv, num_fc = int(bh.NUM_CONV), int(bh.NUM_FC)
-            if num_conv == 0 and num_fc == 0:
-                logger.warning("ROI_BOX_HEAD.NUM_CONV and NUM_FC are both 0; defaulting to the standard 2-fc "
-                               "head (set either explicitly to silence).")
-                num_fc = 2
-            box_head = FastRCNNConvFCHead(channels, self.pooler_resolution, num_conv, int(bh.CONV_DIM), num_fc,
-                                          int(bh.FC_DIM))
-            mask_head = MaskRCNNConvUpsampleHead(channels, self.num_classes, int(mh.NUM_CONV),
-                                                 int(mh.CONV_DIM)) if self.mask_on else None
-            keypoint_head = KRCNNConvDeconvUpsampleHead(channels, self.num_keypoints, [int(d) for d in kh.CONV_DIMS]) \
-                if self.keypoint_on else None
-            roi_heads = StandardROIHeads(box_head, FastRCNNOutputLayers(box_head.out_dim, self.num_classes,
-                                                                        bool(bh.CLS_AGNOSTIC_BBOX_REG)),
-                                         mask_head, keypoint_head)
+        rpn_head = StandardRPNHead(channels[self.rpn_in_features[0]], num_anchors)
+        roi_heads = self._build_roi_heads(cfg, channels[self.roi_in_features[0]]) if self.with_roi_heads else None
         self.model = RCNNModel(backbone, self.rpn_in_features, rpn_head, roi_heads)
         generator = torch.Generator().manual_seed(max(int(cfg.SEED), 0))
         init_weights(self.model, generator)
         rpn_head.init_parameters(generator)
         if roi_heads is not None:
-            roi_heads.box_predictor.init_parameters(generator)
+            predictors = roi_heads.box_predictor
+            for predictor in predictors if isinstance(predictors, nn.ModuleList) else [predictors]:
+                predictor.init_parameters(generator)
             for head in (roi_heads.get_submodule(h) for h in ("mask_head", "keypoint_head") if hasattr(roi_heads, h)):
                 head.init_parameters(generator)
         self.model.to(self.device).cast(self.dtype).eval()
+
+    def _build_roi_heads(self, cfg: CfgNode, channels: int) -> ROIHeads:
+        """The ROI heads of ``ROI_HEADS.NAME`` on pooled maps of ``channels``
+        (JAX ``RCNNNetwork.setup``)."""
+        bh, mh, kh, res = cfg.MODEL.ROI_BOX_HEAD, cfg.MODEL.ROI_MASK_HEAD, cfg.MODEL.ROI_KEYPOINT_HEAD, cfg.MODEL.RESNETS
+        heads = {}
+        mask_channels = channels
+        if self.roi_type == "res5":
+            # the res5 stage of the trunk's recipe on 14² rois, FrozenBN untouched by FREEZE_AT (JAX :173-181,
+            # :413-419: bottleneck blocks of one group, whatever the trunk's depth and groups)
+            out, bottleneck = int(res.RES2_OUT_CHANNELS) * 8, int(res.NUM_GROUPS) * int(res.WIDTH_PER_GROUP) * 8
+            blocks = RESNET_SPECS.get(int(res.DEPTH), ("bottleneck", (3, 4, 6, 3)))[1][3]
+            heads["res5"] = nn.Sequential(*[
+                BottleneckBlock(channels if b == 0 else out, out, bottleneck, stride=2 if b == 0 else 1,
+                                stride_in_1x1=bool(res.STRIDE_IN_1X1), norm=res.NORM) for b in range(blocks)])
+            heads["box_predictor"] = FastRCNNOutputLayers(out, self.num_classes, bool(bh.CLS_AGNOSTIC_BBOX_REG))
+            mask_channels = out  # C4's mask head reads the res5 output
+        else:
+            num_conv, num_fc = int(bh.NUM_CONV), int(bh.NUM_FC)
+            if num_conv == 0 and num_fc == 0:
+                logger.warning("ROI_BOX_HEAD.NUM_CONV and NUM_FC are both 0; defaulting to the standard 2-fc "
+                               "head (set either explicitly to silence).")
+                num_fc = 2
+
+            def box_head():
+                return FastRCNNConvFCHead(channels, self.pooler_resolution, num_conv, int(bh.CONV_DIM), num_fc,
+                                          int(bh.FC_DIM))
+
+            if self.roi_type == "cascade":  # one head and one class-agnostic predictor per stage
+                stages = [box_head() for _ in self.cascade_ious]
+                heads["box_head"] = nn.ModuleList(stages)
+                heads["box_predictor"] = nn.ModuleList(
+                    [FastRCNNOutputLayers(h.out_dim, self.num_classes, True) for h in stages])
+            else:
+                heads["box_head"] = box_head()
+                heads["box_predictor"] = FastRCNNOutputLayers(heads["box_head"].out_dim, self.num_classes,
+                                                              bool(bh.CLS_AGNOSTIC_BBOX_REG))
+        if self.mask_on:
+            heads["mask_head"] = MaskRCNNConvUpsampleHead(mask_channels, self.num_classes, int(mh.NUM_CONV),
+                                                          int(mh.CONV_DIM))
+        if self.keypoint_on:
+            heads["keypoint_head"] = KRCNNConvDeconvUpsampleHead(channels, self.num_keypoints,
+                                                                 [int(d) for d in kh.CONV_DIMS])
+        return ROIHeads(**heads)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         """(x - PIXEL_MEAN) / PIXEL_STD on 0..255 pixels."""
@@ -347,25 +460,62 @@ class GeneralizedRCNN:
             self.proposal_append_gt)
         s = sampled["boxes"].shape[1]
         flat = {k: v.reshape(n * s, *v.shape[2:]) for k, v in sampled.items()}
-        scores, box_deltas = self.model.box_predict(self.pool(feats, flat["boxes"], s))
-        losses.update(fast_rcnn_losses(scores, box_deltas, flat, self.box2box, self.num_classes,
-                                       self.smooth_l1_beta))
+        shared = None
+        if self.roi_type == "cascade":
+            losses.update(self._cascade_losses(batch, feats, sampled, flat, (h, w)))
+        else:
+            pooled = self.pool(feats, flat["boxes"], s)
+            if self.roi_type == "res5":  # one res5 pass feeds the predictor and the mask head
+                shared = self.model.res5_transform(pooled)
+                scores, box_deltas = self.model.box_predict_shared(shared)
+            else:
+                scores, box_deltas = self.model.box_predict(pooled)
+            losses.update(fast_rcnn_losses(scores, box_deltas, flat, self.box2box, self.num_classes,
+                                           self.smooth_l1_beta))
         if (self.mask_on and "gt_masks" in batch) or (self.keypoint_on and "gt_keypoints" in batch):
-            losses.update(self._roi_extra_losses(batch, feats, sampled, gt_boxes))
+            losses.update(self._roi_extra_losses(batch, feats, sampled, gt_boxes, shared))
         return sum(losses.values()), losses
 
-    def _roi_extra_losses(self, batch, feats, sampled, gt_boxes) -> Dict[str, torch.Tensor]:
+    def _cascade_losses(self, batch, feats, sampled, flat, image_hw) -> Dict[str, torch.Tensor]:
+        """``loss_cls_stage{t}`` and ``loss_box_reg_stage{t}`` of every stage
+        (JAX ``:572-611``): stage 0 on the sampled rois, each later one on
+        the previous refinements, detached, clipped, an empty box at weight
+        0, relabelled at the stage's IoU; the pooled features' gradient
+        scaled by 1 / stages."""
+        n, s = sampled["boxes"].shape[:2]
+        gt_boxes = batch["gt_boxes"].to(self.device, torch.float32)
+        gt_classes, gt_valid = batch["gt_classes"].to(self.device), batch["gt_valid"].to(self.device)
+        cur, cur_flat, weights = sampled["boxes"], flat, flat["weights"].view(n, s)
+        losses = {}
+        for t, (iou, b2b) in enumerate(zip(self.cascade_ious, self.cascade_box2box)):
+            if t > 0:
+                cur = clip_boxes(cur, image_hw)
+                weights = weights * ((cur[..., 2] > cur[..., 0]) & (cur[..., 3] > cur[..., 1])).to(weights.dtype)
+                cur_flat = cascade_relabel(cur, gt_boxes, gt_classes, gt_valid, weights, iou, self.num_classes)
+            pooled = scale_gradient(self.pool(feats, cur.reshape(n * s, 4), s), 1.0 / len(self.cascade_ious))
+            scores, deltas = self.model.box_predict(pooled, t)
+            stage = fast_rcnn_losses(scores, deltas, cur_flat, b2b, self.num_classes, self.smooth_l1_beta)
+            losses.update({f"{k}_stage{t}": v for k, v in stage.items()})
+            cur = b2b.apply_deltas(deltas.detach(), cur.reshape(n * s, 4)).view(n, s, 4)
+        return losses
+
+    def _roi_extra_losses(self, batch, feats, sampled, gt_boxes, shared=None) -> Dict[str, torch.Tensor]:
         """The mask and keypoint losses on the first ``int(S · POSITIVE_FRACTION)``
-        slots of each image, which hold all its foreground rois (module docstring)."""
-        n = gt_boxes.shape[0]
-        k = min(int(self.roi_batch_size * self.roi_positive_fraction), sampled["boxes"].shape[1])
+        slots of each image, which hold all its foreground rois (module
+        docstring); C4's mask head on that block of the res5 output ``shared``."""
+        n, s = sampled["boxes"].shape[:2]
+        k = min(int(self.roi_batch_size * self.roi_positive_fraction), s)
         boxes = sampled["boxes"][:, :k]
         matched = sampled["matched_idx"][:, :k]
         fg = (sampled["is_pos"][:, :k] & (sampled["weights"][:, :k] > 0)).reshape(-1).to(torch.float32)
         flat_boxes = boxes.reshape(n * k, 4)
         losses = {}
         if self.mask_on and "gt_masks" in batch:
-            logits = self.model.mask_predict(self.pool(feats, flat_boxes, k, self.mask_pooler_resolution))
+            if shared is not None:
+                mask_in = shared.view(n, s, *shared.shape[1:])[:, :k].reshape(n * k, *shared.shape[1:])
+            else:
+                mask_in = self.pool(feats, flat_boxes, k, self.mask_pooler_resolution)
+            logits = self.model.mask_predict(mask_in)
             targets = crop_gt_masks(batch["gt_masks"].to(self.device), gt_boxes, matched, boxes, logits.shape[-1])
             losses["loss_mask"] = mask_rcnn_loss(logits, targets, sampled["classes"][:, :k].reshape(-1), fg)
         if self.keypoint_on and "gt_keypoints" in batch:
@@ -390,14 +540,21 @@ class GeneralizedRCNN:
         feats, logits, deltas = self.model(x)
         boxes, _, valid = self.proposals(logits, deltas, (h, w), "test")
         p = boxes.shape[1]
-        scores, box_deltas = self.model.box_predict(self.pool(feats, boxes.reshape(n * p, 4), p))
+        if self.roi_type == "cascade":
+            boxes, scores, box_deltas = self._cascade_inference(feats, boxes, (h, w))
+        else:
+            scores, box_deltas = self.model.box_predict(self.pool(feats, boxes.reshape(n * p, 4), p))
         dets = fast_rcnn_inference(boxes, valid, scores.view(n, p, -1), box_deltas.view(n, p, -1), self.box2box,
                                    self.num_classes, (h, w), self.score_threshold, self.nms_threshold,
                                    self.max_detections)
         k = dets["boxes"].shape[1]
         det_boxes = dets["boxes"].reshape(n * k, 4)
         if self.mask_on:
-            mask_logits = self.model.mask_predict(self.pool(feats, det_boxes, k, self.mask_pooler_resolution))
+            if self.roi_type == "res5":  # C4: res5 again, on the detections' 14² pools (JAX :813-826)
+                mask_in = self.model.res5_transform(self.pool(feats, det_boxes, k))
+            else:
+                mask_in = self.pool(feats, det_boxes, k, self.mask_pooler_resolution)
+            mask_logits = self.model.mask_predict(mask_in)
             cls = torch.clamp(dets["classes"].reshape(n * k), 0, self.num_classes - 1)
             side = mask_logits.shape[-1]
             sel = torch.gather(mask_logits, 1, cls.view(-1, 1, 1, 1).expand(-1, 1, side, side))[:, 0]
@@ -406,6 +563,22 @@ class GeneralizedRCNN:
             kp = self.model.keypoint_predict(self.pool(feats, det_boxes, k, self.keypoint_pooler_resolution))
             dets["keypoint_heatmaps"] = kp.view(n, k, *kp.shape[1:])
         return dets
+
+    def _cascade_inference(self, feats, boxes: torch.Tensor, image_hw: Tuple[int, int]):
+        """Every stage on the previous one's boxes, clipped (JAX ``:774-797``):
+        (the last stage's boxes, unclipped; the log of the stages' mean
+        softmax, at least 1e-12, as scores; zero deltas), for
+        ``fast_rcnn_inference``."""
+        n, p = boxes.shape[:2]
+        probs = 0
+        for t, b2b in enumerate(self.cascade_box2box):
+            if t > 0:
+                boxes = clip_boxes(boxes, image_hw)
+            scores, deltas = self.model.box_predict(self.pool(feats, boxes.reshape(n * p, 4), p), t)
+            probs = probs + torch.softmax(scores, dim=-1)
+            boxes = b2b.apply_deltas(deltas, boxes.reshape(n * p, 4)).view(n, p, 4)
+        scores = torch.log(torch.clamp(probs / len(self.cascade_box2box), min=1e-12))
+        return boxes, scores, torch.zeros(n * p, 4, device=boxes.device)
 
     postprocess = RetinaNet.postprocess
 

@@ -48,7 +48,6 @@ from .centernet import F32Conv2d
 
 __all__ = ["RetinaNet", "RetinaNetHead", "RetinaNetModel", "nhwc_flat", "sigmoid_focal_loss", "smooth_l1"]
 
-STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64, "p7": 128}
 # anchors matched at once in label_anchors: about this many (gt slot, anchor) IoUs
 MATCH_CHUNK = 2 ** 25
 
@@ -182,7 +181,7 @@ class RetinaNet:
                                       device=self.device).view(1, -1, 1, 1)
 
         backbone = BACKBONE_REGISTRY.get(cfg.MODEL.BACKBONE.NAME)(cfg)
-        self.strides = [STRIDES[f] for f in self.in_features]
+        self.strides = [backbone.out_feature_strides[f] for f in self.in_features]
         self.anchor_generator = build_anchor_generator(cfg, self.strides)
         self.num_anchors_per_cell = self.anchor_generator.num_anchors[0]
         if any(a != self.num_anchors_per_cell for a in self.anchor_generator.num_anchors):

@@ -12,7 +12,8 @@ loads as it is; the JAX package flattens NHWC, and
 
 ``FastRCNNOutputLayers``: the (C+1)-way ``cls_score`` and the 4C (or 4,
 class-agnostic) ``bbox_pred``, in IEEE f32 on an f32 cast of their input,
-as the JAX package's ``dtype=jnp.float32`` Dense layers.
+as the JAX package's ``dtype=jnp.float32`` Dense layers; a 4-D input (the
+C4 res5 head's) is first averaged over its map (JAX ``box_head.py:47-48``).
 """
 
 import torch
@@ -73,5 +74,8 @@ class FastRCNNOutputLayers(nn.Module):
         self.bbox_pred.bias.zero_()
 
     def forward(self, x: torch.Tensor):
-        """(R, D) → (scores (R, C+1), deltas (R, 4C or 4)), f32."""
+        """(R, D), or (R, D, P, P) averaged over its P² (the res5 head's
+        output, C4) → (scores (R, C+1), deltas (R, 4C or 4)), f32."""
+        if x.dim() > 2:
+            x = x.mean(dim=(2, 3))
         return self.cls_score(x), self.bbox_pred(x)

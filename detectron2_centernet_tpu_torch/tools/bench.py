@@ -66,10 +66,13 @@ from ..engine import DefaultPredictor, DefaultTrainer, HookBase
 # baseline img/s): bench.py's A100 ctdet DLA-34 512² rate, and the reference
 # MODEL_ZOO's R50-FPN V100 inference times, 0.056 s/im for RetinaNet, 0.038
 # s/im for Faster R-CNN and 0.043 s/im for Mask R-CNN (BASELINE.md:13, :16,
-# :17); none for the ProposalNetwork or Keypoint R-CNN
+# :17); none for the ProposalNetwork, Keypoint R-CNN, Cascade, or an R-CNN
+# on the C4 or DC5 trunk (no time of theirs is in BASELINE.md)
 ARCHS = {"CenterNet": ("ctdet", 104.0), "RetinaNet": ("retinanet", 1.0 / 0.056),
          "GeneralizedRCNN": ("faster_rcnn", 1.0 / 0.038), "GeneralizedRCNN+mask": ("mask_rcnn", 1.0 / 0.043),
-         "GeneralizedRCNN+keypoint": ("keypoint_rcnn", None), "ProposalNetwork": ("rpn", None)}
+         "GeneralizedRCNN+keypoint": ("keypoint_rcnn", None), "ProposalNetwork": ("rpn", None),
+         "CascadeRCNN": ("cascade_rcnn", None), "CascadeRCNN+mask": ("cascade_mask_rcnn", None),
+         "CascadeRCNN+keypoint": ("cascade_keypoint_rcnn", None)}
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                               "configs", "COCO-Detection", "ctdet_dla_34_1x.yaml")
 ITERS = 10  # timed predict_fn calls, after 2
@@ -94,23 +97,34 @@ def backbone_tag(cfg) -> str:
 
 def _arch(cfg):
     name = cfg.MODEL.META_ARCHITECTURE
-    if name == "GeneralizedRCNN" and cfg.MODEL.KEYPOINT_ON:
+    if name == "GeneralizedRCNN" and cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads":
+        name = "CascadeRCNN"
+    if name in ("GeneralizedRCNN", "CascadeRCNN") and cfg.MODEL.KEYPOINT_ON:
         name += "+keypoint"
-    elif name == "GeneralizedRCNN" and cfg.MODEL.MASK_ON:
+    elif name in ("GeneralizedRCNN", "CascadeRCNN") and cfg.MODEL.MASK_ON:
         name += "+mask"
     if name not in ARCHS:
         raise ValueError(f"tools/bench has no metric for META_ARCHITECTURE {name!r}; it benches {sorted(ARCHS)}")
     return ARCHS[name]
 
 
+def _neck(cfg) -> str:
+    """``_fpn``; for an R-CNN on the bare ResNet, ``_dc5`` (a dilated res5)
+    or ``_c4`` (res4, the res5 head on the rois); else ""."""
+    if "fpn" in cfg.MODEL.BACKBONE.NAME:
+        return "_fpn"
+    if cfg.MODEL.META_ARCHITECTURE in ("GeneralizedRCNN", "ProposalNetwork"):
+        return "_dc5" if cfg.MODEL.RESNETS.RES5_DILATION > 1 else "_c4"
+    return ""
+
+
 def metric_name(cfg) -> str:
-    """``<arch>_<backbone>[_fpn]_<size>_infer_throughput``."""
-    fpn = "_fpn" if "fpn" in cfg.MODEL.BACKBONE.NAME else ""
-    return f"{_arch(cfg)[0]}_{backbone_tag(cfg)}{fpn}_{cfg.INPUT.TEST_SIZE[0]}_infer_throughput"
+    """``<arch>_<backbone>[_fpn|_c4|_dc5]_<size>_infer_throughput``."""
+    return f"{_arch(cfg)[0]}_{backbone_tag(cfg)}{_neck(cfg)}_{cfg.INPUT.TEST_SIZE[0]}_infer_throughput"
 
 
 def baseline_img_s(cfg) -> Optional[float]:
-    return _arch(cfg)[1]
+    return _arch(cfg)[1] if _neck(cfg) in ("", "_fpn") else None
 
 
 def card() -> str:

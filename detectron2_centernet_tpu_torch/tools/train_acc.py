@@ -26,6 +26,10 @@ Five configs are meant:
     keypoints AP 93.3 ± 8.
 The bands are the YAMLs' ``TEST.EXPECTED_RESULTS``, measured by the JAX
 package on a TPU. The run reports; it tunes nothing to reach a band.
+Trailing ``KEY VALUE`` pairs go over the YAML (e.g. ``MODEL.ROI_HEADS.NAME
+CascadeROIHeads MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG True`` trains
+Cascade Mask R-CNN on the Mask R-CNN config, for which no band exists: its
+AP is recorded, not judged).
 
 Each seed trains in a subprocess of its own. For each, the AP of every
 task the YAML's ``EXPECTED_RESULTS`` names (bbox, segm, keypoints), the
@@ -47,7 +51,7 @@ positions (ROADMAP C1).
 Usage:
   python -m detectron2_centernet_tpu_torch.tools.train_acc [--config-file YAML]
       [--seeds 42 43 44] [--output-dir output/train_acc] [--device cuda]
-      [--dtype bfloat16|float32] [--freeze-offsets]
+      [--dtype bfloat16|float32] [--freeze-offsets] [KEY VALUE ...]
 """
 
 import argparse
@@ -57,7 +61,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -66,15 +70,15 @@ SEEDS = (42, 43, 44)  # the YAML's SEED first
 
 
 def acc_cfg(config_file: str = YAML, seed: int = 42, device: str = "cuda",
-            output_dir: Optional[str] = None, dtype: Optional[str] = None):
-    """``config_file`` over the defaults, with ``SEED`` and ``MODEL.DEVICE``
-    set, ``TPU.DTYPE`` when ``dtype`` is given and ``OUTPUT_DIR`` when
-    ``output_dir`` is."""
+            output_dir: Optional[str] = None, dtype: Optional[str] = None, opts: Sequence[str] = ()):
+    """``config_file`` over the defaults, then the ``opts`` pairs, with
+    ``SEED`` and ``MODEL.DEVICE`` set, ``TPU.DTYPE`` when ``dtype`` is given
+    and ``OUTPUT_DIR`` when ``output_dir`` is."""
     from ..config import get_cfg
 
     cfg = get_cfg()
     cfg.merge_from_file(config_file)
-    cfg.merge_from_list(["SEED", seed, "MODEL.DEVICE", device])
+    cfg.merge_from_list(list(opts) + ["SEED", seed, "MODEL.DEVICE", device])
     if dtype is not None:
         cfg.TPU.DTYPE = dtype
     if output_dir is not None:
@@ -83,7 +87,7 @@ def acc_cfg(config_file: str = YAML, seed: int = 42, device: str = "cuda",
 
 
 def run_one(config_file: str, seed: int, device: str, output_dir: str, dtype: Optional[str],
-            freeze_offsets: bool) -> int:
+            freeze_offsets: bool, opts: Sequence[str] = ()) -> int:
     """Train and evaluate one seed in this process; write ``result.json``
     (the results, whether they passed) before ``verify_results`` exits.
     When the config runs PreciseBN, it records beside the verified AP, as a
@@ -93,7 +97,7 @@ def run_one(config_file: str, seed: int, device: str, output_dir: str, dtype: Op
     from ..engine import DefaultTrainer, hooks
     from ..models.layers import DCNv2
 
-    cfg = acc_cfg(config_file, seed, device, output_dir, dtype)
+    cfg = acc_cfg(config_file, seed, device, output_dir, dtype, opts)
     ensure_synthetic_datasets(list(cfg.DATASETS.TRAIN) + list(cfg.DATASETS.TEST))
     trainer = DefaultTrainer(cfg)
     trainer.resume_or_load(resume=False)
@@ -146,13 +150,14 @@ def main() -> int:
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), help="default: the YAML's TPU.DTYPE")
     parser.add_argument("--freeze-offsets", action="store_true")
     parser.add_argument("--one-seed", type=int, help=argparse.SUPPRESS)  # a child's seed
+    parser.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE pairs over the YAML")
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     if args.one_seed is not None:
         return run_one(args.config_file, args.one_seed, args.device, args.output_dir, args.dtype,
-                       args.freeze_offsets)
+                       args.freeze_offsets, args.opts)
 
-    cfg = acc_cfg(args.config_file, device="cpu", dtype=args.dtype)
+    cfg = acc_cfg(args.config_file, device="cpu", dtype=args.dtype, opts=args.opts)
     expected = [list(e) for e in cfg.TEST.EXPECTED_RESULTS]
     runs, crashed = [], False
     for seed in args.seeds:
@@ -164,7 +169,7 @@ def main() -> int:
                 [sys.executable, "-m", "detectron2_centernet_tpu_torch.tools.train_acc",
                  "--config-file", args.config_file, "--one-seed", str(seed), "--device", args.device,
                  "--output-dir", out] + (["--dtype", args.dtype] if args.dtype else [])
-                + (["--freeze-offsets"] if args.freeze_offsets else []),
+                + (["--freeze-offsets"] if args.freeze_offsets else []) + list(args.opts),
                 stdout=log, stderr=subprocess.STDOUT)
         wall = time.perf_counter() - t0
         path = os.path.join(out, "result.json")
@@ -178,7 +183,7 @@ def main() -> int:
                      "bbox_AP_with_ema_statistics": ap_ema})
         print(f"seed {seed}: {measured}, exit code {proc.returncode}, {wall:.1f} s (expected {expected}); "
               f"bbox AP with the EMA statistics in place of PreciseBN's {ap_ema}", flush=True)
-    summary = {"config": args.config_file, "dtype": cfg.TPU.DTYPE, "freeze_offsets": args.freeze_offsets,
+    summary = {"config": args.config_file, "opts": list(args.opts), "dtype": cfg.TPU.DTYPE, "freeze_offsets": args.freeze_offsets,
                "expected": expected, "runs": runs}
     with open(os.path.join(args.output_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)

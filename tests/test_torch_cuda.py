@@ -570,7 +570,8 @@ def _nms_rows(g, rows, cands, live, spread=700.0, ties=False):
     return boxes, scores
 
 
-@pytest.mark.parametrize("case", ["retinanet", "rpn", "rpn_train", "box_head", "box_head_sparse", "ties"])
+@pytest.mark.parametrize("case", ["retinanet", "rpn", "rpn_train", "box_head", "box_head_sparse", "ties",
+                                  "rpn_c4", "rpn_c4_train"])
 def test_nms_kernel_matches_plain_on_card(card, case):
     """The NMS kernel (``ops/csrc/nms.cu``) against the plain loop, both on
     the card, at the main paths' shapes: RetinaNet's 16 × 4441 candidates,
@@ -579,15 +580,18 @@ def test_nms_kernel_matches_plain_on_card(card, case):
     anchors); the box head's 16 × 80 000 (1000 proposals × 80 classes), 100
     picks, with a fifth of them live (more than shared memory holds: the
     row is swept in place) and with a twentieth (compacted into shared
-    memory); and ties: scores on 8 values and boxes of no area. Indices and
-    validity exactly equal; one launch per call."""
+    memory); ties: scores on 8 values and boxes of no area; and the C4 and
+    DC5 RPN's one level, 16 rows of 6000 with 1000 picks at test and of
+    12 000 with 2000 at training (swept in place). Indices and validity
+    exactly equal; one launch per call."""
     from detectron2_centernet_tpu_torch.ops import nms
 
     g = torch.Generator().manual_seed(1)
     rows, cands, counts, live, thr = {
         "retinanet": (16, 4441, 100, 0.3, 0.5), "rpn": (80, 1000, [1000] * 4 + [507], 1.0, 0.7),
         "rpn_train": (80, 2000, [1000] * 4 + [507], 1.0, 0.7), "box_head": (16, 80000, 100, 0.2, 0.5),
-        "box_head_sparse": (16, 80000, 100, 0.05, 0.5), "ties": (8, 3000, 300, 0.8, 0.5)}[case]
+        "box_head_sparse": (16, 80000, 100, 0.05, 0.5), "ties": (8, 3000, 300, 0.8, 0.5),
+        "rpn_c4": (16, 6000, 1000, 1.0, 0.7), "rpn_c4_train": (16, 12000, 2000, 1.0, 0.7)}[case]
     boxes, scores = _nms_rows(g, rows, cands, live, ties=case == "ties")
     if isinstance(counts, list):
         counts = torch.tensor(counts * (rows // len(counts)), dtype=torch.int32)
