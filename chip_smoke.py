@@ -6,8 +6,10 @@ DCN on the hand-written Hopper kernels (K1 forward, K2-K5 backward); then
 the ResNet-18/50-deconv and VoVNet-39 configs, ``tools/train_net`` and
 ``tools/bench``, RetinaNet R50-FPN, Faster R-CNN R50-FPN with the
 ProposalNetwork, Mask R-CNN and Keypoint R-CNN R50-FPN, Cascade Mask R-CNN
-R50-FPN, Mask R-CNN R50-C4 with the C4 ProposalNetwork and Faster R-CNN
-R50-DC5, every NMS of the R-CNN and RetinaNet paths on the hand-written NMS
+R50-FPN, Mask R-CNN R50-C4 with the C4 ProposalNetwork, Faster R-CNN
+R50-DC5, the dconv Mask R-CNN R50-FPN (its deformable trunk on the DCN
+kernels, at stride 1 and 2) and Fast R-CNN R50-FPN on precomputed
+proposals, every NMS of the R-CNN and RetinaNet paths on the hand-written NMS
 kernel (``ops/csrc/nms.cu``). Every config is read from its YAML file
 (``configs/COCO-Detection/``, ``COCO-InstanceSegmentation/``,
 ``COCO-Keypoints/``, ``Misc/``) by the port's own reader.
@@ -155,6 +157,24 @@ Phases (any failure raises and the script exits non-zero):
      ProposalNetwork's forward and loss. NMS launches: 2 per served call, 1
      per train step; the inputs go to 10c (C4's and DC5's RPN rows of 12 000
      at training take the kernel's in-place path, asserted);
+  16k. K1, K2 and K5 against their plain versions at the DCN shapes of the
+     deformable trunk at 800² (res3-res5 at stride 1, the three stride-2
+     transitions, dilation 2 at 512 x 50²), batch 1 and 16, modulated and
+     not, with the DLA shapes' tolerances; their times at batch 16 beside
+     the plain versions' and their bounds; a CUDA call at stride 3 raises;
+  16. the dconv Mask R-CNN, ``Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml``
+     (phase 11's model with DCNv1 in the 13 blocks of res3-res5), and 16s,
+     the same with ``STRIDE_IN_1X1`` False (the first block of res3-res5
+     runs its DCN at stride 2): 13a-13d's four steps, each deformable
+     block among the f32 checks, each trunk forward launching K1 13 times and each
+     train step K1, K2 and K5 13 times each, counted, the profiled step's
+     DCN device time printed;
+  17. Fast R-CNN, ``COCO-Detection/fast_rcnn_R_50_FPN_1x.yaml``: the
+     ProposalNetwork writes the proposal files of the synthetic train and
+     val scenes, then ``predict_fn`` at batch 16 on the test loader's
+     proposals (``DefaultPredictor`` raises), ``tools/train_net`` 4 steps
+     and ``--eval-only --resume`` on the files; one NMS launch per call,
+     none per train step, no DCN;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -198,6 +218,8 @@ from detectron2_centernet_tpu_torch.evaluation import COCOEval
 from detectron2_centernet_tpu_torch.evaluation import evaluator as eval_loop
 from detectron2_centernet_tpu_torch.models import build_model
 from detectron2_centernet_tpu_torch.models import layers
+from detectron2_centernet_tpu_torch.models.backbones import resnet as resnet_module
+from detectron2_centernet_tpu_torch.models.backbones.resnet import DeformBottleneckBlock
 from detectron2_centernet_tpu_torch.models.layers import DCNv2, DeformConvV2
 from detectron2_centernet_tpu_torch.models.meta_arch import centernet, rcnn
 from detectron2_centernet_tpu_torch.ops import cuda_lib, dcn, fast_cocoeval
@@ -222,6 +244,12 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # max |err| / max |plain|
 HEAD_TOL = 1e-3  # f32 card vs CPU, per head, relative to the head's max |value|
+# f32 card vs CPU of a stage fed the same input on both sides (16b: each deformable block on
+# its input, the heads on the card's maps), relative to its max |value|: they read 1.4e-6 to
+# 7.0e-6 of their scale, and 5.0e-4 to 1.4e-3 with cuDNN's TF32 on (the blocks; the mask
+# logits 1.2e-3, the box predictor's fc layers 0: cuBLAS's TF32 is off by default), on an
+# H100, so the limit sits ~7-10x from each
+SAME_INPUT_TOL = 5e-5
 # f32 train steps. The loss terms, card against CPU, within LOSS_TOL relative.
 # The gradients, as quantiles over the parameters of error / own max |value|:
 # the kernel route against the plain route on the card (same cuDNN, so only
@@ -306,8 +334,8 @@ def seeded_weights(cfg, images: torch.Tensor, seed: int) -> dict:
              if isinstance(m, layers.FrozenBatchNorm)]
     with torch.no_grad():
         for m in host.model.modules():
-            if isinstance(m, DCNv2):
-                w = m.conv_offset_mask.weight
+            if isinstance(m, (DCNv2, DeformBottleneckBlock)):
+                w = m.conv_offset_mask.weight if isinstance(m, DCNv2) else m.conv2_offset.weight
                 w.copy_(torch.randn(w.shape, generator=g) / math.sqrt(w[0].numel()))
         for bn in bns:
             bn.momentum = 1.0  # running statistics := this batch's
@@ -357,14 +385,17 @@ def kernel_call(name, args, cot, kw=None):
     return lambda: KERNELS[name][0](*a), lambda: PLAIN[name](*a)
 
 
-def dcn_bound(name, b, cin, cout, hw, dtype):
-    """Least time of one launch, (ops_ms, bytes_ms): operations over the peak
-    rate (the contractions on the bf16 tensor cores or the f32 pipes, the
-    per-sample elementwise work on the f32 pipes, the two at once) and bytes
-    over the HBM rate (each input read once, each output written once)."""
+def dcn_bound(name, b, cin, cout, hw, dtype, stride=1, modulated=True):
+    """Least time of one launch on an hw x hw input at ``stride`` (the work
+    counted on its output grid), (ops_ms, bytes_ms): operations over the
+    peak rate (the contractions on the bf16 tensor cores or the f32 pipes,
+    the per-sample elementwise work on the f32 pipes, the two at once) and
+    bytes over the HBM rate (each input read once, each output written
+    once; no mask and no d mask when not ``modulated``)."""
     es = torch.tensor([], dtype=dtype).element_size()
-    pix = b * hw * hw
-    x_b, q_b, w_b, y_b = pix * cin * es, pix * 27 * 4, cout * cin * 9 * es, pix * cout * es
+    pix = b * plain.out_size(hw, hw, stride)[0] ** 2
+    x_b, q_b, w_b, y_b = b * hw * hw * cin * es, pix * (27 if modulated else 18) * 4, cout * cin * 9 * es, \
+        pix * cout * es
     gemm = 2.0 * 9 * cin * cout * pix
     samples = 9.0 * cin * pix
     nbytes, gemms, elementwise = {
@@ -2187,22 +2218,27 @@ def phase_rcnn_head(report, out_dir, kind: str):
 
 
 VARIANTS = {  # phase: (number, config folder, config name, its evaluation's mask task or None, extra KEY VALUE pairs)
-    "cascade": (13, "Misc", "cascade_mask_rcnn_R_50_FPN_1x", "segm", ()),
-    "c4": (14, "COCO-InstanceSegmentation", "mask_rcnn_R_50_C4_1x", "segm", ()),
+    "cascade": ("13", "Misc", "cascade_mask_rcnn_R_50_FPN_1x", "segm", ()),
+    "c4": ("14", "COCO-InstanceSegmentation", "mask_rcnn_R_50_C4_1x", "segm", ()),
     # the DC5 YAML sets no INPUT size (its reference resizes by MIN_SIZE_TRAIN, up to 800): 800² here, as the others
-    "dc5": (15, "COCO-Detection", "faster_rcnn_R_50_DC5_1x", None,
+    "dc5": ("15", "COCO-Detection", "faster_rcnn_R_50_DC5_1x", None,
             ("INPUT.TRAIN_SIZE", "(800, 800)", "INPUT.TEST_SIZE", "(800, 800)")),
+    # the deformable trunk (DCNv1 in res3-res5), as the YAML sets it, then with the stride in the 3x3 (the
+    # C2-trained dconv configs' STRIDE_IN_1X1 False): the first block of res3-res5 runs the DCN at stride 2
+    "dconv": ("16", "Misc", "mask_rcnn_R_50_FPN_1x_dconv_c3-c5", "segm", ()),
+    "dconv_s3": ("16s", "Misc", "mask_rcnn_R_50_FPN_1x_dconv_c3-c5", "segm", ("MODEL.RESNETS.STRIDE_IN_1X1", "False")),
 }
+DCONV_BLOCKS = 4 + 6 + 3  # the DeformBottleneckBlocks of R50's res3-res5: one DCN launch each per forward
 C4_PROPOSALS = "rpn_R_50_C4_1x"
 HEAD_ROIS = 64  # 14b/15b: the card's first proposals of each image that feed both devices' box heads
 
 
-def card_vs_cpu(checks, name, got, want, keep=None):
-    """Record |card − CPU| against HEAD_TOL of the CPU's scale (over the rows ``keep``)."""
+def card_vs_cpu(checks, name, got, want, keep=None, rel=HEAD_TOL):
+    """Record |card − CPU| against ``rel`` of the CPU's scale (over the rows ``keep``)."""
     diff = (got.cpu() - want).abs()
     err = (diff[keep] if keep is not None else diff).max().item()
     scale = want.abs().max().item()
-    checks[name] = dict(max_abs_err=err, scale=scale, tol=HEAD_TOL * scale)
+    checks[name] = dict(max_abs_err=err, scale=scale, rel=rel, tol=rel * scale)
 
 
 def variant_heads(model, feats, boxes, size, stage_boxes=None):
@@ -2232,15 +2268,71 @@ def variant_heads(model, feats, boxes, size, stage_boxes=None):
     return out
 
 
+@contextmanager
+def counting_deform_blocks():
+    """Count the forwards on the card of every ``DeformBottleneckBlock``
+    (each launches K1 once) and those with autograd on (each launches K2
+    and K5 in its backward): yields the counter {"forward", "train"}."""
+    counts = {"forward": 0, "train": 0}
+    real = DeformBottleneckBlock.forward
+
+    def counted(self, x):
+        if x.is_cuda:
+            counts["forward"] += 1
+            counts["train"] += int(torch.is_grad_enabled())
+        return real(self, x)
+
+    DeformBottleneckBlock.forward = counted
+    try:
+        yield counts
+    finally:
+        DeformBottleneckBlock.forward = real
+
+
+def check_dconv_launches(where, launches, blocks, steps=None):
+    """The deformable path's DCN launches: K1 once per block forward, 13
+    per trunk forward; K2 and K5 once per block forward in training (13 per
+    step, ``steps`` of them when given); K3 and K4 never."""
+    want = {"dcn_fwd": blocks["forward"], "dcn_bwd_dx": blocks["train"], "dcn_bwd_dq": 0, "dcn_bwd_dw": 0,
+            "dcn_bwd_dqdw": blocks["train"]}
+    if launches != want or blocks["forward"] % DCONV_BLOCKS or (steps is not None and blocks["train"] !=
+                                                                  DCONV_BLOCKS * steps):
+        raise SystemExit(f"{where}: expected {DCONV_BLOCKS} K1 launches per forward and {DCONV_BLOCKS} of K1, K2 and "
+                         f"K5 per train step ({steps} steps), {want}; got {launches}")
+
+
 def phase_rcnn_variant(report, out_dir, kind: str):
     """Phases 13 (Cascade Mask R-CNN R50-FPN), 14 (Mask R-CNN R50-C4, with
-    the C4 ProposalNetwork) and 15 (Faster R-CNN R50-DC5) at full width
-    through the port's entry points: (a) requests and predict_fn at batch
-    16; (b) the f32 heads card against CPU at batch 2 with the TF32 control;
+    the C4 ProposalNetwork), 15 (Faster R-CNN R50-DC5) and 16 (the dconv
+    Mask R-CNN R50-FPN, as its YAML sets it and with ``STRIDE_IN_1X1``
+    False) at full width through the port's entry points: (a) requests and
+    predict_fn at batch 16; (b) the f32 heads (and for dconv each
+    deformable block) card against CPU at batch 2 with the TF32 control;
     (c) tools/bench with its train steps at 16 × 800²; (d) tools/train_net
-    4 steps then --eval-only --resume. Every NMS through the kernel, no DCN
-    kernel anywhere."""
+    4 steps then --eval-only --resume. Every NMS through the kernel; no DCN
+    kernel anywhere but on the dconv path, where each trunk forward
+    launches K1 13 times and each train step K1, K2 and K5 13 times each,
+    counted."""
+    with counting_deform_blocks() as counted:
+        return _rcnn_variant(report, out_dir, kind, counted)
+
+
+def _rcnn_variant(report, out_dir, kind, counted):
     number, folder, name, task, extra = VARIANTS[kind]
+    dconv = kind.startswith("dconv")
+    blocks, dcn_launches = collections.Counter(), collections.Counter()
+
+    def settle(part, steps=None):
+        """The dconv path's DCN launches of sub-phase ``part``, checked
+        against its block forwards and added to the path's; then both counts
+        start again from 0."""
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check_dconv_launches(f"{number}{part}", launches, counted, steps)
+        dcn_launches.update(launches)
+        blocks.update({f"{k}_{part}": v for k, v in counted.items()})
+        reset_launches()
+        counted.update(forward=0, train=0)
     cfg = rcnn_cfg(name, "bfloat16", folder, extra)
     m = cfg.MODEL
     size = tuple(cfg.INPUT.TEST_SIZE)
@@ -2248,7 +2340,9 @@ def phase_rcnn_variant(report, out_dir, kind: str):
                         f"{list(m.ROI_BOX_CASCADE_HEAD.IOUS)}",
              "c4": f"the trunk to res4, the res5 head on {m.ROI_BOX_HEAD.POOLER_RESOLUTION}² rois",
              "dc5": f"res5 dilated {m.RESNETS.RES5_DILATION}, the RPN and a {m.ROI_BOX_HEAD.POOLER_RESOLUTION}² "
-                    f"pooler on it"}[kind]
+                    f"pooler on it",
+             "dconv": f"FPN {m.FPN.OUT_CHANNELS}, deformable res3-res5 (DCNv1, {DCONV_BLOCKS} blocks), STRIDE_IN_1X1 "
+                      f"{m.RESNETS.STRIDE_IN_1X1}"}[kind.split("_")[0]]
     print(f"== {number}a. {name}.yaml: ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM}, {trunk}, {m.ROI_HEADS.NUM_CLASSES} "
           f"classes, RPN {m.RPN.PRE_NMS_TOPK_TEST}/{m.RPN.POST_NMS_TOPK_TEST} at test and {m.RPN.PRE_NMS_TOPK_TRAIN}/"
           f"{m.RPN.POST_NMS_TOPK_TRAIN} at training, mask head {'on' if m.MASK_ON else 'off'}, bf16: DefaultPredictor "
@@ -2263,16 +2357,19 @@ def phase_rcnn_variant(report, out_dir, kind: str):
              and (m.RPN.PRE_NMS_TOPK_TEST, m.RPN.POST_NMS_TOPK_TEST) == (6000, 1000)
              and list(m.RESNETS.OUT_FEATURES) == ["res4"],
              "dc5": m.RESNETS.RES5_DILATION == 2 and m.ROI_BOX_HEAD.POOLER_RESOLUTION == 7
-             and list(m.RPN.IN_FEATURES) == ["res5"] and not m.MASK_ON}[kind]
+             and list(m.RPN.IN_FEATURES) == ["res5"] and not m.MASK_ON,
+             "dconv": m.FPN.OUT_CHANNELS == 256 and m.MASK_ON and list(m.RESNETS.DEFORM_ON_PER_STAGE) == [
+                 False, True, True, True] and not m.RESNETS.DEFORM_MODULATED and m.BACKBONE.FREEZE_AT == 2
+             and m.RESNETS.STRIDE_IN_1X1 == (kind == "dconv")}[kind.split("_")[0]]
     if not full:
         raise SystemExit(f"{name} is not at full width here: {m}")
-    rng = np.random.RandomState(10 + number)
+    rng = np.random.RandomState(23 + list(VARIANTS).index(kind))
     reset_launches()
     init, weights = rcnn_weights(rcnn_cfg(name, "float32", folder, extra), letterboxed(rng, "cpu", 2, size), seed=0)
     predictor = DefaultPredictor(cfg)
     model = predictor.model
     model.model.load_state_dict(weights)
-    if kind != "cascade" and not (model.strides == model.roi_strides == [16]):
+    if kind in ("c4", "dc5") and not (model.strides == model.roi_strides == [16]):
         raise SystemExit(f"{name}: the RPN and the pooler should read a stride-16 map, got {model.strides}")
     anchors = [a.shape[0] for a in model.anchors_per_level(size)]
     batch = letterboxed(rng, model.device, RCNN_BATCH, size)
@@ -2305,7 +2402,7 @@ def phase_rcnn_variant(report, out_dir, kind: str):
                          f"proposals, {2 * calls + 1}, got {nms_launches['serving']}")
     nms_cases = {f"{k}_{kind}": c for k, c in zip(("rpn_test", "box_head", "rpn_train"), nms_inputs)}
     valid = (dets["scores"] > model.score_threshold).sum(1).cpu()
-    side = 2 * (m.ROI_MASK_HEAD.POOLER_RESOLUTION if kind == "cascade" else m.ROI_BOX_HEAD.POOLER_RESOLUTION // 2)
+    side = 2 * (m.ROI_BOX_HEAD.POOLER_RESOLUTION // 2 if kind == "c4" else m.ROI_MASK_HEAD.POOLER_RESOLUTION)
     if not (dets["boxes"].shape == (RCNN_BATCH, 100, 4) and bool(torch.isfinite(dets["boxes"]).all())
             and bool(torch.isfinite(dets["scores"]).all()) and int(valid.min()) > 0
             and (not m.MASK_ON or (tuple(dets["masks"].shape) == (RCNN_BATCH, 100, side, side)
@@ -2314,6 +2411,11 @@ def phase_rcnn_variant(report, out_dir, kind: str):
                          f"{ {k: tuple(v.shape) for k, v in dets.items()} }")
     predict_ms = cuda_ms(lambda: model.predict_fn(batch), iters=5)
     b16 = profiled(lambda: model.predict_fn(batch), calls=1)
+    if dconv:  # every forward of 16a: 13 K1 launches each, nothing else
+        b16["dcn_fwd_ms"] = dcn_device_ms(b16["events"])["dcn_fwd"]
+        print(f"  DCN: {counted['forward']} K1 launches in {counted['forward'] // DCONV_BLOCKS} forwards; K1 on the "
+              f"card in the profiled batch-{RCNN_BATCH} call: {b16['dcn_fwd_ms']:.3f} ms")
+        settle("a")
     print(f"  request (480x640 → 800²) median {statistics.median(latency):.3f} ms of {bench.REQUESTS}; predict_fn "
           f"batch {RCNN_BATCH}: {predict_ms:.3f} ms = {RCNN_BATCH * 1e3 / predict_ms:.2f} img/s, {b16['device_ms']:.3f} "
           f"ms on the card (NMS kernel {b16['nms_kernel_ms']:.3f} ms); valid detections per image "
@@ -2324,7 +2426,8 @@ def phase_rcnn_variant(report, out_dir, kind: str):
     out = dict(requests=requests, request_ms=latency, request_median_ms=statistics.median(latency),
                predict_fn_b16_ms=predict_ms, predict_fn_b16_device_ms=b16["device_ms"],
                predict_fn_b16_nms_kernel_ms=b16["nms_kernel_ms"], valid_per_image=valid.tolist(), anchors=anchors,
-               predict_fn_b16_roi_align_ms=embedding_bag_ms(b16["events"])["forward"])
+               predict_fn_b16_roi_align_ms=embedding_bag_ms(b16["events"])["forward"],
+               predict_fn_b16_dcn_fwd_ms=b16.get("dcn_fwd_ms"))
     if kind == "c4":  # ROIAlign's and the res5 head's shares of a batch-16 call, each timed alone
         with torch.inference_mode():
             feats = model.model(model.normalize(batch))[0]
@@ -2345,6 +2448,7 @@ def phase_rcnn_variant(report, out_dir, kind: str):
     print(f"== {number}b. f32, batch 2, card against CPU: the box heads on the card's first {HEAD_ROIS} proposals of "
           f"each image (each stage fed the card's boxes; rois the two devices' log2 puts on other FPN levels left "
           f"out){', the RPN on res5' if kind == 'dc5' else ''}"
+          f"{', the 13 deformable blocks each on the card input, the heads on the card maps' if dconv else ''}"
           f"{f', the mask logits on the top {top} detections and the pasted masks' if m.MASK_ON else ''}")
     cfg32 = rcnn_cfg(name, "float32", folder, extra)
     card = build_model(cfg32)
@@ -2366,8 +2470,19 @@ def phase_rcnn_variant(report, out_dir, kind: str):
         return got
 
     with torch.inference_mode():
+        # dconv: the seeded deformable trunk magnifies rounding ~100x more than the plain one
+        # (tools/rounding_gain.py: random features and offsets), so each block is held to the CPU on the
+        # card's own input, and the heads read the card's maps on both sides
+        blocks_io = {}
+        hooks = [mod.register_forward_hook(lambda mod, inp, out, n=n: blocks_io.__setitem__(n, (inp[0], out)))
+                 for n, mod in card.model.named_modules() if isinstance(mod, DeformBottleneckBlock)]
         feats_c, lg_c, dl_c = card.model(card.normalize(x))
-        feats_h, lg_h, dl_h = host.model(host.normalize(x.cpu()))
+        for h in hooks:
+            h.remove()
+        if dconv:
+            feats_h = {k: v.cpu() for k, v in feats_c.items()}
+        else:
+            feats_h, lg_h, dl_h = host.model(host.normalize(x.cpu()))
         if kind == "dc5":
             for label, c, h in (("objectness_logits_res5", lg_c[0], lg_h[0]), ("anchor_deltas_res5", dl_c[0], dl_h[0])):
                 card_vs_cpu(checks, label, c, h)
@@ -2379,6 +2494,12 @@ def phase_rcnn_variant(report, out_dir, kind: str):
         stage_boxes = [got_c.get(f"stage{t}_boxes") for t in range(len(card.cascade_box2box))]
         got_h = heads_on(host, feats_h, props.cpu(), None if det_boxes is None else det_boxes.cpu(),
                          None if cls is None else cls.cpu(), stage_boxes if kind == "cascade" else None)
+        card_mods, host_mods = dict(card.model.named_modules()), dict(host.model.named_modules())
+        for n, (inp, y) in blocks_io.items():  # K1 on the card, the plain DCN on the CPU, the same input
+            key = "block_" + n.split("bottom_up.")[-1]
+            got_c[key], got_h[key] = y, host_mods[n](inp.cpu())
+            card_vs_cpu(checks, key, y, got_h[key], rel=SAME_INPUT_TOL)
+        rel = SAME_INPUT_TOL if dconv else HEAD_TOL  # dconv: the heads read the card's maps on both sides
         flips = 0
         if kind == "cascade":
             for t in range(len(card.cascade_box2box)):
@@ -2390,23 +2511,25 @@ def phase_rcnn_variant(report, out_dir, kind: str):
         else:
             for k in ("res5_head", "cls_score", "bbox_pred"):
                 if k in got_c:
-                    card_vs_cpu(checks, k, got_c[k], got_h[k])
+                    card_vs_cpu(checks, k, got_c[k], got_h[k], rel=rel)
         if m.MASK_ON:
             same = torch.ones(len(cls), dtype=torch.bool)
             if kind == "cascade":
                 same = roi_ops.assign_boxes_to_levels(det_boxes, 2, 5).cpu() == \
                     roi_ops.assign_boxes_to_levels(det_boxes.cpu(), 2, 5)
                 flips += int((~same).sum())
-            card_vs_cpu(checks, "mask_logits", got_c["mask_logits"], got_h["mask_logits"], same)
+            card_vs_cpu(checks, "mask_logits", got_c["mask_logits"], got_h["mask_logits"], same, rel)
         # the control: cuDNN's TF32 on and the model's ieee_f32 bypassed, the same
-        # inputs; the check must see it (as phase 4b's C9 control)
-        with pytorch_default_tf32(), bypass_ieee_f32(rcnn):
-            feats_t, lg_t, _ = card.model(card.normalize(x))
+        # inputs (dconv: each block on its input, the heads on the card's f32 maps,
+        # as in the check); the check must see it (as phase 4b's C9 control)
+        with pytorch_default_tf32(), bypass_ieee_f32(rcnn), bypass_ieee_f32(resnet_module):
+            feats_t, lg_t, _ = (feats_c, lg_c, dl_c) if dconv else card.model(card.normalize(x))
             got_t = heads_on(card, feats_t, props, det_boxes, cls, stage_boxes if kind == "cascade" else None)
+            got_t.update({"block_" + n.split("bottom_up.")[-1]: card_mods[n](inp) for n, (inp, _) in blocks_io.items()})
         tf32 = {}
         for k in checks:
             if k in got_t:
-                card_vs_cpu(tf32, k, got_t[k], got_h[k])
+                card_vs_cpu(tf32, k, got_t[k], got_h[k], rel=checks[k]["rel"])
         if kind == "dc5":
             card_vs_cpu(tf32, "objectness_logits_res5", lg_t[0], lg_h[0])
         boundary = None
@@ -2417,24 +2540,31 @@ def phase_rcnn_variant(report, out_dir, kind: str):
             boundary = (torch.equal(on_card.cpu(), on_host), int(on_card.sum()))
     for k, v in checks.items():
         ok = v["max_abs_err"] <= v["tol"]
-        print(f"  {k}: max_abs_err={v['max_abs_err']:.3e} (scale {v['scale']:.3e}, tol {HEAD_TOL:.0e} x scale = "
+        print(f"  {k}: max_abs_err={v['max_abs_err']:.3e} (scale {v['scale']:.3e}, tol {v['rel']:.0e} x scale = "
               f"{v['tol']:.1e}) {'ok' if ok else 'FAIL'}; with cuDNN's TF32 on and ieee_f32 bypassed "
-              f"{tf32[k]['max_abs_err']:.3e}" if k in tf32 else f"  {k}: max_abs_err={v['max_abs_err']:.3e} (tol "
-              f"{v['tol']:.1e}) {'ok' if ok else 'FAIL'}")
+              f"{tf32[k]['max_abs_err']:.3e} = {tf32[k]['max_abs_err'] / v['tol']:.2f}x the tol" if k in tf32 else
+              f"  {k}: max_abs_err={v['max_abs_err']:.3e} (tol {v['tol']:.1e}) {'ok' if ok else 'FAIL'}")
     over = {k: v["max_abs_err"] / checks[k]["tol"] for k, v in tf32.items()}
-    print(f"  {flips} rois on another FPN level (tol 0.1%); the TF32 control's largest error is "
-          f"{max(over.values()):.1f}x its tol ({max(over, key=over.get)}){'' if max(over.values()) > 1 else ': FAIL'}"
+    heads_over = {k: v for k, v in over.items() if not k.startswith("block_")}
+    blocks_over = {k: v for k, v in over.items() if k.startswith("block_")}
+    print(f"  {flips} rois on another FPN level (tol 0.1%); the TF32 control's largest error in the heads is "
+          f"{max(heads_over.values()):.1f}x its tol ({max(heads_over, key=heads_over.get)})"
+          f"{'' if max(heads_over.values()) > 1 else ': FAIL'}"
+          + (f"; its smallest in a deformable block {min(blocks_over.values()):.1f}x "
+             f"({min(blocks_over, key=blocks_over.get)}; each must be over 1)" if blocks_over else "")
           + (f"; pasted masks of the top {top} detections of image 0 on the card and on the CPU: "
              f"{'equal' if boundary[0] else 'DIFFERENT'} ({boundary[1]} mask pixels)" if boundary else ""))
     rois = 2 * HEAD_ROIS * len(card.cascade_box2box) + 2 * top if kind == "cascade" else 0
     if not all(v["max_abs_err"] <= v["tol"] for v in checks.values()) or flips > 1e-3 * max(rois, 1) \
             or (boundary is not None and not boundary[0]):
         raise SystemExit(f"{name}'s f32 heads or host boundary differ between the card and the CPU")
-    if not max(over.values()) > 1:
-        raise SystemExit(f"{name}'s f32 head check did not see TF32: {over}")
+    if not max(heads_over.values()) > 1 or (dconv and not min(blocks_over.values()) > 1):
+        raise SystemExit(f"{name}'s f32 head or block check did not see TF32: {over}")
     out.update(card_vs_cpu=checks, tf32_bypass=tf32, level_flips=flips,
                host_boundary_equal=None if boundary is None else boundary[0])
     del card, host, feats_c, feats_h, feats_t
+    if dconv:  # the card's f32 forwards: K1 only
+        settle("b")
 
     config_file = os.path.join("configs", folder, name + ".yaml")
     print(f"== {number}c. tools/bench --config-file {folder}/{name}.yaml TEST.BATCH_SIZE {RCNN_BATCH} {' '.join(extra)} "
@@ -2455,6 +2585,10 @@ def phase_rcnn_variant(report, out_dir, kind: str):
                          f"got {nms_launches['bench']}")
     extra_out = result["extra"]
     _, trainer, clock = captured[0]
+    dcn_ms = None
+    if dconv:  # the bench's forwards, and 13 x K1, K2 and K5 per train step
+        settle("c", steps)
+        dcn_ms = dcn_device_ms(clock.events)
     names = ["loss_rpn_cls", "loss_rpn_loc"]
     names += ([f"{k}_stage{t}" for t in range(3) for k in ("loss_cls", "loss_box_reg")] if kind == "cascade"
               else ["loss_cls", "loss_box_reg"]) + (["loss_mask"] if m.MASK_ON else []) + ["total_loss"]
@@ -2474,24 +2608,36 @@ def phase_rcnn_variant(report, out_dir, kind: str):
           f"{extra_out['train_step_ms']:.1f} ms = {extra_out['train_img_s']:.1f} img/s; card busy "
           f"{clock.device_ms:.1f} ms = {extra_out['train_busy_share']:.0%} of the median step; peak memory "
           f"{extra_out['peak_memory_gib']:.2f} GiB; ROIAlign's embedding_bag in the profiled step: forward "
-          f"{roi_align['forward']:.2f} ms, backward {roi_align['backward']:.2f} ms")
+          f"{roi_align['forward']:.2f} ms, backward {roi_align['backward']:.2f} ms"
+          + (f"; the DCN kernels in the profiled step: K1 {dcn_ms['dcn_fwd']:.2f} ms, K2 {dcn_ms['dcn_bwd_dx']:.2f} ms, "
+             f"K5 {dcn_ms['dcn_bwd_wq']:.2f} ms" if dcn_ms else ""))
     print(clock.events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
     out.update(bench=result, bench_losses=losses, bench_step_ms_all=clock.times,
-               bench_profiled_device_ms=clock.device_ms, bench_roi_align_ms=roi_align)
+               bench_profiled_device_ms=clock.device_ms, bench_roi_align_ms=roi_align, bench_dcn_ms=dcn_ms)
     del trainer, captured
 
     init_path = os.path.join(out_dir, "init_weights.pth")
     os.makedirs(out_dir, exist_ok=True)
+    if dconv:
+        # the offset convs start at 0, as the JAX package and the reference initialise them (an ImageNet
+        # checkpoint has none): from the random ones that serve above, training through the 13 deformable
+        # blocks diverges within two steps, in f32 as in bf16, with K2 and K5 equal to their plain versions
+        # on those steps
+        init = {k: torch.zeros_like(v) if ".conv2_offset." in k else v for k, v in init.items()}
     torch.save(init, init_path)
     val = cfg.DATASETS.TEST[0]
     # from the init with calibrated FrozenBN statistics, as 10e; its 80 classes
     # score near 1/81 there, so the threshold goes to 0.005 for detections to evaluate
+    # (dconv: 0, since after its 4 steps every class scored under 0.005 and there
+    # were no masks to evaluate; its top 20 detections an image, which keeps the
+    # segm evaluation's time near the others')
+    thresh = "0.0" if dconv else "0.005"
     print(f"== {number}d. tools/train_net on {name}.yaml: {RCNN_STEPS} steps at batch {RCNN_BATCH} from the init with "
           f"calibrated FrozenBN statistics (MODEL.WEIGHTS; DETECTRON2_SYNTH_DATA), then --eval-only --resume on the "
-          f"{EVAL_IMAGES} synthetic {val} images, ROI_HEADS.SCORE_THRESH_TEST 0.005")
+          f"{EVAL_IMAGES} synthetic {val} images, ROI_HEADS.SCORE_THRESH_TEST {thresh}")
     argv = ["--config-file", config_file, "SOLVER.MAX_ITER", str(RCNN_STEPS), "SOLVER.IMS_PER_BATCH", str(RCNN_BATCH),
             "TEST.BATCH_SIZE", str(RCNN_BATCH), "MODEL.WEIGHTS", init_path, "MODEL.ROI_HEADS.SCORE_THRESH_TEST",
-            "0.005", "OUTPUT_DIR", out_dir, "SEED", "0"] + list(extra)
+            thresh, "OUTPUT_DIR", out_dir, "SEED", "0"] + list(extra) + (["TEST.DETECTIONS_PER_IMAGE", "20"] if dconv else [])
     fresh_synthetic_val(val)
     log_path = f"output/chip_smoke_{kind}_rcnn_train_net_log.txt"
     nms_ops.greedy_nms.launches = 0
@@ -2515,6 +2661,8 @@ def phase_rcnn_variant(report, out_dir, kind: str):
     print(f"  the two evaluation dicts are identical ({', '.join(sorted(trained))}); NMS kernel launches "
           f"{nms_launches['train_net']}; log in {log_path}")
     out.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, results=trained))
+    if dconv:
+        settle("d", RCNN_STEPS)
 
     if kind == "c4":
         print(f"== {number}e. ProposalNetwork ({C4_PROPOSALS}.yaml, bf16): predict_fn and loss_fn on 2 images of 800²")
@@ -2547,13 +2695,311 @@ def phase_rcnn_variant(report, out_dir, kind: str):
 
     torch.cuda.synchronize()
     launches = read_launches()
+    if dconv:  # 16a-16d, each checked above
+        launches = {k: dcn_launches[k] for k in launches}
+        out.update(deform_block_calls=dict(blocks))
     print(f"  DCN kernel launches on the {name} path ({number}a-{number}{'e' if kind == 'c4' else 'd'}): {launches}; "
           f"NMS kernel launches {nms_launches}")
-    if any(launches.values()):
-        raise SystemExit(f"the {name} path launched DCN kernels: {launches}")
+    if any(launches.values()) != dconv or (dconv and not all(launches[k] for k in ("dcn_fwd", "dcn_bwd_dx",
+                                                                                      "dcn_bwd_dqdw"))):
+        raise SystemExit(f"the {name} path launched {'no' if dconv else ''} DCN kernels: {launches}")
     out.update(launches=launches, nms_kernel_launches=nms_launches)
     report[f"{kind}_rcnn"] = out
     return launches, nms_launches, nms_cases
+
+
+# The DCN shapes of the dconv Mask R-CNN R50-FPN at 800², batch 16: (channels in and out, the input's side,
+# stride, dilation, where). Stride 1: the blocks of res3-res5 (4, 6, 3 of them); stride 2: the first block of
+# each with STRIDE_IN_1X1 False; dilation 2: a deformable DC5 res5 (no public config pairs them).
+DCONV_SHAPES = [
+    (128, 100, 1, 1, "res3"), (256, 50, 1, 1, "res4"), (512, 25, 1, 1, "res5"),
+    (128, 200, 2, 1, "res3.0 s2"), (256, 100, 2, 1, "res4.0 s2"), (512, 50, 2, 1, "res5.0 s2"),
+    (512, 50, 1, 2, "res5 d2"),
+]
+DCONV_TIMED = ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dqdw")  # the deformable trunk's kernels, forward and training
+
+
+def dconv_case(b, c, hw, stride, dtype, seed, modulated, regime="1px"):
+    """Inputs of one deformable-trunk DCN launch on the card: x (b, c, hw,
+    hw), offset of ``regime`` and mask (None when not ``modulated``) on the
+    output grid of ``stride``, weight, the output cotangent."""
+    ho = plain.out_size(hw, hw, stride)[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+    x = n(b, c, hw, hw).to(dtype)
+    offset = n(b, 18, ho, ho) if regime == "1px" else \
+        (torch.rand(b, 18, ho, ho, generator=g, device="cuda") * 2 - 1) * 8.0
+    mask = torch.rand(b, 9, ho, ho, generator=g, device="cuda") if modulated else None
+    weight = (n(c, c, 3, 3) / math.sqrt(9 * c)).to(dtype)
+    return (x, offset, mask, weight), n(b, c, ho, ho).to(dtype)
+
+
+def dconv_call(name, args, cot, stride, dilation, impl):
+    """One kernel (``impl`` "kernel") or its plain version ("plain") on one
+    deformable-trunk case."""
+    geo = dict(stride=stride, dilation=dilation)
+    if name == "dcn_fwd":
+        fn = dcn.modulated_deform_conv if impl == "kernel" else plain.modulated_deform_conv
+        return lambda: fn(*args, **geo)
+    fn = KERNELS[name][0] if impl == "kernel" else PLAIN[name]
+    return lambda: fn(*args, cot, **geo)
+
+
+def phase_dconv_kernels(report):
+    """Phase 16k: K1, K2 and K5 against their plain versions at every DCN
+    shape of the deformable trunk (stride 1 at res3-res5, the stride-2
+    transitions, dilation 2 at 512 x 50²), batch 1 and 16, modulated and
+    not, bf16 and (batch 1) f32, offsets of ~1 px and ±8 px at batch 1, with
+    the DLA shapes' tolerances; then each kernel's time at batch 16, bf16,
+    unmodulated (the main path's form) beside its plain version's and its
+    bound (``dcn_bound`` at the shape). A CUDA call at stride 3 raises."""
+    print("== 16k. K1, K2 and K5 against their plain versions at the deformable trunk's shapes (batch 1 and 16, "
+          "modulated and not; bf16, and f32 at batch 1), then their times at batch 16")
+    rows, bad = [], []
+    for c, hw, stride, dilation, where in DCONV_SHAPES:
+        for b, dtype, regime in ((1, torch.float32, "1px"), (1, torch.bfloat16, "1px"), (1, torch.bfloat16, "8px"),
+                                 (RCNN_BATCH, torch.bfloat16, "1px")):
+            for modulated in (True, False):
+                args, cot = dconv_case(b, c, hw, stride, dtype, seed=c + hw + stride, modulated=modulated,
+                                       regime=regime)
+                errs = {}
+                for name in DCONV_TIMED:
+                    got = as_tuple(dconv_call(name, args, cot, stride, dilation, "kernel")())
+                    want = as_tuple(dconv_call(name, args, cot, stride, dilation, "plain")())
+                    torch.cuda.synchronize()
+                    if any((a is None) != (w is None) for a, w in zip(got, want)):
+                        raise SystemExit(f"{name} at {where}: d mask present on one side only")
+                    pairs = [(a, w) for a, w in zip(got, want) if w is not None]
+                    err = max(rel_err(a, w) for a, w in pairs)
+                    row = dict(kernel=name, c=c, hw=hw, stride=stride, dilation=dilation, where=where, batch=b,
+                               dtype=str(dtype).split(".")[1], regime=regime, modulated=modulated, max_rel_err=err,
+                               max_abs_err=max((a.float() - w.float()).abs().max().item() for a, w in pairs),
+                               tol=TOL[dtype], ok=err <= TOL[dtype] and all(bool(torch.isfinite(a).all())
+                                                                           for a, _ in pairs))
+                    rows.append(row)
+                    errs[name] = err
+                    if not row["ok"]:
+                        bad.append(row)
+                    del got, want
+                print(f"  {where:10s} {c:3d}ch {hw:3d}²→{plain.out_size(hw, hw, stride)[0]:3d}² d{dilation} b{b:<2d} "
+                      f"{str(dtype).split('.')[1]:8s} {regime} {'mod  ' if modulated else 'unmod'} tol "
+                      f"{TOL[dtype]:.0e}: " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+                del args, cot
+    report["dconv_kernel_vs_plain"] = rows
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions at the deformable shapes: {bad}")
+    try:
+        args, cot = dconv_case(1, 16, 12, 1, torch.bfloat16, seed=0, modulated=False)
+        dcn.modulated_deform_conv(args[0], torch.zeros(1, 18, 4, 4, device="cuda"), None, args[3], stride=3)
+        raise SystemExit("a CUDA call at stride 3 did not raise")
+    except ValueError as e:
+        print(f"  a CUDA call at stride 3 raises: {e}")
+
+    timing = []
+    for c, hw, stride, dilation, where in DCONV_SHAPES:
+        args, cot = dconv_case(RCNN_BATCH, c, hw, stride, torch.bfloat16, seed=c, modulated=False)
+        ho = plain.out_size(hw, hw, stride)[0]
+        for name in DCONV_TIMED:
+            ms = cuda_ms(dconv_call(name, args, cot, stride, dilation, "kernel"), iters=5)
+            plain_ms = cuda_ms(dconv_call(name, args, cot, stride, dilation, "plain"), iters=2, warmup=1)
+            bound_ms, bound_by = bound_of(*dcn_bound(name, RCNN_BATCH, c, c, hw, torch.bfloat16, stride, False))
+            timing.append(dict(kernel=name, where=where, c=c, hw=hw, out_hw=ho, stride=stride, dilation=dilation,
+                               batch=RCNN_BATCH, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+            print(f"  {name:12s} {where:10s} {c:3d}ch {hw:3d}²→{ho:3d}² d{dilation} b{RCNN_BATCH}: {ms:8.3f} ms, "
+                  f"plain {plain_ms:9.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), {ms / bound_ms:.1f}x the bound")
+        del args, cot
+    report["dconv_kernel_ms"] = timing
+    return rows, timing
+
+
+FAST = "fast_rcnn_R_50_FPN_1x"
+
+
+def dump_proposals(rpn_model, cfg, dataset: str, path: str, topk: int) -> dict:
+    """The reference's Fast R-CNN workflow, its first half: the
+    ProposalNetwork's top ``topk`` proposals of every image of ``dataset``
+    (the test loader's letterbox to the config's size, ``TEST.BATCH_SIZE``
+    images a forward), mapped back to the image's pixels and pickled as the
+    reference's proposal files are (``ids``, ``boxes`` XYXY_ABS,
+    ``objectness_logits``, ``bbox_mode``). Returns {"images", "proposals",
+    "forwards"}."""
+    import pickle
+
+    from detectron2_centernet_tpu_torch.data import build_detection_test_loader
+
+    rpn_model.post_nms_topk["test"] = topk
+    ids, boxes, logits, forwards = [], [], [], 0
+    loader = build_detection_test_loader(cfg, dataset)
+    for batch in loader:
+        images = torch.from_numpy(batch["image"]).to("cuda").permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            x = rpn_model.normalize(images)
+            _, lg, dl = rpn_model.model(x)
+            pb, plog, pv = rpn_model.proposals(lg, dl, tuple(x.shape[2:]), "test")
+        forwards += 1
+        pb, plog, pv = pb.cpu().numpy(), plog.float().cpu().numpy(), pv.cpu().numpy()
+        for i, image_id in enumerate(batch["image_id"].reshape(-1)):
+            m = batch["warp"][i].astype(np.float64)  # source → network input; the letterbox neither flips nor turns
+            b = (pb[i][pv[i]].astype(np.float64) - np.tile(m[:, 2], 2)) / np.tile(np.diag(m[:, :2]), 2)
+            ids.append(int(image_id))
+            boxes.append(b.astype(np.float32))
+            logits.append(plog[i][pv[i]].astype(np.float32))
+    with open(path, "wb") as f:
+        pickle.dump({"ids": ids, "boxes": boxes, "objectness_logits": logits, "bbox_mode": 0}, f)
+    return dict(images=len(ids), proposals=[len(b) for b in boxes], forwards=forwards)
+
+
+def phase_fast_rcnn(report, out_dir):
+    """Phase 17: Fast R-CNN R50-FPN (``fast_rcnn_R_50_FPN_1x.yaml``:
+    ``MODEL.LOAD_PROPOSALS``, ``PrecomputedProposals``) at full width in the
+    reference's workflow: (a) the ProposalNetwork (``rpn_R_50_FPN_1x.yaml``)
+    writes the proposal files of the synthetic train and val scenes (2000
+    and 1000 a image, as the reference's files hold); (b) ``predict_fn`` at
+    batch 16 on the test loader's proposals, ``DefaultPredictor`` raising;
+    (c) ``tools/bench``'s train steps (``bench.bench_training``; its
+    requests go through ``DefaultPredictor``) at 16 × 800² on
+    ``PROPOSAL_FILES_TRAIN``: step time, busy share, peak memory; (d)
+    ``tools/train_net`` 4 steps from the calibrated init on
+    ``PROPOSAL_FILES_TRAIN``, then ``--eval-only --resume`` on
+    ``PROPOSAL_FILES_TEST``. Every NMS through the kernel (the RPN's in (a),
+    the box head's after), counted; no DCN anywhere."""
+    os.makedirs(out_dir, exist_ok=True)
+    train_pkl, val_pkl = os.path.join(out_dir, "train_proposals.pkl"), os.path.join(out_dir, "val_proposals.pkl")
+    files = ("DATASETS.PROPOSAL_FILES_TRAIN", repr((train_pkl,)), "DATASETS.PROPOSAL_FILES_TEST", repr((val_pkl,)))
+    cfg = rcnn_cfg(FAST, "bfloat16", extra=files + ("TEST.BATCH_SIZE", str(RCNN_BATCH)))
+    m, d = cfg.MODEL, cfg.DATASETS
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    full = (m.LOAD_PROPOSALS and m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals" and m.RESNETS.DEPTH == 50
+            and m.FPN.OUT_CHANNELS == 256 and m.ROI_HEADS.NUM_CLASSES == 80 and m.ROI_HEADS.BATCH_SIZE_PER_IMAGE == 512
+            and size == tuple(cfg.INPUT.TRAIN_SIZE) == (800, 800) and cfg.SOLVER.IMS_PER_BATCH == RCNN_BATCH
+            and (d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN, d.PRECOMPUTED_PROPOSAL_TOPK_TEST) == (2000, 1000))
+    if not full:
+        raise SystemExit(f"{FAST} is not at full width here: {m}, {d}")
+    train, val = d.TRAIN[0], d.TEST[0]
+    print(f"== 17a. {FAST}.yaml: ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM}, FPN {m.FPN.OUT_CHANNELS}, precomputed "
+          f"proposals (top {d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN} at training, {d.PRECOMPUTED_PROPOSAL_TOPK_TEST} at "
+          f"test), 80 classes, bf16; the files written by the {PROPOSALS}.yaml ProposalNetwork on the synthetic {train} "
+          f"and {val} scenes at {size[0]}²")
+    rng = np.random.RandomState(30)
+    reset_launches()
+    init, weights = rcnn_weights(rcnn_cfg(FAST, "float32"), letterboxed(rng, "cpu", 2, size), seed=0)
+    os.environ["DETECTRON2_SYNTH_DATA"] = "1"
+    if train not in DatasetCatalog:
+        register_synthetic_instances(train)
+    fresh_synthetic_val(val)
+    pcfg = rcnn_cfg(PROPOSALS, "bfloat16", extra=("TEST.BATCH_SIZE", str(RCNN_BATCH)))
+    rpn_model = build_model(pcfg)
+    own = rpn_model.model.state_dict()
+    rpn_model.model.load_state_dict({k: v for k, v in weights.items() if k in own})
+    nms_launches = {}
+    nms_ops.greedy_nms.launches = 0
+    dumped = {name: dump_proposals(rpn_model, pcfg, name, path, k) for name, path, k in (
+        (train, train_pkl, d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN), (val, val_pkl, d.PRECOMPUTED_PROPOSAL_TOPK_TEST))}
+    torch.cuda.synchronize()
+    nms_launches["proposal_files"] = nms_ops.greedy_nms.launches
+    forwards = sum(v["forwards"] for v in dumped.values())
+    for name, v in dumped.items():
+        print(f"  {name}: {v['images']} images, {min(v['proposals'])}-{max(v['proposals'])} proposals each, "
+              f"{v['forwards']} forwards")
+    if nms_launches["proposal_files"] != forwards or not all(min(v["proposals"]) > 0 for v in dumped.values()):
+        raise SystemExit(f"the proposal files are empty or their NMS launches are not one per forward: {dumped}, "
+                         f"{nms_launches}")
+    del rpn_model
+
+    print(f"== 17b. predict_fn at batch {RCNN_BATCH} on the test loader's proposals (the mapper's top "
+          f"{d.PRECOMPUTED_PROPOSAL_TOPK_TEST}); DefaultPredictor raises")
+    from detectron2_centernet_tpu_torch.data import build_detection_test_loader
+
+    model = build_model(cfg)
+    model.model.load_state_dict(weights)
+    batch = next(iter(build_detection_test_loader(cfg, val)))
+    images = torch.from_numpy(batch["image"]).to("cuda").permute(0, 3, 1, 2).contiguous()
+    props = [torch.from_numpy(batch[k]).to("cuda") for k in ("proposal_boxes", "proposal_valid")]
+    nms_ops.greedy_nms.launches = 0
+    dets = model.predict_fn(images, *props)
+    predict_ms = cuda_ms(lambda: model.predict_fn(images, *props), iters=5)
+    torch.cuda.synchronize()
+    nms_launches["serving"] = nms_ops.greedy_nms.launches
+    valid = (dets["scores"] > model.score_threshold).sum(1).cpu()
+    if not (dets["boxes"].shape == (RCNN_BATCH, 100, 4) and bool(torch.isfinite(dets["boxes"]).all())
+            and int(valid.min()) > 0 and nms_launches["serving"] == 1 + 2 + 5):
+        raise SystemExit(f"Fast R-CNN's predict_fn: malformed or empty detections, or not one NMS launch per call: "
+                         f"{valid.tolist()}, {nms_launches}")
+    try:
+        DefaultPredictor(cfg)
+        raise SystemExit("DefaultPredictor did not raise under MODEL.LOAD_PROPOSALS")
+    except ValueError as e:
+        print(f"  DefaultPredictor raises: {e}")
+    print(f"  predict_fn batch {RCNN_BATCH}: {predict_ms:.3f} ms = {RCNN_BATCH * 1e3 / predict_ms:.2f} img/s; valid "
+          f"detections per image {int(valid.min())}-{int(valid.max())} of 100; valid proposals per image "
+          f"{int(props[1].sum(1).min())}-{int(props[1].sum(1).max())}; NMS kernel launches {nms_launches['serving']}")
+    out = dict(proposal_files=dumped, predict_fn_b16_ms=predict_ms, valid_per_image=valid.tolist())
+    del model, dets
+
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    print(f"== 17c. tools/bench's train steps (bench.bench_training) on {FAST}.yaml: {steps} steps at batch "
+          f"{cfg.SOLVER.IMS_PER_BATCH} x {cfg.INPUT.TRAIN_SIZE[0]}² from the model's own init, the mapper's top "
+          f"{d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN} proposals of the train file")
+    nms_ops.greedy_nms.launches = 0
+    entries, trainer, clock = bench.bench_training(cfg)
+    torch.cuda.synchronize()
+    nms_launches["bench"] = nms_ops.greedy_nms.launches
+    histories = trainer.storage.histories()
+    losses = {k: [v for v, _ in histories[k].values()] for k in ("loss_cls", "loss_box_reg", "total_loss")
+              if k in histories}
+    roi_align = embedding_bag_ms(clock.events)
+    print(f"  total {' '.join(f'{v:.4f}' for v in losses.get('total_loss', []))}; step times (ms) "
+          f"{' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} {entries['train_step_ms']:.1f} ms "
+          f"= {entries['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = "
+          f"{entries['train_busy_share']:.0%} of the median step; peak memory {entries['peak_memory_gib']:.2f} GiB; "
+          f"ROIAlign's embedding_bag in the profiled step: forward {roi_align['forward']:.2f} ms, backward "
+          f"{roi_align['backward']:.2f} ms; NMS kernel launches {nms_launches['bench']}")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    if not (entries["train_batch"] == RCNN_BATCH and all(entries[k] is not None for k in (
+            "train_step_ms", "train_busy_share", "peak_memory_gib")) and len(losses) == 3
+            and all(len(v) == steps and all(math.isfinite(x) for x in v) for v in losses.values())
+            and not any(k.startswith("loss_rpn") for k in histories) and nms_launches["bench"] == 0):
+        raise SystemExit(f"Fast R-CNN's bench training: {entries}, losses {losses}, NMS launches "
+                         f"{nms_launches['bench']} (expected none: no RPN, no box-head NMS in training)")
+    out.update(bench_training=entries, bench_losses=losses, bench_step_ms_all=clock.times,
+               bench_profiled_device_ms=clock.device_ms, bench_roi_align_ms=roi_align)
+    del trainer, clock
+
+    init_path = os.path.join(out_dir, "init_weights.pth")
+    torch.save(init, init_path)
+    print(f"== 17d. tools/train_net on {FAST}.yaml: {RCNN_STEPS} steps at batch {RCNN_BATCH} from the init with "
+          f"calibrated FrozenBN statistics on the train proposal file, then --eval-only --resume on the {EVAL_IMAGES} "
+          f"synthetic {val} images and their file, ROI_HEADS.SCORE_THRESH_TEST 0.005")
+    argv = ["--config-file", os.path.join("configs", "COCO-Detection", FAST + ".yaml"), "SOLVER.MAX_ITER",
+            str(RCNN_STEPS), "SOLVER.IMS_PER_BATCH", str(RCNN_BATCH), "TEST.BATCH_SIZE", str(RCNN_BATCH),
+            "MODEL.WEIGHTS", init_path, "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.005", "OUTPUT_DIR", out_dir,
+            "SEED", "0"] + list(files)
+    log_path = "output/chip_smoke_fast_rcnn_train_net_log.txt"
+    nms_ops.greedy_nms.launches = 0
+    trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
+    nms_launches["train_net"] = nms_ops.greedy_nms.launches
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        metrics = [json.loads(line) for line in f if line.strip()]
+    loss_keys = sorted({k for row in metrics for k in row if k.startswith("loss")})
+    want = 2 * -(-EVAL_IMAGES // RCNN_BATCH)  # the box head's NMS per eval batch; no RPN, so none in training
+    print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; losses "
+          f"{loss_keys}; bbox " + ", ".join(f"{k} {trained['bbox'][k]:.4f}" for k in ("AP", "AP50", "AP75"))
+          + f"; NMS kernel launches {nms_launches['train_net']}")
+    if resumed != [0, RCNN_STEPS] or loss_keys != ["loss_box_reg", "loss_cls"] or not same_results(trained, evaluated) \
+            or not all(math.isfinite(trained["bbox"][k]) for k in ("AP", "AP50", "AP75")) \
+            or not all(math.isfinite(row["total_loss"]) for row in metrics if "total_loss" in row) \
+            or nms_launches["train_net"] != want:
+        raise SystemExit(f"Fast R-CNN's train_net: resumed {resumed}, losses {loss_keys}, {trained} vs {evaluated}, "
+                         f"NMS launches {nms_launches['train_net']} (expected {want})")
+    out.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, results=trained, losses=loss_keys))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the Fast R-CNN path (17a-17d): {launches}; NMS kernel launches {nms_launches}")
+    if any(launches.values()):
+        raise SystemExit(f"the Fast R-CNN path launched DCN kernels: {launches}")
+    out.update(launches=launches, nms_kernel_launches=nms_launches)
+    report["fast_rcnn"] = out
+    return launches, nms_launches
 
 
 def roi_ops_inference(model, props, scores, deltas, n, p, size):
@@ -2634,6 +3080,7 @@ def main() -> int:
         rcnn_launches, rcnn_nms, rcnn_cases = phase_faster_rcnn(report, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    dconv_rows, dconv_ms = phase_dconv_kernels(report)
     head_launches, head_nms, head_cases = {}, {}, {}
     for kind in HEADS:
         scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
@@ -2646,21 +3093,34 @@ def main() -> int:
         scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
         try:
             head_launches[kind], head_nms[kind], cases = phase_rcnn_variant(report, scratch, kind)
-            head_cases.update(cases)
+            if not kind.startswith("dconv"):  # the dconv path's NMS rows are Mask R-CNN's (11)
+                head_cases.update(cases)
         finally:
             shutil.rmtree(scratch, ignore_errors=True)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+    try:
+        head_launches["fast"], head_nms["fast"] = phase_fast_rcnn(report, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases, **head_cases))
     totals = phase_kernel_timing(report)
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         t = totals[name]
-        main_path = inference[name] + evaluation[name] + training[name] + train_eval[name] + bench_launches[name]
+        dconv_path = head_launches["dconv"][name] + head_launches["dconv_s3"][name]
+        main_path = inference[name] + evaluation[name] + training[name] + train_eval[name] + bench_launches[name] \
+            + dconv_path
+        shapes = [r for r in dconv_ms if r["kernel"] == name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_path or phase_launches[name],
-            "launches_from": "main path (inference, evaluation, training, training with PreciseBN and "
-            "evaluation, the bench)" if main_path else "autograd phase (weight or offset/mask frozen); 0 on the main path",
+            "launches_from": "main paths (DLA-34: inference, evaluation, training, training with PreciseBN and "
+            "evaluation, the bench; the dconv Mask R-CNN, both STRIDE_IN_1X1: 16a-16d)" if main_path else
+            "autograd phase (weight or offset/mask frozen); 0 on the main paths",
+            "launches_dconv_rcnn": head_launches["dconv"][name],  # phase 16, 13 per forward, 13 per train step
+            "launches_dconv_stride_in_3x3_rcnn": head_launches["dconv_s3"][name],  # phase 16s
+            "launches_fast_rcnn": head_launches["fast"][name],  # phase 17, asserted 0
             "launches_inference": inference[name], "launches_evaluation": evaluation[name],
             "launches_training": training[name], "launches_train_eval": train_eval[name],
             "launches_bench": bench_launches[name],
@@ -2681,6 +3141,12 @@ def main() -> int:
             **{f"ms_b{b}": t[f"ms_b{b}"] for b in t["big_batches"]},
             **{f"bound_ms_b{b}": t[f"bound_ms_b{b}"] for b in t["big_batches"]},
             **({"ms_by_regime": t["regimes"]} if "regimes" in t else {}),
+            # the deformable trunk's shapes at batch 16, bf16, unmodulated (16k)
+            **({"ms_dconv": {r["where"]: r["ms"] for r in shapes},
+                "plain_ms_dconv": {r["where"]: r["plain_ms"] for r in shapes},
+                "bound_ms_dconv": {r["where"]: r["bound_ms"] for r in shapes},
+                "max_abs_err_dconv": max(r["max_abs_err"] for r in dconv_rows if r["kernel"] == name
+                                         and r["dtype"] == "bfloat16")} if shapes else {}),
         })
     main_rpn = nms_rows["rpn_test"]
     kernels.append({
@@ -2691,12 +3157,14 @@ def main() -> int:
         "launches_from": "RetinaNet (phase 9: requests and batch 16, the bench, train_net), Faster R-CNN "
         "(phase 10: requests and batch 16, the training's proposals, the bench, train_net, the ProposalNetwork), "
         "Mask R-CNN and Keypoint R-CNN (phases 11 and 12: requests and batch 16, the training's proposals, the "
-        "bench, train_net), Cascade Mask R-CNN, Mask R-CNN C4 with the C4 ProposalNetwork and Faster R-CNN DC5 "
-        "(phases 13-15: the same)",
+        "bench, train_net), Cascade Mask R-CNN, Mask R-CNN C4 with the C4 ProposalNetwork, Faster R-CNN DC5 "
+        "and the dconv Mask R-CNN (phases 13-16: the same), Fast R-CNN (phase 17: the ProposalNetwork writing its "
+        "proposal files, predict_fn, train_net's evaluations)",
         "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
         "launches_mask_rcnn": head_nms["mask"], "launches_keypoint_rcnn": head_nms["keypoint"],
         "launches_cascade_rcnn": head_nms["cascade"], "launches_c4_rcnn": head_nms["c4"],
-        "launches_dc5_rcnn": head_nms["dc5"],
+        "launches_dc5_rcnn": head_nms["dc5"], "launches_dconv_rcnn": head_nms["dconv"],
+        "launches_dconv_stride_in_3x3_rcnn": head_nms["dconv_s3"], "launches_fast_rcnn": head_nms["fast"],
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,

@@ -27,7 +27,12 @@ the mask head (``roi_heads.mask_head.{mask_fcn{i},deconv,predictor}``) to
 ``roi_heads.box_predictor.{t}.cls_score``) to ``box_head_stage{t}/fc1`` and
 ``box_predictor_stage{t}/cls_score``, and C4's res5 head
 (``roi_heads.res5.{b}.conv1``, ``roi_heads.res5.{b}.conv1.norm``) to
-``res5_block{b}/conv1`` and ``res5_block{b}/conv1_norm/bn``.
+``res5_block{b}/conv1`` and ``res5_block{b}/conv1_norm/bn``; a
+``DeformBottleneckBlock``'s deformable 3x3 (``res{s}.{b}.conv2.weight``) to
+the block's own ``res{s}_block{b}/conv2_kernel`` and its offset conv
+(``res{s}.{b}.conv2_offset``) to ``res{s}_block{b}/conv2_offset``; the torch
+key of the 3x3 is the same in a plain block, so ``canonical_key`` is told
+the deformable blocks (``deform``).
 ``torch_key`` is its inverse, and ``state_dict_from_jax`` checks every key
 it makes against it.
 
@@ -52,7 +57,7 @@ the other way):
 """
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Container, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -259,13 +264,25 @@ def _retinanet_to_flax(body):
     return None
 
 
-def canonical_key(key: str, norm: str = "bn", trunk: str = "trunk") -> Optional[str]:
+def canonical_key(key: str, norm: str = "bn", trunk: str = "trunk",
+                  deform: Container[str] = ()) -> Optional[str]:
     """Torch key of any ported backbone and its heads → flax variables
     path, or None when the key has no flax counterpart. ``norm`` is the
     flax name of the ResNet trunk's normalization: ``bn`` (BatchNorm and
     FrozenBatchNorm) or ``gn`` (GroupNorm). ``trunk`` is the flax module
     that holds a bare trunk under ``backbone``: ``trunk`` in CenterNet, ""
-    in R-CNN's C4 and DC5, whose backbone is the ResNet itself."""
+    in R-CNN's C4 and DC5, whose backbone is the ResNet itself. ``deform``
+    names the ``DeformBottleneckBlock``s (``res3_block0``, ...), whose
+    deformable 3x3 is the block's ``conv2_kernel``."""
+    path = _canonical_key(key, norm, trunk)
+    if path is not None and deform and path.endswith("/conv2/kernel"):
+        block = path.split("/")[-3]
+        if block in deform:
+            return path[: -len("/conv2/kernel")] + "/conv2_kernel"
+    return path
+
+
+def _canonical_key(key: str, norm: str, trunk: str) -> Optional[str]:
     parts = key.split(".")
     if parts and parts[0] == "module":
         parts = parts[1:]
@@ -303,6 +320,8 @@ def torch_key(path: str, towers: bool = True) -> str:
     ``towers``: whether the heads have a tower (``hm.2``) or are one conv
     (``hm``)."""
     parts = path.split("/")[1:]  # drop the collection
+    if parts[-1] == "conv2_kernel":  # a DeformBottleneckBlock's deformable 3x3
+        parts = parts[:-1] + ["conv2", "kernel"]
     body, leaf = parts[:-1], parts[-1]
     if parts == ["loss_normalizer"]:
         return "loss_normalizer"
@@ -391,11 +410,13 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     towers = any("_tower/" in p for p in flat)
     norm = "gn" if any("_norm/gn/" in p for p in flat) else "bn"
     trunk = "" if any(re.match(r"params/backbone/(stem|res\d_block\d+)/", p) for p in flat) else "trunk"
+    deform = {p.split("/")[-2] for p in flat if p.endswith("/conv2_kernel")}
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
         key = torch_key(path, towers)
-        if canonical_key(key, norm, trunk) != path:
-            raise ValueError(f"{path} maps to {key}, which maps back to {canonical_key(key, norm, trunk)}")
+        if canonical_key(key, norm, trunk, deform) != path:
+            raise ValueError(f"{path} maps to {key}, which maps back to "
+                             f"{canonical_key(key, norm, trunk, deform)}")
         if key in out:
             raise ValueError(f"two leaves map to {key}")
         arr = np.array(arr, np.float32)  # a writable copy

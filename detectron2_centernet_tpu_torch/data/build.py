@@ -1,7 +1,7 @@
 """The train and test loaders (counterpart of the JAX package's
-``data/build.py``: ``get_detection_dataset_dicts``, the threaded prefetch
-iterator, ``build_detection_train_loader`` and
-``build_detection_test_loader``).
+``data/build.py``: ``load_proposals_into_dataset``,
+``get_detection_dataset_dicts``, the threaded prefetch iterator,
+``build_detection_train_loader`` and ``build_detection_test_loader``).
 
 Every mapped sample has the same shapes, so a batch is ``np.stack``. The
 loader is a producer thread that maps the samples of each batch on a small
@@ -14,6 +14,7 @@ the iterator ends after it.
 import itertools
 import logging
 import os
+import pickle
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -22,31 +23,70 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 
 from ..config import CfgNode
+from ..structures import BoxMode
 from .catalog import DatasetCatalog
 from .dataset_mapper import DatasetMapper
 from .samplers import InferenceSampler, TrainingSampler
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["build_detection_test_loader", "build_detection_train_loader", "get_detection_dataset_dicts"]
+__all__ = ["build_detection_test_loader", "build_detection_train_loader", "get_detection_dataset_dicts",
+           "load_proposals_into_dataset"]
 
 
 def _has_annotations(d: dict) -> bool:
     return any(a.get("iscrowd", 0) == 0 for a in d.get("annotations", []))
 
 
-def get_detection_dataset_dicts(dataset_names, filter_empty: bool = True) -> List[dict]:
+def load_proposals_into_dataset(dataset_dicts: List[dict], proposal_file: str) -> List[dict]:
+    """Attach precomputed proposals to the dataset dicts (JAX
+    ``data/build.py:48-88``; reference ``build.py:102-155``).
+
+    The pickle holds ``ids`` (image ids), ``boxes`` (a list of (N, 4)
+    arrays), ``objectness_logits`` (a list of (N,) arrays) and optionally
+    ``bbox_mode`` (XYXY_ABS when absent); Detectron1 files name the first and
+    the third ``indexes`` and ``scores``. A record gains ``proposal_boxes``
+    (XYXY_ABS, f32), ``proposal_objectness_logits`` (f32) and
+    ``proposal_bbox_mode``; an image with no proposals in the file is left
+    untouched (the mapper gives it no valid slot)."""
+    logger.info("Loading proposals from: %s", proposal_file)
+    with open(proposal_file, "rb") as f:
+        proposals = pickle.load(f, encoding="latin1")
+    for old, new in {"indexes": "ids", "scores": "objectness_logits"}.items():
+        if old in proposals:
+            proposals[new] = proposals.pop(old)
+    img_ids = {str(record["image_id"]) for record in dataset_dicts}
+    id_to_index = {str(pid): i for i, pid in enumerate(proposals["ids"]) if str(pid) in img_ids}
+    bbox_mode = BoxMode(proposals["bbox_mode"]) if "bbox_mode" in proposals else BoxMode.XYXY_ABS
+    for record in dataset_dicts:
+        i = id_to_index.get(str(record["image_id"]))
+        if i is None:
+            continue
+        boxes = np.asarray(proposals["boxes"][i], np.float32).reshape(-1, 4)
+        record["proposal_boxes"] = BoxMode.convert(boxes, bbox_mode, BoxMode.XYXY_ABS).astype(np.float32)
+        record["proposal_objectness_logits"] = np.asarray(proposals["objectness_logits"][i], np.float32)
+        record["proposal_bbox_mode"] = BoxMode.XYXY_ABS
+    return dataset_dicts
+
+
+def get_detection_dataset_dicts(dataset_names, filter_empty: bool = True, proposal_files=None) -> List[dict]:
     """Load and concatenate registered datasets, dropping images without a
-    usable annotation when ``filter_empty``."""
+    usable annotation when ``filter_empty``. ``proposal_files`` (one per
+    dataset) attaches precomputed proposals to each dataset first (the
+    ``MODEL.LOAD_PROPOSALS`` workflow)."""
     if isinstance(dataset_names, str):
         dataset_names = [dataset_names]
     if not dataset_names:
         raise ValueError("no dataset named")
+    if proposal_files and len(proposal_files) != len(dataset_names):
+        raise ValueError(f"{len(proposal_files)} proposal files for {len(dataset_names)} datasets")
     dataset_dicts = []
-    for name in dataset_names:
+    for i, name in enumerate(dataset_names):
         dicts = DatasetCatalog.get(name)
         if not dicts:
             raise ValueError(f"Dataset '{name}' is empty!")
+        if proposal_files:
+            dicts = load_proposals_into_dataset(dicts, proposal_files[i])
         dataset_dicts.extend(dicts)
     if filter_empty and "annotations" in dataset_dicts[0]:
         before = len(dataset_dicts)
@@ -136,9 +176,12 @@ class PrefetchIterator:
 def build_detection_train_loader(cfg: CfgNode, mapper: Optional[Callable] = None) -> PrefetchIterator:
     """Infinite train loader of ``SOLVER.IMS_PER_BATCH`` images per batch over
     ``DATASETS.TRAIN``, shuffled by a ``TrainingSampler`` seeded from
-    ``cfg.SEED`` (2026 when it is not positive, as in JAX)."""
+    ``cfg.SEED`` (2026 when it is not positive, as in JAX), with the
+    proposals of ``DATASETS.PROPOSAL_FILES_TRAIN`` under
+    ``MODEL.LOAD_PROPOSALS``."""
     dataset_dicts = get_detection_dataset_dicts(
-        cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
+        cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
+        proposal_files=cfg.DATASETS.PROPOSAL_FILES_TRAIN if cfg.MODEL.LOAD_PROPOSALS else None)
     if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
         raise NotImplementedError(f"sampler {cfg.DATALOADER.SAMPLER_TRAIN} is not ported")
     seed = cfg.SEED if cfg.SEED > 0 else 2026
@@ -153,8 +196,14 @@ def build_detection_test_loader(cfg: CfgNode, dataset_name: str,
                                 mapper: Optional[Callable] = None) -> PrefetchIterator:
     """Finite eval loader over every image of ``dataset_name``, in order,
     ``TEST.BATCH_SIZE`` images per batch, the last batch as short as it
-    comes (reference ``build.py:358-403``); images without annotations stay."""
-    dataset_dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False)
+    comes (reference ``build.py:358-403``); images without annotations stay.
+    Under ``MODEL.LOAD_PROPOSALS`` the dataset's file of
+    ``DATASETS.PROPOSAL_FILES_TEST`` (its position in ``DATASETS.TEST``)
+    gives the proposals."""
+    proposal_files = None
+    if cfg.MODEL.LOAD_PROPOSALS:
+        proposal_files = [cfg.DATASETS.PROPOSAL_FILES_TEST[list(cfg.DATASETS.TEST).index(dataset_name)]]
+    dataset_dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False, proposal_files=proposal_files)
     return PrefetchIterator(
         dataset_dicts, InferenceSampler(len(dataset_dicts)),
         mapper or DatasetMapper(cfg, is_train=False), max(1, int(cfg.TEST.BATCH_SIZE)),

@@ -19,7 +19,12 @@ box (``gt_masks``, uint8, the JAX package's ``:253-271``); with
 ``MODEL.KEYPOINT_ON`` its keypoints go through it too, a point warped off
 the image turning invisible, the left and right ones swapped by the train
 dataset's ``keypoint_flip_map`` when the warp mirrors (``gt_keypoints``,
-``:273-293``).
+``:273-293``). With ``MODEL.LOAD_PROPOSALS``, in train and eval, the dict's
+precomputed proposals all go through the matrix, are clipped and filtered,
+and then the top ``DATASETS.PRECOMPUTED_PROPOSAL_TOPK_*`` by objectness fill
+fixed slots (``proposal_boxes``, ``proposal_objectness_logits``,
+``proposal_valid``; ``:208-238``), so a top-K box that the warp makes
+degenerate is backfilled by the next one.
 
 Eval: the ctdet letterbox to ``INPUT.TEST_SIZE``, by resize and paste
 (``fast_letterbox``) when ``INPUT.FAST_LETTERBOX`` is on, the image is uint8
@@ -31,8 +36,7 @@ uint8 image rounded to uint8 as cv2 rounds a uint8 warp, so a batch ships 1
 byte per pixel; a jittered image is float32 and stays so. Not ported: the
 ``sem_seg`` output and reading ``sem_seg_file_name`` (the crop's category
 constraint takes a ``sem_seg`` array from the dict; a file name raises,
-ROADMAP A15), and precomputed proposals (A14.6; the model raises for
-``MODEL.LOAD_PROPOSALS``).
+ROADMAP A15).
 """
 
 import copy
@@ -67,6 +71,9 @@ class DatasetMapper:
         self.mask_on = bool(cfg.MODEL.MASK_ON)
         self.mask_raster = int(cfg.INPUT.MASK_RASTER)
         self.keypoint_on = bool(cfg.MODEL.KEYPOINT_ON)
+        self.load_proposals = bool(cfg.MODEL.LOAD_PROPOSALS)
+        d = cfg.DATASETS
+        self.proposal_topk = int(d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train else d.PRECOMPUTED_PROPOSAL_TOPK_TEST)
         self.num_keypoints = int(cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS)
         self.kp_flip_indices = None  # the permutation a mirroring warp applies, from the train set's metadata
         if self.keypoint_on and len(cfg.DATASETS.TRAIN):
@@ -134,17 +141,16 @@ class DatasetMapper:
             image = utils.read_image(dataset_dict["file_name"], format=self.image_format)
         utils.check_image_size(dataset_dict, image)
         h, w = image.shape[:2]
+        out_size = self.train_size if self.is_train else self.test_size
         if not self.is_train and self.fast_letterbox and image.dtype == np.uint8:
             warped, m = utils.fast_letterbox(image, self.test_size)
         else:
             if self.is_train:
-                out_size = self.train_size
                 rng = rng if rng is not None else np.random.RandomState()
                 if self.photometric is not None:  # before the geometry, as the JAX mapper draws
                     image = self.photometric(image, rng)
                 m = self._train_geometry(dataset_dict, h, w, rng, out_size)
             else:
-                out_size = self.test_size
                 m = letterbox_transform(h, w, out_size)
             warped = utils.warp_image(image, m, out_size)
             if image.dtype == np.uint8:
@@ -157,6 +163,8 @@ class DatasetMapper:
             "width": np.int32(dataset_dict["width"]),
             "image_id": np.int64(dataset_dict.get("image_id", -1)),
         }
+        if self.load_proposals:
+            out.update(self._proposals(dataset_dict, m, out_size))
         if not self.is_train:
             return out
         annos = [a for a in dataset_dict.get("annotations", []) if a.get("iscrowd", 0) == 0]
@@ -174,6 +182,31 @@ class DatasetMapper:
         if self.keypoint_on:
             out["gt_keypoints"] = self._keypoints(kept, m, out_size)
         return out
+
+    def _proposals(self, dataset_dict: dict, m: np.ndarray, out_size) -> Dict[str, np.ndarray]:
+        """The top ``proposal_topk`` of the dict's warped, clipped,
+        non-degenerate proposals by objectness, in fixed slots: boxes (K, 4)
+        f32, logits (K,) f32 (-1e9 in an empty slot), valid (K,) bool."""
+        k = self.proposal_topk
+        boxes = np.zeros((k, 4), np.float32)
+        logits = np.full((k,), -1e9, np.float32)
+        valid = np.zeros((k,), bool)
+        raw = dataset_dict.get("proposal_boxes")
+        if raw is not None and len(raw):
+            raw = np.asarray(raw, np.float32).reshape(-1, 4)
+            lg = np.asarray(dataset_dict.get("proposal_objectness_logits", np.zeros(len(raw))), np.float32)
+            # warp, clip and filter all of them first, then take the top K: the
+            # reference's transform_proposals backfills a top-K box the warp degenerates
+            b = utils.apply_affine_to_boxes(m, raw)
+            np.clip(b[:, 0::2], 0, out_size[1] - 1, out=b[:, 0::2])
+            np.clip(b[:, 1::2], 0, out_size[0] - 1, out=b[:, 1::2])
+            ok = (b[:, 2] - b[:, 0] > 1e-5) & (b[:, 3] - b[:, 1] > 1e-5)
+            b, lg = b[ok], lg[ok]
+            order = np.argsort(-lg)[:k]
+            boxes[: len(order)] = b[order]
+            logits[: len(order)] = lg[order]
+            valid[: len(order)] = True
+        return {"proposal_boxes": boxes, "proposal_objectness_logits": logits, "proposal_valid": valid}
 
     def _masks(self, annos, boxes: np.ndarray, m: np.ndarray) -> np.ndarray:
         """(MAX_OBJS, R, R) uint8: each instance's warped polygons filled

@@ -119,9 +119,16 @@ class DefaultPredictor:
     """One image per call, with the config's test transform: BGR/RGB per
     ``INPUT.FORMAT``, the ctdet letterbox warped on the model's device, one
     forward, the decode, and ``{"instances": Instances}`` in the image's own
-    pixels. Batches go through ``CenterNet.predict_fn`` directly."""
+    pixels. Batches go through ``CenterNet.predict_fn`` directly. Under
+    ``MODEL.LOAD_PROPOSALS`` it raises, as the JAX package's predictor
+    cannot pass proposals either: evaluate Fast R-CNN through the test
+    loader (``DefaultTrainer.test``), whose mapper reads the proposal file."""
 
     def __init__(self, cfg: CfgNode) -> None:
+        if cfg.MODEL.LOAD_PROPOSALS:
+            raise ValueError("DefaultPredictor takes one image and no proposals: MODEL.LOAD_PROPOSALS (Fast R-CNN) "
+                             "needs DATASETS.PROPOSAL_FILES_TEST through the test loader (DefaultTrainer.test, "
+                             "inference_on_dataset)")
         self.cfg = cfg.clone()
         self.model = build_model(self.cfg)
         self.input_format = cfg.INPUT.FORMAT

@@ -118,7 +118,8 @@ class SimpleTrainer(TrainerBase):
     """
 
     BATCH_KEYS = ("gt_boxes", "gt_classes", "gt_valid")
-    OPTIONAL_KEYS = ("gt_masks", "gt_keypoints")  # the mapper's, with MODEL.MASK_ON / KEYPOINT_ON
+    # the mapper's, with MODEL.MASK_ON / KEYPOINT_ON / LOAD_PROPOSALS
+    OPTIONAL_KEYS = ("gt_masks", "gt_keypoints", "proposal_boxes", "proposal_valid")
 
     def __init__(self, model, data_loader, optimizer, scheduler, metrics_period: int = 20) -> None:
         super().__init__()
@@ -139,7 +140,8 @@ class SimpleTrainer(TrainerBase):
 
     def to_device(self, data: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The host batch as the loss takes it: image (N, 3, H, W) f32, the
-        gt arrays as they are (masks and keypoints when the mapper made them)."""
+        gt arrays as they are (masks, keypoints and precomputed proposals
+        when the mapper made them)."""
         dev = self.model.device
         keys = self.BATCH_KEYS + tuple(k for k in self.OPTIONAL_KEYS if k in data)
         batch = {k: torch.from_numpy(data[k]).to(dev, non_blocking=True) for k in keys}

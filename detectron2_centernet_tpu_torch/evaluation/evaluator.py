@@ -36,6 +36,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["DatasetEvaluator", "DatasetEvaluators", "inference_on_dataset", "LAST_INFERENCE_STATS"]
 
+# a batch's precomputed proposals, which go to the device with the images (JAX evaluator.py:79)
+PROPOSAL_KEYS = ("proposal_boxes", "proposal_valid")
 # timing of the most recent inference_on_dataset call (benchmark harnesses)
 LAST_INFERENCE_STATS: dict = {}
 NUM_WARMUP = 5  # batches before the timers restart, as in the JAX loop
@@ -141,7 +143,9 @@ def inference_on_dataset(
     """Run ``predict_fn`` over every batch, feed the evaluator, report timing.
 
     predict_fn(images (N, 3, H, W) uint8 on ``device``) -> dict of
-    fixed-size detections on ``device``;
+    fixed-size detections on ``device``; a batch with precomputed proposals
+    (``MODEL.LOAD_PROPOSALS``) also hands it ``proposal_boxes`` and
+    ``proposal_valid`` on ``device`` (JAX ``evaluator.py:219-222``);
     postprocess(dets (numpy), warps, orig_sizes) -> list[{"instances": ...}]
     (the meta-architecture's host boundary). The evaluator's ``process``
     sees (inputs list[dict], outputs list[dict]) as in the reference.
@@ -163,12 +167,13 @@ def inference_on_dataset(
         """Enqueue one batch: the images to the device, the forward, the
         detections into pinned host buffers; returns what finish() needs."""
         images = images.to(device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
+        proposals = [torch.from_numpy(batch[k]).to(device) for k in PROPOSAL_KEYS if k in batch]
         if not on_card:
-            return batch, {k: v.numpy() for k, v in predict_fn(images).items()}, None
+            return batch, {k: v.numpy() for k, v in predict_fn(images, *proposals).items()}, None
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        dets = predict_fn(images)
+        dets = predict_fn(images, *proposals)
         end.record()
         forward_events.append((start, end))
         host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in dets.items()}

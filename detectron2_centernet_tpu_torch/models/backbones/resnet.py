@@ -1,7 +1,8 @@
 """ResNet trunks (NCHW), counterpart of the JAX package's
-``models/backbones/resnet.py``: ``BasicStem``, ``BasicBlock`` and
-``BottleneckBlock`` (``stride_in_1x1``, groups, dilation), stages for depths
-18/34/50/101/152, ``OUT_FEATURES`` and ``FREEZE_AT``.
+``models/backbones/resnet.py``: ``BasicStem``, ``BasicBlock``,
+``BottleneckBlock`` (``stride_in_1x1``, groups, dilation) and
+``DeformBottleneckBlock`` (``DEFORM_ON_PER_STAGE``, ``DEFORM_MODULATED``),
+stages for depths 18/34/50/101/152, ``OUT_FEATURES`` and ``FREEZE_AT``.
 
 Module names are the reference detectron2 ResNet's (``stem.conv1``,
 ``res2.0.conv1``, ``res2.0.conv1.norm``, ``res3.0.shortcut``, ...): a conv
@@ -18,8 +19,8 @@ C12; the reference sets ``requires_grad=False`` instead).
 CenterNet reads ``res4`` through its deconv neck (``meta_arch/centernet.py``):
 ``build_resnet_backbone`` and ``build_resnet_deconv_backbone`` both give
 the trunk, the JAX package's ``DeconvNeck`` and ``ResNetDeconv`` compute the
-same network. Not ported here: ``DeformBottleneckBlock`` (ROADMAP A14.5)
-and the DeepLab stem and dilated res4 (A15); they raise.
+same network. Not ported here: the DeepLab stem and dilated res4 (ROADMAP
+A15); they raise.
 """
 
 from typing import Dict, Optional, Sequence
@@ -29,11 +30,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...config import CfgNode
-from ..layers import get_norm
+from ..layers import DeformConvNorm, ZeroInitConv2d, get_norm, ieee_f32
 from ..registry import BACKBONE_REGISTRY
 
-__all__ = ["RESNET_SPECS", "BasicBlock", "BasicStem", "BottleneckBlock", "ConvNorm", "ResNet",
-           "build_resnet", "build_resnet_backbone", "build_resnet_deconv_backbone"]
+__all__ = ["RESNET_SPECS", "BasicBlock", "BasicStem", "BottleneckBlock", "ConvNorm", "DeformBottleneckBlock",
+           "ResNet", "build_resnet", "build_resnet_backbone", "build_resnet_deconv_backbone"]
 
 # depth -> (block type, blocks per stage res2..res5)
 RESNET_SPECS = {
@@ -106,10 +107,52 @@ class BottleneckBlock(nn.Module):
         return F.relu_(out + sc)
 
 
+class DeformBottleneckBlock(nn.Module):
+    """The bottleneck with a deformable 3x3 (JAX ``DeformBottleneckBlock``,
+    resnet.py:179-232; reference resnet.py:214). ``conv2_offset`` (3x3, bias,
+    zero init, 27 channels modulated or 18 not) predicts at the 3x3's stride
+    with padding 1, in f32 on the f32 input with IEEE f32 convolutions; the
+    DCN (``conv2``) runs at that stride and ``dilation`` (padding =
+    dilation). Two points follow JAX, not the reference (ROADMAP C21): the
+    offset conv takes no dilation (the reference's ``padding=dilation,
+    dilation=dilation``), and the DCN is dense whatever ``NUM_GROUPS``, with
+    one deformable group (the reference groups both and reads
+    ``DEFORM_NUM_GROUPS``)."""
+
+    def __init__(self, cin: int, cout: int, bottleneck: int, stride: int = 1, stride_in_1x1: bool = True,
+                 dilation: int = 1, norm: str = "FrozenBN", deform_modulated: bool = False):
+        super().__init__()
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.deform_modulated = deform_modulated
+        self.conv1 = ConvNorm(cin, bottleneck, 1, s1, norm=norm)
+        self.conv2_offset = ZeroInitConv2d(bottleneck, 27 if deform_modulated else 18, 3, s3, 1)
+        self.conv2 = DeformConvNorm(bottleneck, s3, dilation, norm)
+        self.conv3 = ConvNorm(bottleneck, cout, 1, norm=norm)
+        self.shortcut = ConvNorm(cin, cout, 1, stride, norm=norm) if cin != cout or stride != 1 else None
+
+    def offset_mask(self, x: torch.Tensor):
+        """(offset (N, 18, Ho, Wo) f32, sigmoided mask (N, 9, Ho, Wo) f32 or
+        None) from the f32 offset conv."""
+        with torch.autocast(x.device.type, enabled=False), ieee_f32():
+            om = self.conv2_offset(x.float())
+        if not self.deform_modulated:
+            return om.contiguous(), None
+        return om[:, :18].contiguous(), torch.sigmoid(om[:, 18:]).contiguous()
+
+    def forward(self, x):
+        out = F.relu_(self.conv1(x))
+        out = F.relu_(self.conv2(out, *self.offset_mask(out)))
+        out = self.conv3(out)
+        sc = self.shortcut(x) if self.shortcut is not None else x
+        return F.relu_(out + sc)
+
+
 class ResNet(nn.Module):
     """The trunk: ``stem``, then ``res2`` ... up to the deepest stage of
     ``out_features`` (JAX ``ResNet``). ``forward`` returns
-    ``{name: map}`` for ``out_features`` ⊆ {stem, res2, ..., res5}.
+    ``{name: map}`` for ``out_features`` ⊆ {stem, res2, ..., res5}. A stage
+    of a bottleneck depth whose ``deform_on_per_stage`` entry is set is made
+    of ``DeformBottleneckBlock``s (basic depths ignore it, as in JAX).
 
     ``out_feature_strides`` are the strides the blocks take: a dilated
     stage's first block does not stride, so DC5's res5 stays at 16, as in
@@ -119,7 +162,8 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 50, out_features: Sequence[str] = ("res4",), num_groups: int = 1,
                  width_per_group: int = 64, stem_out_channels: int = 64, res2_out_channels: int = 256,
                  stride_in_1x1: bool = True, res5_dilation: int = 1, norm: str = "FrozenBN",
-                 freeze_at: int = 0):
+                 freeze_at: int = 0, deform_on_per_stage: Sequence[bool] = (False,) * 4,
+                 deform_modulated: bool = False):
         super().__init__()
         block_type, stage_blocks = RESNET_SPECS[depth]
         self.out_features = tuple(out_features)
@@ -142,6 +186,9 @@ class ResNet(nn.Module):
                 stride = first_stride if b == 0 else 1
                 if block_type == "basic":  # the JAX BasicBlock takes no dilation
                     layers.append(BasicBlock(cin, cout, stride, norm))
+                elif deform_on_per_stage[idx]:
+                    layers.append(DeformBottleneckBlock(cin, cout, bottleneck, stride, stride_in_1x1, dilation,
+                                                        norm, deform_modulated))
                 else:
                     layers.append(BottleneckBlock(cin, cout, bottleneck, stride, stride_in_1x1,
                                                   dilation, num_groups, norm))
@@ -178,10 +225,6 @@ class ResNet(nn.Module):
 def build_resnet(cfg: CfgNode, out_features: Optional[Sequence[str]] = None) -> ResNet:
     """The trunk of ``cfg.MODEL.RESNETS`` and ``MODEL.BACKBONE.FREEZE_AT``."""
     r = cfg.MODEL.RESNETS
-    if any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError(
-            "MODEL.RESNETS.DEFORM_ON_PER_STAGE: DeformBottleneckBlock (a stride-2, dilated DCN) "
-            "is not ported yet (ROADMAP A14.5)")
     if r.STEM_TYPE != "basic" or r.RES4_DILATION != 1 or tuple(r.RES5_MULTI_GRID) != (1, 1, 1):
         raise NotImplementedError(
             "the DeepLab trunk (STEM_TYPE deeplab, RES4_DILATION, RES5_MULTI_GRID) is not ported yet "
@@ -191,6 +234,8 @@ def build_resnet(cfg: CfgNode, out_features: Optional[Sequence[str]] = None) -> 
         width_per_group=r.WIDTH_PER_GROUP, stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS, stride_in_1x1=r.STRIDE_IN_1X1,
         res5_dilation=r.RES5_DILATION, norm=r.NORM, freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+        deform_on_per_stage=tuple(bool(d) for d in r.DEFORM_ON_PER_STAGE),
+        deform_modulated=bool(r.DEFORM_MODULATED),
     )
 
 

@@ -16,6 +16,7 @@ statistics stay f32 whatever the model's compute width, as flax keeps them
 import functools
 import inspect
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -92,6 +93,11 @@ class ConvBnAct(nn.Sequential):
         super().__init__(*mods)
 
 
+class ZeroInitConv2d(nn.Conv2d):
+    """A conv whose kernel and bias ``init_weights`` sets to 0, as the JAX
+    package initializes the offset predictors (offsets start at 0)."""
+
+
 class DCNv2(nn.Module):
     """The modulated deformable 3x3 conv's parameters: the DCN ``weight`` and
     ``bias`` and the 27-channel ``conv_offset_mask`` that predicts, per pixel,
@@ -101,7 +107,7 @@ class DCNv2(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
-        self.conv_offset_mask = nn.Conv2d(cin, 27, 3, padding=1)
+        self.conv_offset_mask = ZeroInitConv2d(cin, 27, 3, padding=1)
 
     def offset_mask(self, x):
         """(offset (N, 18, H, W) f32, sigmoided mask (N, 9, H, W) f32). The
@@ -109,6 +115,27 @@ class DCNv2(nn.Module):
         where bf16 would cost whole pixels at x ~ 128."""
         om = self.conv_offset_mask(x).float()
         return om[:, :18].contiguous(), torch.sigmoid(om[:, 18:]).contiguous()
+
+
+class DeformConvNorm(nn.Module):
+    """The deformable 3x3 (``weight``, no bias) and its normalization
+    ``.norm``: the reference's ``conv2`` of a ``DeformBottleneckBlock``."""
+
+    def __init__(self, channels: int, stride: int, dilation: int, norm: str):
+        super().__init__()
+        self.stride, self.dilation = stride, dilation
+        self.weight = nn.Parameter(torch.empty(channels, channels, 3, 3))
+        self.norm = get_norm(norm, channels)
+
+    def forward(self, x: torch.Tensor, offset: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """x at the model's width; the DCN (K1, and K2 and K5 in the
+        backward) at x's width with its f32 weight cast to it, as JAX casts
+        its kernel; then the normalization, never folded into the kernel's
+        epilogue (a FrozenBN's scale and bias are trainable)."""
+        x = x.contiguous()  # autocast's CPU convolutions may return channels-last
+        out = modulated_deform_conv_ad(x, offset, mask, self.weight.to(x.dtype), stride=self.stride,
+                                       dilation=self.dilation)
+        return self.norm(out) if self.norm is not None else out
 
 
 class DeformConvV2(nn.Module):
@@ -236,9 +263,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers, drawn from ``generator``: conv,
     transposed-conv and linear kernels lecun-normal (flax's: a normal truncated at ±2σ,
     σ = 1/√fan_in / 0.8796 so the variance is 1/fan_in) with zero bias; DCN kernels uniform within
-    ±1/√fan_in with zero bias; ``conv_offset_mask`` zero (offsets start at 0,
-    masks at 0.5); BatchNorm, FrozenBatchNorm and GroupNorm γ=1, β=0 (mean
-    0, var 1); upsamplers bilinear."""
+    ±1/√fan_in with zero bias; the offset convs (``ZeroInitConv2d``: the
+    DCNs' ``conv_offset_mask``, the deformable blocks' ``conv2_offset``)
+    zero (offsets start at 0, masks at 0.5), after the generic pass has
+    drawn for them, so no other draw depends on which convs start at 0;
+    BatchNorm, FrozenBatchNorm and GroupNorm γ=1, β=0 (mean 0, var 1);
+    upsamplers bilinear."""
     for m in model.modules():
         if isinstance(m, BilinearUpsample):
             m.reset_parameters()
@@ -251,10 +281,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm, FrozenBatchNorm)):
             m.reset_parameters()
-    for m in model.modules():  # after the generic pass, which reached its convs
-        if isinstance(m, DCNv2):
+    for m in model.modules():  # after the generic pass, which reached their convs
+        if isinstance(m, ZeroInitConv2d):
+            m.weight.zero_()
+            m.bias.zero_()
+        if isinstance(m, (DeformConvNorm, DCNv2)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
+        if isinstance(m, DCNv2):
             m.bias.zero_()
-            m.conv_offset_mask.weight.zero_()
-            m.conv_offset_mask.bias.zero_()

@@ -61,10 +61,19 @@ tests hand in JAX's own), else from ``batch["generator"]`` (the step's
 step), in that order: rpn, roi_sub, roi_tie. A batch with neither
 raises.
 
+Fast R-CNN (``MODEL.LOAD_PROPOSALS``, or ``PROPOSAL_GENERATOR.NAME``
+``PrecomputedProposals``; JAX ``:534-541``, ``:752-770``): the proposals come
+with the batch (``proposal_boxes`` (N, K, 4) in input pixels and
+``proposal_valid`` (N, K), the mapper's top K of a proposal file), with no
+RPN loss; ``predict_fn`` takes them as arguments and raises without them.
+The RPN head stays in the model and the optimizer, as in the JAX package,
+where it runs and gets a zero gradient: here its forward is skipped, and
+``SimpleTrainer`` starts every gradient at 0, so weight decay and momentum
+move it as under optax.
+
 Not ported (each raises naming its ROADMAP item): PointRend (its mask heads
-included), DensePose and other ROI-head extensions, precomputed proposals,
-rotated proposals, ``DeformBottleneckBlock``, and any other
-``ROI_HEADS.NAME`` (the JAX package builds Res5ROIHeads for a name it does
+included), DensePose and other ROI-head extensions, rotated proposals, and
+any other ``ROI_HEADS.NAME`` (the JAX package builds Res5ROIHeads for a name it does
 not know; the port raises).
 """
 
@@ -186,11 +195,14 @@ class RCNNModel(nn.Module):
     def _autocast(self, device: torch.device):
         return torch.autocast(device.type, dtype=self.dtype, enabled=self.dtype != torch.float32)
 
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor, rpn: bool = True):
         """Normalized (N, 3, H, W) → (the backbone's {name: map}, per RPN
-        level the f32 (N, A, H, W) logits and (N, A·4, H, W) deltas)."""
+        level the f32 (N, A, H, W) logits and (N, A·4, H, W) deltas; None
+        and None without ``rpn``)."""
         with ieee_f32(), self._autocast(images.device):
             feats = self.backbone(images.to(self.dtype))
+            if not rpn:
+                return feats, None, None
             logits, deltas = self.proposal_generator.rpn_head([feats[f] for f in self.rpn_in_features])
         return feats, logits, deltas
 
@@ -233,13 +245,9 @@ def _check_supported(cfg: CfgNode, with_roi_heads: bool) -> None:
     if m.MASK_ON and (m.ROI_MASK_HEAD.NAME != "MaskRCNNConvUpsampleHead" or m.ROI_MASK_HEAD.POINT_HEAD_ON):
         queued.append(f"ROI_MASK_HEAD.NAME {m.ROI_MASK_HEAD.NAME} / POINT_HEAD_ON: PointRend's mask heads "
                       "(ROADMAP A15)")
-    if m.LOAD_PROPOSALS or m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals":
-        queued.append("MODEL.LOAD_PROPOSALS / PrecomputedProposals: precomputed proposals (ROADMAP A14.6)")
-    elif m.PROPOSAL_GENERATOR.NAME != "RPN" or m.RPN.HEAD_NAME != "StandardRPNHead":
+    if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "PrecomputedProposals") or m.RPN.HEAD_NAME != "StandardRPNHead":
         queued.append(f"PROPOSAL_GENERATOR {m.PROPOSAL_GENERATOR.NAME} / RPN.HEAD_NAME {m.RPN.HEAD_NAME}: "
                       "rotated proposals (ROADMAP A16)")
-    if any(m.RESNETS.DEFORM_ON_PER_STAGE):
-        queued.append("MODEL.RESNETS.DEFORM_ON_PER_STAGE: DeformBottleneckBlock (ROADMAP A14.5)")
     if with_roi_heads:
         name = m.ROI_HEADS.NAME
         if name in QUEUED_ROI_HEADS:
@@ -304,6 +312,9 @@ class GeneralizedRCNN:
         self.nms_threshold = float(rh.NMS_THRESH_TEST)
         self.max_detections = int(cfg.TEST.DETECTIONS_PER_IMAGE)
         self.proposal_append_gt = bool(rh.PROPOSAL_APPEND_GT)
+        # Fast R-CNN: the proposals come with the batch (JAX :350-356)
+        self.precomputed_proposals = self.with_roi_heads and (
+            cfg.MODEL.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals" or bool(cfg.MODEL.LOAD_PROPOSALS))
         self.box2box = Box2BoxTransform(tuple(bh.BBOX_REG_WEIGHTS))
         ch = cfg.MODEL.ROI_BOX_CASCADE_HEAD
         self.cascade_ious = [float(t) for t in ch.IOUS]
@@ -438,16 +449,23 @@ class GeneralizedRCNN:
         batch on the device: ``image`` (N, 3, H, W) 0..255, ``gt_boxes`` (N,
         M, 4) XYXY in input pixels, ``gt_classes`` (N, M), ``gt_valid`` (N,
         M), ``gt_masks`` (N, M, R, R) gt-box-relative rasters, ``gt_keypoints``
-        (N, M, K, 3), and the draws' source (module docstring)."""
+        (N, M, K, 3), the draws' source (module docstring), and for Fast
+        R-CNN ``proposal_boxes`` (N, K, 4) and ``proposal_valid`` (N, K)."""
         images = self.normalize(batch["image"])
         n, _, h, w = images.shape
-        feats, logits, deltas = self.model(images)
         generator = self._generator(batch)
-        losses = {k: v * self.rpn_loss_weight
-                  for k, v in self._rpn_losses(batch, generator, logits, deltas, (h, w)).items()}
-        with torch.no_grad():
-            prop_boxes, _, prop_valid = self.proposals([t.detach() for t in logits], [t.detach() for t in deltas],
-                                                       (h, w), "train")
+        if self.precomputed_proposals:  # no RPN loss (JAX :534-541)
+            feats, _, _ = self.model(images, rpn=False)
+            losses = {}
+            prop_boxes = batch["proposal_boxes"].to(self.device, torch.float32)
+            prop_valid = batch["proposal_valid"].to(self.device, torch.bool)
+        else:
+            feats, logits, deltas = self.model(images)
+            losses = {k: v * self.rpn_loss_weight
+                      for k, v in self._rpn_losses(batch, generator, logits, deltas, (h, w)).items()}
+            with torch.no_grad():
+                prop_boxes, _, prop_valid = self.proposals([t.detach() for t in logits],
+                                                           [t.detach() for t in deltas], (h, w), "train")
         gt_boxes = batch["gt_boxes"].to(self.device, torch.float32)
         gt_valid = batch["gt_valid"].to(self.device)
         slots = max(prop_boxes.shape[1] + (gt_boxes.shape[1] if self.proposal_append_gt else 0),
@@ -529,16 +547,27 @@ class GeneralizedRCNN:
 
     # -- inference -----------------------------------------------------------------
     @torch.inference_mode()
-    def predict_fn(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def predict_fn(self, images: torch.Tensor, proposal_boxes: Optional[torch.Tensor] = None,
+                   proposal_valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Raw (N, 3, H, W) 0..255 images → fixed-size detections on the
         device: boxes (N, K, 4), scores (N, K) (0 in an invalid slot),
         classes (N, K); with the mask head ``masks`` (N, K, 2P, 2P), the
         sigmoid of the logits at each detection's class; with the keypoint
-        head ``keypoint_heatmaps`` (N, K, keypoints, 4P, 4P) logits."""
+        head ``keypoint_heatmaps`` (N, K, keypoints, 4P, 4P) logits. Fast
+        R-CNN takes its proposals, ``proposal_boxes`` (N, P, 4) in input
+        pixels and ``proposal_valid`` (N, P), and raises without them."""
         x = self.normalize(images)
         n, _, h, w = x.shape
-        feats, logits, deltas = self.model(x)
-        boxes, _, valid = self.proposals(logits, deltas, (h, w), "test")
+        if self.precomputed_proposals:  # JAX :752-770
+            if proposal_boxes is None or proposal_valid is None:
+                raise ValueError("MODEL.LOAD_PROPOSALS inference needs proposal_boxes and proposal_valid from the "
+                                 "batch (the test mapper's, from DATASETS.PROPOSAL_FILES_TEST)")
+            feats, _, _ = self.model(x, rpn=False)
+            boxes = proposal_boxes.to(self.device, torch.float32)
+            valid = proposal_valid.to(self.device, torch.bool)
+        else:
+            feats, logits, deltas = self.model(x)
+            boxes, _, valid = self.proposals(logits, deltas, (h, w), "test")
         p = boxes.shape[1]
         if self.roi_type == "cascade":
             boxes, scores, box_deltas = self._cascade_inference(feats, boxes, (h, w))

@@ -1,5 +1,5 @@
-// Modulated deformable 3x3 convolution (DCNv2) backward for Hopper (sm_90a):
-// two kernel bodies and a reduction behind four entry points.
+// Deformable 3x3 convolution (DCNv2; DCNv1 without a mask) backward for
+// Hopper (sm_90a): two kernel bodies and a reduction behind four entry points.
 //
 // Replaces the TPU kernels of detectron2_centernet_tpu/ops/pallas_dcn.py:
 //   dcn_bwd_dx   <- _bwd_dx_kernel   (dX: col2im of W^T g)
@@ -11,10 +11,16 @@
 // |dy| > 3), and the corners are the floor corners of the reference im2col,
 // so d offset is the right derivative at integer sample positions.
 //
-// Layout: x (N, Cin, H, W), offset (N, 18, H, W) f32 with offset[2t] = dy and
-// offset[2t+1] = dx for tap t in row-major (ky, kx) order, mask (N, 9, H, W)
-// f32 (already sigmoided), weight (Cout, Cin, 3, 3), g = dL/dout
-// (N, Cout, H, W). x, weight and g share one type T: float or __nv_bfloat16.
+// Layout: x (N, Cin, H, W); offset (N, 18, Ho, Wo) f32 with offset[2t] = dy
+// and offset[2t+1] = dx for tap t in row-major (ky, kx) order, mask
+// (N, 9, Ho, Wo) f32 (already sigmoided), weight (Cout, Cin, 3, 3), g = dL/dout
+// (N, Cout, Ho, Wo), Ho = (H - 1) / s + 1 at stride s and dilation d in
+// {1, 2} (padding d): output pixel (i, j), tap (ky, kx) samples x at
+// (i*s - d + ky*d + dy, j*s - d + kx*d + dx), as the JAX package's exact op
+// computes the ResNet trunks' deformable 3x3. A null mask is a mask of ones
+// (DCNv1): never read, and no d mask is written. dX is x's size; d offset and
+// d mask are at output pixels. x, weight and g share one type T: float or
+// __nv_bfloat16.
 // Rows of the column matrix are k = c * 9 + tap, the order of a flattened
 // OIHW weight. Both bodies take channels in chunks of CK = 16 (BK = 144 rows).
 //
@@ -38,13 +44,15 @@
 // phase cut out.
 //
 // dcn_bwd_wq_kernel (K3, K4, K5). A block owns one channel chunk, one Cout
-// tile of BM = 64 and a span of consecutive 64-pixel tiles (a tile never
-// crosses an image). The grid is chunks x Cout tiles x splits; the wrapper
+// tile of BM = 64 and a span of consecutive 64-pixel tiles of the output
+// (a tile never crosses an image). The grid is chunks x Cout tiles x splits; the wrapper
 // picks the span (ops/dcn.py::bwd_plan) so that the grid is about two waves
 // of the card at every shape. Per tile: the g tile comes in with cp.async
 // while the block builds the sampling table of its 9 x 64 samples and, where
 // at least 3/4 of them fall in it, the x window (the chunk's channels over
-// the tile's rows and columns widened by 3 pixels, read once and coalesced);
+// the input rows and columns the tile's rigid samples reach, widened by 2
+// pixels, read once and coalesced; at stride 2 it is too large for the shapes
+// of the R-CNN trunks, whose samples all read x directly);
 //   (dq) dcol[144][64] = W_tile^T g_tile on the tensor cores (the W tile is
 //        loaded once per block), then one gather of the four corners of every
 //        (channel, tap, pixel) sample, from the window or, 32 loads in flight
@@ -66,11 +74,14 @@
 // chunks x images (at 16^2, batch 1, Cin 512: 4 x 32 blocks). dcol[144][64]
 // = W_chunk^T g_tile runs over Cout in slices of 32, both operands
 // double-buffered with cp.async. The scatter adds dcol * mask * corner weight
-// into a shared-memory tile of the chunk's 16 channels with a halo of R = 8
-// pixels (24 x 24), in int32 fixed point with a power-of-two scale per
+// into a 24 x 24 shared-memory tile of the chunk's 16 channels over the
+// input footprint of the output tile (at stride 1 the tile's pixels with a
+// halo of R = 8; at stride 2 its 15 x 15 rigid footprint with a halo of
+// R / 2 = 4, so an output tile's samples land around its own input tile at
+// either stride), in int32 fixed point with a power-of-two scale per
 // channel (native shared atomics; see the scatter); a sample whose corners
 // leave the haloed tile goes to a global f32 atomic directly, so any offset
-// is exact. Corners of weight exactly 0 (three of four at the zero offsets
+// and dilation is exact. Corners of weight exactly 0 (three of four at the zero offsets
 // every DCN starts training with) issue nothing. The block then adds the
 // nonzero cells of its haloed tile that lie on the map into dX, four at a
 // time with one vector atomic.
@@ -104,7 +115,7 @@ constexpr int THREADS = 128;  // four warps
 constexpr int PAIRS = 9 * BN;                            // (tap, pixel) samples of a tile
 constexpr int PAIRS_PER_THREAD = (PAIRS + THREADS - 1) / THREADS;
 constexpr int TH = 8, TW = 8;                            // K2's 2-D pixel tile
-constexpr int R = 8;                                     // K2's halo
+constexpr int R = 8;                                     // K2's halo at stride 1 (R / 2 at stride 2)
 constexpr int HH = TH + 2 * R, HWD = TW + 2 * R;         // haloed tile
 static_assert(TH * TW == BN, "K2's tile has BN pixels");
 // Padded row strides of the shared tiles (elements): rows 16 bytes apart
@@ -114,7 +125,7 @@ constexpr int LDP = BN + 8;   // T tiles with BN pixel columns: g, col
 constexpr int LDW = BK + 8;   // T tiles with BK columns: W
 constexpr int LDF = BN + 4;   // f32 dcol [BK][LDF]
 constexpr int LDS = BK + 4;   // f32 dW stage [BM][LDS]
-constexpr int XR = 3;         // K3-K5's x window: the tile's rows and columns +- XR
+constexpr int XR = 3;         // K3-K5's x window: the rigid reach (+- dilation) + XR - 1
 constexpr int XCAP = 512;     // cells of the x window per channel (7 x 70 at W >= 64)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -149,18 +160,20 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// One sample of the table: (ly, lx, mask, code) with code = (y0 + 1) << 16 |
-// (x0 + 1) for the floor corner (y0, x0), or -1 where every corner is padding
-// and the sample has no gradient. Outside [-1, H) x [-1, W) that is so; at
-// py = -1 exactly the corner y0 + 1 = 0 carries d offset (the right
-// derivative), so -1 stays in. The test also keeps huge offsets away from the
-// float -> int conversion.
-__device__ __forceinline__ float4 sample_entry(const float* off_n, const float* msk_n, int hw,
-                                               int h, int w, int tap, int oy, int ox) {
-  const int p = oy * w + ox;
-  const float py = (float)(oy - 1 + tap / 3) + off_n[(size_t)(2 * tap) * hw + p];
-  const float px = (float)(ox - 1 + tap % 3) + off_n[(size_t)(2 * tap + 1) * hw + p];
-  float4 f = make_float4(0.f, 0.f, msk_n[(size_t)tap * hw + p], __int_as_float(-1));
+// One sample of the table at output pixel (oy, ox) of the Wo-wide, hwo-pixel
+// output grid: (ly, lx, mask, code) with code = (y0 + 1) << 16 | (x0 + 1) for
+// the floor corner (y0, x0) in x, or -1 where every corner is padding and the
+// sample has no gradient. Outside [-1, H) x [-1, W) that is so; at py = -1
+// exactly the corner y0 + 1 = 0 carries d offset (the right derivative), so
+// -1 stays in. The test also keeps huge offsets away from the float -> int
+// conversion. A null mask reads as 1.
+__device__ __forceinline__ float4 sample_entry(const float* off_n, const float* msk_n, int hwo,
+                                               int wo, int h, int w, int stride, int dilation,
+                                               int tap, int oy, int ox) {
+  const int p = oy * wo + ox;
+  const float py = (float)(oy * stride - dilation + tap / 3 * dilation) + off_n[(size_t)(2 * tap) * hwo + p];
+  const float px = (float)(ox * stride - dilation + tap % 3 * dilation) + off_n[(size_t)(2 * tap + 1) * hwo + p];
+  float4 f = make_float4(0.f, 0.f, msk_n != nullptr ? msk_n[(size_t)tap * hwo + p] : 1.f, __int_as_float(-1));
   if (py >= -1.f && py < (float)h && px >= -1.f && px < (float)w) {
     const float fy = floorf(py);
     const float fx = floorf(px);
@@ -194,7 +207,8 @@ dcn_bwd_wq_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                   const float* __restrict__ mask, const T* __restrict__ weight,
                   const T* __restrict__ g, float* __restrict__ doffset,
                   float* __restrict__ dmask, float* __restrict__ partial, int cin, int h, int w,
-                  int cout, int tiles_per_image, int ntiles, int span) {
+                  int ho, int wo, int stride, int dilation, int cout, int tiles_per_image,
+                  int ntiles, int span) {
   using S = WqSmem<T, DQ, DW>;
   extern __shared__ __align__(128) unsigned char smem[];
   float4* tab = reinterpret_cast<float4*>(smem + S::tab);
@@ -207,7 +221,8 @@ dcn_bwd_wq_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 
   constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
   constexpr int VEC = 16 / sizeof(T);
-  const int hw = h * w;
+  const int hw = h * w;     // x's plane
+  const int hwo = ho * wo;  // the output grid's: g, offset, mask
   const int kdim = cin * 9;
   const int c0 = blockIdx.x * CK;
   const int lane = threadIdx.x % 32;
@@ -216,24 +231,24 @@ dcn_bwd_wq_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   const int t_end = min(t_begin + span, ntiles);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const bool g_vec = hw % VEC == 0 && aligned16(g);
+  const bool g_vec = hwo % VEC == 0 && aligned16(g);
 
   // g[m0 .. m0+BM][tile t's 64 pixels] -> dst, zero outside Cout and the map
   auto load_g = [&](T* dst, int t) {
     const int img = t / tiles_per_image;
     const int p0 = (t - img * tiles_per_image) * BN;
-    const T* g_n = g + (size_t)img * cout * hw;
+    const T* g_n = g + (size_t)img * cout * hwo;
     for (int e = tid; e < BM * BN / VEC; e += THREADS) {
       const int r = e / (BN / VEC);
       const int pv = (e - r * (BN / VEC)) * VEC;
       const int co = m0 + r;
       const int p = p0 + pv;
       T* d = dst + r * LDP + pv;
-      if (g_vec && co < cout && p < hw) {
-        cp_async16(d, g_n + (size_t)co * hw + p);
+      if (g_vec && co < cout && p < hwo) {
+        cp_async16(d, g_n + (size_t)co * hwo + p);
       } else {
         for (int i = 0; i < VEC; ++i)
-          d[i] = (co < cout && p + i < hw) ? g_n[(size_t)co * hw + p + i] : from_f32<T>(0.f);
+          d[i] = (co < cout && p + i < hwo) ? g_n[(size_t)co * hwo + p + i] : from_f32<T>(0.f);
       }
     }
   };
@@ -272,27 +287,30 @@ dcn_bwd_wq_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 
     const int img = t / tiles_per_image;
     const int p0 = (t - img * tiles_per_image) * BN;
-    const float* off_n = offset + (size_t)img * 18 * hw;
-    const float* msk_n = mask + (size_t)img * 9 * hw;
+    const float* off_n = offset + (size_t)img * 18 * hwo;
+    const float* msk_n = mask != nullptr ? mask + (size_t)img * 9 * hwo : nullptr;
     const T* x_n = x + (size_t)img * cin * hw;
-    // The x window: the chunk's channels over the tile's rows and columns
-    // widened by XR (zero off the map), read once, coalesced, so that the
-    // gather below reads shared memory; a sample with a corner outside it
-    // reads x directly. At W >= 64 the tile is part of one row: 7 x 70 cells.
-    // It is loaded only where at least 3/4 of the tile's samples fall in it
-    // (a warp with one sample outside waits for that sample's loads anyway).
-    const int p1 = min(p0 + BN, hw) - 1;
-    const int ry0 = p0 / w, ry1 = p1 / w;
-    const int wy0 = ry0 - XR;
-    const int wx0 = (ry0 == ry1 ? p0 - ry0 * w : 0) - XR;
-    const int wh = ry1 - ry0 + 1 + 2 * XR;
-    const int ww = (ry0 == ry1 ? p1 - p0 + 1 : w) + 2 * XR;
+    // The x window: the chunk's channels over the input rows and columns the
+    // tile's rigid samples reach (its output rows and columns times the
+    // stride, +- the dilation), widened by XR - 1 (zero off the map), read
+    // once, coalesced, so that the gather below reads shared memory; a sample
+    // with a corner outside it reads x directly. At stride 1, dilation 1 and
+    // W >= 64 the tile is part of one row: 7 x 70 cells. It is loaded only
+    // where at least 3/4 of the tile's samples fall in it (a warp with one
+    // sample outside waits for that sample's loads anyway).
+    const int reach = dilation + XR - 1;
+    const int p1 = min(p0 + BN, hwo) - 1;
+    const int ry0 = p0 / wo, ry1 = p1 / wo;
+    const int wy0 = ry0 * stride - reach;
+    const int wx0 = (ry0 == ry1 ? (p0 - ry0 * wo) * stride : 0) - reach;
+    const int wh = (ry1 - ry0) * stride + 1 + 2 * reach;
+    const int ww = (ry0 == ry1 ? (p1 - p0) * stride + 1 : w) + 2 * reach;
     int inside = 0;
     for (int e = tid; e < PAIRS; e += THREADS) {
       const int tap = e / BN;
       const int p = p0 + (e - tap * BN);
-      const float4 f = p < hw ? sample_entry(off_n, msk_n, hw, h, w, tap, p / w, p % w)
-                              : make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
+      const float4 f = p < hwo ? sample_entry(off_n, msk_n, hwo, wo, h, w, stride, dilation, tap, p / wo, p % wo)
+                               : make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
       tab[e] = f;
       const int code = __float_as_int(f.w);
       const int wy = (code >> 16) - 1 - wy0, wx = (code & 0xffff) - 1 - wx0;
@@ -449,16 +467,19 @@ dcn_bwd_wq_kernel(const T* __restrict__ x, const float* __restrict__ offset,
           }
         }
       }
-      // d offset = mask * d(ly, lx) (py = oy - 1 + ky + dy, so d py = d ly);
-      // d mask = the sum over channels of dcol * the unmodulated sample
+      // d offset = mask * d(ly, lx) (py = oy*s - d + ky*d + dy, so d py = d
+      // ly); d mask = the sum over channels of dcol * the unmodulated sample,
+      // written only where there is a mask
       if constexpr (DQ) {
         const int p = p0 + pl;
-        if (p < hw) {
-          float* doff_n = doffset + (size_t)img * 18 * hw;
+        if (p < hwo) {
+          float* doff_n = doffset + (size_t)img * 18 * hwo;
           const float oy_ = m * a_ly, ox_ = m * a_lx;
-          if (oy_ != 0.f) atomicAdd(doff_n + (size_t)(2 * tap) * hw + p, oy_);
-          if (ox_ != 0.f) atomicAdd(doff_n + (size_t)(2 * tap + 1) * hw + p, ox_);
-          if (a_m != 0.f) atomicAdd(dmask + ((size_t)img * 9 + tap) * hw + p, a_m);
+          if (oy_ != 0.f) atomicAdd(doff_n + (size_t)(2 * tap) * hwo + p, oy_);
+          if (ox_ != 0.f) atomicAdd(doff_n + (size_t)(2 * tap + 1) * hwo + p, ox_);
+          if (dmask != nullptr) {
+            if (a_m != 0.f) atomicAdd(dmask + ((size_t)img * 9 + tap) * hwo + p, a_m);
+          }
         }
       }
     }
@@ -557,7 +578,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ mask,
                   const T* __restrict__ weight, const T* __restrict__ g, float* __restrict__ dx,
-                  int cin, int h, int w, int cout, int tiles_x) {
+                  int cin, int h, int w, int ho, int wo, int stride, int dilation, int cout,
+                  int tiles_x) {
   using S = DxSmem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   float4* tab = reinterpret_cast<float4*>(smem + S::tab);
@@ -570,17 +592,21 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
   constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
   constexpr int VEC = 16 / sizeof(T);
   static_assert(TW % VEC == 0 && BK % VEC == 0, "vector copies");
-  const int hw = h * w;
+  const int hw = h * w;     // x's and dX's plane
+  const int hwo = ho * wo;  // the output grid's: g, offset, mask
   const int kdim = cin * 9;
-  const int ty0 = (blockIdx.x / tiles_x) * TH;
+  const int ty0 = (blockIdx.x / tiles_x) * TH;  // the block's output tile
   const int tx0 = (blockIdx.x % tiles_x) * TW;
+  // the haloed tile's origin in x: the output tile's rigid footprint, centred
+  const int hy_org = ty0 * stride - (stride == 1 ? R : R / 2);
+  const int hx_org = tx0 * stride - (stride == 1 ? R : R / 2);
   const int c0 = blockIdx.y * CK;
   const int n = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const T* g_n = g + (size_t)n * cout * hw;
+  const T* g_n = g + (size_t)n * cout * hwo;
   const bool w_vec = kdim % VEC == 0 && aligned16(weight) && c0 + CK <= cin;
-  const bool g_vec = w % VEC == 0 && aligned16(g);
+  const bool g_vec = wo % VEC == 0 && aligned16(g);
 
   // W[co0 .. co0+CO][chunk] and g[co0 .. co0+CO][tile] -> buffer buf
   auto load_slice = [&](int buf, int co0) {
@@ -606,12 +632,12 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
       const int gy = ty0 + pv / TW;
       const int gx = tx0 + pv % TW;
       T* d = gs + r * LDP + pv;
-      const T* src = g_n + (size_t)co * hw + (size_t)gy * w + gx;
-      if (g_vec && co < cout && gy < h && gx < w) {
+      const T* src = g_n + (size_t)co * hwo + (size_t)gy * wo + gx;
+      if (g_vec && co < cout && gy < ho && gx < wo) {
         cp_async16(d, src);
       } else {
         for (int i = 0; i < VEC; ++i)
-          d[i] = (co < cout && gy < h && gx + i < w) ? src[i] : from_f32<T>(0.f);
+          d[i] = (co < cout && gy < ho && gx + i < wo) ? src[i] : from_f32<T>(0.f);
       }
     }
   };
@@ -620,15 +646,15 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
   load_slice(0, 0);
   cp_async_commit();
 
-  const float* off_n = offset + (size_t)n * 18 * hw;
-  const float* msk_n = mask + (size_t)n * 9 * hw;
+  const float* off_n = offset + (size_t)n * 18 * hwo;
+  const float* msk_n = mask != nullptr ? mask + (size_t)n * 9 * hwo : nullptr;
   for (int e = tid; e < PAIRS; e += THREADS) {
     const int tap = e / BN;
     const int pl = e - tap * BN;
     const int oy = ty0 + pl / TW;
     const int ox = tx0 + pl % TW;
-    tab[e] = (oy < h && ox < w) ? sample_entry(off_n, msk_n, hw, h, w, tap, oy, ox)
-                                : make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
+    tab[e] = (oy < ho && ox < wo) ? sample_entry(off_n, msk_n, hwo, wo, h, w, stride, dilation, tap, oy, ox)
+                                  : make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
   }
   for (int e = tid; e < CK * HH * HWD; e += THREADS) halo[e] = 0;
 
@@ -733,8 +759,8 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
     const float ly = f.x, lx = f.y;
     const float w00 = (1.f - ly) * (1.f - lx), w01 = (1.f - ly) * lx;
     const float w10 = ly * (1.f - lx), w11 = ly * lx;
-    const int hy0 = y0 - (ty0 - R);
-    const int hx0 = x0 - (tx0 - R);
+    const int hy0 = y0 - hy_org;
+    const int hx0 = x0 - hx_org;
     const bool inside = hy0 >= 0 && hy0 + 1 < HH && hx0 >= 0 && hx0 + 1 < HWD;
     const bool y0_in = y0 >= 0, y1_in = y0 + 1 < h;
     const bool x0_in = x0 >= 0, x1_in = x0 + 1 < w;
@@ -772,15 +798,15 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
   // map are padding corners and drop), four at a time. Where the row of dX
   // is 16-byte aligned the four go out as one vector atomic (sm_90), else
   // one by one.
-  static_assert(TW % 4 == 0 && R % 4 == 0, "a group of four starts at a multiple of 4 in dX");
+  static_assert(TW % 4 == 0 && R % 8 == 0, "a group of four starts at a multiple of 4 in dX");
   const bool dx_vec = w % 4 == 0 && aligned16(dx);
   for (int e = tid; e < CK * HH * HWD / 4; e += THREADS) {
     const int4 v = reinterpret_cast<const int4*>(halo)[e];
     if ((v.x | v.y | v.z | v.w) == 0) continue;
     const int cc = e / (HH * HWD / 4);
     const int rem = e - cc * (HH * HWD / 4);
-    const int gy = ty0 - R + rem / (HWD / 4);
-    const int gx = tx0 - R + 4 * (rem % (HWD / 4));
+    const int gy = hy_org + rem / (HWD / 4);
+    const int gx = hx_org + 4 * (rem % (HWD / 4));
     if (c0 + cc >= cin || gy < 0 || gy >= h) continue;
     const float inv = 1.f / scale[cc];  // a power of two: exact
     float* dst = dx_n + (size_t)(c0 + cc) * hw + (size_t)gy * w + gx;
@@ -811,8 +837,11 @@ cudaError_t prepare(K kernel, size_t smem) {
 template <typename T, bool DQ, bool DW>
 cudaError_t launch_wq(const void* x, const void* offset, const void* mask, const void* weight,
                       const void* g, void* doffset, void* dmask, void* dw, void* partial, int n,
-                      int cin, int h, int w, int cout, int span, int splits, cudaStream_t stream) {
-  const int tiles_per_image = (h * w + BN - 1) / BN;
+                      int cin, int h, int w, int cout, int stride, int dilation, int span,
+                      int splits, cudaStream_t stream) {
+  if (stride < 1 || stride > 2 || dilation < 1 || dilation > 2) return cudaErrorInvalidValue;
+  const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
+  const int tiles_per_image = (ho * wo + BN - 1) / BN;
   const int ntiles = n * tiles_per_image;
   // every split owns at least one tile, and the splits cover every tile
   if (span < 1 || splits < 1 || (long long)(splits - 1) * span >= ntiles ||
@@ -827,7 +856,7 @@ cudaError_t launch_wq(const void* x, const void* offset, const void* mask, const
       static_cast<const T*>(x), static_cast<const float*>(offset),
       static_cast<const float*>(mask), static_cast<const T*>(weight), static_cast<const T*>(g),
       static_cast<float*>(doffset), static_cast<float*>(dmask), static_cast<float*>(partial), cin,
-      h, w, cout, tiles_per_image, ntiles, span);
+      h, w, ho, wo, stride, dilation, cout, tiles_per_image, ntiles, span);
   err = cudaGetLastError();
   if (err != cudaSuccess || !DW) return err;
   const int count = cout * cin * 9;
@@ -839,31 +868,35 @@ cudaError_t launch_wq(const void* x, const void* offset, const void* mask, const
 
 template <typename T>
 cudaError_t launch_dx(const void* offset, const void* mask, const void* weight, const void* g,
-                      void* dx, int n, int cin, int h, int w, int cout, cudaStream_t stream) {
+                      void* dx, int n, int cin, int h, int w, int cout, int stride, int dilation,
+                      cudaStream_t stream) {
+  if (stride < 1 || stride > 2 || dilation < 1 || dilation > 2) return cudaErrorInvalidValue;
   constexpr size_t smem = DxSmem<T>::bytes;
   auto kernel = dcn_bwd_dx_kernel<T>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int tiles_x = (w + TW - 1) / TW;
-  const dim3 grid(tiles_x * ((h + TH - 1) / TH), (cin + CK - 1) / CK, n);
+  const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
+  const int tiles_x = (wo + TW - 1) / TW;
+  const dim3 grid(tiles_x * ((ho + TH - 1) / TH), (cin + CK - 1) / CK, n);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(offset), static_cast<const float*>(mask),
       static_cast<const T*>(weight), static_cast<const T*>(g), static_cast<float*>(dx), cin, h, w,
-      cout, tiles_x);
+      ho, wo, stride, dilation, cout, tiles_x);
   return cudaGetLastError();
 }
 
 template <bool DQ, bool DW>
 int dispatch_wq(const void* x, const void* offset, const void* mask, const void* weight,
                 const void* g, void* doffset, void* dmask, void* dw, void* partial, int n,
-                int cin, int h, int w, int cout, int span, int splits, int is_bf16,
-                void* stream) {
+                int cin, int h, int w, int cout, int stride, int dilation, int span, int splits,
+                int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)launch_wq<__nv_bfloat16, DQ, DW>(x, offset, mask, weight, g, doffset, dmask, dw,
-                                                 partial, n, cin, h, w, cout, span, splits, s);
+                                                 partial, n, cin, h, w, cout, stride, dilation,
+                                                 span, splits, s);
   return (int)launch_wq<float, DQ, DW>(x, offset, mask, weight, g, doffset, dmask, dw, partial,
-                                       n, cin, h, w, cout, span, splits, s);
+                                       n, cin, h, w, cout, stride, dilation, span, splits, s);
 }
 
 template <typename K>
@@ -892,41 +925,48 @@ int info(int which, int* out) {
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns the launch's
-// cudaError_t; none allocates or synchronizes. dx, doffset and dmask must be
-// zeroed; partial is a [splits][Cout][Cin * 9] f32 scratch buffer whose
-// contents do not matter; dw (Cout, Cin, 3, 3) is written in x's type.
-// span and splits cut the n * ceil(H * W / 64) pixel tiles into splits spans
-// of span tiles (ops/dcn.py::bwd_plan): every span non-empty, all covered.
+// cudaError_t; none allocates or synchronizes. h and w are x's; g, offset,
+// mask, d offset and d mask lie on the Ho x Wo output grid of stride (1 or 2)
+// and dilation (1 or 2). mask may be null (unmodulated), and then dmask is
+// null too. dx, doffset and dmask must be zeroed; partial is a
+// [splits][Cout][Cin * 9] f32 scratch buffer whose contents do not matter; dw
+// (Cout, Cin, 3, 3) is written in x's type. span and splits cut the
+// n * ceil(Ho * Wo / 64) pixel tiles into splits spans of span tiles
+// (ops/dcn.py::bwd_plan): every span non-empty, all covered.
 extern "C" int dcn_bwd_dx(const void* x, const void* offset, const void* mask, const void* weight,
                           const void* g, void* dx, int n, int cin, int h, int w, int cout,
-                          int is_bf16, void* stream) {
+                          int stride, int dilation, int is_bf16, void* stream) {
   (void)x;  // dX does not read x
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)launch_dx<__nv_bfloat16>(offset, mask, weight, g, dx, n, cin, h, w, cout, s);
-  return (int)launch_dx<float>(offset, mask, weight, g, dx, n, cin, h, w, cout, s);
+    return (int)launch_dx<__nv_bfloat16>(offset, mask, weight, g, dx, n, cin, h, w, cout, stride,
+                                         dilation, s);
+  return (int)launch_dx<float>(offset, mask, weight, g, dx, n, cin, h, w, cout, stride, dilation, s);
 }
 
 extern "C" int dcn_bwd_dq(const void* x, const void* offset, const void* mask, const void* weight,
                           const void* g, void* doffset, void* dmask, int n, int cin, int h, int w,
-                          int cout, int span, int splits, int is_bf16, void* stream) {
+                          int cout, int stride, int dilation, int span, int splits, int is_bf16,
+                          void* stream) {
   return dispatch_wq<true, false>(x, offset, mask, weight, g, doffset, dmask, nullptr, nullptr, n,
-                                  cin, h, w, cout, span, splits, is_bf16, stream);
+                                  cin, h, w, cout, stride, dilation, span, splits, is_bf16, stream);
 }
 
 extern "C" int dcn_bwd_dw(const void* x, const void* offset, const void* mask, const void* g,
                           void* dw, void* partial, int n, int cin, int h, int w, int cout,
-                          int span, int splits, int is_bf16, void* stream) {
+                          int stride, int dilation, int span, int splits, int is_bf16,
+                          void* stream) {
   return dispatch_wq<false, true>(x, offset, mask, nullptr, g, nullptr, nullptr, dw, partial, n,
-                                  cin, h, w, cout, span, splits, is_bf16, stream);
+                                  cin, h, w, cout, stride, dilation, span, splits, is_bf16, stream);
 }
 
 extern "C" int dcn_bwd_dqdw(const void* x, const void* offset, const void* mask,
                             const void* weight, const void* g, void* doffset, void* dmask,
                             void* dw, void* partial, int n, int cin, int h, int w, int cout,
-                            int span, int splits, int is_bf16, void* stream) {
+                            int stride, int dilation, int span, int splits, int is_bf16,
+                            void* stream) {
   return dispatch_wq<true, true>(x, offset, mask, weight, g, doffset, dmask, dw, partial, n, cin,
-                                 h, w, cout, span, splits, is_bf16, stream);
+                                 h, w, cout, stride, dilation, span, splits, is_bf16, stream);
 }
 
 // out[0..3) = dynamic shared memory (bytes), resident blocks per SM, threads

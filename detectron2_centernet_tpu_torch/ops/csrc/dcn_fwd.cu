@@ -1,16 +1,23 @@
-// Modulated deformable 3x3 convolution (DCNv2) forward for Hopper (sm_90a).
+// Deformable 3x3 convolution (DCNv2; DCNv1 without a mask) forward for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel detectron2_centernet_tpu/ops/pallas_dcn.py::_kernel
 // (the tent-matmul forward with the fused BN + bias + ReLU epilogue). Same
 // function, exact DCNv2 semantics: every sample is bilinear with zero padding,
 // wherever its offset points (the TPU kernel drops samples beyond |dy| > 3);
 // floor corners, coordinate math in f32, f32 accumulation, and the epilogue
-// relu?(acc * scale + shift) in f32 before the one rounding to x's type.
+// relu?(acc * scale + shift) in f32 before the one rounding to x's type. It
+// also runs the deformable 3x3 of the ResNet trunks' DeformBottleneckBlock,
+// which the JAX package computes with its exact op (ops/deform_conv.py): at
+// stride s and dilation d in {1, 2}, padding d, modulated or not.
 //
-// Layout: x (N, Cin, H, W), offset (N, 18, H, W) f32 with offset[2t] = dy and
-// offset[2t+1] = dx for tap t in row-major (ky, kx) order, mask (N, 9, H, W)
-// f32 (already sigmoided), weight (Cout, Cin, 3, 3), out (N, Cout, H, W).
-// x, weight and out share one type T: float or __nv_bfloat16.
+// Layout: x (N, Cin, H, W); offset (N, 18, Ho, Wo) f32 with offset[2t] = dy
+// and offset[2t+1] = dx for tap t in row-major (ky, kx) order, mask
+// (N, 9, Ho, Wo) f32 (already sigmoided; a null mask is a mask of ones, never
+// read), weight (Cout, Cin, 3, 3), out (N, Cout, Ho, Wo), Ho = (H - 1) / s + 1.
+// Output pixel (i, j), tap (ky, kx) samples x at
+// (i*s - d + ky*d + dy, j*s - d + kx*d + dx). x, weight and out share one
+// type T: float or __nv_bfloat16.
 //
 // What bounds it. The least time of a launch is set by its bytes (x, offset,
 // mask, out) at most DLA-34 shapes and by the tensor-core rate at the widest
@@ -42,15 +49,16 @@
 //     DLA-34's widths. Eight warps own 32-row slabs of the BM x 64 tile with
 //     the f32 accumulator in registers (bf16 WMMA 16x16x16 on the tensor
 //     cores; f32 operands on the FMA pipes, 16 x 4 per thread at BM = 256).
-//     Cout > 256 takes Cout tiles of 256 that repeat the gather (correct,
-//     off the main path). The full-Cout tile fits: 213 KB of shared memory
+//     Cout > 256 takes Cout tiles of 256 that repeat the gather: res5's
+//     deformable 3x3 (Cout 512) builds each sample twice, once per tile
+//     (timed in PERF.md). The full-Cout tile fits: 213 KB of shared memory
 //     at BM = 256 (one block of 8 warps per SM), 96 KB at BM = 64 (two).
 //     Clusters were tried and measured (tools/dcn_phases.py, PERF.md): two
 //     blocks sharing each W tile by a multicast bulk copy ran no faster, four
 //     slower, since each block still takes the whole tile into its own
 //     shared memory, so none is used.
 // (3) A cheap sample: dcn_fwd_stage_kernel first writes x channels-last by
-//     chunk, (N, Cin_pad / CK, H*W, CK) with Cin padded with zeros to the
+//     chunk at x's own size, (N, Cin_pad / CK, H*W, CK) with Cin padded with zeros to the
 //     chunk (CK = 32 bytes of channels: 16 bf16 or 8 f32), so that four
 //     neighbouring pixels of a chunk share a 128-byte line, and the weight as
 //     its W tiles (k = tap * CK + c within a chunk, rows padded as in shared
@@ -315,8 +323,9 @@ __global__ void __launch_bounds__(THREADS, BM <= 64 ? 2 : 1)
 dcn_fwd_kernel(const T* __restrict__ xt, const float* __restrict__ offset,
                const float* __restrict__ mask, const T* __restrict__ wp,
                const float* __restrict__ scale, const float* __restrict__ shift,
-               T* __restrict__ out, float* __restrict__ partial, int h, int w, int cout,
-               int tiles_x, int tiles, int span, int chunks, int relu) {
+               T* __restrict__ out, float* __restrict__ partial, int h, int w, int ho, int wo,
+               int stride, int dilation, int cout, int tiles_x, int tiles, int span, int chunks,
+               int relu) {
   using C = Cfg<T>;
   using S = FwdSmem<T, BM>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -327,7 +336,8 @@ dcn_fwd_kernel(const T* __restrict__ xt, const float* __restrict__ offset,
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + S::bar);
 
   constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  const int hw = h * w;
+  const int hw = h * w;     // x's plane
+  const int hwo = ho * wo;  // the output's, offset's and mask's plane
   const int img = blockIdx.x / tiles;
   const int nimg = gridDim.x / tiles;
   const int tile = blockIdx.x - img * tiles;
@@ -358,8 +368,8 @@ dcn_fwd_kernel(const T* __restrict__ xt, const float* __restrict__ offset,
   // The sampling table: per (tap, pixel) the element offsets of the four
   // corners in a chunk's plane of the staged image and their weights (mask
   // folded in); a corner off the map has offset 0 and weight 0.
-  const float* off_n = offset + (size_t)img * 18 * hw;
-  const float* msk_n = mask + (size_t)img * 9 * hw;
+  const float* off_n = offset + (size_t)img * 18 * hwo;
+  const float* msk_n = mask != nullptr ? mask + (size_t)img * 9 * hwo : nullptr;
   for (int e = tid; e < PAIRS; e += THREADS) {
     const int tap = e / BN;
     const int pl = e - tap * BN;
@@ -367,11 +377,11 @@ dcn_fwd_kernel(const T* __restrict__ xt, const float* __restrict__ offset,
     const int ox = tx0 + pl % TW;
     int4 o = make_int4(0, 0, 0, 0);
     float4 wt = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (oy < h && ox < w) {
-      const int p = oy * w + ox;
-      const float py = (float)(oy - 1 + tap / 3) + off_n[(size_t)(2 * tap) * hw + p];
-      const float px = (float)(ox - 1 + tap % 3) + off_n[(size_t)(2 * tap + 1) * hw + p];
-      const float m = msk_n[(size_t)tap * hw + p];
+    if (oy < ho && ox < wo) {
+      const int p = oy * wo + ox;
+      const float py = (float)(oy * stride - dilation + tap / 3 * dilation) + off_n[(size_t)(2 * tap) * hwo + p];
+      const float px = (float)(ox * stride - dilation + tap % 3 * dilation) + off_n[(size_t)(2 * tap + 1) * hwo + p];
+      const float m = msk_n != nullptr ? msk_n[(size_t)tap * hwo + p] : 1.f;
       // outside (-1, H) x (-1, W) every corner is padding; the test also keeps
       // huge offsets away from the float -> int conversion
       if (py > -1.f && py < (float)h && px > -1.f && px < (float)w) {
@@ -525,13 +535,13 @@ dcn_fwd_kernel(const T* __restrict__ xt, const float* __restrict__ offset,
     const int pl = e - rr * BN;
     const int co = m0 + rr;
     const int oy = ty0 + pl / TW, ox = tx0 + pl % TW;
-    if (co < cout && oy < h && ox < w) {
-      const int p = oy * w + ox;
+    if (co < cout && oy < ho && ox < wo) {
+      const int p = oy * wo + ox;
       const float v = stage[rr * LDO + pl];
       if (split) {
-        partial[(((size_t)blockIdx.z * nimg + img) * cout + co) * hw + p] = v;
+        partial[(((size_t)blockIdx.z * nimg + img) * cout + co) * hwo + p] = v;
       } else {
-        out[((size_t)img * cout + co) * hw + p] = from_f32<T>(epilogue(v, scale, shift, co, relu));
+        out[((size_t)img * cout + co) * hwo + p] = from_f32<T>(epilogue(v, scale, shift, co, relu));
       }
     }
   }
@@ -577,15 +587,18 @@ cudaError_t prepare() {
 template <typename T, int BM>
 cudaError_t launch(const void* x, const void* offset, const void* mask, const void* weight,
                    const void* scale, const void* shift, void* out, void* scratch, int n, int cin,
-                   int h, int w, int cout, int relu, int span, int splits,
+                   int h, int w, int cout, int stride, int dilation, int relu, int span, int splits,
                    long long scratch_bytes, cudaStream_t stream) {
   using C = Cfg<T>;
+  if (stride < 1 || stride > 2 || dilation < 1 || dilation > 2) return cudaErrorInvalidValue;
   const int hw = h * w;
+  const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
+  const int hwo = ho * wo;
   const int chunks = (cin + C::CK - 1) / C::CK;
   const int cin_pad = chunks * C::CK;
   const int cout_tiles = (cout + BM - 1) / BM;
-  const int tiles_x = (w + TW - 1) / TW;
-  const int tiles = tiles_x * ((h + TH - 1) / TH);
+  const int tiles_x = (wo + TW - 1) / TW;
+  const int tiles = tiles_x * ((ho + TH - 1) / TH);
   // every split owns at least one chunk, and the splits cover every chunk;
   // the table's offsets are int32
   if (n < 1 || cin < 1 || cout < 1 || hw < 1 || span < 1 || splits < 1 ||
@@ -595,7 +608,7 @@ cudaError_t launch(const void* x, const void* offset, const void* mask, const vo
   // scratch: xt | wp | partial (splits > 1), each 256-byte aligned
   const size_t xt_bytes = align256((size_t)n * hw * cin_pad * sizeof(T));
   const size_t wp_bytes = align256((size_t)cout_tiles * chunks * BM * C::LDK * sizeof(T));
-  const size_t part_bytes = splits > 1 ? (size_t)splits * n * cout * hw * sizeof(float) : 0;
+  const size_t part_bytes = splits > 1 ? (size_t)splits * n * cout * hwo * sizeof(float) : 0;
   if (scratch_bytes < 0 || (size_t)scratch_bytes < xt_bytes + wp_bytes + part_bytes)
     return cudaErrorInvalidValue;
   unsigned char* base = static_cast<unsigned char*>(scratch);
@@ -622,33 +635,33 @@ cudaError_t launch(const void* x, const void* offset, const void* mask, const vo
   kernel<<<grid, THREADS, smem, stream>>>(
       xt, static_cast<const float*>(offset), static_cast<const float*>(mask), wp,
       static_cast<const float*>(scale), static_cast<const float*>(shift), static_cast<T*>(out),
-      partial, h, w, cout, tiles_x, tiles, span, chunks, relu);
+      partial, h, w, ho, wo, stride, dilation, cout, tiles_x, tiles, span, chunks, relu);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
 
-  const long long count = (long long)n * cout * hw;
+  const long long count = (long long)n * cout * hwo;
   const int rblocks = (int)std::min<long long>((count + THREADS - 1) / THREADS, 8 * 132);
   dcn_fwd_reduce_kernel<T><<<rblocks, THREADS, 0, stream>>>(
       partial, static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<T*>(out), count, cout, hw, splits, relu);
+      static_cast<T*>(out), count, cout, hwo, splits, relu);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* x, const void* offset, const void* mask, const void* weight,
              const void* scale, const void* shift, void* out, void* scratch, int n, int cin, int h,
-             int w, int cout, int relu, int bm, int span, int splits, long long scratch_bytes,
-             cudaStream_t s) {
+             int w, int cout, int stride, int dilation, int relu, int bm, int span, int splits,
+             long long scratch_bytes, cudaStream_t s) {
   switch (bm) {
     case 64:
       return (int)launch<T, 64>(x, offset, mask, weight, scale, shift, out, scratch, n, cin, h, w,
-                                cout, relu, span, splits, scratch_bytes, s);
+                                cout, stride, dilation, relu, span, splits, scratch_bytes, s);
     case 128:
       return (int)launch<T, 128>(x, offset, mask, weight, scale, shift, out, scratch, n, cin, h, w,
-                                 cout, relu, span, splits, scratch_bytes, s);
+                                 cout, stride, dilation, relu, span, splits, scratch_bytes, s);
     case 256:
       return (int)launch<T, 256>(x, offset, mask, weight, scale, shift, out, scratch, n, cin, h, w,
-                                 cout, relu, span, splits, scratch_bytes, s);
+                                 cout, stride, dilation, relu, span, splits, scratch_bytes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -679,24 +692,27 @@ int info(int bm, int* out) {
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). scale and shift may be null (no
-// scale, no shift). bm (64, 128 or 256: the Cout tile), span and splits come
+// Plain C entry point (loaded with ctypes). h and w are x's; the output is
+// Ho x Wo at stride (1 or 2) and dilation (1 or 2), padding = dilation. mask
+// may be null (unmodulated: weight 1), scale and shift too (no scale, no
+// shift). bm (64, 128 or 256: the Cout tile), span and splits come
 // from the host plan (ops/dcn.py::fwd_plan): the ceil(Cin / CK) chunks go in
 // splits spans of span chunks, every span non-empty, all covered. scratch
 // holds scratch_bytes of device memory whose contents do not matter: x
 // channels-last, the weight in chunk order and, with splits > 1, the
-// [splits][N][Cout][H*W] f32 partials. Returns the launches' cudaError_t; it
+// [splits][N][Cout][Ho*Wo] f32 partials. Returns the launches' cudaError_t; it
 // allocates nothing and does not synchronize.
 extern "C" int dcn_fwd(const void* x, const void* offset, const void* mask, const void* weight,
                        const void* scale, const void* shift, void* out, void* scratch, int n,
-                       int cin, int h, int w, int cout, int relu, int is_bf16, int bm, int span,
-                       int splits, long long scratch_bytes, void* stream) {
+                       int cin, int h, int w, int cout, int stride, int dilation, int relu,
+                       int is_bf16, int bm, int span, int splits, long long scratch_bytes,
+                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(x, offset, mask, weight, scale, shift, out, scratch, n, cin, h,
-                                   w, cout, relu, bm, span, splits, scratch_bytes, s);
+                                   w, cout, stride, dilation, relu, bm, span, splits, scratch_bytes, s);
   return dispatch<float>(x, offset, mask, weight, scale, shift, out, scratch, n, cin, h, w, cout,
-                         relu, bm, span, splits, scratch_bytes, s);
+                         stride, dilation, relu, bm, span, splits, scratch_bytes, s);
 }
 
 // out[0..3) = dynamic shared memory (bytes), resident blocks per SM and

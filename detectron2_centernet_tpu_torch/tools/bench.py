@@ -274,8 +274,8 @@ def main(argv=None) -> dict:
     extra.update({k: v for k, v in inference.items() if k != "img_s"})
     extra.update(bench_training(cfg)[0])
     extra["card"] = card() if torch.device(cfg.MODEL.DEVICE).type == "cuda" else None
-    value, baseline = inference["img_s"], baseline_img_s(cfg)
-    result = {"metric": metric_name(cfg), "value": round(value, 2), "unit": "img/s/chip",
+    value, baseline = round(inference["img_s"], 2), baseline_img_s(cfg)  # vs_baseline: of the printed value
+    result = {"metric": metric_name(cfg), "value": value, "unit": "img/s/chip",
               "vs_baseline": round(value / baseline, 3) if baseline else None, "extra": extra}
     print(json.dumps(result), flush=True)
     return result

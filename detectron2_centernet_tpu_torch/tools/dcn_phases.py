@@ -136,11 +136,11 @@ def bwd_calls(lib, b, cin, cout, hw, x, off, mask, w, g, stream):
     return {
         "dcn_bwd_dx": lambda: lib.dcn_bwd_dx(
             x.data_ptr(), off.data_ptr(), mask.data_ptr(), w.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), b, cin, hw, hw, cout, 1, stream),
+            dx.data_ptr(), b, cin, hw, hw, cout, 1, 1, 1, stream),
         "dcn_bwd_dqdw": lambda: lib.dcn_bwd_dqdw(
             x.data_ptr(), off.data_ptr(), mask.data_ptr(), w.data_ptr(), g.data_ptr(),
             doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(), part.data_ptr(), b, cin, hw,
-            hw, cout, plan["span"], plan["splits"], 1, stream),
+            hw, cout, 1, 1, plan["span"], plan["splits"], 1, stream),
     }
 
 
@@ -152,7 +152,7 @@ def fwd_calls(lib, b, cin, cout, hw, x, off, mask, w, g, stream):
     out = torch.empty((b, cout, hw, hw), dtype=x.dtype, device="cuda")
     return {"dcn_fwd": lambda: lib.dcn_fwd(
         x.data_ptr(), off.data_ptr(), mask.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), b, cin, hw, hw, cout, 1, 1, plan["bm"], plan["span"],
+        out.data_ptr(), scratch.data_ptr(), b, cin, hw, hw, cout, 1, 1, 1, 1, plan["bm"], plan["span"],
         plan["splits"], plan["scratch_bytes"], stream)}
 
 

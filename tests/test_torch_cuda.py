@@ -1,5 +1,7 @@
 """The port on the card (marker ``cuda``): the Hopper DCN kernels (forward
-and the four backward kernels) against their plain PyTorch versions, the
+and the four backward kernels) against their plain PyTorch versions (at
+stride 1 and 2, dilation 1 and 2, with and without a mask too, and a
+stride-3 call raising), the
 small DLA-34 CenterNet on the card against itself on the CPU, at inference
 and for one training step, the f32 heads at PyTorch's default TF32 flags,
 a short evaluation through ``DefaultTrainer.test``, one f32 training
@@ -244,6 +246,99 @@ def test_autograd_function_launches_each_backward_kernel(card):
         dcn.modulated_deform_conv_ad(*ts).square().sum().backward()
         torch.cuda.synchronize()
         assert tuple(f.launches - b for f, b in zip(fns, before)) == want, needs
+
+
+# (Cin, Cout, H, W) of the DeformBottleneckBlock cases: odd, non-square maps
+# (25 x 23 at stride 2 → 13 x 12), a ragged Cin chunk and Cout tile
+_GEOMETRY_SHAPES = [(40, 80, 25, 23), (24, 320, 13, 17)]
+
+
+def _geometry_args(card, dtype, cin, cout, h, w, stride, dilation, modulated, regime, seed, n=3):
+    """x at H × W, offset, mask (None when not ``modulated``) and g at the
+    output grid of ``stride``."""
+    ho, wo = plain.out_size(h, w, stride)
+    x, _, _, weight, vecs = _case(seed, n=n, cin=cin, cout=cout, h=h, w=w)
+    offset = _offsets(regime, n, ho, wo, seed + 1)
+    gen = torch.Generator().manual_seed(seed + 2)
+    mask = torch.rand(n, 9, ho, wo, generator=gen).to(card) if modulated else None
+    g = torch.randn(n, cout, ho, wo, generator=gen)
+    return (x.to(card, dtype), offset.to(card), mask, weight.to(card, dtype), g.to(card, dtype)), vecs
+
+
+def _assert_close(got, want, tol, name):
+    for a, b in zip(*(t if isinstance(t, tuple) else (t,) for t in (got, want))):
+        assert (a is None) == (b is None), name
+        if a is None:
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * max(b.float().abs().max().item(), 1e-12), (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("modulated", [True, False])
+@pytest.mark.parametrize("stride, dilation", [(1, 1), (2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("regime", ["1px", "8px"])
+@pytest.mark.parametrize("shape", _GEOMETRY_SHAPES)
+def test_kernels_at_stride_dilation_and_unmodulated_match_plain(card, dtype, modulated, stride, dilation,
+                                                                 regime, shape):
+    """K1-K5 at stride 1 or 2, dilation 1 or 2, with a mask or without one
+    (the DCNv1 of the ResNet trunks: no mask read, no d mask), against
+    their plain versions with the tolerances of the stride-1 cases: f32
+    1e-4, bf16 1e-2 of each output's max |value|. Each wrapper launches its
+    kernel once."""
+    cin, cout, h, w = shape
+    dt = getattr(torch, dtype)
+    args, vecs = _geometry_args(card, dt, cin, cout, h, w, stride, dilation, modulated, regime, sum(shape))
+    geo = dict(stride=stride, dilation=dilation)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    fns = (dcn.modulated_deform_conv, dcn.dcn_bwd_dx, dcn.dcn_bwd_dq, dcn.dcn_bwd_dw, dcn.dcn_bwd_dqdw)
+    before = [f.launches for f in fns]
+    epi = dict(post_scale=vecs["post_scale"].to(card), post_shift=vecs["post_shift"].to(card), post_relu=True)
+    got = {"fwd": dcn.modulated_deform_conv(*args[:4], **epi, **geo), "dx": dcn.dcn_bwd_dx(*args, **geo),
+           "dq": dcn.dcn_bwd_dq(*args, **geo), "dw": dcn.dcn_bwd_dw(*args[:3], args[4], **geo),
+           "dqdw": dcn.dcn_bwd_dqdw(*args, **geo)}
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1] * 5
+    want = {"fwd": plain.modulated_deform_conv(*args[:4], **epi, **geo), "dx": plain.dcn_bwd_dx(*args, **geo),
+            "dq": plain.dcn_bwd_dq(*args, **geo), "dw": plain.dcn_bwd_dw(*args[:3], args[4], **geo),
+            "dqdw": plain.dcn_bwd_dqdw(*args, **geo)}
+    assert got["fwd"].shape[2:] == plain.out_size(h, w, stride)
+    assert (got["dq"][1] is None) == (not modulated)
+    for name in got:
+        _assert_close(got[name], want[name], tol, name)
+
+
+@pytest.mark.parametrize("stride, dilation", [(3, 1), (1, 3), (0, 1)])
+def test_kernels_raise_at_a_geometry_they_do_not_take(card, stride, dilation):
+    """A CUDA call at stride 3 or dilation 3 raises before any launch; it
+    never falls back to the plain version."""
+    ho, wo = plain.out_size(12, 12, max(stride, 1))
+    x = torch.randn(1, 16, 12, 12, device=card)
+    offset = torch.zeros(1, 18, ho, wo, device=card)
+    weight = torch.randn(16, 16, 3, 3, device=card)
+    g = torch.randn(1, 16, ho, wo, device=card)
+    before = dcn.modulated_deform_conv.launches, dcn.dcn_bwd_dx.launches
+    with pytest.raises(ValueError):
+        dcn.modulated_deform_conv(x, offset, None, weight, stride=stride, dilation=dilation)
+    with pytest.raises(ValueError):
+        dcn.dcn_bwd_dx(x, offset, None, weight, g, stride=stride, dilation=dilation)
+    assert (dcn.modulated_deform_conv.launches, dcn.dcn_bwd_dx.launches) == before
+
+
+def test_unmodulated_autograd_launches_k1_k2_k5_and_gives_no_mask_gradient(card):
+    """``modulated_deform_conv_ad`` with no mask at stride 2: K1, K2 and K5,
+    the gradients against the plain version's autograd (f32, 1e-4)."""
+    args, _ = _geometry_args(card, torch.float32, 32, 48, 21, 19, 2, 1, False, "1px", 4)
+    x, offset, _, weight, g = args
+    fns = (dcn.modulated_deform_conv, dcn.dcn_bwd_dx, dcn.dcn_bwd_dq, dcn.dcn_bwd_dw, dcn.dcn_bwd_dqdw)
+    before = [f.launches for f in fns]
+    ts = [t.clone().requires_grad_(True) for t in (x, offset, weight)]
+    (dcn.modulated_deform_conv_ad(ts[0], ts[1], None, ts[2], stride=2) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 0, 0, 1]
+    want = (plain.dcn_bwd_dx(x, offset, None, weight, g, 2), plain.dcn_bwd_dqdw(x, offset, None, weight, g, 2))
+    _assert_close((ts[0].grad, ts[1].grad, ts[2].grad), (want[0], want[1][0], want[1][2]), 1e-4, "grads")
 
 
 def test_small_train_step_on_card_matches_cpu(card):

@@ -736,15 +736,13 @@ def test_rcnn_raises_without_a_card(name):
 
 
 @pytest.mark.parametrize("extra, item", [
-    # Cascade, Res5/C4 and DC5 build now (tests/test_torch_cascade.py, tests/test_torch_c4.py)
-    (["MODEL.ROI_HEADS.NAME", "PointRendROIHeads"], "ROADMAP A15"), (["MODEL.LOAD_PROPOSALS", True], "ROADMAP A14.6"),
-    (["MODEL.PROPOSAL_GENERATOR.NAME", "PrecomputedProposals"], "ROADMAP A14.6"),
+    # Cascade, Res5/C4 and DC5 build now (tests/test_torch_cascade.py, tests/test_torch_c4.py), and so do
+    # precomputed proposals and deformable trunks (test_formerly_queued_rcnn_options_build below)
+    (["MODEL.ROI_HEADS.NAME", "PointRendROIHeads"], "ROADMAP A15"),
     (["MODEL.PROPOSAL_GENERATOR.NAME", "RRPN"], "ROADMAP A16"),
     (["MODEL.ROI_HEADS.EXTENSIONS", ["DensePoseExtension"]], "ROADMAP A18"),
-    (["MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]], "ROADMAP A14.5"),
     (["MODEL.MASK_ON", True, "MODEL.ROI_MASK_HEAD.NAME", "CoarseMaskHead"], "ROADMAP A15"),
     (["MODEL.ROI_HEADS.NAME", "MyROIHeads"], "unknown ROI_HEADS.NAME 'MyROIHeads'"),
-    (["MODEL.ROI_HEADS.NAME", "CascadeROIHeads", "MODEL.LOAD_PROPOSALS", True], "ROADMAP A14.6"),
     (["MODEL.ROI_HEADS.NAME", "Res5ROIHeads", "MODEL.MASK_ON", True, "MODEL.ROI_MASK_HEAD.POINT_HEAD_ON", True],
      "ROADMAP A15"),
 ])
@@ -755,6 +753,28 @@ def test_unported_rcnn_options_raise_naming_their_roadmap_item(extra, item):
     _, pcfg = _cfgs(extra)
     with pytest.raises(NotImplementedError if item.startswith("ROADMAP") else ValueError, match=item):
         build_model(pcfg)
+
+
+@pytest.mark.parametrize("extra, precomputed, deform", [
+    (["MODEL.LOAD_PROPOSALS", True], True, 0),
+    (["MODEL.PROPOSAL_GENERATOR.NAME", "PrecomputedProposals"], True, 0),
+    (["MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True], "MODEL.RESNETS.DEPTH", 50,
+      "MODEL.RESNETS.WIDTH_PER_GROUP", 4], False, 4 + 6 + 3),
+    (["MODEL.ROI_HEADS.NAME", "CascadeROIHeads", "MODEL.LOAD_PROPOSALS", True], True, 0),
+])
+def test_formerly_queued_rcnn_options_build(extra, precomputed, deform):
+    """Precomputed proposals (ROADMAP A14.6; Cascade with them too) and the
+    deformable trunk (A14.5), which raised before they were ported, build:
+    Fast R-CNN keeps its RPN head (JAX builds and runs it), and the trunk
+    holds a ``DeformBottleneckBlock`` per block of its deformable stages
+    (tests/test_torch_fast_rcnn.py and tests/test_torch_dconv.py hold them
+    to the JAX package)."""
+    _, pcfg = _cfgs(extra)
+    model = build_model(pcfg)
+    assert model.precomputed_proposals == precomputed
+    assert hasattr(model.model.proposal_generator, "rpn_head")
+    blocks = [m for m in model.model.backbone.modules() if type(m).__name__ == "DeformBottleneckBlock"]
+    assert len(blocks) == deform
 
 
 def _flat(node, prefix=""):

@@ -253,9 +253,16 @@ def test_resnet_stages_after_the_last_feature_run_only_in_training():
 
 
 def test_unported_resnet_options_raise_and_name_their_item():
-    """DeformBottleneckBlock (ROADMAP A14) and the DeepLab trunk (A15)."""
-    for extra, item in ((["MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]], "A14"),
-                        (["MODEL.RESNETS.STEM_TYPE", "deeplab"], "A15"),
+    """The DeepLab trunk (ROADMAP A15) raises; the deformable trunk
+    (``DEFORM_ON_PER_STAGE``, A14.5), which raised before it was ported,
+    builds a ``DeformBottleneckBlock`` for each block of its deformable
+    stages up to res4, CenterNet's (tests/test_torch_dconv.py holds it to
+    the JAX package)."""
+    _, pcfg = _cfgs(R50 + ["MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]])
+    trunk = build_model(pcfg).model.backbone
+    assert [type(b).__name__ for b in trunk.res3] == ["DeformBottleneckBlock"] * 4
+    assert [type(b).__name__ for b in trunk.res2] == ["BottleneckBlock"] * 3
+    for extra, item in ((["MODEL.RESNETS.STEM_TYPE", "deeplab"], "A15"),
                         (["MODEL.BACKBONE.NAME", "build_resnet_deeplab_backbone"], "A15")):
         _, pcfg = _cfgs(R50 + extra)
         with pytest.raises(NotImplementedError, match=item):
