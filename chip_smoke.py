@@ -8,11 +8,14 @@ the ResNet-18/50-deconv and VoVNet-39 configs, ``tools/train_net`` and
 ProposalNetwork, Mask R-CNN and Keypoint R-CNN R50-FPN, Cascade Mask R-CNN
 R50-FPN, Mask R-CNN R50-C4 with the C4 ProposalNetwork, Faster R-CNN
 R50-DC5, the dconv Mask R-CNN R50-FPN (its deformable trunk on the DCN
-kernels, at stride 1 and 2) and Fast R-CNN R50-FPN on precomputed
-proposals, every NMS of the R-CNN and RetinaNet paths on the hand-written NMS
+kernels, at stride 1 and 2), Fast R-CNN R50-FPN on precomputed
+proposals, LVIS v1 Mask R-CNN R50-FPN (serving, training from a
+``RepeatFactorTrainingSampler``, ``LVISEvaluator``) and the Pascal VOC and
+Cityscapes-instance evaluations, every NMS of the R-CNN and RetinaNet paths on the hand-written NMS
 kernel (``ops/csrc/nms.cu``). Every config is read from its YAML file
 (``configs/COCO-Detection/``, ``COCO-InstanceSegmentation/``,
-``COCO-Keypoints/``, ``Misc/``) by the port's own reader.
+``COCO-Keypoints/``, ``Misc/``, ``LVIS-InstanceSegmentation/``,
+``PascalVOC-Detection/``, ``Cityscapes/``) by the port's own reader.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -175,6 +178,26 @@ Phases (any failure raises and the script exits non-zero):
      proposals (``DefaultPredictor`` raises), ``tools/train_net`` 4 steps
      and ``--eval-only --resume`` on the files; one NMS launch per call,
      none per train step, no DCN;
+  18. LVIS v1 Mask R-CNN, ``LVIS-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml``
+     (phase 11's model at 1203 classes, 300 detections an image at
+     SCORE_THRESH_TEST 1e-4: the box head's NMS row holds 1000 x 1203
+     candidates, swept in place): (a) ``DefaultPredictor`` requests and
+     ``predict_fn`` at batch 1 and 16, peak memory, the profiled calls' NMS
+     and mask-predictor shares, the mask head alone on the chosen class
+     against all 1203 at batch 1; (b) f32 card against CPU on the card's
+     maps: the box predictor and the chosen-class mask logits within
+     SAME_INPUT_TOL of their scale, the TF32 control over it; (c)
+     ``tools/bench``'s train steps at 16 x 800² from a
+     ``RepeatFactorTrainingSampler`` over an LVIS json written here (its
+     repeat factors against a numpy recount); (d) ``LVISEvaluator`` through
+     ``tools/train_net``'s ``build_evaluator`` and ``inference_on_dataset``
+     on another LVIS json; 19. Faster R-CNN on a Pascal VOC tree (XML,
+     ``ImageSets``) and Mask R-CNN on a Cityscapes split (``gtFine``
+     polygons, 2048x1024 → 1024²), each loaded by the ported loader and
+     evaluated the same way: the string image ids reach the evaluators
+     unchanged, the numbers are finite, each evaluator's host seconds
+     printed. The records carry their pixels in ``image`` (the card's
+     machine may have no PIL). Their box-head NMS inputs go to 10c; no DCN;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -210,9 +233,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from detectron2_centernet_tpu_torch.config import get_cfg
-from detectron2_centernet_tpu_torch.data import (DatasetCatalog, MetadataCatalog, build_detection_train_loader,
+from detectron2_centernet_tpu_torch.data import (DatasetCatalog, MetadataCatalog, RepeatFactorTrainingSampler,
+                                                 build_detection_test_loader, build_detection_train_loader,
                                                  letterbox_transform, warp_image)
-from detectron2_centernet_tpu_torch.data.datasets import register_synthetic_instances
+from detectron2_centernet_tpu_torch.data.datasets import (ensure_synthetic_datasets, load_cityscapes_instances,
+                                                          load_lvis_json, load_voc_instances,
+                                                          register_synthetic_instances)
+from detectron2_centernet_tpu_torch.data.datasets.cityscapes import CITYSCAPES_THING_CLASSES
+from detectron2_centernet_tpu_torch.data.datasets.pascal_voc import CLASS_NAMES as VOC_CLASS_NAMES
 from detectron2_centernet_tpu_torch.engine import DefaultPredictor, DefaultTrainer, hooks
 from detectron2_centernet_tpu_torch.evaluation import COCOEval
 from detectron2_centernet_tpu_torch.evaluation import evaluator as eval_loop
@@ -231,7 +259,7 @@ from detectron2_centernet_tpu_torch.models.roi_heads import roi_heads as roi_hea
 from detectron2_centernet_tpu_torch.ops import roi_align as roi_ops
 from detectron2_centernet_tpu_torch.structures.keypoints import heatmaps_to_keypoints
 from detectron2_centernet_tpu_torch.structures.masks import paste_masks_in_image
-from detectron2_centernet_tpu_torch.tools import bench
+from detectron2_centernet_tpu_torch.tools import bench, train_net
 
 # DLA-34 at 512x512: the 16 DCN launches of one forward as (Cin, Cout, H=W, count)
 DLA_SHAPES = [
@@ -620,7 +648,7 @@ def phase_evaluation(report, weights, out_dir):
           f"({EVAL_IMAGES} images of {EVAL_SIZE[0]}x{EVAL_SIZE[1]}), batch 16")
     cfg = ctdet_cfg(DLA, "bfloat16")
     cfg.OUTPUT_DIR = out_dir
-    register_synthetic_instances("coco_2017_val", num_images=EVAL_IMAGES, image_size=EVAL_SIZE)
+    fresh_synthetic_val("coco_2017_val")  # over the builtin name, whose COCO files are not here
     model = build_model(cfg)
     model.model.load_state_dict(weights)
     batches = -(-EVAL_IMAGES // cfg.TEST.BATCH_SIZE)
@@ -1203,7 +1231,7 @@ def phase_train_net(report, out_dir):
 
 def phase_bench(report):
     print("== 8d. tools/bench on ctdet DLA-34 (512², bf16, the YAML's TEST.BATCH_SIZE and IMS_PER_BATCH)")
-    from detectron2_centernet_tpu_torch.tools import bench
+    from detectron2_centernet_tpu_torch.tools import bench, train_net
 
     reset_launches()
     result = bench.main([])
@@ -1583,7 +1611,8 @@ def phase_nms_kernel(report, cases):
               f"operations {ops_ms:.4f}; reading every live candidate at every pick: {per_pick_ms:.4f} ms)")
         if not equal:
             raise SystemExit(f"the NMS kernel disagrees with its plain version on {name}")
-    in_place = [k for k in ("box_head_eval", "rpn_train_c4", "rpn_train_dc5") if k in out]
+    in_place = [k for k in ("box_head_eval", "rpn_train_c4", "rpn_train_dc5", "box_head_lvis_b1", "box_head_lvis_b16")
+                if k in out]
     if any(out[k]["shared_memory"] for k in in_place):
         raise SystemExit(f"a case of the kernel's in-place path fit in shared memory: "
                          f"{ {k: out[k]['most_live_in_a_row'] for k in in_place} }")
@@ -2838,10 +2867,10 @@ def dump_proposals(rpn_model, cfg, dataset: str, path: str, topk: int) -> dict:
             pb, plog, pv = rpn_model.proposals(lg, dl, tuple(x.shape[2:]), "test")
         forwards += 1
         pb, plog, pv = pb.cpu().numpy(), plog.float().cpu().numpy(), pv.cpu().numpy()
-        for i, image_id in enumerate(batch["image_id"].reshape(-1)):
+        for i, image_id in enumerate(batch["image_id"]):  # as the dataset gave them (ROADMAP C22)
             m = batch["warp"][i].astype(np.float64)  # source → network input; the letterbox neither flips nor turns
             b = (pb[i][pv[i]].astype(np.float64) - np.tile(m[:, 2], 2)) / np.tile(np.diag(m[:, :2]), 2)
-            ids.append(int(image_id))
+            ids.append(image_id)
             boxes.append(b.astype(np.float32))
             logits.append(plog[i][pv[i]].astype(np.float32))
     with open(path, "wb") as f:
@@ -2884,8 +2913,7 @@ def phase_fast_rcnn(report, out_dir):
     reset_launches()
     init, weights = rcnn_weights(rcnn_cfg(FAST, "float32"), letterboxed(rng, "cpu", 2, size), seed=0)
     os.environ["DETECTRON2_SYNTH_DATA"] = "1"
-    if train not in DatasetCatalog:
-        register_synthetic_instances(train)
+    ensure_synthetic_datasets([train])
     fresh_synthetic_val(val)
     pcfg = rcnn_cfg(PROPOSALS, "bfloat16", extra=("TEST.BATCH_SIZE", str(RCNN_BATCH)))
     rpn_model = build_model(pcfg)
@@ -3002,6 +3030,462 @@ def phase_fast_rcnn(report, out_dir):
     return launches, nms_launches
 
 
+LVIS_FOLDER, LVIS = "LVIS-InstanceSegmentation", "mask_rcnn_R_50_FPN_1x"
+# LVIS v1's 1203 categories by frequency bucket: 337 rare, 461 common, 405 frequent
+LVIS_BUCKETS = (("r", 337), ("c", 461), ("f", 405))
+LVIS_TRAIN_IMAGES, LVIS_VAL_IMAGES = 48, 8
+# the config's 0.001 is for LVIS v1's 100 170 training images; over 48 images every category is in
+# more than 1/48 of them, so 0.25 keeps the rare categories repeated
+LVIS_REPEAT_THRESHOLD = 0.25
+EVAL_BATCH = 4  # TEST.BATCH_SIZE of the three evaluations (the YAMLs keep 1)
+
+
+def lvis_scenes(path: str, n: int, seed: int, size=EVAL_SIZE) -> dict:
+    """Write an LVIS v1 json of ``n`` synthetic scenes (coloured rectangles,
+    each with its rectangle as a polygon) to ``path``; return each image's
+    pixels by image id. Its 1203 categories carry LVIS v1's rare, common and
+    frequent counts; each image holds two of 4 frequent categories, every
+    second one one of 12 common ones, every third one a rare one of its own
+    (so the images' repeat factors differ); each names two other frequent
+    ones as negative and its first as not exhaustive, and is named by
+    ``coco_url``."""
+    rng = np.random.RandomState(seed)
+    freq = [b for b, k in LVIS_BUCKETS for _ in range(k)]
+    ids = {b: [i + 1 for i, f in enumerate(freq) if f == b] for b, _ in LVIS_BUCKETS}
+    h, w = size
+    images, anns, pixels = [], [], {}
+    for i in range(n):
+        img_id = 1000 * seed + i
+        img = np.full((h, w, 3), 32, np.uint8)
+        cats = [int(c) for c in rng.choice(ids["f"][:4], 2)] + [int(rng.choice(ids["c"][:12]))] * (i % 2 == 0) \
+            + [ids["r"][i]] * (i % 3 == 0)
+        for c in cats:
+            bw, bh = int(rng.randint(40, w // 2)), int(rng.randint(40, h // 2))
+            x0, y0 = int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh))
+            img[y0:y0 + bh, x0:x0 + bw] = rng.randint(64, 255, 3)
+            anns.append({"id": len(anns) + 1, "image_id": img_id, "category_id": c, "bbox": [x0, y0, bw, bh],
+                         "area": bw * bh, "segmentation": [[x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0, y0 + bh]]})
+        images.append({"id": img_id, "height": h, "width": w,
+                       "coco_url": f"http://images.cocodataset.org/val2017/{img_id:012d}.jpg",
+                       "neg_category_ids": [int(c) for c in rng.choice(ids["f"][4:40], 2, replace=False)],
+                       "not_exhaustive_category_ids": [cats[0]]})
+        pixels[img_id] = img
+    categories = [{"id": i + 1, "name": f"category_{i + 1}", "synonyms": [f"category_{i + 1}"], "frequency": f}
+                  for i, f in enumerate(freq)]
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": categories}, f)
+    return pixels
+
+
+def voc_tree(root: str, n: int, seed: int, size=(375, 500)):
+    """A VOC2007 tree of ``n`` images (``Annotations/*.xml``,
+    ``ImageSets/Main/test.txt``; file ids "000005", "000012", ...), a few
+    objects of the 20 classes each, some difficult; returns (its directory,
+    each image's pixels by file id)."""
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, "VOC2007")
+    for sub in ("Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    h, w = size
+    ids = [f"{5 + 7 * i:06d}" for i in range(n)]
+    pixels = {}
+    for fid in ids:
+        img = np.full((h, w, 3), 32, np.uint8)
+        objs = []
+        for j in range(rng.randint(2, 6)):
+            bw, bh = int(rng.randint(30, w // 2)), int(rng.randint(30, h // 2))
+            x0, y0 = int(rng.randint(1, w - bw)), int(rng.randint(1, h - bh))
+            img[y0:y0 + bh, x0:x0 + bw] = rng.randint(64, 255, 3)
+            objs.append(f"<object><name>{VOC_CLASS_NAMES[rng.randint(20)]}</name><difficult>{int(j == 1)}"
+                        f"</difficult><bndbox><xmin>{x0}</xmin><ymin>{y0}</ymin><xmax>{x0 + bw}</xmax>"
+                        f"<ymax>{y0 + bh}</ymax></bndbox></object>")
+        with open(os.path.join(d, "Annotations", fid + ".xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}</height><depth>3</depth></size>"
+                    f"{''.join(objs)}</annotation>")
+        pixels[fid] = img
+    with open(os.path.join(d, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return d, pixels
+
+
+def cityscapes_tree(root: str, n: int, seed: int, size=(1024, 2048)):
+    """A Cityscapes val split of ``n`` images over two cities
+    (``gtFine/<city>/*_gtFine_polygons.json``; each
+    ``leftImg8bit/<city>/*_leftImg8bit.png`` an empty file, whose name the
+    loader globs): cars, persons and the other thing classes as polygons of
+    8-16 points at street sizes, a ``cargroup`` crowd, a ``road`` and a
+    2-point polygon; returns (image dir, gtFine dir, pixels by file name)."""
+    rng = np.random.RandomState(seed)
+    image_dir = os.path.join(root, "cityscapes", "leftImg8bit", "val")
+    gt_dir = os.path.join(root, "cityscapes", "gtFine", "val")
+    h, w = size
+    pixels = {}
+    for i in range(n):
+        city = ("frankfurt", "lindau")[i % 2]
+        base = f"{city}_{i:06d}_000019"
+        for d in (image_dir, gt_dir):
+            os.makedirs(os.path.join(d, city), exist_ok=True)
+        open(os.path.join(image_dir, city, base + "_leftImg8bit.png"), "wb").close()
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        objects = []
+        for label in ["car"] * 4 + ["person"] * 3 + ["rider", "truck", "bicycle", "cargroup", "road"]:
+            r, cx, cy = rng.uniform(20, 160), rng.uniform(200, w - 200), rng.uniform(300, h - 200)
+            t = np.sort(rng.uniform(0, 2 * np.pi, rng.randint(8, 17)))
+            poly = np.stack([cx + r * 1.5 * np.cos(t), cy + r * np.sin(t)], 1).round(1)
+            img[int(cy - r * 0.7):int(cy + r * 0.7), int(cx - r):int(cx + r)] = rng.randint(64, 255, 3)
+            objects.append({"label": label, "polygon": poly.tolist()})
+        objects.append({"label": "car", "polygon": [[10.0, 20.0], [30.0, 40.0]]})
+        with open(os.path.join(gt_dir, city, base + "_gtFine_polygons.json"), "w") as f:
+            json.dump({"imgHeight": h, "imgWidth": w, "objects": objects}, f)
+        pixels[base + "_leftImg8bit.png"] = img
+    return image_dir, gt_dir, pixels
+
+
+def register_with_pixels(name: str, load, pixels: dict, **meta) -> None:
+    """``name``, afresh, as the records of the ported loader ``load`` with
+    each image's pixels in its ``image`` field (the mapper reads them there:
+    the card's machine may have no PIL), and the metadata ``meta``."""
+    for catalog in (DatasetCatalog, MetadataCatalog):
+        if name in catalog:
+            catalog.remove(name)
+    DatasetCatalog.register(name, lambda: [dict(r, image=pixels[r["image_id"]]) for r in load()])
+    MetadataCatalog.get(name).set(**meta)
+
+
+def evaluate_on_card(model, cfg, name):
+    """``tools/train_net``'s evaluator of ``name`` through
+    ``inference_on_dataset`` and the test loader on the card: (its results,
+    the image ids its ``process()`` saw, timings: the loop's wall seconds,
+    the host seconds of its post-processing and ``process()`` calls and of
+    ``evaluate()``, the NMS kernel's launches)."""
+    evaluator = train_net.Trainer.build_evaluator(cfg, name)
+    seen, timing = [], {}
+    process, evaluate = evaluator.process, evaluator.evaluate
+
+    def recording(inputs, outputs):
+        seen.extend(i["image_id"] for i in inputs)
+        process(inputs, outputs)
+
+    def timed():
+        t0 = time.perf_counter()
+        results = evaluate()
+        timing["evaluate_s"] = time.perf_counter() - t0
+        return results
+
+    evaluator.process, evaluator.evaluate = recording, timed
+    nms_ops.greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    results = eval_loop.inference_on_dataset(model.predict_fn, build_detection_test_loader(cfg, name), evaluator,
+                                             model.postprocess, model.device)
+    torch.cuda.synchronize()
+    stats = eval_loop.LAST_INFERENCE_STATS
+    timing.update(wall_s=time.perf_counter() - t0, host_process_s=stats["eval_s"], images=stats["total_images"],
+                  evaluator=type(evaluator).__name__, nms_launches=nms_ops.greedy_nms.launches)
+    timing["host_s"] = timing["host_process_s"] + timing["evaluate_s"]
+    return results, seen, timing
+
+
+def check_finite(where, results, task, keys):
+    numbers = results.get(task, {})
+    if not all(k in numbers and math.isfinite(numbers[k]) for k in keys):
+        raise SystemExit(f"{where}: the {task} numbers are not complete and finite: {results}")
+
+
+def phase_lvis(report, out_dir):
+    """Phase 18: LVIS v1 Mask R-CNN R50-FPN at full width (1203 classes, 300
+    detections an image at SCORE_THRESH_TEST 1e-4) through the port's entry
+    points: (a) requests and predict_fn at batch 1 and 16, peak memory, the
+    profiled call's NMS and mask-predictor shares; (b) the f32 box predictor
+    and chosen-class mask logits card against CPU on the card's maps, with
+    the TF32 control; (c) tools/bench's train steps at batch 16 from a
+    RepeatFactorTrainingSampler over an LVIS json this phase writes; (d)
+    LVISEvaluator through tools/train_net's build_evaluator and
+    inference_on_dataset. Every NMS through the kernel, no DCN kernel."""
+    cfg = rcnn_cfg(LVIS, "bfloat16", LVIS_FOLDER)
+    m = cfg.MODEL
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    k = int(cfg.TEST.DETECTIONS_PER_IMAGE)
+    c = int(m.ROI_HEADS.NUM_CLASSES)
+    print(f"== 18a. {LVIS_FOLDER}/{LVIS}.yaml: ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM}, FPN {m.FPN.OUT_CHANNELS}, "
+          f"{c} classes, {k} detections an image at SCORE_THRESH_TEST {m.ROI_HEADS.SCORE_THRESH_TEST}, mask head of "
+          f"{m.ROI_MASK_HEAD.NUM_CONV} convs of {m.ROI_MASK_HEAD.CONV_DIM}, {cfg.DATALOADER.SAMPLER_TRAIN}, bf16: "
+          f"DefaultPredictor at {size[0]}², predict_fn at batch 1 and {RCNN_BATCH}")
+    if not (m.RESNETS.DEPTH == 50 and m.FPN.OUT_CHANNELS == 256 and size == (800, 800) and c == 1203 and k == 300
+            and m.ROI_HEADS.SCORE_THRESH_TEST == 1e-4 and m.MASK_ON and m.ROI_MASK_HEAD.NUM_CONV == 4
+            and m.ROI_MASK_HEAD.CONV_DIM == 256 and m.RPN.POST_NMS_TOPK_TEST == 1000
+            and m.ROI_HEADS.BATCH_SIZE_PER_IMAGE == 512
+            and cfg.DATALOADER.SAMPLER_TRAIN == "RepeatFactorTrainingSampler"):
+        raise SystemExit(f"{LVIS} is not at full width here: {m}")
+    rng = np.random.RandomState(18)
+    reset_launches()
+    init, weights = rcnn_weights(rcnn_cfg(LVIS, "float32", LVIS_FOLDER), letterboxed(rng, "cpu", 2, size), seed=0)
+    del init
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    model.model.load_state_dict(weights)
+    nms_launches = {}
+    nms_ops.greedy_nms.launches = 0
+    for h, w in ((480, 640), (800, 800)):
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        inst = predictor(im)["instances"]
+        b = inst.pred_boxes.tensor
+        if not (0 < len(inst) <= k and np.isfinite(b).all() and (b >= 0).all() and (b[:, [0, 2]] <= w).all()
+                and (b[:, [1, 3]] <= h).all() and (inst.scores > 1e-4).all() and (inst.pred_classes < c).all()
+                and inst.pred_masks.dtype == bool and inst.pred_masks.shape == (len(inst), h, w)
+                and inst.pred_masks.any()):
+            raise SystemExit(f"{LVIS}: bad detections for a {h}x{w} image: {inst}")
+        print(f"  request {h}x{w}: {len(inst)} detections of {len(np.unique(inst.pred_classes))} classes, scores "
+              f"{inst.scores.min():.2e}-{inst.scores.max():.4f}, {int(inst.pred_masks.sum(axis=(1, 2)).mean())} mask "
+              f"pixels per detection")
+    latency = bench.request_ms(predictor, rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+    b1, b16 = letterboxed(rng, model.device, 1, size), letterboxed(rng, model.device, RCNN_BATCH, size)
+    nms_inputs = []
+    with capture_nms(nms_inputs):
+        d1 = model.predict_fn(b1)
+        d16 = model.predict_fn(b16)
+        with torch.inference_mode():  # the training's proposals
+            model.proposals(*model.model(model.normalize(b16))[1:], size, "train")
+    torch.cuda.synchronize()
+    nms_launches["serving"] = nms_ops.greedy_nms.launches
+    calls = 2 + bench.REQUEST_WARMUP + bench.REQUESTS + 2
+    if nms_launches["serving"] != 2 * calls + 1:
+        raise SystemExit(f"expected two NMS kernel launches per call (RPN, boxes) and one for the training's "
+                         f"proposals, {2 * calls + 1}, got {nms_launches['serving']}")
+    nms_cases = {"box_head_lvis_b1": nms_inputs[1], "rpn_test_lvis": nms_inputs[2], "box_head_lvis_b16": nms_inputs[3],
+                 "rpn_train_lvis": nms_inputs[4]}
+    live = {n: int(torch.isfinite(nms_cases[n][1]).sum(1).max()) for n in ("box_head_lvis_b1", "box_head_lvis_b16")}
+    valid = (d16["scores"] > 1e-4).sum(1).cpu()
+    if not (tuple(d16["masks"].shape) == (RCNN_BATCH, k, 28, 28) and tuple(d1["masks"].shape) == (1, k, 28, 28)
+            and bool(torch.isfinite(d16["masks"]).all()) and int(valid.min()) > 0):
+        raise SystemExit(f"{LVIS}'s predict_fn returned malformed masks or no detections: "
+                         f"{tuple(d16['masks'].shape)}, {valid.tolist()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_b1 = cuda_ms(lambda: model.predict_fn(b1), iters=5)
+    ms_b16 = cuda_ms(lambda: model.predict_fn(b16), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p1 = profiled(lambda: model.predict_fn(b1), calls=1)
+    p16 = profiled(lambda: model.predict_fn(b16), calls=1)
+    bmm = {n: sum(e.device_time_total for e in p["events"] if e.key == "aten::bmm") / 1e3
+           for n, p in (("b1", p1), ("b16", p16))}
+    # the mask head alone on the batch-16 detections, and at batch 1 against the whole (300, 1203, 28, 28)
+    # tensor (at batch 16 the whole tensor would be 18 GB)
+    with torch.inference_mode():
+        feats = model.model(model.normalize(b16))[0]
+        cls = torch.clamp(d16["classes"].reshape(-1), 0, c - 1)
+        pooled = model.pool(feats, d16["boxes"].reshape(-1, 4), k, model.mask_pooler_resolution)
+        head_b16 = cuda_ms(lambda: model.model.mask_predict(pooled, cls), iters=3, warmup=1)
+        head_b1 = cuda_ms(lambda: model.model.mask_predict(pooled[:k], cls[:k]), iters=5)
+        whole_b1 = cuda_ms(lambda: model.model.mask_predict(pooled[:k]), iters=3, warmup=1)
+        rows = model.model.mask_predict(pooled[:k], cls[:k]).float()
+        whole = model.model.mask_predict(pooled[:k])[torch.arange(k, device=cls.device), cls[:k]].float()
+        rows_err = ((rows - whole).abs().max() / whole.abs().max()).item()
+    del feats, pooled
+    print(f"  request (480x640 → 800²) median {statistics.median(latency):.3f} ms of {bench.REQUESTS}; predict_fn "
+          f"batch 1 {ms_b1:.3f} ms ({p1['device_ms']:.3f} on the card, NMS kernel {p1['nms_kernel_ms']:.3f} = "
+          f"{p1['nms_kernel_ms'] / p1['device_ms']:.0%}, chosen-class mask predictor {bmm['b1']:.3f}); batch "
+          f"{RCNN_BATCH} {ms_b16:.3f} ms = {RCNN_BATCH * 1e3 / ms_b16:.2f} img/s ({p16['device_ms']:.3f} on the card, "
+          f"NMS kernel {p16['nms_kernel_ms']:.3f} = {p16['nms_kernel_ms'] / p16['device_ms']:.0%}, chosen-class mask "
+          f"predictor {bmm['b16']:.3f}); peak memory {peak:.2f} GiB; valid detections per image "
+          f"{int(valid.min())}-{int(valid.max())} of {k}; live candidates in the box head's rows: at most "
+          f"{live['box_head_lvis_b1']} (batch 1), {live['box_head_lvis_b16']} (batch {RCNN_BATCH}) of "
+          f"{nms_cases['box_head_lvis_b16'][1].shape[1]}; NMS kernel launches {nms_launches['serving']}")
+    print(f"  the mask head alone: batch {RCNN_BATCH} ({RCNN_BATCH * k} rois, the chosen class) {head_b16:.3f} ms = "
+          f"{head_b16 / ms_b16:.0%} of the call; batch 1 chosen class {head_b1:.3f} ms, all {c} classes "
+          f"{whole_b1:.3f} ms; the chosen rows against the whole tensor's: {rows_err:.2e} of its scale")
+    print(p16["events"].table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    out = dict(request_ms=latency, request_median_ms=statistics.median(latency), predict_fn_b1_ms=ms_b1,
+               predict_fn_b16_ms=ms_b16, img_s_b16=RCNN_BATCH * 1e3 / ms_b16, peak_memory_gib=peak,
+               device_ms_b1=p1["device_ms"], device_ms_b16=p16["device_ms"], nms_kernel_ms_b1=p1["nms_kernel_ms"],
+               nms_kernel_ms_b16=p16["nms_kernel_ms"], mask_predictor_ms=bmm, mask_head_b16_ms=head_b16,
+               mask_head_b1_ms=head_b1, mask_head_b1_all_classes_ms=whole_b1, chosen_rows_vs_whole=rows_err,
+               live_in_box_head_rows=live, valid_per_image=valid.tolist())
+    if rows_err > 1e-2:
+        raise SystemExit(f"the chosen-class mask logits differ from the whole tensor's rows: {rows_err:.3e}")
+    del predictor, d1, d16
+
+    top = 16
+    print(f"== 18b. f32, batch 2, card against CPU on the card's maps: the box predictor on the first {HEAD_ROIS} "
+          f"proposals of each image, the chosen-class mask logits of the top {top} detections; with cuDNN's TF32 "
+          f"and ieee_f32 bypassed as the control")
+    cfg32 = rcnn_cfg(LVIS, "float32", LVIS_FOLDER)
+    card = build_model(cfg32)
+    cfg32.MODEL.DEVICE = "cpu"
+    host = build_model(cfg32)
+    for mdl in (card, host):
+        mdl.model.load_state_dict(weights)
+    x = b16[:2]
+    checks, tf32 = {}, {}
+    with torch.inference_mode():
+        dets = card.predict_fn(x)
+        feats, lg, dl = card.model(card.normalize(x))
+        props = card.proposals(lg, dl, size, "test")[0][:, :HEAD_ROIS]
+        pooled = card.pool(feats, props.reshape(-1, 4), HEAD_ROIS)
+        boxes = dets["boxes"][:, :top].reshape(-1, 4)
+        cls = torch.clamp(dets["classes"][:, :top].reshape(-1), 0, c - 1)
+        mpooled = card.pool(feats, boxes, top, card.mask_pooler_resolution)
+        want = dict(zip(("cls_score", "bbox_pred"), host.model.box_predict(pooled.cpu())),
+                    mask_logits=host.model.mask_predict(mpooled.cpu(), cls.cpu()))
+        got = dict(zip(("cls_score", "bbox_pred"), card.model.box_predict(pooled)),
+                   mask_logits=card.model.mask_predict(mpooled, cls))
+        with pytorch_default_tf32(), bypass_ieee_f32(rcnn):
+            ctrl = dict(zip(("cls_score", "bbox_pred"), card.model.box_predict(pooled)),
+                        mask_logits=card.model.mask_predict(mpooled, cls))
+    for n in got:
+        card_vs_cpu(checks, n, got[n], want[n], rel=SAME_INPUT_TOL)
+        card_vs_cpu(tf32, n, ctrl[n], want[n], rel=SAME_INPUT_TOL)
+    for n, ch in checks.items():
+        print(f"  {n}: max_abs_err={ch['max_abs_err']:.3e} (scale {ch['scale']:.3e}, tol {SAME_INPUT_TOL:.0e} x "
+              f"scale) {'ok' if ch['max_abs_err'] <= ch['tol'] else 'FAIL'}; TF32 control "
+              f"{tf32[n]['max_abs_err'] / tf32[n]['tol']:.2f}x the tol")
+    if any(ch["max_abs_err"] > ch["tol"] for ch in checks.values()):
+        raise SystemExit(f"{LVIS}'s f32 heads differ between the card and the CPU: {checks}")
+    if not max(t["max_abs_err"] / t["tol"] for t in tf32.values()) > 1:
+        raise SystemExit(f"{LVIS}'s f32 head check did not see TF32: {tf32}")
+    out.update(card_vs_cpu=checks, tf32_control=tf32)
+    del card, host, feats, dets
+
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    data = os.path.join(out_dir, "lvis")
+    os.makedirs(data, exist_ok=True)
+    train, val = "chip_smoke_lvis_v1_train", "chip_smoke_lvis_v1_val"
+    train_json, val_json = os.path.join(data, "lvis_v1_train.json"), os.path.join(data, "lvis_v1_val.json")
+    pixels = lvis_scenes(train_json, LVIS_TRAIN_IMAGES, seed=1)
+    register_with_pixels(train, lambda: load_lvis_json(train_json, data, train), pixels, json_file=train_json,
+                         image_root=data, evaluator_type="lvis")
+    print(f"== 18c. tools/bench's train steps at batch {RCNN_BATCH} x 800² ({steps}, the last profiled) from the "
+          f"model's init, RepeatFactorTrainingSampler (REPEAT_THRESHOLD {LVIS_REPEAT_THRESHOLD}) over the "
+          f"{LVIS_TRAIN_IMAGES} images of an LVIS json (load_lvis_json)")
+    tcfg = rcnn_cfg(LVIS, "bfloat16", LVIS_FOLDER, extra=("DATASETS.TRAIN", f"('{train}',)",
+                                                          "DATALOADER.REPEAT_THRESHOLD", str(LVIS_REPEAT_THRESHOLD)))
+    nms_ops.greedy_nms.launches = 0
+    entries, trainer, clock = bench.bench_training(tcfg)
+    torch.cuda.synchronize()
+    nms_launches["bench_training"] = nms_ops.greedy_nms.launches
+    sampler = trainer.data_loader.sampler
+    records = DatasetCatalog.get(train)
+    cats = [np.unique([a["category_id"] for a in r["annotations"]]) for r in records]
+    share = {int(x): np.mean([x in cs for cs in cats]) for x in np.unique(np.concatenate(cats))}
+    recount = np.array([max(max(1.0, math.sqrt(LVIS_REPEAT_THRESHOLD / share[int(x)])) for x in cs) for cs in cats])
+    names = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "loss_mask", "total_loss")
+    losses = {n: [v for v, _ in trainer.storage.history(n).values()] for n in names}
+    print(f"  sampler {type(sampler).__name__}: repeat factors {sampler.repeat_factors.min():.3f}-"
+          f"{sampler.repeat_factors.max():.3f} (mean {sampler.repeat_factors.mean():.3f}), a numpy recount's largest "
+          f"difference {np.abs(sampler.repeat_factors - recount).max():.1e}; loss_mask "
+          f"{' '.join(f'{v:.4f}' for v in losses['loss_mask'])}; loss_cls {' '.join(f'{v:.4f}' for v in losses['loss_cls'])}")
+    print(f"  step times (ms) {' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} "
+          f"{entries['train_step_ms']:.1f} ms = {entries['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = "
+          f"{entries['train_busy_share']:.0%} of the median step; peak memory {entries['peak_memory_gib']:.2f} GiB; "
+          f"NMS kernel launches {nms_launches['bench_training']}")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    if not (isinstance(sampler, RepeatFactorTrainingSampler) and np.allclose(sampler.repeat_factors, recount, rtol=1e-12)
+            and sampler.repeat_factors.max() > 1.0 and nms_launches["bench_training"] == steps
+            and all(len(v) == steps and all(math.isfinite(x) for x in v) for v in losses.values())):
+        raise SystemExit(f"{LVIS}'s training: sampler {type(sampler).__name__}, factors {sampler.repeat_factors} vs "
+                         f"{recount}, NMS launches {nms_launches['bench_training']}, losses {losses}")
+    out.update(bench_training=entries, bench_losses=losses, bench_step_ms_all=clock.times,
+               bench_profiled_device_ms=clock.device_ms, repeat_factors=sampler.repeat_factors.tolist(),
+               repeat_factors_recount_max_diff=float(np.abs(sampler.repeat_factors - recount).max()))
+    del trainer, clock
+
+    pixels = lvis_scenes(val_json, LVIS_VAL_IMAGES, seed=2)
+    register_with_pixels(val, lambda: load_lvis_json(val_json, data, val), pixels, json_file=val_json,
+                         image_root=data, evaluator_type="lvis")
+    print(f"== 18d. LVISEvaluator (tools/train_net's build_evaluator) through inference_on_dataset on the "
+          f"{LVIS_VAL_IMAGES} images of an LVIS json, batch {EVAL_BATCH}, the serving weights")
+    ecfg = rcnn_cfg(LVIS, "bfloat16", LVIS_FOLDER, extra=("TEST.BATCH_SIZE", str(EVAL_BATCH)))
+    ecfg.OUTPUT_DIR = data
+    model = build_model(ecfg)
+    model.model.load_state_dict(weights)
+    results, seen, timing = evaluate_on_card(model, ecfg, val)
+    nms_launches["evaluation"] = timing["nms_launches"]
+    print(f"  {timing['evaluator']}: " + ", ".join(f"{n} {v:.4f}" for n, v in results.get("bbox", {}).items())
+          + f"; {timing['images']} images in {timing['wall_s']:.2f} s, host {timing['host_s']:.2f} s (post-processing "
+          f"and process() {timing['host_process_s']:.2f}, evaluate() {timing['evaluate_s']:.2f}); NMS kernel launches "
+          f"{timing['nms_launches']}")
+    check_finite(LVIS, results, "bbox", ("AP", "AP50", "AP75", "APr", "APc", "APf"))
+    if timing["evaluator"] != "LVISEvaluator" or seen != [r["image_id"] for r in DatasetCatalog.get(val)] \
+            or timing["nms_launches"] != 2 * -(-LVIS_VAL_IMAGES // EVAL_BATCH):
+        raise SystemExit(f"{LVIS}'s evaluation: {timing}, ids {seen}")
+    out.update(evaluation=dict(results=results, **timing))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the LVIS path (18a-18d): {launches}; NMS kernel launches {nms_launches}")
+    if any(launches.values()):
+        raise SystemExit(f"the LVIS path launched DCN kernels: {launches}")
+    out.update(launches=launches, nms_kernel_launches=nms_launches)
+    report["lvis_rcnn"] = out
+    return launches, nms_launches, nms_cases
+
+
+def phase_voc_cityscapes(report, out_dir):
+    """Phase 19: Faster R-CNN R50-FPN on a Pascal VOC tree (20 classes) and
+    Mask R-CNN R50-FPN on a Cityscapes val split (8 classes, 2048x1024
+    images to 1024²), each written in its own file format, loaded by the
+    ported loader and evaluated on the card through tools/train_net's
+    build_evaluator and inference_on_dataset: the string image ids reach
+    the evaluator as the dataset gave them, the numbers are finite, the
+    host seconds are reported. Every NMS through the kernel, no DCN."""
+    reset_launches()
+    out, nms_launches, nms_cases = {}, {}, {}
+    specs = (("voc", "PascalVOC-Detection", "faster_rcnn_R_50_FPN", 20, 8, "bbox", ("AP", "AP50", "AP75")),
+             ("cityscapes", "Cityscapes", "mask_rcnn_R_50_FPN", 8, 4, "segm", ("AP", "AP50")))
+    for number, (kind, folder, name, classes, n, task, keys) in zip("ab", specs):
+        cfg = rcnn_cfg(name, "bfloat16", folder, extra=("TEST.BATCH_SIZE", str(EVAL_BATCH)))
+        cfg.OUTPUT_DIR = out_dir
+        size = tuple(cfg.INPUT.TEST_SIZE)
+        if not (cfg.MODEL.RESNETS.DEPTH == 50 and cfg.MODEL.FPN.OUT_CHANNELS == 256
+                and cfg.MODEL.ROI_HEADS.NUM_CLASSES == classes and cfg.MODEL.MASK_ON == (kind == "cityscapes")
+                and size == ((800, 800) if kind == "voc" else (1024, 1024))):
+            raise SystemExit(f"{name} is not at full width here: {cfg.MODEL}")
+        if kind == "voc":
+            d, pixels = voc_tree(out_dir, n, seed=19)
+            dataset = "chip_smoke_voc_2007_test"
+            register_with_pixels(dataset, lambda d=d: load_voc_instances(d, "test"), pixels,
+                                 thing_classes=list(VOC_CLASS_NAMES), dirname=d, year=2007, split="test",
+                                 evaluator_type="pascal_voc")
+        else:
+            image_dir, gt_dir, pixels = cityscapes_tree(out_dir, n, seed=19)
+            dataset = "chip_smoke_cityscapes_fine_instance_seg_val"
+            register_with_pixels(dataset, lambda i=image_dir, g=gt_dir: load_cityscapes_instances(i, g), pixels,
+                                 thing_classes=list(CITYSCAPES_THING_CLASSES), evaluator_type="cityscapes_instance",
+                                 image_dir=image_dir, gt_dir=gt_dir)
+        records = DatasetCatalog.get(dataset)
+        print(f"== 19{number}. {folder}/{name}.yaml ({classes} classes, {size[0]}², bf16, seeded weights that detect): "
+              f"{n} images of {records[0]['height']}x{records[0]['width']} in its own file format, "
+              f"{sum(len(r['annotations']) for r in records)} objects; the evaluator of evaluator_type "
+              f"'{MetadataCatalog.get(dataset).evaluator_type}' through inference_on_dataset, batch {EVAL_BATCH}")
+        rng = np.random.RandomState(190 + len(kind))
+        _, weights = rcnn_weights(rcnn_cfg(name, "float32", folder), letterboxed(rng, "cpu", 2, size), seed=0)
+        model = build_model(cfg)
+        model.model.load_state_dict(weights)
+        inputs = []
+        with capture_nms(inputs):
+            results, seen, timing = evaluate_on_card(model, cfg, dataset)
+        nms_launches[kind] = timing["nms_launches"]
+        nms_cases[f"box_head_{kind}"] = inputs[1]  # the first batch's
+        print(f"  {timing['evaluator']}: " + ", ".join(f"{k} {v:.4f}" for k, v in results.get(task, {}).items()
+                                                     if k in keys) + f"; ids seen {seen[:2]}...; {timing['images']} "
+              f"images in {timing['wall_s']:.2f} s, host {timing['host_s']:.2f} s (post-processing and process() "
+              f"{timing['host_process_s']:.2f}, evaluate() {timing['evaluate_s']:.2f}); NMS kernel launches "
+              f"{timing['nms_launches']}")
+        check_finite(name, results, task, keys)
+        want_ids = [r["image_id"] for r in records]
+        if not (seen == want_ids and all(isinstance(i, str) for i in seen)
+                and timing["nms_launches"] == 2 * -(-n // EVAL_BATCH)):
+            raise SystemExit(f"{name}: the evaluator saw the ids {seen} (the dataset's {want_ids}); {timing}")
+        out[kind] = dict(results=results, ids=seen, **timing)
+        del model
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the VOC and Cityscapes paths: {launches}; NMS kernel launches {nms_launches}")
+    if any(launches.values()):
+        raise SystemExit(f"the VOC or Cityscapes path launched DCN kernels: {launches}")
+    out.update(launches=launches, nms_kernel_launches=nms_launches)
+    report["voc_cityscapes"] = out
+    return launches, nms_launches, nms_cases
+
+
 def roi_ops_inference(model, props, scores, deltas, n, p, size):
     """``fast_rcnn_inference`` of the box predictor's outputs on (N, P) proposals."""
     return roi_heads_ops.fast_rcnn_inference(props[0], props[2], scores.view(n, p, -1), deltas.view(n, p, -1),
@@ -3102,6 +3586,13 @@ def main() -> int:
         head_launches["fast"], head_nms["fast"] = phase_fast_rcnn(report, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    for kind, phase in (("lvis", phase_lvis), ("voc_cityscapes", phase_voc_cityscapes)):
+        scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+        try:
+            head_launches[kind], head_nms[kind], cases = phase(report, scratch)
+            head_cases.update(cases)
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
     nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases, **head_cases))
     totals = phase_kernel_timing(report)
 
@@ -3121,6 +3612,8 @@ def main() -> int:
             "launches_dconv_rcnn": head_launches["dconv"][name],  # phase 16, 13 per forward, 13 per train step
             "launches_dconv_stride_in_3x3_rcnn": head_launches["dconv_s3"][name],  # phase 16s
             "launches_fast_rcnn": head_launches["fast"][name],  # phase 17, asserted 0
+            "launches_lvis_rcnn": head_launches["lvis"][name],  # phase 18, asserted 0
+            "launches_voc_cityscapes_rcnn": head_launches["voc_cityscapes"][name],  # phase 19, asserted 0
             "launches_inference": inference[name], "launches_evaluation": evaluation[name],
             "launches_training": training[name], "launches_train_eval": train_eval[name],
             "launches_bench": bench_launches[name],
@@ -3159,12 +3652,15 @@ def main() -> int:
         "Mask R-CNN and Keypoint R-CNN (phases 11 and 12: requests and batch 16, the training's proposals, the "
         "bench, train_net), Cascade Mask R-CNN, Mask R-CNN C4 with the C4 ProposalNetwork, Faster R-CNN DC5 "
         "and the dconv Mask R-CNN (phases 13-16: the same), Fast R-CNN (phase 17: the ProposalNetwork writing its "
-        "proposal files, predict_fn, train_net's evaluations)",
+        "proposal files, predict_fn, train_net's evaluations), LVIS Mask R-CNN (phase 18: requests, batch 1 and 16, "
+        "the training's proposals, the bench's train steps, LVISEvaluator), Faster R-CNN on VOC and Mask R-CNN on "
+        "Cityscapes (phase 19: their evaluations)",
         "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
         "launches_mask_rcnn": head_nms["mask"], "launches_keypoint_rcnn": head_nms["keypoint"],
         "launches_cascade_rcnn": head_nms["cascade"], "launches_c4_rcnn": head_nms["c4"],
         "launches_dc5_rcnn": head_nms["dc5"], "launches_dconv_rcnn": head_nms["dconv"],
         "launches_dconv_stride_in_3x3_rcnn": head_nms["dconv_s3"], "launches_fast_rcnn": head_nms["fast"],
+        "launches_lvis_rcnn": head_nms["lvis"], "launches_voc_cityscapes_rcnn": head_nms["voc_cityscapes"],
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,

@@ -9,8 +9,12 @@ from .detection_utils import (
     unwarp_boxes,
     warp_image,
 )
-from .samplers import InferenceSampler, TrainingSampler
+from .datasets import register_coco_instances
+from .datasets.builtin import register_builtin_datasets
+from .samplers import InferenceSampler, RepeatFactorTrainingSampler, TrainingSampler
 from .transforms import CenterAffineAug, letterbox_transform
+
+register_builtin_datasets()
 
 __all__ = [
     "CenterAffineAug",
@@ -18,6 +22,7 @@ __all__ = [
     "DatasetMapper",
     "InferenceSampler",
     "MetadataCatalog",
+    "RepeatFactorTrainingSampler",
     "TrainingSampler",
     "apply_affine_to_boxes",
     "build_detection_test_loader",
@@ -27,6 +32,7 @@ __all__ = [
     "get_detection_dataset_dicts",
     "invert_affine",
     "letterbox_transform",
+    "register_coco_instances",
     "unwarp_boxes",
     "warp_image",
 ]

@@ -26,7 +26,7 @@ from ..config import CfgNode
 from ..structures import BoxMode
 from .catalog import DatasetCatalog
 from .dataset_mapper import DatasetMapper
-from .samplers import InferenceSampler, TrainingSampler
+from .samplers import InferenceSampler, RepeatFactorTrainingSampler, TrainingSampler
 
 logger = logging.getLogger(__name__)
 
@@ -99,19 +99,24 @@ def get_detection_dataset_dicts(dataset_names, filter_empty: bool = True, propos
 
 
 def _stack_batch(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
-    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    """Arrays stacked; a host value (``image_id``, as the dataset gave it:
+    an int, or a string such as VOC's "000005") as a list."""
+    return {k: np.stack([s[k] for s in samples]) if isinstance(samples[0][k], (np.ndarray, np.generic))
+            else [s[k] for s in samples] for k in samples[0]}
 
 
 class PrefetchIterator:
     """Threaded map + batch + prefetch over an index stream. Sample ``pos``
     of the stream is mapped with ``RandomState(seed + pos)`` (a train
     mapper's; an eval mapper, ``is_train`` False, draws nothing and gets
-    None), so the batches do not depend on the thread count. ``close()``
-    stops the producer; a mapper's exception comes out of ``next()``."""
+    None), so the batches do not depend on the thread count. ``sampler`` is
+    the index stream it was given. ``close()`` stops the producer; a
+    mapper's exception comes out of ``next()``."""
 
     def __init__(self, dataset: List[dict], indices: Iterable[int], mapper: Callable,
                  batch_size: int, num_workers: int, prefetch: int, seed: int) -> None:
         self._dataset = dataset
+        self.sampler = indices
         self._indices = iter(indices)
         self._mapper = mapper
         self._batch_size = batch_size
@@ -175,18 +180,24 @@ class PrefetchIterator:
 
 def build_detection_train_loader(cfg: CfgNode, mapper: Optional[Callable] = None) -> PrefetchIterator:
     """Infinite train loader of ``SOLVER.IMS_PER_BATCH`` images per batch over
-    ``DATASETS.TRAIN``, shuffled by a ``TrainingSampler`` seeded from
-    ``cfg.SEED`` (2026 when it is not positive, as in JAX), with the
-    proposals of ``DATASETS.PROPOSAL_FILES_TRAIN`` under
-    ``MODEL.LOAD_PROPOSALS``."""
+    ``DATASETS.TRAIN``, shuffled by ``DATALOADER.SAMPLER_TRAIN``
+    (``TrainingSampler``, or ``RepeatFactorTrainingSampler`` at
+    ``DATALOADER.REPEAT_THRESHOLD``) seeded from ``cfg.SEED`` (2026 when it
+    is not positive, as in JAX), with the proposals of
+    ``DATASETS.PROPOSAL_FILES_TRAIN`` under ``MODEL.LOAD_PROPOSALS``."""
     dataset_dicts = get_detection_dataset_dicts(
         cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
         proposal_files=cfg.DATASETS.PROPOSAL_FILES_TRAIN if cfg.MODEL.LOAD_PROPOSALS else None)
-    if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
-        raise NotImplementedError(f"sampler {cfg.DATALOADER.SAMPLER_TRAIN} is not ported")
     seed = cfg.SEED if cfg.SEED > 0 else 2026
+    sampler_name = cfg.DATALOADER.SAMPLER_TRAIN
+    if sampler_name == "TrainingSampler":
+        sampler = TrainingSampler(len(dataset_dicts), seed=seed)
+    elif sampler_name == "RepeatFactorTrainingSampler":
+        sampler = RepeatFactorTrainingSampler(dataset_dicts, cfg.DATALOADER.REPEAT_THRESHOLD, seed=seed)
+    else:
+        raise ValueError(f"Unknown training sampler: {sampler_name}")
     return PrefetchIterator(
-        dataset_dicts, TrainingSampler(len(dataset_dicts), seed=seed),
+        dataset_dicts, sampler,
         mapper or DatasetMapper(cfg, is_train=True), int(cfg.SOLVER.IMS_PER_BATCH),
         num_workers=cfg.DATALOADER.NUM_WORKERS, prefetch=cfg.DATALOADER.PREFETCH, seed=seed,
     )

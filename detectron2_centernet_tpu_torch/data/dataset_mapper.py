@@ -161,7 +161,8 @@ class DatasetMapper:
             "warp": m.astype(np.float32),
             "height": np.int32(dataset_dict["height"]),
             "width": np.int32(dataset_dict["width"]),
-            "image_id": np.int64(dataset_dict.get("image_id", -1)),
+            # as the dataset gave it (an int, or VOC's and Cityscapes' strings), never an array (ROADMAP C22)
+            "image_id": dataset_dict.get("image_id", -1),
         }
         if self.load_proposals:
             out.update(self._proposals(dataset_dict, m, out_size))

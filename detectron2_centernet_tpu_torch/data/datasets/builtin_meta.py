@@ -1,8 +1,9 @@
-"""COCO's 80 thing classes in official category-id order and its 17 person
-keypoints with their left/right flip map (copies of the tables of the JAX
-package's ``data/datasets/builtin_meta.py``)."""
+"""COCO's 80 thing classes in official category-id order, its 17 person
+keypoints with their left/right flip map, and the metadata every
+COCO-trained model uses (a copy of the JAX package's
+``data/datasets/builtin_meta.py``; the reference's ``builtin_meta.py``)."""
 
-from typing import List
+from typing import Dict, List
 
 # (category_id, name) in official COCO order; ids are non-contiguous
 COCO_CATEGORIES: List[tuple] = [
@@ -40,3 +41,25 @@ COCO_PERSON_KEYPOINT_FLIP_MAP = (
     ("left_wrist", "right_wrist"), ("left_hip", "right_hip"),
     ("left_knee", "right_knee"), ("left_ankle", "right_ankle"),
 )
+
+
+def _get_coco_instances_meta() -> Dict:
+    thing_ids = [cid for cid, _ in COCO_CATEGORIES]
+    if len(thing_ids) != 80:
+        raise AssertionError(f"COCO has 80 thing classes, the table {len(thing_ids)}")
+    return {
+        "thing_dataset_id_to_contiguous_id": {cid: i for i, cid in enumerate(thing_ids)},
+        "thing_classes": [name for _, name in COCO_CATEGORIES],
+    }
+
+
+def get_builtin_metadata(dataset_name: str) -> Dict:
+    """The metadata of a builtin family: "coco", or "coco_person" (with the
+    person keypoints' names and flip map)."""
+    if dataset_name == "coco":
+        return _get_coco_instances_meta()
+    if dataset_name == "coco_person":
+        meta = _get_coco_instances_meta()
+        meta.update(keypoint_names=COCO_PERSON_KEYPOINT_NAMES, keypoint_flip_map=COCO_PERSON_KEYPOINT_FLIP_MAP)
+        return meta
+    raise KeyError(f"No built-in metadata for dataset {dataset_name}")

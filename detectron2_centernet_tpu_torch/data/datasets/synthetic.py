@@ -161,13 +161,24 @@ def register_learnable_instances(
 
 
 def ensure_synthetic_datasets(names: Iterable[str]) -> None:
-    """Register a synthetic stand-in for every name that is not registered
-    (``synth_learnable*`` names get the learnable scenes, with keypoints and
+    """Register a synthetic stand-in for every name that is not registered,
+    or is registered but does not load (a builtin name whose files are not
+    here: it and its metadata are removed first, as in the JAX package).
+    ``synth_learnable*`` names get the learnable scenes, with keypoints and
     one class when the name has ``_kp``; names with ``keypoint`` get the
-    person-keypoint flavor)."""
+    person-keypoint flavor."""
     for name in names:
-        if not name or name in DatasetCatalog:
+        if not name:
             continue
+        if name in DatasetCatalog:
+            try:
+                DatasetCatalog.get(name)
+                continue  # its files load
+            except Exception as e:  # noqa: BLE001 - whatever keeps its files from loading: replaced below
+                logger.warning("dataset '%s' does not load (%s: %s)", name, type(e).__name__, e)
+                DatasetCatalog.remove(name)
+                if name in MetadataCatalog:
+                    MetadataCatalog.remove(name)
         if name.startswith("synth_learnable"):
             if "_kp" in name:
                 register_learnable_instances(name, keypoints=True, num_classes=1)

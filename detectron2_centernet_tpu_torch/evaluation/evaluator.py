@@ -19,7 +19,10 @@ Differences from the JAX loop:
   batches exactly, and holds the whole run when there are no more batches
   than the warm-up; ``wall_s`` is the whole loop's, and on a card
   ``device_s`` sums the span of every batch's forward on the stream between
-  two CUDA events (the card's busy share of the loop is their ratio).
+  two CUDA events (the card's busy share of the loop is their ratio);
+* each image's ``image_id`` reaches the evaluator as the dataset gave it,
+  VOC's "000005" and Cityscapes' file names too, where the JAX loop casts
+  it with ``int()`` (ROADMAP C22).
 """
 
 import datetime
@@ -199,8 +202,9 @@ def inference_on_dataset(
             outputs = postprocess(dets, warps, orig_sizes)
         else:
             outputs = [{k: v[i] for k, v in dets.items()} for i in range(len(orig_sizes))]
-        ids = batch["image_id"].reshape(-1)
-        inputs = [{"image_id": int(ids[i]), "height": h, "width": w} for i, (h, w) in enumerate(orig_sizes)]
+        # the ids as the dataset gave them, strings too (ROADMAP C22)
+        inputs = [{"image_id": image_id, "height": h, "width": w}
+                  for image_id, (h, w) in zip(batch["image_id"], orig_sizes)]
         evaluator.process(inputs, outputs)
         total += len(orig_sizes)
         return t1 - t0, time.perf_counter() - t1

@@ -18,12 +18,13 @@ the anchors (numpy, moved to the device once per input size, at the strides
 the backbone reports: DC5's res5 is at 16, ROADMAP C20), the training loss
 (``loss_fn``: RPN matching and sampling over every anchor, the fixed-size
 proposals, ROI sampling with the gt boxes appended, ROIAlign, the Fast
-R-CNN losses, per stage for Cascade; the mask and keypoint losses on the
-foreground rois), the fixed-size inference (``predict_fn``: proposals,
+R-CNN losses, per stage for Cascade; the mask loss on each foreground
+roi's gt-class logits alone and the keypoint loss), the fixed-size inference (``predict_fn``: proposals,
 ROIAlign, the box head (every Cascade stage, their softmaxes averaged), the
-per-class decode and one class-aware fixed-K NMS; then the mask logits at
-each detection's class and the keypoint heatmaps, pooled on the detections'
-boxes) and the host boundary (``postprocess``: the detections above the
+per-class decode and one class-aware fixed-K NMS; then the mask logits of
+each detection's class alone (``mask_head``'s ``classes``; JAX computes all
+classes' and gathers, the same values) and the keypoint heatmaps, pooled on
+the detections' boxes) and the host boundary (``postprocess``: the detections above the
 threshold in the original image, their masks pasted there and their
 keypoints decoded, both on the model's device).
 
@@ -228,10 +229,11 @@ class RCNNModel(nn.Module):
         """The predictor on ``res5_transform``'s output (its global average)."""
         return self.roi_heads.box_predictor(shared)
 
-    def mask_predict(self, pooled: torch.Tensor) -> torch.Tensor:
-        """Pooled (R, C, P, P) → f32 mask logits (R, classes, 2P, 2P)."""
+    def mask_predict(self, pooled: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Pooled (R, C, P, P) → f32 mask logits (R, classes, 2P, 2P), or
+        with ``classes`` (R,) each roi's class's only, (R, 2P, 2P)."""
         with ieee_f32(), self._autocast(pooled.device):
-            return self.roi_heads.mask_head(pooled)
+            return self.roi_heads.mask_head(pooled, classes)
 
     def keypoint_predict(self, pooled: torch.Tensor) -> torch.Tensor:
         """Pooled (R, C, P, P) f32 → f32 keypoint logits (R, K, 4P, 4P)."""
@@ -533,9 +535,10 @@ class GeneralizedRCNN:
                 mask_in = shared.view(n, s, *shared.shape[1:])[:, :k].reshape(n * k, *shared.shape[1:])
             else:
                 mask_in = self.pool(feats, flat_boxes, k, self.mask_pooler_resolution)
-            logits = self.model.mask_predict(mask_in)
+            classes = torch.clamp(sampled["classes"][:, :k].reshape(-1), 0, self.num_classes - 1)
+            logits = self.model.mask_predict(mask_in, classes)
             targets = crop_gt_masks(batch["gt_masks"].to(self.device), gt_boxes, matched, boxes, logits.shape[-1])
-            losses["loss_mask"] = mask_rcnn_loss(logits, targets, sampled["classes"][:, :k].reshape(-1), fg)
+            losses["loss_mask"] = mask_rcnn_loss(logits, targets, fg)
         if self.keypoint_on and "gt_keypoints" in batch:
             logits = self.model.keypoint_predict(self.pool(feats, flat_boxes, k, self.keypoint_pooler_resolution))
             gt_kp = batch["gt_keypoints"].to(self.device, torch.float32)
@@ -583,11 +586,9 @@ class GeneralizedRCNN:
                 mask_in = self.model.res5_transform(self.pool(feats, det_boxes, k))
             else:
                 mask_in = self.pool(feats, det_boxes, k, self.mask_pooler_resolution)
-            mask_logits = self.model.mask_predict(mask_in)
             cls = torch.clamp(dets["classes"].reshape(n * k), 0, self.num_classes - 1)
-            side = mask_logits.shape[-1]
-            sel = torch.gather(mask_logits, 1, cls.view(-1, 1, 1, 1).expand(-1, 1, side, side))[:, 0]
-            dets["masks"] = torch.sigmoid(sel).view(n, k, side, side)
+            sel = self.model.mask_predict(mask_in, cls)
+            dets["masks"] = torch.sigmoid(sel).view(n, k, *sel.shape[1:])
         if self.keypoint_on:
             kp = self.model.keypoint_predict(self.pool(feats, det_boxes, k, self.keypoint_pooler_resolution))
             dets["keypoint_heatmaps"] = kp.view(n, k, *kp.shape[1:])

@@ -4,9 +4,11 @@
 ``MaskRCNNConvUpsampleHead`` (:207): ``num_conv`` 3x3 convs + ReLU
 (``mask_fcn{i}``), a 2x2 stride-2 transposed conv + ReLU (``deconv``) and a
 1x1 per-class predictor (``predictor``), NCHW: (R, C, P, P) pooled rois →
-(R, num_classes, 2P, 2P) logits. The convs run at the model's width under
-autocast; the predictor in IEEE f32 on an f32 cast of its input, as the JAX
-package's ``dtype=jnp.float32`` conv.
+(R, num_classes, 2P, 2P) logits, or only each roi's class's (R, 2P, 2P),
+which is what inference and the loss read (at LVIS's 1203 classes the
+whole tensor of a batch-16 call of 300 detections would be 18 GB). The
+convs run at the model's width under autocast; the predictor in IEEE f32 on
+an f32 cast of its input, as the JAX package's ``dtype=jnp.float32`` conv.
 
 ``crop_gt_masks``: each sampled roi's (M, M) target, bilinearly sampled out
 of its matched gt's raster (``structures/masks.py::rasterize_in_box``, made
@@ -15,11 +17,13 @@ roi including both ends, zero outside the raster; the JAX package's f32
 arithmetic op for op (its ``jnp.linspace`` as XLA compiles it included).
 
 ``mask_rcnn_loss`` (reference :32-111): mean BCE of the logits at each
-roi's gt class against the target > 0.5, over the foreground rois.
+roi's gt class (the head's ``classes``) against the target > 0.5, over the
+foreground rois.
 PointRend's ``CoarseMaskHead`` is not ported (ROADMAP A15).
 """
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -62,10 +66,20 @@ class MaskRCNNConvUpsampleHead(nn.Module):
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 m.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(R, C, P, P) → the (R, num_classes, 2P, 2P) logits, or with
+        ``classes`` (R,) only each roi's class, (R, 2P, 2P): a 1x1 conv's
+        output for class c reads only its weight row c and bias c, so the
+        rows of the other classes (1202 of LVIS's 1203) are never made."""
         for i in range(self.num_conv):
             x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
-        return self.predictor(F.relu(self.deconv(x)))
+        x = F.relu(self.deconv(x))
+        if classes is None:
+            return self.predictor(x)
+        with torch.autocast(x.device.type, enabled=False):
+            w = self.predictor.weight[classes, :, 0, 0]  # (R, D), f32
+            out = torch.bmm(w[:, None, :], x.float().flatten(2))[:, 0] + self.predictor.bias[classes][:, None]
+        return out.view(x.shape[0], *x.shape[2:])
 
 
 def _linspace(lo: torch.Tensor, hi: torch.Tensor, num: int) -> torch.Tensor:
@@ -110,16 +124,12 @@ def crop_gt_masks(gt_rasters: torch.Tensor, gt_boxes: torch.Tensor, matched_idx:
     return out
 
 
-def mask_rcnn_loss(mask_logits: torch.Tensor, gt_masks: torch.Tensor, classes: torch.Tensor,
-                   fg_weights: torch.Tensor) -> torch.Tensor:
-    """(S, C, M, M) logits, (S, M, M) targets, (S,) gt class and foreground
-    weight → the mean BCE at the gt class over the foreground rois."""
-    s, c = mask_logits.shape[:2]
-    cls = torch.clamp(classes, 0, c - 1)
-    logits = torch.gather(mask_logits, 1, cls.view(s, 1, 1, 1).expand(s, 1, *mask_logits.shape[2:]))[:, 0]
+def mask_rcnn_loss(mask_logits: torch.Tensor, gt_masks: torch.Tensor, fg_weights: torch.Tensor) -> torch.Tensor:
+    """(S, M, M) logits at each roi's gt class (the head's ``classes``; a
+    background roi's any class, as it weighs 0), (S, M, M) targets, (S,)
+    foreground weights → the mean BCE over the foreground rois."""
     targets = (gt_masks > 0.5).to(torch.float32)
-    ce = torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
+    ce = torch.clamp(mask_logits, min=0) - mask_logits * targets + torch.log1p(torch.exp(-torch.abs(mask_logits)))
     per_roi = ce.mean(dim=(1, 2))
     num_fg = torch.clamp(fg_weights.sum(), min=1.0)
     return (per_roi * fg_weights).sum() / num_fg
-

@@ -21,30 +21,35 @@ import os
 from ..config import get_cfg
 from ..data import MetadataCatalog
 from ..engine import DefaultTrainer, default_argument_parser, default_setup, launch
-from ..evaluation import COCOEvaluator, verify_results
+from ..evaluation import (CityscapesInstanceEvaluator, COCOEvaluator, LVISEvaluator, PascalVOCDetectionEvaluator,
+                          verify_results)
 
-# evaluator_type -> the ROADMAP item that ports its evaluator
-QUEUED_EVALUATORS = {
-    "lvis": "A14", "pascal_voc": "A14", "cityscapes_instance": "A14",
-    "sem_seg": "A15", "coco_panoptic_seg": "A15", "cityscapes_sem_seg": "A15",
-}
+# evaluator_type -> the ROADMAP item that ports its evaluator: the sem-seg ones
+# (coco_panoptic_seg is COCO's and a sem-seg evaluator together)
+QUEUED_EVALUATORS = {"sem_seg": "A15", "coco_panoptic_seg": "A15", "cityscapes_sem_seg": "A15"}
 
 
 class Trainer(DefaultTrainer):
     """``DefaultTrainer`` with the evaluator of each dataset's
-    ``evaluator_type``."""
+    ``evaluator_type`` (JAX ``tools/train_net.py:30-63``)."""
 
     @classmethod
     def build_evaluator(cls, cfg, dataset_name, output_folder=None):
         if output_folder is None:
             output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
         evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
-        if evaluator_type == "coco":
-            return COCOEvaluator(dataset_name, output_dir=output_folder, cfg=cfg)
         if evaluator_type in QUEUED_EVALUATORS:
             raise RuntimeError(
                 f"dataset {dataset_name}: the evaluator of evaluator_type '{evaluator_type}' is not "
                 f"ported yet (ROADMAP {QUEUED_EVALUATORS[evaluator_type]})")
+        if evaluator_type == "coco":
+            return COCOEvaluator(dataset_name, output_dir=output_folder, cfg=cfg)
+        if evaluator_type == "lvis":
+            return LVISEvaluator(dataset_name, output_dir=output_folder)
+        if evaluator_type == "pascal_voc":
+            return PascalVOCDetectionEvaluator(dataset_name)
+        if evaluator_type == "cityscapes_instance":
+            return CityscapesInstanceEvaluator(dataset_name)
         raise NotImplementedError(
             f"No evaluator implemented for evaluator_type '{evaluator_type}' (dataset {dataset_name})")
 

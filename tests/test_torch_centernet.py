@@ -111,7 +111,7 @@ def test_dla34_stride4_map_matches_jax(models):
     jm, variables, pm = models
     x = _images(2, seed=1)
     xn = np.asarray(jm.normalize(jnp.asarray(x)))
-    want = np.asarray(jm.backbone.apply(
+    want = np.asarray(jax.jit(jm.backbone.apply)(
         {"params": variables["params"]["backbone"],
          "batch_stats": variables["batch_stats"]["backbone"]}, jnp.asarray(xn)))
     with torch.no_grad():
@@ -131,7 +131,7 @@ def test_predict_fn_matches_jax(models):
     1e-5, boxes within 1e-3 px (random weights give distinct scores)."""
     jm, variables, pm = models
     x = _images(2, seed=2)
-    want = {k: np.asarray(v) for k, v in jm.predict_fn(variables, jnp.asarray(x)).items()}
+    want = {k: np.asarray(v) for k, v in jax.jit(jm.predict_fn)(variables, jnp.asarray(x)).items()}
     dets = pm.predict_fn(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
     got = {k: v.numpy() for k, v in dets.items()}
     for i in range(2):

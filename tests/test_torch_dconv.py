@@ -10,6 +10,7 @@ from the reference, ROADMAP C21); a narrow deformable R50 trunk; and a narrow
 dconv Mask R-CNN's losses, gradients, SGD steps with a resume and
 detections."""
 
+import copy
 import tempfile
 
 import numpy as np
@@ -302,7 +303,7 @@ def test_deformable_trunk_matches_jax(extra):
     groups and reads no ``DEFORM_NUM_GROUPS``; the reference groups both),
     and the outputs agree all the same. Every key maps both ways."""
     jt, variables, pt, x = _trunks(extra, 7)
-    want = jt.apply(variables, jnp.asarray(x))
+    want = jax.jit(jt.apply)(variables, jnp.asarray(x))
     with torch.no_grad():
         got = pt.eval()(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()), ("res2", "res3", "res4", "res5"))
     for name in ("res2", "res3", "res4", "res5"):
@@ -361,6 +362,16 @@ def rcnn_pair():
     return jcfg, jm, variables, pcfg, pm
 
 
+@pytest.fixture(scope="module")
+def jax_loss_grad(rcnn_pair):
+    """JAX's loss, its terms and its gradient as one jitted function of
+    (params, batch), compiled once for the tests below (every batch has the
+    same shapes)."""
+    _, jm, variables, _, _ = rcnn_pair
+    stats = variables["batch_stats"]
+    return jax.jit(jax.value_and_grad(lambda p, b: jm.loss_fn(p, stats, b), has_aux=True))
+
+
 def _rcnn_batch(seed, n=2, m=6):
     rng = np.random.RandomState(seed)
     xy = rng.uniform(0, 40, (n, m, 2))
@@ -397,16 +408,14 @@ def _jax_batch(batch, key):
     return out
 
 
-def test_dconv_mask_rcnn_loss_and_every_gradient_match_jax(rcnn_pair):
+def test_dconv_mask_rcnn_loss_and_every_gradient_match_jax(rcnn_pair, jax_loss_grad):
     """The five losses on JAX's draws within 1e-5 relative, every
     parameter's gradient within 1e-4 of its own max |value|, the
     deformable 3x3s' and their offset convs' among them (not 0: FREEZE_AT 2
     leaves res3-res5 trainable)."""
-    _, jm, variables, _, pm = rcnn_pair
+    _, _, variables, _, pm = rcnn_pair
     batch, key = _rcnn_batch(1), jax.random.PRNGKey(5)
-    stats = variables["batch_stats"]
-    (_, (jloss, _)), jgrads = jax.jit(jax.value_and_grad(
-        lambda p: jm.loss_fn(p, stats, _jax_batch(batch, key)), has_aux=True))(variables["params"])
+    (_, (jloss, _)), jgrads = jax_loss_grad(variables["params"], _jax_batch(batch, key))
     for p in pm.model.parameters():
         p.grad = torch.zeros_like(p)
     pm.model.train()
@@ -426,36 +435,42 @@ def test_dconv_mask_rcnn_loss_and_every_gradient_match_jax(rcnn_pair):
         assert grads[k].abs().max() > 0, k
 
 
-def test_dconv_mask_rcnn_three_sgd_steps_with_a_resume_match_jax(rcnn_pair):
+def test_dconv_mask_rcnn_three_sgd_steps_with_a_resume_match_jax(rcnn_pair, jax_loss_grad):
     """Three SGD steps (momentum, weight decay, warmup) of both packages on
-    three batches and JAX's draws. The port runs them twice: straight
-    through, and saving a checkpoint after the second step, from which a new
-    model and optimizer resume for the third; the two end bit for bit
-    equal. Every parameter is JAX's within 1e-6 of its scale plus 1e-2 of
+    three batches and JAX's draws (JAX's step is the jitted loss gradient
+    the loss test compiled, and one jitted optimizer step). The port runs
+    them straight through, saving a checkpoint after the second step, from
+    which a new model and optimizer resume for the third; the two end bit
+    for bit equal. Every parameter is JAX's within 1e-6 of its scale plus 1e-2 of
     BASE_LR times its largest gradient (``tests/test_torch_train.py``'s
     bound on one step: the later steps' gradients come from parameters that
     the first step's rounding already moved apart, and the RPN's top-k and
     NMS may then keep another proposal near a threshold; measured up to
     3e-3, in the mask head)."""
-    jcfg, jm, variables, pcfg, _ = rcnn_pair
-    params, stats = variables["params"], variables["batch_stats"]
+    jcfg, _, variables, pcfg, _ = rcnn_pair
+    params = variables["params"]
     tx = jax_build_optimizer(jcfg, params)
-    opt_state = tx.init(params)
-    grad_fn = jax.jit(jax.grad(lambda p, b: jm.loss_fn(p, stats, b)[0]))
+    opt_state = jax.jit(tx.init)(params)
+
+    @jax.jit
+    def sgd(g, opt_state, params):
+        updates, opt_state = tx.update(g, opt_state, params)
+        return jax.tree_util.tree_map(lambda p, u: p + u, params, updates), opt_state
+
     batches = [(_rcnn_batch(10 + i), jax.random.PRNGKey(20 + i)) for i in range(3)]
     gmax = {}
     for b, key in batches:
-        g = grad_fn(params, _jax_batch(b, key))
+        _, g = jax_loss_grad(params, _jax_batch(b, key))
         for k, v in state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, g)}).items():
             gmax[k] = max(gmax.get(k, 0.0), float(v.abs().max()))
-        updates, opt_state = tx.update(g, opt_state, params)
-        params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
+        params, opt_state = sgd(g, opt_state, params)
     want = state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, params)})
     start = state_dict_from_jax(variables)
+    fresh = build_model(pcfg)
+    fresh.model.load_state_dict(start)
 
     def trainer():
-        pm = build_model(pcfg)
-        pm.model.load_state_dict(start)
+        pm = copy.deepcopy(fresh)  # a new model at the start weights
         opt, sched = build_optimizer(pcfg, pm.model)
         for p in pm.model.parameters():  # as SimpleTrainer: every gradient exists and starts at 0
             p.grad = torch.zeros_like(p)
@@ -470,13 +485,11 @@ def test_dconv_mask_rcnn_three_sgd_steps_with_a_resume_match_jax(rcnn_pair):
         sched.step()
 
     straight = trainer()
-    for b, key in batches:
-        step(*straight, b, key)
     with tempfile.TemporaryDirectory() as tmp:
-        pm, opt, sched = trainer()
         for b, key in batches[:2]:
-            step(pm, opt, sched, b, key)
-        Checkpointer(pm.model, tmp, optimizer=opt, scheduler=sched).save("model_0000001", 1)
+            step(*straight, b, key)
+        Checkpointer(straight[0].model, tmp, optimizer=straight[1], scheduler=straight[2]).save("model_0000001", 1)
+        step(*straight, *batches[2])
         pm, opt, sched = trainer()
         assert Checkpointer(pm.model, tmp, optimizer=opt, scheduler=sched).resume_or_load("", resume=True) == 2
         step(pm, opt, sched, *batches[2])
@@ -521,10 +534,14 @@ def test_dconv_mask_rcnn_detections_match_jax(rcnn_pair):
 
     boxes = np.array(want["boxes"]).reshape(-1, 4)
     net = type(jm.module)
-    feats = jm.module.apply(variables, jm.normalize(jnp.asarray(x)), False, method=net.backbone_rpn)[0]
-    pooled = jm._pool(feats, jnp.asarray(boxes), jnp.repeat(jnp.arange(2, dtype=jnp.int32), 100),
-                      jm.mask_pooler_resolution)
-    want_logits = np.asarray(jm.module.apply(variables, pooled, False, method=net.mask_predict)).transpose(0, 3, 1, 2)
+
+    @jax.jit
+    def mask_logits(variables, x, boxes):
+        feats = jm.module.apply(variables, jm.normalize(x), False, method=net.backbone_rpn)[0]
+        pooled = jm._pool(feats, boxes, jnp.repeat(jnp.arange(2, dtype=jnp.int32), 100), jm.mask_pooler_resolution)
+        return jm.module.apply(variables, pooled, False, method=net.mask_predict)
+
+    want_logits = np.asarray(mask_logits(variables, jnp.asarray(x), jnp.asarray(boxes))).transpose(0, 3, 1, 2)
     with torch.no_grad():
         feats = pm.model(pm.normalize(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())))[0]
         got_logits = pm.model.mask_predict(pm.pool(feats, torch.from_numpy(boxes), 100, pm.mask_pooler_resolution))

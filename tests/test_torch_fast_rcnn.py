@@ -101,6 +101,16 @@ def pair():
     return _pair()
 
 
+@pytest.fixture(scope="module")
+def jax_loss_grad(pair):
+    """JAX's loss, its terms and its gradient as one jitted function of
+    (params, batch), compiled once for the loss and SGD tests (their
+    batches have the same shapes)."""
+    _, jm, variables, _, _ = pair
+    stats = variables["batch_stats"]
+    return jax.jit(jax.value_and_grad(lambda p, b: jm.loss_fn(p, stats, b), has_aux=True))
+
+
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
 
@@ -252,7 +262,7 @@ def _roi_draws(key, n, slots):
             "roi_tie": torch.from_numpy(np.stack([d[1] for d in draws]))}
 
 
-def test_loss_with_the_rpn_head_idle_and_every_gradient_match_jax(pair):
+def test_loss_with_the_rpn_head_idle_and_every_gradient_match_jax(pair, jax_loss_grad):
     """The batch's 40 proposals per image (some invalid) with the gt
     appended, 64 rois sampled on JAX's draws: ``loss_cls`` and
     ``loss_box_reg`` within 1e-5 relative and no RPN loss, as in JAX; every
@@ -263,8 +273,7 @@ def test_loss_with_the_rpn_head_idle_and_every_gradient_match_jax(pair):
     batch, key = _batch(3), jax.random.PRNGKey(11)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jbatch["rng"] = key
-    (_, (jloss, _)), jgrads = jax.value_and_grad(
-        lambda p: jm.loss_fn(p, variables["batch_stats"], jbatch), has_aux=True)(variables["params"])
+    (_, (jloss, _)), jgrads = jax_loss_grad(variables["params"], jbatch)
     pb = {k: torch.from_numpy(v) for k, v in batch.items()}
     pb["image"] = _nchw(batch["image"])
     pb["draws"] = _roi_draws(key, 2, max(TOPK_TRAIN + 6, 64))
@@ -287,7 +296,7 @@ def test_loss_with_the_rpn_head_idle_and_every_gradient_match_jax(pair):
     assert grads["roi_heads.box_head.fc1.weight"].abs().max() > 0
 
 
-def test_three_sgd_steps_move_the_idle_rpn_head_as_jax(pair):
+def test_three_sgd_steps_move_the_idle_rpn_head_as_jax(pair, jax_loss_grad):
     """Three SGD steps (momentum, weight decay, warmup) of both packages on
     three batches and JAX's draws: every parameter within 1e-6 of its scale
     plus 1e-2 of BASE_LR times its largest gradient (the bound of
@@ -297,25 +306,29 @@ def test_three_sgd_steps_move_the_idle_rpn_head_as_jax(pair):
     from detectron2_centernet_tpu.solver import build_optimizer as jax_build_optimizer
     from detectron2_centernet_tpu_torch.solver import build_optimizer
 
-    jcfg, jm, variables, pcfg, _ = pair
+    jcfg, _, variables, pcfg, _ = pair
     extra = ["SOLVER.BASE_LR", 0.01, "SOLVER.WARMUP_ITERS", 2, "SOLVER.WEIGHT_DECAY", 0.01]
     jcfg, pcfg = jcfg.clone(), pcfg.clone()
     jcfg.merge_from_list(extra)
     pcfg.merge_from_list(extra)
-    params, stats = variables["params"], variables["batch_stats"]
+    params = variables["params"]
     tx = jax_build_optimizer(jcfg, params)
-    opt_state = tx.init(params)
-    grad_fn = jax.jit(jax.grad(lambda p, b: jm.loss_fn(p, stats, b)[0]))
+    opt_state = jax.jit(tx.init)(params)
+
+    @jax.jit
+    def sgd(g, opt_state, params):
+        updates, opt_state = tx.update(g, opt_state, params)
+        return jax.tree_util.tree_map(lambda p, u: p + u, params, updates), opt_state
+
     batches = [(_batch(20 + i), jax.random.PRNGKey(30 + i)) for i in range(3)]
     gmax = {}
     for b, key in batches:
         jb = {k: jnp.asarray(v) for k, v in b.items()}
         jb["rng"] = key
-        g = grad_fn(params, jb)
+        _, g = jax_loss_grad(params, jb)
         for k, v in state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, g)}).items():
             gmax[k] = max(gmax.get(k, 0.0), float(v.abs().max()))
-        updates, opt_state = tx.update(g, opt_state, params)
-        params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
+        params, opt_state = sgd(g, opt_state, params)
     want = state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, params)})
     start = state_dict_from_jax(variables)
     pm = build_model(pcfg)
@@ -349,7 +362,7 @@ def test_predict_fn_on_the_batch_proposals_matches_jax(pair):
     _, jm, variables, _, pm = pair
     batch = _batch(4, k=TOPK_TEST)
     x, props, valid = batch["image"], batch["proposal_boxes"], batch["proposal_valid"]
-    want = jm.predict_fn(variables, jnp.asarray(x), jnp.asarray(props), jnp.asarray(valid))
+    want = jax.jit(jm.predict_fn)(variables, jnp.asarray(x), jnp.asarray(props), jnp.asarray(valid))
     pm.model.eval()
     got = pm.predict_fn(_nchw(x), torch.from_numpy(props), torch.from_numpy(valid))
     live = np.asarray(want["scores"]) > 0.05
@@ -373,7 +386,7 @@ def test_cascade_with_precomputed_proposals_matches_jax():
     batch, key = _batch(5), jax.random.PRNGKey(12)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jbatch["rng"] = key
-    _, (jloss, _) = jm.loss_fn(variables["params"], variables["batch_stats"], jbatch)
+    _, (jloss, _) = jax.jit(jm.loss_fn)(variables["params"], variables["batch_stats"], jbatch)
     pb = {k: torch.from_numpy(v) for k, v in batch.items()}
     pb["image"] = _nchw(batch["image"])
     pb["draws"] = _roi_draws(key, 2, max(TOPK_TRAIN + 6, 64))
@@ -384,8 +397,8 @@ def test_cascade_with_precomputed_proposals_matches_jax():
     for k, v in losses.items():
         np.testing.assert_allclose(v.item(), float(jloss[k]), rtol=1e-5, err_msg=k)
     pm.model.eval()
-    want = jm.predict_fn(variables, jnp.asarray(batch["image"]), jnp.asarray(batch["proposal_boxes"]),
-                         jnp.asarray(batch["proposal_valid"]))
+    want = jax.jit(jm.predict_fn)(variables, jnp.asarray(batch["image"]), jnp.asarray(batch["proposal_boxes"]),
+                                  jnp.asarray(batch["proposal_valid"]))
     got = pm.predict_fn(_nchw(batch["image"]), torch.from_numpy(batch["proposal_boxes"]),
                         torch.from_numpy(batch["proposal_valid"]))
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0, atol=1e-4)

@@ -66,6 +66,13 @@ def pair():
     return _pair(KEYPOINT)
 
 
+@pytest.fixture(scope="module")
+def jax_predict(pair):
+    """JAX's ``predict_fn`` jitted once for the tests below (each calls it
+    on two 64² images)."""
+    return jax.jit(pair[0].predict_fn)
+
+
 def _keypoints_in(rng, rois, k=17, spill=0.2):
     """(N, K, 3) keypoints around (N, 4) rois (some outside, some on the far
     edge, a third invisible)."""
@@ -297,13 +304,13 @@ def test_loss_and_every_gradient_match_jax(pair):
     assert grads["roi_heads.keypoint_head.score_lowres.weight"].abs().max() > 0
 
 
-def test_predict_fn_keypoint_heatmaps_match_jax(pair):
+def test_predict_fn_keypoint_heatmaps_match_jax(pair, jax_predict):
     """Two 64² images: ``keypoint_heatmaps`` (N, 100, 17, 56, 56) within
     1e-3 of their scale of JAX's (pooled on detection boxes that agree to
     1e-2 px, ``test_torch_rcnn``), the same classes."""
     jm, variables, pm = pair
     x = _images(2, seed=8)
-    want = jax.jit(jm.predict_fn)(variables, jnp.asarray(x))
+    want = jax_predict(variables, jnp.asarray(x))
     got = pm.predict_fn(_nchw(x))
     hm = np.asarray(want["keypoint_heatmaps"]).transpose(0, 1, 4, 2, 3)
     assert got["keypoint_heatmaps"].shape == (2, 100, 17, 56, 56) == hm.shape
@@ -311,7 +318,7 @@ def test_predict_fn_keypoint_heatmaps_match_jax(pair):
     np.testing.assert_allclose(got["keypoint_heatmaps"].numpy(), hm, rtol=0, atol=1e-3 * np.abs(hm).max())
 
 
-def test_postprocess_decodes_the_jax_heatmaps_equally(pair):
+def test_postprocess_decodes_the_jax_heatmaps_equally(pair, jax_predict):
     """JAX's own ``predict_fn`` output (its boxes, which the random model
     flattens, replaced by random boxes in the 64² frame) through both
     ``postprocess``es at 64x64 and from 80x96: the same boxes, scores and
@@ -331,7 +338,7 @@ def test_postprocess_decodes_the_jax_heatmaps_equally(pair):
     from detectron2_centernet_tpu_torch.data import letterbox_transform, unwarp_boxes
     from detectron2_centernet_tpu_torch.structures import Boxes
 
-    dets = {k: np.asarray(v) for k, v in jax.jit(jm.predict_fn)(variables, jnp.asarray(_images(2, seed=9))).items()}
+    dets = {k: np.asarray(v) for k, v in jax_predict(variables, jnp.asarray(_images(2, seed=9))).items()}
     rng = np.random.RandomState(9)
     xy = rng.uniform(-8, 60, (2, 100, 2))
     dets["boxes"] = np.concatenate([xy, xy + rng.uniform(0.5, 40, (2, 100, 2))], -1).astype(np.float32)

@@ -67,6 +67,13 @@ def pair():
     return _pair(MASK)
 
 
+@pytest.fixture(scope="module")
+def jax_predict(pair):
+    """JAX's ``predict_fn`` jitted once for the tests below (each calls it
+    on two 64² images)."""
+    return jax.jit(pair[0].predict_fn)
+
+
 # -- RLE ---------------------------------------------------------------------------------------------
 
 
@@ -352,7 +359,8 @@ def test_crop_gt_masks_matches_jax(seed):
 
 def test_mask_rcnn_loss_matches_jax():
     """BCE at the gt class over the foreground rois (class C rois clamp, and
-    weigh 0), within 1e-6 relative."""
+    weigh 0), within 1e-6 relative: the port's loss takes each roi's
+    logits at its clamped class, which its mask head computes alone."""
     rng = np.random.RandomState(0)
     s, c = 30, 5
     logits = (rng.randn(s, 28, 28, c) * 3).astype(np.float32)
@@ -361,8 +369,8 @@ def test_mask_rcnn_loss_matches_jax():
     fg = (classes < c).astype(np.float32)
     want = jax_mask_head.mask_rcnn_loss(jnp.asarray(logits), jnp.asarray(targets), jnp.asarray(classes),
                                         jnp.asarray(fg))
-    got = mask_head.mask_rcnn_loss(torch.from_numpy(logits.transpose(0, 3, 1, 2).copy()), torch.from_numpy(targets),
-                                   torch.from_numpy(classes), torch.from_numpy(fg))
+    at_class = logits[np.arange(s), :, :, np.clip(classes, 0, c - 1)]
+    got = mask_head.mask_rcnn_loss(torch.from_numpy(at_class), torch.from_numpy(targets), torch.from_numpy(fg))
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
@@ -477,7 +485,7 @@ def test_mask_loss_on_the_foreground_block_equals_every_slot(pair, monkeypatch):
     assert out[0][0] > 0
 
 
-def test_predict_fn_masks_match_jax(pair):
+def test_predict_fn_masks_match_jax(pair, jax_predict):
     """Two 64² images: ``masks`` (N, 100, 28, 28), the sigmoid at each
     detection's class, within 2e-3 of JAX's (the detections' boxes agree to
     1e-2 px, ``test_torch_rcnn``; the masks are pooled on them), with the
@@ -485,7 +493,7 @@ def test_predict_fn_masks_match_jax(pair):
     sides within 1e-5 of their scale."""
     jm, variables, pm = pair
     x = _images(2, seed=8)
-    want = jax.jit(jm.predict_fn)(variables, jnp.asarray(x))
+    want = jax_predict(variables, jnp.asarray(x))
     got = pm.predict_fn(_nchw(x))
     assert got["masks"].shape == (2, 100, 28, 28)
     np.testing.assert_array_equal(got["classes"].numpy(), np.asarray(want["classes"]))
@@ -494,10 +502,14 @@ def test_predict_fn_masks_match_jax(pair):
 
     boxes = np.array(want["boxes"]).reshape(-1, 4)
     net = type(jm.module)
-    feats = jm.module.apply(variables, jm.normalize(jnp.asarray(x)), False, method=net.backbone_rpn)[0]
-    pooled = jm._pool(feats, jnp.asarray(boxes), jnp.repeat(jnp.arange(2, dtype=jnp.int32), 100),
-                      jm.mask_pooler_resolution)
-    want_logits = np.asarray(jm.module.apply(variables, pooled, False, method=net.mask_predict)).transpose(0, 3, 1, 2)
+
+    @jax.jit
+    def mask_logits(variables, x, boxes):
+        feats = jm.module.apply(variables, jm.normalize(x), False, method=net.backbone_rpn)[0]
+        pooled = jm._pool(feats, boxes, jnp.repeat(jnp.arange(2, dtype=jnp.int32), 100), jm.mask_pooler_resolution)
+        return jm.module.apply(variables, pooled, False, method=net.mask_predict)
+
+    want_logits = np.asarray(mask_logits(variables, jnp.asarray(x), jnp.asarray(boxes))).transpose(0, 3, 1, 2)
     with torch.no_grad():
         feats = pm.model(pm.normalize(_nchw(x)))[0]
         got_logits = pm.model.mask_predict(pm.pool(feats, torch.from_numpy(boxes), 100, pm.mask_pooler_resolution))
@@ -505,7 +517,7 @@ def test_predict_fn_masks_match_jax(pair):
     np.testing.assert_allclose(got_logits.numpy(), want_logits, rtol=0, atol=1e-5 * np.abs(want_logits).max())
 
 
-def test_postprocess_pastes_the_jax_masks_equally(pair):
+def test_postprocess_pastes_the_jax_masks_equally(pair, jax_predict):
     """JAX's own ``predict_fn`` output (its boxes, which the random model
     flattens, replaced by random boxes in the 64² frame, a few reaching out
     of it) through both ``postprocess``es, with the identity warp at 64x64
@@ -515,7 +527,7 @@ def test_postprocess_pastes_the_jax_masks_equally(pair):
     from detectron2_centernet_tpu_torch.data import letterbox_transform
 
     x = _images(2, seed=9)
-    dets = {k: np.asarray(v) for k, v in jax.jit(jm.predict_fn)(variables, jnp.asarray(x)).items()}
+    dets = {k: np.asarray(v) for k, v in jax_predict(variables, jnp.asarray(x)).items()}
     rng = np.random.RandomState(9)
     xy = rng.uniform(-8, 60, (2, 100, 2))
     dets["boxes"] = np.concatenate([xy, xy + rng.uniform(0.5, 40, (2, 100, 2))], -1).astype(np.float32)

@@ -130,6 +130,13 @@ def pair():
 
 
 @pytest.fixture(scope="module")
+def jax_predict(pair):
+    """JAX's ``predict_fn`` jitted once for the tests below (each calls it
+    on two 64² images)."""
+    return jax.jit(pair[0].predict_fn)
+
+
+@pytest.fixture(scope="module")
 def rpn_pair():
     return _pair(RPN_ONLY)
 
@@ -497,14 +504,14 @@ def test_state_dict_from_jax_covers_every_leaf_once_both_ways(extra):
         assert torch_key("params/box_predictor/cls_score/kernel") == "roi_heads.box_predictor.cls_score.weight"
 
 
-def test_fc1_crosses_permuted_and_the_plain_reshape_gives_other_scores(pair):
+def test_fc1_crosses_permuted_and_the_plain_reshape_gives_other_scores(pair, jax_predict):
     """JAX's box head flattens pooled rois NHWC, the port (like the
     reference) NCHW: ``state_dict_from_jax`` re-orders ``fc1``'s input dim
     from (H, W, C) to (C, H, W). With that permute the port's scores are
     JAX's; with ``fc1`` crossed as a plain transpose they are not."""
     jm, variables, pm = pair
     x = _images(2, seed=8)
-    want = jax.jit(jm.predict_fn)(variables, jnp.asarray(x))
+    want = jax_predict(variables, jnp.asarray(x))
     kernel = np.asarray(variables["params"]["box_head"]["fc1"]["kernel"])
     permuted = pm.model.roi_heads.box_head.fc1.weight.detach().clone()
     assert not torch.equal(permuted, torch.from_numpy(kernel.T.copy()))
@@ -609,7 +616,7 @@ def _valid_count(scores, threshold=0.05):
     return (np.asarray(scores) > threshold).sum(axis=1)
 
 
-def test_predict_fn_matches_jax(pair):
+def test_predict_fn_matches_jax(pair, jax_predict):
     """Two 64² images: the K = 100 slots of JAX's and the port's
     ``predict_fn``: the same validity and classes, scores within 1e-4 and
     boxes within 1e-2 px (the two convolution libraries' RPN deltas round
@@ -619,7 +626,7 @@ def test_predict_fn_matches_jax(pair):
     (some valid ones under 0.9)."""
     jm, variables, pm = pair
     x = _images(2, seed=8)
-    want = jax.jit(jm.predict_fn)(variables, jnp.asarray(x))
+    want = jax_predict(variables, jnp.asarray(x))
     got = pm.predict_fn(_nchw(x))
     assert got["boxes"].shape == (2, 100, 4)
     valid = _valid_count(want["scores"])
@@ -671,8 +678,8 @@ def test_proposal_network_predict_and_loss_match_jax(rpn_pair):
     batch, key = _batch(4), jax.random.PRNGKey(6)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jbatch["rng"] = key
-    (_, (jloss, _)), jgrads = jax.value_and_grad(
-        lambda p: jm.loss_fn(p, variables["batch_stats"], jbatch), has_aux=True)(variables["params"])
+    (_, (jloss, _)), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss_fn(p, variables["batch_stats"], jbatch), has_aux=True))(variables["params"])
     draws = {"rpn": torch.from_numpy(np.stack([np.asarray(jax.random.uniform(k, (_anchor_count(pm),)))
                                                for k in jax.random.split(key, 2)]))}
     for p in pm.model.parameters():

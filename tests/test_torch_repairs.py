@@ -68,8 +68,8 @@ def test_bf16_model_keeps_f32_parameters_and_bn_statistics():
             assert t.dtype == torch.float32, k
     rng = np.random.RandomState(3)
     x = rng.uniform(0, 255, (2, SIZE, SIZE, 3)).astype(np.float32)
-    _, mutated = jm.module.apply(variables, jm.normalize(jnp.asarray(x)), train=True,
-                                 mutable=["batch_stats"])
+    _, mutated = jax.jit(lambda v, xi: jm.module.apply(v, jm.normalize(xi), train=True, mutable=["batch_stats"]))(
+        variables, jnp.asarray(x))
     pm.model.train()
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
     with torch.no_grad():

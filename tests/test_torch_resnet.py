@@ -18,6 +18,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec
 import optax
 from flax import linen as fnn
 from flax.traverse_util import flatten_dict, unflatten_dict
@@ -331,7 +332,7 @@ def test_centernet_heads_with_and_without_tower_match_jax(head_conv):
     assert isinstance(head_out(pm.model.hm), F32Conv2d)
     assert ("hm.weight" in pm.model.state_dict()) == (head_conv == 0)
     x = _images(2, seed=6)
-    want = jm.module.apply(variables, jnp.asarray(x), train=False)
+    want = jax.jit(lambda v, xi: jm.module.apply(v, xi, train=False))(variables, jnp.asarray(x))
     with torch.no_grad():
         got = pm.model.eval()(_nchw(x))
     for k in ("hm", "wh", "reg"):
@@ -412,8 +413,11 @@ def test_r18_adam_trajectory_with_frozen_stages_matches_jax():
     jm, variables, pm = _pair(extra)
     jcfg, pcfg = _cfgs(extra)
     tx = jax_build_optimizer(jcfg, variables["params"])
-    state = TrainState.create(jax.tree_util.tree_map(jnp.array, variables), tx)
-    step = make_train_step(jm, tx, get_mesh(1))
+    mesh = get_mesh(1)
+    # placed as the step returns it (replicated on the mesh), so its later calls reuse the first's program
+    state = jax.device_put(TrainState.create(jax.tree_util.tree_map(jnp.array, variables), tx),
+                           NamedSharding(mesh, PartitionSpec()))
+    step = make_train_step(jm, tx, mesh)
     opt, sched = build_optimizer(pcfg, pm.model)
     for p in pm.model.parameters():
         p.grad = torch.zeros_like(p)

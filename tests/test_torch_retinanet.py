@@ -22,6 +22,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 from detectron2_centernet_tpu.config import get_cfg as jax_get_cfg
@@ -112,6 +113,13 @@ def _pair(extra=(), seed=0):
 @pytest.fixture(scope="module")
 def pair():
     return _pair()
+
+
+@pytest.fixture(scope="module")
+def jax_predict(pair):
+    """JAX's ``predict_fn`` jitted once for the tests below (each calls it
+    on two 64² images)."""
+    return jax.jit(pair[0].predict_fn)
 
 
 def _nchw(a):
@@ -382,7 +390,7 @@ def test_fpn_pyramid_matches_jax(case):
     x = _images(2, seed=5) / 50.0
     shapes = jax.eval_shape(lambda: jb.init(jax.random.PRNGKey(0), jnp.asarray(x)))
     variables = _random_variables(shapes, seed=1)
-    want = jb.apply(variables, jnp.asarray(x))
+    want = jax.jit(jb.apply)(variables, jnp.asarray(x))
     port = BACKBONE_REGISTRY.get(name)(pcfg).eval()
     sd = state_dict_from_jax({k: {"backbone": v} for k, v in variables.items()})
     port.load_state_dict({k.removeprefix("backbone."): v for k, v in sd.items()})
@@ -414,7 +422,7 @@ def test_head_logits_and_deltas_match_jax(pair):
     predictors are f32 convs."""
     jm, variables, pm = pair
     x = _images(2, seed=6)
-    want_logits, want_boxes = jm.module.apply(variables, jnp.asarray(jm.normalize(jnp.asarray(x))))
+    want_logits, want_boxes = jax.jit(jm.module.apply)(variables, jm.normalize(jnp.asarray(x)))
     with torch.no_grad():
         logits, boxes = pm.model.eval()(pm.normalize(_nchw(x)))
     assert len(logits) == len(want_logits) == 5
@@ -568,8 +576,11 @@ def test_ema_sgd_trajectory_and_resume_match_jax(tmp_path):
     jm, variables, pm = _pair(extra)
     jcfg, pcfg = _cfgs(extra)
     tx = jax_build_optimizer(jcfg, variables["params"])
-    state = TrainState.create(jax.tree_util.tree_map(jnp.array, variables), tx)
-    step = make_train_step(jm, tx, get_mesh(1))
+    mesh = get_mesh(1)
+    # placed as the step returns it (replicated on the mesh), so its second call reuses the first's program
+    state = jax.device_put(TrainState.create(jax.tree_util.tree_map(jnp.array, variables), tx),
+                           NamedSharding(mesh, PartitionSpec()))
+    step = make_train_step(jm, tx, mesh)
     opt, sched = build_optimizer(pcfg, pm.model)
     for p in pm.model.parameters():
         p.grad = torch.zeros_like(p)
@@ -613,13 +624,13 @@ def _valid_count(scores, threshold=0.05):
     return (np.asarray(scores) > threshold).sum(axis=1)
 
 
-def test_predict_fn_matches_jax(pair):
+def test_predict_fn_matches_jax(pair, jax_predict):
     """Two 64² images: the K = 100 slots of JAX's and the port's
     ``predict_fn``: the same validity and classes, scores within 1e-5, boxes
     within 1e-3 px, at least 20 valid detections per image."""
     jm, variables, pm = pair
     x = _images(2, seed=8)
-    want = jax.jit(jm.predict_fn)(variables, jnp.asarray(x))
+    want = jax_predict(variables, jnp.asarray(x))
     got = pm.predict_fn(_nchw(x))
     assert got["boxes"].shape == (2, 100, 4)
     assert (_valid_count(want["scores"]) >= 20).all()
@@ -650,17 +661,17 @@ def test_default_predictor_matches_jax(pair, monkeypatch):
     np.testing.assert_allclose(got.pred_boxes.tensor, np.asarray(want.pred_boxes.tensor), rtol=0, atol=1e-3)
 
 
-def test_nchw_reshape_without_the_permute_gives_other_detections(pair, monkeypatch):
+def test_nchw_reshape_without_the_permute_gives_other_detections(pair, jax_predict, monkeypatch):
     """The heads come out NCHW; flattened straight from that layout
     (without the permute to N, H, W, A·C), anchors and classes scramble
     across cells. At 9 anchors and 5 classes that gives other detections
     than JAX's and another loss, which is what the permute prevents."""
     jm, variables, pm = pair
     x = _images(2, seed=8)
-    want = jax.jit(jm.predict_fn)(variables, jnp.asarray(x))
+    want = jax_predict(variables, jnp.asarray(x))
     batch = _batch(2)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jtotal, _ = jm.loss_fn(variables["params"], variables["batch_stats"], jbatch)
+    jtotal, _ = jax.jit(jm.loss_fn)(variables["params"], variables["batch_stats"], jbatch)
     monkeypatch.setattr(retinanet, "nhwc_flat", lambda t, width: t.reshape(t.shape[0], -1, width))
     got = pm.predict_fn(_nchw(x))
     assert not np.array_equal(got["classes"].numpy(), np.asarray(want["classes"]))

@@ -161,9 +161,10 @@ def test_vovnet_centernet_heads_match_jax(pair, train):
     variant, jm, variables, pm = pair
     x = np.random.RandomState(4).uniform(-2, 2, (2, SIZE, SIZE, 3)).astype(np.float32)
     if train:
-        want, _ = jm.module.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+        want, _ = jax.jit(lambda v, xi: jm.module.apply(v, xi, train=True, mutable=["batch_stats"]))(
+            variables, jnp.asarray(x))
     else:
-        want = jm.module.apply(variables, jnp.asarray(x), train=False)
+        want = jax.jit(lambda v, xi: jm.module.apply(v, xi, train=False))(variables, jnp.asarray(x))
     model = copy.deepcopy(pm.model).train(train)
     with torch.no_grad():
         got = model(_nchw(x))
