@@ -98,14 +98,14 @@ Phases (any failure raises and the script exits non-zero):
      the plain NMS loop; (b) f32 at batch 2, card against CPU, each stage
      fed the card's inputs on both sides: the RPN heads, the proposals, the
      box predictor (rois that the two devices' log2 puts on different FPN
-     levels are counted and left out), the detections; (c) the NMS kernel
-     against its plain loop on the card, indices and validity equal, on
-     the inputs the main paths gave it: RetinaNet's batch 16, the RPN's
+     levels are counted and left out), the detections; (c) the NMS kernels
+     against their plain loop and the algorithm's plain mirror
+     (``nms_sorted_reference``) on the card, indices and validity equal, on
+     the inputs the main paths gave them: RetinaNet's batch 16, the RPN's
      level rows at test and at training, the box head's batch 16 served
-     (rows compacted into shared memory) and in (e)'s evaluation (rows
-     swept in place), and the same three of Mask and Keypoint R-CNN (11,
-     12: Keypoint R-CNN's box head of one class, its 1500 proposals at
-     training), each timed beside its bound; (d) ``tools/bench`` on the config at
+     and in (e)'s evaluation, and the same three of every later R-CNN
+     (11-15, 18, 19), each timed beside PR 13's kernel and its bound, with
+     the chunks it took; (d) ``tools/bench`` on the config at
      ``TEST.BATCH_SIZE`` 16: request latency, img/s against 1/0.038 s, the
      train step at 16 × 800², busy share, peak memory, every loss finite;
      (e) ``tools/train_net`` 4 steps from the model's init with calibrated
@@ -159,7 +159,7 @@ Phases (any failure raises and the script exits non-zero):
      ``--eval-only --resume``: resumed at 4, the same dict; (14e) the C4
      ProposalNetwork's forward and loss. NMS launches: 2 per served call, 1
      per train step; the inputs go to 10c (C4's and DC5's RPN rows of 12 000
-     at training take the kernel's in-place path, asserted);
+     at training hold more candidates than one chunk);
   16k. K1, K2 and K5 against their plain versions at the DCN shapes of the
      deformable trunk at 800² (res3-res5 at stride 1, the three stride-2
      transitions, dilation 2 at 512 x 50²), batch 1 and 16, modulated and
@@ -181,7 +181,7 @@ Phases (any failure raises and the script exits non-zero):
   18. LVIS v1 Mask R-CNN, ``LVIS-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml``
      (phase 11's model at 1203 classes, 300 detections an image at
      SCORE_THRESH_TEST 1e-4: the box head's NMS row holds 1000 x 1203
-     candidates, swept in place): (a) ``DefaultPredictor`` requests and
+     candidates): (a) ``DefaultPredictor`` requests and
      ``predict_fn`` at batch 1 and 16, peak memory, the profiled calls' NMS
      and mask-predictor shares, the mask head alone on the chosen class
      against all 1203 at batch 1; (b) f32 card against CPU on the card's
@@ -1534,23 +1534,30 @@ def plain_nms_route():
         nms_ops.greedy_nms = rpn_ops.greedy_nms = real
 
 
+NMS_KERNELS = ("nms_init", "nms_hist", "nms_choose", "nms_compact", "nms_sort", "nms_mask", "nms_scan",
+               "nms_next")  # ops/csrc/nms.cu
+
+
 def profiled(fn, calls=3):
     """``fn`` run ``calls`` times under the profiler: per call its kernel
-    launches and device ms, the NMS kernel's device ms, and the events."""
+    launches and device ms, the NMS pipeline's device ms (every kernel of
+    ``ops/csrc/nms.cu``), and the events."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    nms = [e for e in kernels if any(name in e.key for name in NMS_KERNELS)]
     return dict(launches=sum(e.count for e in kernels) / calls, events=events,
                 device_ms=sum(e.self_device_time_total for e in kernels) / calls / 1e3,
-                nms_kernel_ms=sum(e.self_device_time_total for e in kernels if "nms_kernel" in e.key) / calls / 1e3)
+                nms_kernel_ms=sum(e.self_device_time_total for e in nms) / calls / 1e3)
 
 
 def nms_work(boxes, scores, iou_threshold, counts):
     """(live candidates summed over every valid pick, valid picks) of the
-    greedy NMS of these inputs: the plain loop replayed on the card."""
+    greedy NMS of these inputs: the plain loop replayed on the card (the
+    argmax loop's work, PR 9-13's bound)."""
     live = torch.isfinite(scores)
     keep, valid = nms_ops.nms_fixed(boxes, scores, iou_threshold, counts)
     total = 0
@@ -1571,51 +1578,115 @@ def nms_work(boxes, scores, iou_threshold, counts):
     return total, int(valid.sum())
 
 
+def nms_sorted_work(scores, keep, valid):
+    """(sorted candidates up to each row's last valid pick, summed over the
+    rows; the IoUs greedy NMS cannot do without: one for each pair of kept
+    picks, and one for each suppressed candidate up to the row's last pick,
+    with a pick that suppresses it): the least the function needs, from the
+    picks' positions in the pick order (score descending, index ascending;
+    a stable sort here, off the NMS's path)."""
+    live = scores > float("-inf")
+    key = torch.where(live, -torch.where(scores == 0, torch.zeros_like(scores), scores), float("inf"))
+    order = torch.sort(key, dim=1, stable=True).indices
+    pos = torch.empty_like(order).scatter_(1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
+    at = torch.where(valid, torch.gather(pos, 1, keep), -1)
+    prefix, kept = at.max(1).values + 1, valid.sum(1)  # a row without a pick: 0, 0
+    return int(prefix.sum()), int((kept * (kept - 1) // 2 + prefix - kept).sum())
+
+
+# PR 13's kernel (one CTA per row, the picks' argmax loop; unchanged from PR 9 to 13) on each 10c case:
+# (ms, the run that measured it), from PERF.md §6, on "NVIDIA H100 80GB HBM3, 700.00 W"
+PR13_NMS_MS = {
+    "retinanet": (0.233, "AV"), "rpn_test": (1.636, "AV"), "rpn_train": (3.254, "AV"), "box_head": (0.413, "AV"),
+    "box_head_eval": (4.809, "AV"), "rpn_test_mask": (1.631, "AV"), "box_head_mask": (0.455, "AV"),
+    "rpn_train_mask": (3.228, "AV"), "rpn_test_kp": (1.654, "AV"), "box_head_kp": (0.261, "AV"),
+    "rpn_train_kp": (4.282, "AV"), "rpn_test_cascade": (1.643, "AV"), "box_head_cascade": (0.413, "AV"),
+    "rpn_train_cascade": (4.559, "AV"), "rpn_test_c4": (5.078, "AV"), "box_head_c4": (0.421, "AV"),
+    "rpn_train_c4": (15.911, "AV"), "rpn_test_dc5": (5.112, "AV"), "box_head_dc5": (0.454, "AV"),
+    "rpn_train_dc5": (16.138, "AV"), "box_head_lvis_b1": (216.589, "BJ"), "box_head_lvis_b16": (366.710, "BJ"),
+    "rpn_test_lvis": (1.656, "BG"), "rpn_train_lvis": (3.250, "BG"), "box_head_voc": (0.350, "BG"),
+    "box_head_cityscapes": (0.290, "BG"),
+}
+
+
+def host_ms_behind(fn, cycles=40_000_000):
+    """(host ms of ``fn()`` issued behind ``cycles`` of a queued device
+    sleep, that sleep's device ms): a call that does not wait for the card
+    returns long before the sleep ends."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    t0 = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host, start.elapsed_time(end)
+
+
 def phase_nms_kernel(report, cases):
-    """The NMS kernel against its plain loop on the card, on the inputs the
-    main paths gave it: indices and validity exactly equal; both timed;
-    the bound of each shape."""
-    print("== 10c. the NMS kernel (ops/csrc/nms.cu) against the plain loop on the card, on the main paths' inputs")
+    """The NMS kernels against the plain loop and the algorithm's plain
+    mirror on the card, on the inputs the main paths gave them: indices and
+    validity exactly equal; the kernels and the loop timed, beside PR 13's
+    kernel (its times from PERF.md, not measured here); the chunks each case
+    took; the bound of each case; the host's time for a call issued behind
+    queued device work, which fails the phase when the call waited for the
+    card."""
+    print("== 10c. the NMS kernels (ops/csrc/nms.cu) against the plain loop and nms_sorted_reference on the card, "
+          "on the main paths' inputs")
     out = {}
     for name, (boxes, scores, thr, counts) in cases.items():
+        rounds = nms_ops.rounds_taken()
         got = nms_ops.greedy_nms(boxes, scores, thr, counts)
+        rounds = nms_ops.rounds_taken() - rounds
         want = nms_ops.nms_fixed(boxes, scores, thr, counts)
+        mirror = nms_ops.nms_sorted_reference(boxes, scores, thr, counts)
         torch.cuda.synchronize()
         equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        mirrored = torch.equal(got[0], mirror[0]) and torch.equal(got[1], mirror[1]) \
+            and rounds == int(mirror[2].sum())
         rows, cands = scores.shape
         k = got[0].shape[1]
         kernel_ms = cuda_ms(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts), iters=20)
+        host_ms, queued_ms = host_ms_behind(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts))
         plain_ms = cuda_ms(lambda: nms_ops.nms_fixed(boxes, scores, thr, counts), iters=2, warmup=1)
         live, picks = nms_work(boxes, scores, thr, counts)
+        prefix, ious = nms_sorted_work(scores, *got)
         alive = torch.isfinite(scores)
         n_live, row_live = int(alive.sum()), int(alive.sum(1).max())
-        # every score read once (a dead candidate's score is all that says it is dead),
-        # a live candidate's box once, the per-row counts, each output written once;
-        # ~20 f32 operations per (valid pick, live candidate): the IoU in its rounded
-        # steps and the argmax's compare
-        in_bytes = rows * cands * 4 + n_live * 16 + (0 if isinstance(counts, int) else rows * 4)
-        bytes_ms = (in_bytes + rows * k * 9) / PEAK_BYTES * 1e3
-        ops_ms = 20 * live / PEAK_F32 * 1e3
-        per_pick_ms = live * 20 / PEAK_BYTES * 1e3  # every pick reads each live candidate's score and box
+        # every score read once, the boxes of the sorted candidates up to each row's last pick, the per-row
+        # counts, each output written once; ~20 f32 operations (an IoU in its rounded steps) per pair of kept
+        # picks and per suppressed candidate up to the row's last pick
+        count_bytes = 0 if isinstance(counts, int) else rows * 4
+        bytes_ms = (rows * cands * 4 + prefix * 16 + count_bytes + rows * k * 9) / PEAK_BYTES * 1e3
+        ops_ms = 20 * ious / PEAK_F32 * 1e3
         bound, by = bound_of(ops_ms, bytes_ms)
+        # PR 9-13's bound, the argmax loop's work: every live candidate's box, ~20 operations per (valid pick,
+        # live candidate)
+        old_bound, old_by = bound_of(20 * live / PEAK_F32 * 1e3,
+                                     (rows * cands * 4 + n_live * 16 + count_bytes + rows * k * 9) / PEAK_BYTES * 1e3)
+        before_ms, before_run = PR13_NMS_MS.get(name, (None, None))
         max_out = counts if isinstance(counts, int) else sorted(set(counts), reverse=True)
-        shared = row_live <= cuda_lib.library("nms", nms_ops._SIGNATURES).nms_fixed_shared_cap()
         row = dict(rows=rows, candidates=cands, max_out=max_out, live_candidates=n_live, most_live_in_a_row=row_live,
-                   path="shared memory" if shared else "in place", valid_picks=picks, live_per_pick_sum=live,
-                   equal=equal, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, bytes_ms=bytes_ms,
-                   ops_ms=ops_ms, per_pick_read_ms=per_pick_ms, shared_memory=shared)
+                   valid_picks=picks, rounds=rounds, sorted_prefix=prefix, needed_ious=ious,
+                   live_per_pick_sum=live, equal=equal, equal_to_mirror=mirrored, ms=kernel_ms, plain_ms=plain_ms,
+                   host_ms=host_ms, queued_ms=queued_ms, pr13_ms=before_ms, pr13_run=before_run, bound_ms=bound,
+                   bound_by=by, bytes_ms=bytes_ms, ops_ms=ops_ms, old_bound_ms=old_bound, old_bound_by=old_by)
         out[name] = row
-        print(f"  {name}: {rows} rows x {cands} candidates ({n_live} live, at most {row_live} in a row: "
-              f"{row['path']}), picks {max_out}, {picks} valid picks: {'equal' if equal else 'DIFFERENT'}; kernel "
-              f"{kernel_ms:.3f} ms, plain loop {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}: bytes {bytes_ms:.4f}, "
-              f"operations {ops_ms:.4f}; reading every live candidate at every pick: {per_pick_ms:.4f} ms)")
-        if not equal:
-            raise SystemExit(f"the NMS kernel disagrees with its plain version on {name}")
-    in_place = [k for k in ("box_head_eval", "rpn_train_c4", "rpn_train_dc5", "box_head_lvis_b1", "box_head_lvis_b16")
-                if k in out]
-    if any(out[k]["shared_memory"] for k in in_place):
-        raise SystemExit(f"a case of the kernel's in-place path fit in shared memory: "
-                         f"{ {k: out[k]['most_live_in_a_row'] for k in in_place} }")
+        before = f"{before_ms:.3f} ms ({before_run})" if before_ms is not None else "not measured"
+        print(f"  {name}: {rows} rows x {cands} candidates ({n_live} live, at most {row_live} in a row), picks "
+              f"{max_out}, {picks} valid: {'equal' if equal else 'DIFFERENT'} to the loop, "
+              f"{'equal' if mirrored else 'DIFFERENT'} to the mirror; {rounds} chunks ({rows} rows); kernels "
+              f"{kernel_ms:.3f} ms (PR 13's kernel {before}, from PERF.md), plain loop {plain_ms:.3f} ms; bound "
+              f"{bound:.4f} ms ({by}: bytes {bytes_ms:.4f}, operations {ops_ms:.4f}; {prefix} sorted candidates to "
+              f"the last picks, {ious} IoUs needed); PR 9-13's bound {old_bound:.4f} ms ({old_by}); the host "
+              f"{host_ms:.3f} ms for a call behind {queued_ms:.1f} ms of queued work")
+        if not (equal and mirrored):
+            raise SystemExit(f"the NMS kernels disagree with their plain versions on {name}")
+        if host_ms > queued_ms / 2:
+            raise SystemExit(f"the NMS call on {name} waited for the card: {host_ms:.3f} ms on the host behind "
+                             f"{queued_ms:.1f} ms of queued work")
     report["nms_kernel"] = out
     return out
 
@@ -1897,7 +1968,7 @@ def phase_faster_rcnn(report, out_dir):
         trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
     nms_launches["train_net"] = nms_ops.greedy_nms.launches
     # the evaluation's box-head NMS with the most live candidates in a row
-    # (every (proposal, class) pair over 0.005): the kernel's in-place path, for 10c
+    # (every (proposal, class) pair over 0.005), for 10c
     box_head_eval = max((c for c in eval_nms if c[1].shape == box_head[1].shape),
                         key=lambda c: int(torch.isfinite(c[1]).sum(1).max()))
     del eval_nms
@@ -3664,10 +3735,12 @@ def main() -> int:
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,
-        "per": f"one launch for the RPN's {main_rpn['rows']} level rows of a batch-16 800² test forward "
-        "(indices and validity compared exactly; max_abs_err 0 means equal)",
+        "per": f"one greedy_nms call for the RPN's {main_rpn['rows']} level rows of a batch-16 800² test forward; "
+        "launches counts greedy_nms calls, each a pipeline of the 8 kernels of nms.cu (9-26 launches for a first "
+        "round, up to 25 more that the card makes for each later one); indices and validity compared exactly, "
+        "max_abs_err 0 means equal",
         **{f"{k}_{name}": r[k] for name, r in nms_rows.items()
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "most_live_in_a_row", "path")},
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "old_bound_ms", "most_live_in_a_row", "rounds")},
     })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

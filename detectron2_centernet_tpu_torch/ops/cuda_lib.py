@@ -7,7 +7,9 @@ The libraries are built at first use into ``_build/`` beside this package,
 one ``nvcc`` process per source, all started together, and cached by the
 hash of the source and its flags. ``SOURCES`` names them: the DCN forward
 (``fwd``, ``ops/dcn.py``), the four DCN backward kernels (``bwd``) and the
-fixed-K NMS (``nms``, ``ops/nms.py``).
+fixed-K NMS (``nms``, ``ops/nms.py``), which launches kernels from the card
+and so is built as relocatable device code against the device runtime
+(``SOURCE_FLAGS``).
 """
 
 import ctypes
@@ -21,7 +23,7 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build_libraries", "launch", "library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "SOURCE_FLAGS", "build_libraries", "launch", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"fwd": CSRC / "dcn_fwd.cu", "bwd": CSRC / "dcn_bwd.cu", "nms": CSRC / "nms.cu"}
@@ -30,6 +32,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# after the source on the command line: the NMS's rounds after the first are tail launches from the card
+SOURCE_FLAGS = {"nms": ("-rdc=true", "-lcudadevrt")}
 
 
 def _nvcc() -> str:
@@ -41,7 +45,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     source = SOURCES[name]
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ()))
+    tag = hashlib.sha256(source.read_bytes() + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 
 
@@ -60,7 +65,7 @@ def build_libraries() -> Dict[str, dict]:
             continue
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source), *SOURCE_FLAGS.get(name, ())],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         running[name] = (proc, tmp, path)

@@ -7,9 +7,10 @@ and for one training step, the f32 heads at PyTorch's default TF32 flags,
 a short evaluation through ``DefaultTrainer.test``, one f32 training
 step of small ResNet- and VoVNet-deconv CenterNets (card against CPU, and
 at the default TF32 flags against TF32 off), a small RetinaNet's heads,
-loss and detections and the port's NMS, card against CPU, the NMS kernel
-(``ops/csrc/nms.cu``) against its plain loop at the RetinaNet, RPN and box
-head shapes, a small Faster R-CNN's RPN heads, losses and detections,
+loss and detections and the port's NMS, card against CPU, the NMS kernels
+(``ops/csrc/nms.cu``) against their plain loop and the algorithm's mirror at
+the RetinaNet, RPN, box head and LVIS shapes and on rows that take two
+or more chunks (disjoint and clustered boxes), a small Faster R-CNN's RPN heads, losses and detections,
 card against CPU, and the mask paste, the keypoint decode and a small R-CNN
 with the mask and keypoint heads, card against CPU.
 
@@ -665,39 +666,109 @@ def _nms_rows(g, rows, cands, live, spread=700.0, ties=False):
     return boxes, scores
 
 
-@pytest.mark.parametrize("case", ["retinanet", "rpn", "rpn_train", "box_head", "box_head_sparse", "ties",
-                                  "rpn_c4", "rpn_c4_train"])
+# NMS case: (rows, candidates, picks, live share, IoU threshold); the RPN's counts repeat per image
+_NMS_CASES = {
+    "retinanet": (16, 4441, 100, 0.3, 0.5), "rpn": (80, 1000, [1000] * 4 + [507], 1.0, 0.7),
+    "rpn_train": (80, 2000, [1000] * 4 + [507], 1.0, 0.7), "box_head": (16, 80000, 100, 0.2, 0.5),
+    "box_head_sparse": (16, 80000, 100, 0.05, 0.5), "ties": (8, 3000, 300, 0.8, 0.5),
+    "rpn_c4": (16, 6000, 1000, 1.0, 0.7), "rpn_c4_train": (16, 12000, 2000, 1.0, 0.7),
+    "lvis_b1": (1, 1000 * 1203, 300, 0.54, 0.5), "lvis_b16": (16, 1000 * 1203, 300, 0.54, 0.5),
+    "chunks": (1, 20000, 10000, 1.0, 0.5), "clusters": (2, 40000, 10000, 1.0, 0.7),
+}
+
+
+def _nms_case(name):
+    """(boxes, scores, picks) of an NMS case on the CPU, from seed 1."""
+    rows, cands, picks, live, _ = _NMS_CASES[name]
+    g = torch.Generator().manual_seed(1)
+    if name.startswith("lvis"):  # each proposal once per class, moved apart by the class offsets
+        proposals, classes = 1000, 1203
+        xy = torch.rand(rows, proposals, 1, 2, generator=g) * 700
+        base = torch.cat([xy, xy + 20 + torch.rand(rows, proposals, 1, 2, generator=g) * 300], -1)
+        boxes = (base + (torch.rand(rows, proposals, classes, 4, generator=g) - 0.5) * 6).reshape(rows, -1, 4)
+        cls = torch.arange(classes).repeat(rows, proposals).to(boxes.dtype)
+        boxes = boxes + cls[:, :, None] * (boxes.flatten(1).amax(dim=1) + 1.0)[:, None, None]
+        scores = torch.rand(rows, cands, generator=g) ** 3
+        scores[scores < (1 - live) ** 3] = float("-inf")
+    elif name == "chunks":  # disjoint boxes: every candidate a pick
+        xy = torch.arange(cands, dtype=torch.float32)[None, :, None].expand(rows, cands, 2) * 10
+        boxes, scores = torch.cat([xy, xy + 5], -1), torch.rand(rows, cands, generator=g)
+    elif name == "clusters":  # clusters of 5 jittered boxes, each member's score drawn on its own
+        n = cands // 5
+        centres = torch.rand(rows, n, 1, 2, generator=g) * 2000
+        size = 20 + torch.rand(rows, n, 1, 2, generator=g) * 40
+        base = torch.cat([centres - size / 2, centres + size / 2], -1)
+        jitter = (torch.rand(rows, n, 5, 4, generator=g) - 0.5) * torch.cat([size, size], -1) * 0.2
+        boxes, scores = (base + jitter).reshape(rows, cands, 4), torch.rand(rows, cands, generator=g)
+    else:
+        boxes, scores = _nms_rows(g, rows, cands, live, ties=name == "ties")
+    if isinstance(picks, list):
+        picks = torch.tensor(picks * (rows // len(picks)), dtype=torch.int32)
+    return boxes, scores, picks
+
+
+@pytest.mark.parametrize("case", list(_NMS_CASES))
 def test_nms_kernel_matches_plain_on_card(card, case):
-    """The NMS kernel (``ops/csrc/nms.cu``) against the plain loop, both on
-    the card, at the main paths' shapes: RetinaNet's 16 × 4441 candidates,
-    100 picks; the RPN's 16 images × 5 level rows of 1000 (2000 at
-    training) with 1000 picks on p2-p5 and 507 on p6 (13 × 13 × 3
-    anchors); the box head's 16 × 80 000 (1000 proposals × 80 classes), 100
-    picks, with a fifth of them live (more than shared memory holds: the
-    row is swept in place) and with a twentieth (compacted into shared
-    memory); ties: scores on 8 values and boxes of no area; and the C4 and
-    DC5 RPN's one level, 16 rows of 6000 with 1000 picks at test and of
-    12 000 with 2000 at training (swept in place). Indices and validity
-    exactly equal; one launch per call."""
+    """The NMS kernels (``ops/csrc/nms.cu``) against the plain loop and the
+    algorithm's plain mirror (``nms_sorted_reference``), all on the card, at
+    the main paths' shapes: RetinaNet's 16 × 4441 candidates, 100 picks;
+    the RPN's 16 images × 5 level rows of 1000 (2000 at training) with 1000
+    picks on p2-p5 and 507 on p6 (13 × 13 × 3 anchors); the box head's 16
+    × 80 000 (1000 proposals × 80 classes), 100 picks, a fifth and a
+    twentieth of them live; the C4 and DC5 RPN's one level, 16 rows of
+    6000 with 1000 picks at test and of 12 000 with 2000 at training (rows
+    past one chunk: the selection passes); LVIS's box head, 1 and 16 rows
+    of 1000 × 1203 candidates through the class offsets, ~54% live, 300
+    picks; ties: scores on 8 values and boxes of no area. And rows that
+    take more than one chunk of 8192, whose later rounds the card launches
+    itself: 20 000 disjoint boxes with 10 000 picks (two chunks), and 2 rows
+    of 8000 clusters of 5 overlapping boxes at IoU 0.7 with 10 000 picks
+    (four chunks a row; picks of earlier chunks suppress half the later
+    candidates). Indices and validity exactly equal; one launch per call;
+    the chunks the card counted equal the mirror's, at least one a row."""
     from detectron2_centernet_tpu_torch.ops import nms
 
-    g = torch.Generator().manual_seed(1)
-    rows, cands, counts, live, thr = {
-        "retinanet": (16, 4441, 100, 0.3, 0.5), "rpn": (80, 1000, [1000] * 4 + [507], 1.0, 0.7),
-        "rpn_train": (80, 2000, [1000] * 4 + [507], 1.0, 0.7), "box_head": (16, 80000, 100, 0.2, 0.5),
-        "box_head_sparse": (16, 80000, 100, 0.05, 0.5), "ties": (8, 3000, 300, 0.8, 0.5),
-        "rpn_c4": (16, 6000, 1000, 1.0, 0.7), "rpn_c4_train": (16, 12000, 2000, 1.0, 0.7)}[case]
-    boxes, scores = _nms_rows(g, rows, cands, live, ties=case == "ties")
-    if isinstance(counts, list):
-        counts = torch.tensor(counts * (rows // len(counts)), dtype=torch.int32)
+    rows, thr = _NMS_CASES[case][0], _NMS_CASES[case][4]
+    boxes, scores, counts = _nms_case(case)
     boxes, scores = boxes.to(card), scores.to(card)
-    before = nms.greedy_nms.launches
+    before, rounds = nms.greedy_nms.launches, nms.rounds_taken()
     keep, valid = nms.greedy_nms(boxes, scores, thr, counts)
-    torch.cuda.synchronize()
     assert nms.greedy_nms.launches == before + 1
+    taken = nms.rounds_taken() - rounds
     want_keep, want_valid = nms.nms_fixed(boxes, scores, thr, counts)
     assert torch.equal(valid, want_valid) and torch.equal(keep, want_keep)
+    ref_keep, ref_valid, chunks = nms.nms_sorted_reference(boxes, scores, thr, counts)
+    assert torch.equal(valid, ref_valid) and torch.equal(keep, ref_keep)
+    assert taken == int(chunks.sum()) >= rows
+    if case in ("chunks", "clusters"):
+        assert taken > rows and bool(valid.all())
     assert valid.sum() > rows
+
+
+@pytest.mark.parametrize("case", ["lvis_b1", "clusters"])
+def test_nms_kernel_does_not_wait_for_the_card(card, case):
+    """A call on rows past one chunk (whose later rounds, if any, the card
+    launches itself) returns to the host while ~50 ms of work queued before
+    it still runs, and its result, read after, equals the plain loop's."""
+    import time
+
+    from detectron2_centernet_tpu_torch.ops import nms
+
+    boxes, scores, counts = _nms_case(case)
+    boxes, scores, thr = boxes.to(card), scores.to(card), _NMS_CASES[case][4]
+    nms.greedy_nms(boxes, scores, thr, counts)  # built and warm
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(80_000_000)
+    end.record()
+    t0 = time.perf_counter()
+    keep, valid = nms.greedy_nms(boxes, scores, thr, counts)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    assert host_ms < start.elapsed_time(end) / 2
+    want_keep, want_valid = nms.nms_fixed(boxes, scores, thr, counts)
+    assert torch.equal(valid, want_valid) and torch.equal(keep, want_keep)
 
 
 _SMALL_RCNN = ["MODEL.META_ARCHITECTURE", "GeneralizedRCNN", "MODEL.BACKBONE.NAME", "build_resnet_fpn_backbone",
