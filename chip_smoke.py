@@ -11,11 +11,14 @@ R50-DC5, the dconv Mask R-CNN R50-FPN (its deformable trunk on the DCN
 kernels, at stride 1 and 2), Fast R-CNN R50-FPN on precomputed
 proposals, LVIS v1 Mask R-CNN R50-FPN (serving, training from a
 ``RepeatFactorTrainingSampler``, ``LVISEvaluator``) and the Pascal VOC and
-Cityscapes-instance evaluations, every NMS of the R-CNN and RetinaNet paths on the hand-written NMS
+Cityscapes-instance evaluations, Panoptic FPN R50, Semantic FPN R50 and the
+dconv Cascade GN Panoptic FPN R101 (its 30 deformable blocks on the DCN
+kernels), every NMS of the R-CNN and RetinaNet paths on the hand-written NMS
 kernel (``ops/csrc/nms.cu``). Every config is read from its YAML file
 (``configs/COCO-Detection/``, ``COCO-InstanceSegmentation/``,
 ``COCO-Keypoints/``, ``Misc/``, ``LVIS-InstanceSegmentation/``,
-``PascalVOC-Detection/``, ``Cityscapes/``) by the port's own reader.
+``PascalVOC-Detection/``, ``Cityscapes/``, ``COCO-PanopticSegmentation/``)
+by the port's own reader.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -92,7 +95,7 @@ Phases (any failure raises and the script exits non-zero):
      FrozenBN, FPN 256 with the max-pool P6, RPN on p2-p6 with 3 anchors per
      cell, 1000/1000 proposals at test and 2000/1000 at training, 512 rois,
      80 classes), bf16, no DCN kernel anywhere: (a) ``DefaultPredictor``
-     requests (median of 20, 480x640 → 800²) and ``predict_fn`` at batch 16
+     requests (median of 10, 480x640 → 800²) and ``predict_fn`` at batch 16
      with seeded weights that detect (``rcnn_weights``), the batch-1
      call's profile with the NMS kernel's share, and the same call through
      the plain NMS loop; (b) f32 at batch 2, card against CPU, each stage
@@ -120,7 +123,7 @@ Phases (any failure raises and the script exits non-zero):
      ``COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml`` (one class, 1500
      proposals at training, 8 convs of 512 at 14², 17 heatmaps of 56²),
      bf16, no DCN kernel anywhere, each: (a) ``DefaultPredictor`` requests
-     (median of 20, 480x640 → 800²; the pasted bool masks, or the decoded
+     (median of 10, 480x640 → 800²; the pasted bool masks, or the decoded
      keypoints inside their boxes, checked) and ``predict_fn`` at batch 16
      with seeded weights that detect; (b) f32 at batch 2, card against
      CPU: the head's outputs (mask logits at the detected class, or the
@@ -198,9 +201,35 @@ Phases (any failure raises and the script exits non-zero):
      unchanged, the numbers are finite, each evaluator's host seconds
      printed. The records carry their pixels in ``image`` (the card's
      machine may have no PIL). Their box-head NMS inputs go to 10c; no DCN;
+  20. segmentation: Panoptic FPN R50,
+     ``COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml`` (Mask R-CNN
+     with ``SemSegFPNHead`` of 128 on p2-p5, 54 stuff classes, the
+     panoptic merge), and 20s, Semantic FPN R50,
+     ``Misc/semantic_R_50_FPN_1x.yaml``, bf16, each: (a) ``DefaultPredictor``
+     requests (the label maps, instances and panoptic segments checked),
+     ``predict_fn`` at batch 1 and 16 with seeded weights that detect, the
+     label maps (un-warp and argmax on the card) and the host boundary of a
+     batch of 16, the panoptic merge's ms per image; (b) f32 at batch 2,
+     card against CPU on the card's maps: the sem-seg head (and the box
+     predictor and mask logits) within SAME_INPUT_TOL of their scale, the
+     TF32 control over it; (c) ``tools/bench`` at ``TEST.BATCH_SIZE`` 16
+     with its train steps at 16 × 800² (busy share, peak memory, the
+     profiled step's top device ops); (d) ``tools/train_net`` 4 steps from
+     the init, then ``--eval-only --resume``: bbox, segm and sem_seg dicts
+     (sem_seg alone for 20s), the same in both; no DCN; 20g, the dconv
+     Cascade GN Panoptic FPN R101,
+     ``Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml`` (GN trunk, DCNv1
+     in the 30 blocks of res3-res5 at STRIDE_IN_1X1 False, 3 Cascade
+     stages): served at batch 16, trained at the YAML's batch of 32 or the
+     largest of 24 and 16 that fits (printed), K1 launched 30 times per forward and
+     K1, K2 and K5 30 times each per train step, counted, the DCN kernels'
+     device ms in the profiled step; Panoptic FPN's RPN and box-head NMS
+     inputs go to 10c;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
+The R-CNNs' and segmentors' weights are calibrated on the card in f32; the
+CenterNets' on the CPU. Each phase's seconds go to the report (``phase_s``).
 
 Bound of a launch (``dcn_bound``): the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over the
@@ -250,6 +279,8 @@ from detectron2_centernet_tpu_torch.models.backbones import resnet as resnet_mod
 from detectron2_centernet_tpu_torch.models.backbones.resnet import DeformBottleneckBlock
 from detectron2_centernet_tpu_torch.models.layers import DCNv2, DeformConvV2
 from detectron2_centernet_tpu_torch.models.meta_arch import centernet, rcnn
+from detectron2_centernet_tpu_torch.models.meta_arch import panoptic_fpn as panoptic_module
+from detectron2_centernet_tpu_torch.models.meta_arch import semantic_seg as semseg_module
 from detectron2_centernet_tpu_torch.ops import cuda_lib, dcn, fast_cocoeval
 from detectron2_centernet_tpu_torch.ops import nms as nms_ops
 from detectron2_centernet_tpu_torch.ops.nms import batched_nms_fixed
@@ -339,15 +370,15 @@ def ctdet_cfg(name: str, dtype: str):
 DLA = "ctdet_dla_34_1x"
 
 
-def seeded_weights(cfg, images: torch.Tensor, seed: int) -> dict:
-    """Random weights from ``seed``, on the CPU in f32: the model's own init,
+def seeded_weights(cfg, images: torch.Tensor, seed: int, device: str = "cpu") -> dict:
+    """Random weights from ``seed``, on ``device`` in f32: the model's own init,
     random offset convs (N(0, 1/fan_in): offsets of about a pixel), and
     BatchNorm (and FrozenBatchNorm) statistics measured on ``images`` so
     activations keep their scale through the layers (with identity
     statistics they fade or grow, and the heatmap is flat). Returns the
     state dict for every model of the run."""
     cfg = cfg.clone()
-    cfg.MODEL.DEVICE = "cpu"
+    cfg.MODEL.DEVICE = device
     cfg.TPU.DTYPE = "float32"
     host = build_model(cfg)
     g = torch.Generator().manual_seed(seed)
@@ -1640,7 +1671,7 @@ def phase_nms_kernel(report, cases):
         rounds = nms_ops.rounds_taken()
         got = nms_ops.greedy_nms(boxes, scores, thr, counts)
         rounds = nms_ops.rounds_taken() - rounds
-        want = nms_ops.nms_fixed(boxes, scores, thr, counts)
+        want = nms_ops.nms_fixed(boxes, scores, thr, counts)  # the check's call, also the timing's warm-up
         mirror = nms_ops.nms_sorted_reference(boxes, scores, thr, counts)
         torch.cuda.synchronize()
         equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -1650,7 +1681,7 @@ def phase_nms_kernel(report, cases):
         k = got[0].shape[1]
         kernel_ms = cuda_ms(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts), iters=20)
         host_ms, queued_ms = host_ms_behind(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts))
-        plain_ms = cuda_ms(lambda: nms_ops.nms_fixed(boxes, scores, thr, counts), iters=2, warmup=1)
+        plain_ms = cuda_ms(lambda: nms_ops.nms_fixed(boxes, scores, thr, counts), iters=2, warmup=0)
         live, picks = nms_work(boxes, scores, thr, counts)
         prefix, ious = nms_sorted_work(scores, *got)
         alive = torch.isfinite(scores)
@@ -1725,7 +1756,7 @@ def predictor_inputs(model, feats, boxes: torch.Tensor):
     return [("roi_heads.box_predictor", heads.box_head(pooled))]
 
 
-def rcnn_weights(cfg, images: torch.Tensor, seed: int) -> Tuple[dict, dict]:
+def rcnn_weights(cfg, images: torch.Tensor, seed: int, device: str = "cpu") -> Tuple[dict, dict]:
     """(``seeded_weights``: the model's own init with FrozenBN statistics
     measured on ``images`` (C4's res5 head's on the first image's proposals
     too), what a model initialised from ImageNet weights starts from; the
@@ -1733,10 +1764,10 @@ def rcnn_weights(cfg, images: torch.Tensor, seed: int) -> Tuple[dict, dict]:
     ``cls_score``'s logits spread with std 2 and ``bbox_pred``'s deltas with
     std 0.5, weights that detect to serve with). The init's N(0, 0.01)
     predictor puts every class near 1/81, under SCORE_THRESH_TEST 0.05:
-    served, its NMS would get no candidate."""
-    init = seeded_weights(cfg, images, seed)
+    served, its NMS would get no candidate. ``device`` computes them (f32)."""
+    init = seeded_weights(cfg, images, seed, device)
     cfg = cfg.clone()
-    cfg.MODEL.DEVICE = "cpu"
+    cfg.MODEL.DEVICE = device
     host = build_model(cfg)
     host.model.load_state_dict(init)
     with torch.no_grad():
@@ -1782,7 +1813,7 @@ def phase_faster_rcnn(report, out_dir):
         raise SystemExit("PyYAML was imported: the port must read configs with its own reader")
     rng = np.random.RandomState(10)
     reset_launches()
-    init, weights = rcnn_weights(rcnn_cfg(FASTER, "float32"), letterboxed(rng, "cpu", 2, size), seed=0)
+    init, weights = rcnn_weights(rcnn_cfg(FASTER, "float32"), letterboxed(rng, "cpu", 2, size), seed=0, device="cuda")
     predictor = DefaultPredictor(cfg)
     model = predictor.model
     model.model.load_state_dict(weights)
@@ -2092,7 +2123,8 @@ def phase_rcnn_head(report, out_dir, kind: str):
         raise SystemExit(f"{name} is not at full width here: {m}")
     rng = np.random.RandomState(10 + number)
     reset_launches()
-    init, weights = rcnn_weights(rcnn_cfg(name, "float32", folder), letterboxed(rng, "cpu", 2, size), seed=0)
+    init, weights = rcnn_weights(rcnn_cfg(name, "float32", folder), letterboxed(rng, "cpu", 2, size), seed=0,
+                                 device="cuda")
     predictor = DefaultPredictor(cfg)
     model = predictor.model
     model.model.load_state_dict(weights)
@@ -2389,16 +2421,16 @@ def counting_deform_blocks():
         DeformBottleneckBlock.forward = real
 
 
-def check_dconv_launches(where, launches, blocks, steps=None):
-    """The deformable path's DCN launches: K1 once per block forward, 13
-    per trunk forward; K2 and K5 once per block forward in training (13 per
-    step, ``steps`` of them when given); K3 and K4 never."""
+def check_dconv_launches(where, launches, blocks, steps=None, per=DCONV_BLOCKS):
+    """The deformable path's DCN launches: K1 once per block forward, ``per``
+    (13, or R101's 30) per trunk forward; K2 and K5 once per block forward
+    in training (``per`` a step, ``steps`` of them when given); K3 and K4
+    never."""
     want = {"dcn_fwd": blocks["forward"], "dcn_bwd_dx": blocks["train"], "dcn_bwd_dq": 0, "dcn_bwd_dw": 0,
             "dcn_bwd_dqdw": blocks["train"]}
-    if launches != want or blocks["forward"] % DCONV_BLOCKS or (steps is not None and blocks["train"] !=
-                                                                  DCONV_BLOCKS * steps):
-        raise SystemExit(f"{where}: expected {DCONV_BLOCKS} K1 launches per forward and {DCONV_BLOCKS} of K1, K2 and "
-                         f"K5 per train step ({steps} steps), {want}; got {launches}")
+    if launches != want or blocks["forward"] % per or (steps is not None and blocks["train"] != per * steps):
+        raise SystemExit(f"{where}: expected {per} K1 launches per forward and {per} of K1, K2 and K5 per train step "
+                         f"({steps} steps), {want}; got {launches}")
 
 
 def phase_rcnn_variant(report, out_dir, kind: str):
@@ -2464,8 +2496,10 @@ def _rcnn_variant(report, out_dir, kind, counted):
     if not full:
         raise SystemExit(f"{name} is not at full width here: {m}")
     rng = np.random.RandomState(23 + list(VARIANTS).index(kind))
-    reset_launches()
-    init, weights = rcnn_weights(rcnn_cfg(name, "float32", folder, extra), letterboxed(rng, "cpu", 2, size), seed=0)
+    init, weights = rcnn_weights(rcnn_cfg(name, "float32", folder, extra), letterboxed(rng, "cpu", 2, size), seed=0,
+                                 device="cuda")
+    reset_launches()  # the count starts at the main path: the weights' calibration forwards are not on it
+    counted.update(forward=0, train=0)
     predictor = DefaultPredictor(cfg)
     model = predictor.model
     model.model.load_state_dict(weights)
@@ -2849,17 +2883,21 @@ def phase_dconv_kernels(report):
     """Phase 16k: K1, K2 and K5 against their plain versions at every DCN
     shape of the deformable trunk (stride 1 at res3-res5, the stride-2
     transitions, dilation 2 at 512 x 50²), batch 1 and 16, modulated and
-    not, bf16 and (batch 1) f32, offsets of ~1 px and ±8 px at batch 1, with
-    the DLA shapes' tolerances; then each kernel's time at batch 16, bf16,
+    not, bf16 and (batch 1) f32, offsets of ~1 px and ±8 px at batch 1, and
+    at 20g's train batch of 24 as the R101 path runs them (bf16,
+    unmodulated), with the DLA shapes' tolerances; then each kernel's time at batch 16, bf16,
     unmodulated (the main path's form) beside its plain version's and its
     bound (``dcn_bound`` at the shape). A CUDA call at stride 3 raises."""
     print("== 16k. K1, K2 and K5 against their plain versions at the deformable trunk's shapes (batch 1 and 16, "
-          "modulated and not; bf16, and f32 at batch 1), then their times at batch 16")
+          "modulated and not; bf16, and f32 at batch 1; batch 24 unmodulated), then their times at batch 16")
     rows, bad = [], []
     for c, hw, stride, dilation, where in DCONV_SHAPES:
-        for b, dtype, regime in ((1, torch.float32, "1px"), (1, torch.bfloat16, "1px"), (1, torch.bfloat16, "8px"),
-                                 (RCNN_BATCH, torch.bfloat16, "1px")):
-            for modulated in (True, False):
+        for b, dtype, regime, forms in ((1, torch.float32, "1px", (True, False)),
+                                        (1, torch.bfloat16, "1px", (True, False)),
+                                        (1, torch.bfloat16, "8px", (True, False)),
+                                        (RCNN_BATCH, torch.bfloat16, "1px", (True, False)),
+                                        (DCONV_TRAIN_BATCH, torch.bfloat16, "1px", (False,))):  # 20gc's launches
+            for modulated in forms:
                 args, cot = dconv_case(b, c, hw, stride, dtype, seed=c + hw + stride, modulated=modulated,
                                        regime=regime)
                 errs = {}
@@ -2982,7 +3020,7 @@ def phase_fast_rcnn(report, out_dir):
           f"and {val} scenes at {size[0]}²")
     rng = np.random.RandomState(30)
     reset_launches()
-    init, weights = rcnn_weights(rcnn_cfg(FAST, "float32"), letterboxed(rng, "cpu", 2, size), seed=0)
+    init, weights = rcnn_weights(rcnn_cfg(FAST, "float32"), letterboxed(rng, "cpu", 2, size), seed=0, device="cuda")
     os.environ["DETECTRON2_SYNTH_DATA"] = "1"
     ensure_synthetic_datasets([train])
     fresh_synthetic_val(val)
@@ -3289,7 +3327,8 @@ def phase_lvis(report, out_dir):
         raise SystemExit(f"{LVIS} is not at full width here: {m}")
     rng = np.random.RandomState(18)
     reset_launches()
-    init, weights = rcnn_weights(rcnn_cfg(LVIS, "float32", LVIS_FOLDER), letterboxed(rng, "cpu", 2, size), seed=0)
+    init, weights = rcnn_weights(rcnn_cfg(LVIS, "float32", LVIS_FOLDER), letterboxed(rng, "cpu", 2, size), seed=0,
+                                 device="cuda")
     del init
     predictor = DefaultPredictor(cfg)
     model = predictor.model
@@ -3527,7 +3566,8 @@ def phase_voc_cityscapes(report, out_dir):
               f"{sum(len(r['annotations']) for r in records)} objects; the evaluator of evaluator_type "
               f"'{MetadataCatalog.get(dataset).evaluator_type}' through inference_on_dataset, batch {EVAL_BATCH}")
         rng = np.random.RandomState(190 + len(kind))
-        _, weights = rcnn_weights(rcnn_cfg(name, "float32", folder), letterboxed(rng, "cpu", 2, size), seed=0)
+        _, weights = rcnn_weights(rcnn_cfg(name, "float32", folder), letterboxed(rng, "cpu", 2, size), seed=0,
+                                  device="cuda")
         model = build_model(cfg)
         model.model.load_state_dict(weights)
         inputs = []
@@ -3557,6 +3597,416 @@ def phase_voc_cityscapes(report, out_dir):
     return launches, nms_launches, nms_cases
 
 
+SEGMENTATION = {  # kind: (sub-phase, config folder, config name)
+    "panoptic": ("20", "COCO-PanopticSegmentation", "panoptic_fpn_R_50_1x"),
+    "semantic": ("20s", "Misc", "semantic_R_50_FPN_1x"),
+    "panoptic_dconv": ("20g", "Misc", "panoptic_fpn_R_101_dconv_cascade_gn_3x"),
+}
+R101_DEFORM_BLOCKS = 4 + 23 + 3  # the DeformBottleneckBlocks of R101's res3-res5: one K1 launch each per forward
+# 20g's train batch, cut from the YAML's SOLVER.IMS_PER_BATCH of 32: on "NVIDIA H100 80GB HBM3, 700.00 W" batch 32
+# asked for 4.12 GiB more with 76.8 GiB in use, batch 24 peaked at 56.88 GiB (chip_smoke.py's 20gc)
+DCONV_TRAIN_BATCH = 24
+
+
+def check_segmentation(name, out, size, num_classes, panoptic):
+    """A request's ``sem_seg`` (H, W) int64 labels of the head's classes
+    and, for Panoptic FPN, the instances' masks and ``panoptic_seg``: int32
+    segment ids, each id of ``segments_info`` (things then stuff, 1, 2, ...)
+    and no other."""
+    h, w = size
+    sem = out["sem_seg"]
+    ok = sem.shape == (h, w) and sem.dtype == np.int64 and 0 <= sem.min() and sem.max() < num_classes
+    if panoptic:
+        inst = out["instances"]
+        pan, info = out["panoptic_seg"]
+        ids = [s["id"] for s in info]
+        things = [s for s in info if s["isthing"]]
+        ok &= (inst.pred_masks.dtype == bool and inst.pred_masks.shape == (len(inst), h, w) and pan.shape == (h, w)
+               and pan.dtype == np.int32 and ids == list(range(1, len(info) + 1))
+               and set(np.unique(pan).tolist()) <= {0, *ids} and all(s["score"] >= 0.5 for s in things)
+               and [s["isthing"] for s in info] == sorted((s["isthing"] for s in info), reverse=True))
+    if not ok:
+        raise SystemExit(f"{name}: a malformed segmentation for a {h}x{w} image: {out}")
+
+
+def phase_segmentation(report, out_dir):
+    """Phase 20: Panoptic FPN R50 (20), Semantic FPN R50 (20s) and the dconv
+    Cascade GN Panoptic FPN R101 (20g) at full width through the port's
+    entry points. 20a/20sa: requests (the label maps, the instances and the
+    panoptic segments checked), predict_fn at batch 1 and 16 with seeded
+    weights that detect, the batch-16 profile, the label maps' and the
+    panoptic merge's time; 20b/20sb: f32 card against CPU on the card's
+    maps (the box predictor and the mask logits, the sem-seg head) within
+    SAME_INPUT_TOL of their scale, the TF32 control over it; 20c/20sc:
+    tools/bench with its train steps at 16 x 800²; 20d/20sd: tools/train_net
+    4 steps from the init, then --eval-only --resume: bbox, segm and sem_seg
+    dicts (sem_seg alone for Semantic FPN). 20g: served at batch 16 and
+    trained at batch 24 (the YAML's 32 does not fit the card), K1 30
+    times per forward and K1, K2 and K5 30 times each per train step,
+    counted, the DCN kernels' device ms in the profiled step. Every NMS
+    through the kernel; no DCN kernel on the R50 paths."""
+    out, nms_launches, nms_cases, dcn_launches = {}, {}, {}, {}
+    for kind in ("panoptic", "semantic"):
+        scratch = os.path.join(out_dir, kind)
+        os.makedirs(scratch, exist_ok=True)
+        out[kind] = _segmentation_r50(kind, scratch, nms_launches, nms_cases)
+    with counting_deform_blocks() as counted:
+        out["panoptic_dconv"] = _segmentation_dconv(counted, nms_launches, dcn_launches)
+    report["segmentation"] = out
+    return dcn_launches, nms_launches, nms_cases
+
+
+def _segmentation_r50(kind, out_dir, nms_launches, nms_cases):
+    number, folder, name = SEGMENTATION[kind]
+    panoptic = kind == "panoptic"
+    cfg = rcnn_cfg(name, "bfloat16", folder)
+    m = cfg.MODEL
+    s = m.SEM_SEG_HEAD
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    print(f"== {number}a. {folder}/{name}.yaml: {m.META_ARCHITECTURE}, ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM}, FPN "
+          f"{m.FPN.OUT_CHANNELS}, SemSegFPNHead of {s.CONVS_DIM} on {list(s.IN_FEATURES)}, {s.NUM_CLASSES} stuff "
+          f"classes" + (f", Mask R-CNN of {m.ROI_HEADS.NUM_CLASSES} thing classes, the panoptic merge" if panoptic else "")
+          + f", bf16: DefaultPredictor at {size[0]}², predict_fn at batch 1 and {RCNN_BATCH}")
+    full = (m.RESNETS.DEPTH == 50 and m.FPN.OUT_CHANNELS == 256 and size == (800, 800) and s.NUM_CLASSES == 54
+            and s.CONVS_DIM == 128 and list(s.IN_FEATURES) == ["p2", "p3", "p4", "p5"] and s.COMMON_STRIDE == 4)
+    if panoptic:
+        full &= (m.META_ARCHITECTURE == "PanopticFPN" and m.MASK_ON and m.ROI_HEADS.NUM_CLASSES == 80
+                 and s.LOSS_WEIGHT == 0.5 and m.PANOPTIC_FPN.COMBINE.ENABLED)
+    if not full:
+        raise SystemExit(f"{name} is not at full width here: {m}")
+    rng = np.random.RandomState(200 + len(kind))
+    reset_launches()
+    calib = letterboxed(rng, "cpu", 2, size)
+    cfg32 = rcnn_cfg(name, "float32", folder)
+    if panoptic:
+        init, weights = rcnn_weights(cfg32, calib, seed=0, device="cuda")
+    else:
+        init = weights = seeded_weights(cfg32, calib, seed=0, device="cuda")
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    model.model.load_state_dict(weights)
+    res = {}
+    nms_ops.greedy_nms.launches = 0
+    for h, w in ((480, 640), (800, 800), (375, 500)):
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        got = predictor(im)
+        check_segmentation(name, got, (h, w), s.NUM_CLASSES, panoptic)
+        text = f"{len(np.unique(got['sem_seg']))} labels in sem_seg"
+        if panoptic:
+            inst = got["instances"]
+            check_detections(name, im, inst, model.score_threshold)
+            info = got["panoptic_seg"][1]
+            text += (f"; {len(inst)} detections, top score {inst.scores.max():.4f}; panoptic segments "
+                     f"{sum(x['isthing'] for x in info)} things, {sum(not x['isthing'] for x in info)} stuff")
+        print(f"  request {h}x{w}: {text}")
+    latency = bench.request_ms(predictor, rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+    b1, b16 = letterboxed(rng, model.device, 1, size), letterboxed(rng, model.device, RCNN_BATCH, size)
+    nms_inputs = []
+    with capture_nms(nms_inputs):
+        d16 = model.predict_fn(b16)
+        if panoptic:
+            with torch.inference_mode():  # the training's proposals
+                model.proposals(*model.model(model.normalize(b16))[1:], size, "train")
+    torch.cuda.synchronize()
+    nms_launches[kind] = {"serving": nms_ops.greedy_nms.launches}
+    calls = 3 + bench.REQUEST_WARMUP + bench.REQUESTS + 1
+    if nms_launches[kind]["serving"] != (2 * calls + 1 if panoptic else 0):
+        raise SystemExit(f"{name}: expected {2 * calls + 1 if panoptic else 0} NMS kernel launches, got "
+                         f"{nms_launches[kind]['serving']}")
+    if panoptic:
+        nms_cases.update({f"{k}_panoptic": c for k, c in zip(("rpn_test", "box_head", "rpn_train"), nms_inputs)})
+    logits = d16["sem_seg"]
+    if not (logits.dtype == torch.float32 and tuple(logits.shape) == (RCNN_BATCH, 54, *size)
+            and bool(torch.isfinite(logits).all())):
+        raise SystemExit(f"{name}'s predict_fn gave malformed sem-seg logits: {logits.dtype} {tuple(logits.shape)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_b1 = cuda_ms(lambda: model.predict_fn(b1), iters=5)
+    ms_b16 = cuda_ms(lambda: model.predict_fn(b16), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p16 = profiled(lambda: model.predict_fn(b16), calls=1)
+    # the host boundary of a batch of 16 480x640 images letterboxed to 800²: the label maps on the card, then
+    # postprocess (the masks pasted and, for Panoptic FPN, the merge on the card), the merge timed alone
+    warps, sizes = [letterbox_transform(480, 640, size)] * RCNN_BATCH, [(480, 640)] * RCNN_BATCH
+    merge_s = []
+    real_merge = panoptic_module.combine_semantic_and_instance_outputs
+
+    def timed_merge(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real_merge(*args)
+        merge_s.append(time.perf_counter() - t0)
+        return result
+
+    labels_ms = cuda_ms(lambda: model.device_postprocess(d16, warps, sizes), iters=3, warmup=1)
+    panoptic_module.combine_semantic_and_instance_outputs = timed_merge
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = {k: v.cpu().numpy() for k, v in model.device_postprocess(d16, warps, sizes).items()}
+        results = model.postprocess(host, warps, sizes)
+        boundary_s = time.perf_counter() - t0
+    finally:
+        panoptic_module.combine_semantic_and_instance_outputs = real_merge
+    for r in results:
+        check_segmentation(name, r, (480, 640), s.NUM_CLASSES, panoptic)
+    res.update(request_ms=latency, request_median_ms=statistics.median(latency), predict_fn_b1_ms=ms_b1,
+               predict_fn_b16_ms=ms_b16, img_s_b1=1e3 / ms_b1, img_s_b16=RCNN_BATCH * 1e3 / ms_b16,
+               peak_memory_gib_b16=peak, device_ms_b16=p16["device_ms"], nms_kernel_ms_b16=p16["nms_kernel_ms"],
+               label_maps_b16_ms=labels_ms, host_boundary_b16_ms=boundary_s * 1e3,
+               merge_ms_per_image=statistics.mean(merge_s) * 1e3 if merge_s else None)
+    print(f"  request (480x640 → 800²) median {res['request_median_ms']:.3f} ms of {bench.REQUESTS}; predict_fn batch 1 "
+          f"{ms_b1:.3f} ms = {res['img_s_b1']:.2f} img/s; batch {RCNN_BATCH} {ms_b16:.3f} ms = {res['img_s_b16']:.2f} "
+          f"img/s ({p16['device_ms']:.3f} ms on the card, NMS kernel {p16['nms_kernel_ms']:.3f}); peak memory "
+          f"{peak:.2f} GiB; the batch's label maps (un-warp and argmax on the card) {labels_ms:.3f} ms; its host "
+          f"boundary {res['host_boundary_b16_ms']:.1f} ms"
+          + (f", of which the panoptic merge {res['merge_ms_per_image']:.3f} ms per image" if panoptic else ""))
+    print(p16["events"].table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    del predictor, d16, logits, host, results
+
+    print(f"== {number}b. f32, batch 2, card against CPU on the card's maps: the sem-seg head"
+          + (f", the box predictor on the first {HEAD_ROIS} proposals of each image and the mask logits of the top 16 "
+             f"detections" if panoptic else "") + "; with cuDNN's TF32 and ieee_f32 bypassed as the control")
+    card = build_model(cfg32)
+    cfg_host = cfg32.clone()
+    cfg_host.MODEL.DEVICE = "cpu"
+    host_model = build_model(cfg_host)
+    for mdl in (card, host_model):
+        mdl.model.load_state_dict(weights)
+    x = b16[:2]
+    checks, tf32 = {}, {}
+    owner = panoptic_module if panoptic else semseg_module
+
+    def head(mdl, feats):
+        if panoptic:
+            return mdl.sem_seg_logits(feats)
+        with semseg_module.ieee_f32():
+            return mdl.model.sem_seg_head(feats)
+
+    with torch.inference_mode():
+        if panoptic:
+            feats, lg, dl = card.model(card.normalize(x))
+            dets = card.predict_fn(x)
+            props = card.proposals(lg, dl, size, "test")[0][:, :HEAD_ROIS]
+            pooled = card.pool(feats, props.reshape(-1, 4), HEAD_ROIS)
+            cls = torch.clamp(dets["classes"][:, :16].reshape(-1), 0, 79)
+            mpooled = card.pool(feats, dets["boxes"][:, :16].reshape(-1, 4), 16, card.mask_pooler_resolution)
+        else:
+            with semseg_module.ieee_f32():
+                feats = card.model.backbone(card.normalize(x))
+        maps = {f: feats[f] for f in s.IN_FEATURES}
+        want = {"sem_seg_logits": head(host_model, {f: v.cpu() for f, v in maps.items()})}
+        got = {"sem_seg_logits": head(card, maps)}
+        if panoptic:
+            want.update(zip(("cls_score", "bbox_pred"), host_model.model.box_predict(pooled.cpu())))
+            want["mask_logits"] = host_model.model.mask_predict(mpooled.cpu(), cls.cpu())
+            got.update(zip(("cls_score", "bbox_pred"), card.model.box_predict(pooled)))
+            got["mask_logits"] = card.model.mask_predict(mpooled, cls)
+        with pytorch_default_tf32(), bypass_ieee_f32(owner), bypass_ieee_f32(rcnn):
+            ctrl = {"sem_seg_logits": head(card, maps)}
+            if panoptic:
+                ctrl.update(zip(("cls_score", "bbox_pred"), card.model.box_predict(pooled)))
+                ctrl["mask_logits"] = card.model.mask_predict(mpooled, cls)
+    for n in got:
+        card_vs_cpu(checks, n, got[n], want[n], rel=SAME_INPUT_TOL)
+        card_vs_cpu(tf32, n, ctrl[n], want[n], rel=SAME_INPUT_TOL)
+        print(f"  {n}: max_abs_err={checks[n]['max_abs_err']:.3e} (scale {checks[n]['scale']:.3e}, tol "
+              f"{SAME_INPUT_TOL:.0e} x scale) {'ok' if checks[n]['max_abs_err'] <= checks[n]['tol'] else 'FAIL'}; "
+              f"TF32 control {tf32[n]['max_abs_err'] / tf32[n]['tol']:.2f}x the tol")
+    if any(ch["max_abs_err"] > ch["tol"] for ch in checks.values()):
+        raise SystemExit(f"{name}'s f32 heads differ between the card and the CPU: {checks}")
+    if not tf32["sem_seg_logits"]["max_abs_err"] > tf32["sem_seg_logits"]["tol"]:
+        raise SystemExit(f"{name}'s f32 sem-seg head check did not see TF32: {tf32}")
+    res.update(card_vs_cpu=checks, tf32_control=tf32)
+    del card, host_model, feats, maps
+
+    print(f"== {number}c. tools/bench --config-file {folder}/{name}.yaml TEST.BATCH_SIZE {RCNN_BATCH} (the model's "
+          f"own init; train steps at {RCNN_BATCH} x 800² on the synthetic {cfg.DATASETS.TRAIN[0]})")
+    captured, bench_training = [], bench.bench_training
+    bench.bench_training = lambda c, w=None: captured.append(bench_training(c, w)) or captured[-1]
+    nms_ops.greedy_nms.launches = 0
+    try:
+        result = bench.main(["--config-file", os.path.join("configs", folder, name + ".yaml"),
+                             "TEST.BATCH_SIZE", str(RCNN_BATCH)])
+    finally:
+        bench.bench_training = bench_training
+    torch.cuda.synchronize()
+    nms_launches[kind]["bench"] = nms_ops.greedy_nms.launches
+    calls = 2 + bench.ITERS + bench.REQUEST_WARMUP + bench.REQUESTS
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    want_nms = 2 * calls + steps if panoptic else 0
+    extra = result["extra"]
+    _, trainer, clock = captured[0]
+    names = (("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "loss_mask") if panoptic else ()) \
+        + ("loss_sem_seg", "total_loss")
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in names}
+    metric = f"{'panoptic' if panoptic else 'semantic'}_fpn_res50_fpn_800_infer_throughput"
+    if not (result["metric"] == metric and result["value"] > 0 and extra["batch"] == RCNN_BATCH
+            and extra["train_batch"] == RCNN_BATCH and nms_launches[kind]["bench"] == want_nms
+            and (result["vs_baseline"] is None) == (not panoptic)
+            and all(extra.get(k) is not None for k in ("predictor_latency_ms", "train_step_ms", "train_busy_share",
+                                                        "peak_memory_gib"))
+            and all(len(v) == steps and all(math.isfinite(a) for a in v) for v in losses.values())):
+        raise SystemExit(f"the bench's {name} line is not complete or its losses not finite ({want_nms} NMS launches "
+                         f"expected, {nms_launches[kind]['bench']}): {result}, {losses}")
+    top = [(e.key, e.self_device_time_total / 1e3) for e in sorted(
+        (e for e in clock.events if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+        key=lambda e: -e.self_device_time_total)[:8]]
+    print(f"  {result['metric']}: {result['value']} img/s (vs_baseline {result['vs_baseline']}); request median "
+          f"{extra['predictor_latency_ms']:.3f} ms; predict_fn batch {extra['batch']} {extra['predict_fn_ms']:.3f} ms")
+    print(f"  train at {extra['train_batch']} x 800²: loss_sem_seg {' '.join(f'{v:.4f}' for v in losses['loss_sem_seg'])}"
+          f"; total {' '.join(f'{v:.4f}' for v in losses['total_loss'])}; step times (ms) "
+          f"{' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} {extra['train_step_ms']:.1f} ms = "
+          f"{extra['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = {extra['train_busy_share']:.0%} of "
+          f"the median step; peak memory {extra['peak_memory_gib']:.2f} GiB; NMS kernel launches "
+          f"{nms_launches[kind]['bench']}")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    res.update(bench=result, bench_losses=losses, bench_step_ms_all=clock.times,
+               bench_profiled_device_ms=clock.device_ms, bench_top_device_ops_ms=top)
+    del trainer, captured
+
+    init_path = os.path.join(out_dir, "init_weights.pth")
+    torch.save(init, init_path)
+    val = cfg.DATASETS.TEST[0]
+    tasks = {"bbox", "segm", "sem_seg"} if panoptic else {"sem_seg"}
+    # from the init (calibrated FrozenBN statistics), as 11d: 80 classes near 1/81, so the threshold goes to
+    # 0.005 for detections to evaluate
+    thresh = ["MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.005"] if panoptic else []
+    print(f"== {number}d. tools/train_net on {name}.yaml: {RCNN_STEPS} steps at batch {RCNN_BATCH} from the init "
+          f"(MODEL.WEIGHTS; DETECTRON2_SYNTH_DATA: the synthetic {cfg.DATASETS.TRAIN[0]}), then --eval-only --resume "
+          f"on the synthetic {val} {' '.join(thresh)}")
+    os.environ["DETECTRON2_SYNTH_DATA"] = "1"
+    argv = ["--config-file", os.path.join("configs", folder, name + ".yaml"), "SOLVER.MAX_ITER", str(RCNN_STEPS),
+            "SOLVER.IMS_PER_BATCH", str(RCNN_BATCH), "TEST.BATCH_SIZE", str(RCNN_BATCH), "MODEL.WEIGHTS", init_path,
+            "OUTPUT_DIR", out_dir, "SEED", "0"] + thresh
+    log_path = f"output/chip_smoke_{kind}_train_net_log.txt"
+    nms_ops.greedy_nms.launches = 0
+    trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
+    nms_launches[kind]["train_net"] = nms_ops.greedy_nms.launches
+    val_images = len(DatasetCatalog.get(val))
+    want_nms = RCNN_STEPS + 2 * 2 * -(-val_images // RCNN_BATCH) if panoptic else 0
+    print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
+          + "; ".join(f"{t} " + ", ".join(f"{k} {v:.4f}" for k, v in trained[t].items()
+                                          if k in ("AP", "AP50", "mIoU", "fwIoU", "mACC", "pACC")) for t in trained)
+          + f"; NMS kernel launches {nms_launches[kind]['train_net']}")
+    if not (resumed == [0, RCNN_STEPS] and set(trained) == tasks and same_results(trained, evaluated)
+            and nms_launches[kind]["train_net"] == want_nms
+            and all(math.isfinite(trained[t][k]) for t in tasks - {"sem_seg"} for k in ("AP", "AP50"))
+            and all(math.isfinite(trained["sem_seg"][k]) for k in ("fwIoU", "mACC", "pACC"))):
+        raise SystemExit(f"{name}'s train_net: resumed {resumed}, NMS launches {nms_launches[kind]['train_net']} "
+                         f"(expected {want_nms}), results {trained} vs {evaluated}")
+    res.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, results=trained))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the {name} path ({number}a-{number}d): {launches}; NMS kernel launches "
+          f"{nms_launches[kind]}")
+    if any(launches.values()):
+        raise SystemExit(f"the {name} path launched DCN kernels: {launches}")
+    res.update(launches=launches, nms_kernel_launches=nms_launches[kind])
+    return res
+
+
+def _segmentation_dconv(counted, nms_launches, dcn_launches):
+    number, folder, name = SEGMENTATION["panoptic_dconv"]
+    cfg = rcnn_cfg(name, "bfloat16", folder)
+    m = cfg.MODEL
+    size = tuple(cfg.INPUT.TEST_SIZE)
+
+    def settle(part, steps=None):
+        """Sub-phase ``part``'s DCN launches, checked against its block
+        forwards and added to the path's; both counts start again from 0."""
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check_dconv_launches(f"{number}{part}", launches, counted, steps, per=R101_DEFORM_BLOCKS)
+        for k, v in launches.items():
+            dcn_launches[k] = dcn_launches.get(k, 0) + v
+        blocks = dict(counted)
+        reset_launches()
+        counted.update(forward=0, train=0)
+        return blocks
+
+    print(f"== {number}a. {folder}/{name}.yaml: PanopticFPN, ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM}, deformable "
+          f"res3-res5 ({R101_DEFORM_BLOCKS} blocks, DCNv1, STRIDE_IN_1X1 {m.RESNETS.STRIDE_IN_1X1}), FPN "
+          f"{m.FPN.OUT_CHANNELS}, {m.ROI_HEADS.NAME} ({len(m.ROI_BOX_CASCADE_HEAD.IOUS)} stages), "
+          f"{m.SEM_SEG_HEAD.NUM_CLASSES} stuff classes, bf16: DefaultPredictor at {size[0]}², predict_fn at batch "
+          f"{RCNN_BATCH}")
+    if not (m.META_ARCHITECTURE == "PanopticFPN" and m.RESNETS.DEPTH == 101 and m.RESNETS.NORM == "GN"
+            and list(m.RESNETS.DEFORM_ON_PER_STAGE) == [False, True, True, True] and not m.RESNETS.DEFORM_MODULATED
+            and not m.RESNETS.STRIDE_IN_1X1 and m.ROI_HEADS.NAME == "CascadeROIHeads"
+            and m.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG and m.RPN.POST_NMS_TOPK_TRAIN == 2000 and m.MASK_ON
+            and m.FPN.OUT_CHANNELS == 256 and size == (800, 800) and cfg.SOLVER.IMS_PER_BATCH == 32
+            and m.SEM_SEG_HEAD.NUM_CLASSES == 54 and not cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS):
+        raise SystemExit(f"{name} is not at full width here: {m}")
+    rng = np.random.RandomState(207)
+    _, weights = rcnn_weights(rcnn_cfg(name, "float32", folder), letterboxed(rng, "cpu", 2, size), seed=0,
+                              device="cuda")
+    reset_launches()  # the count starts at the main path: the weights' calibration forwards are not on it
+    counted.update(forward=0, train=0)
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    model.model.load_state_dict(weights)
+    nms_ops.greedy_nms.launches = 0
+    for h, w in ((480, 640), (800, 800)):
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        got = predictor(im)
+        check_segmentation(name, got, (h, w), m.SEM_SEG_HEAD.NUM_CLASSES, True)
+        check_detections(name, im, got["instances"], model.score_threshold)
+        print(f"  request {h}x{w}: {len(got['instances'])} detections, {len(got['panoptic_seg'][1])} panoptic "
+              f"segments")
+    b16 = letterboxed(rng, model.device, RCNN_BATCH, size)
+    d16 = model.predict_fn(b16)
+    if tuple(d16["sem_seg"].shape) != (RCNN_BATCH, 54, *size) or tuple(d16["masks"].shape)[:2] != (RCNN_BATCH, 100):
+        raise SystemExit(f"{name}'s predict_fn: {({k: tuple(v.shape) for k, v in d16.items()})}")
+    ms_b16 = cuda_ms(lambda: model.predict_fn(b16), iters=3, warmup=1)
+    p16 = profiled(lambda: model.predict_fn(b16), calls=1)
+    k1_ms = dcn_device_ms(p16["events"])["dcn_fwd"]
+    torch.cuda.synchronize()
+    nms_launches["panoptic_dconv"] = {"serving": nms_ops.greedy_nms.launches}
+    if nms_launches["panoptic_dconv"]["serving"] != 2 * (2 + 1 + 4 + 1):
+        raise SystemExit(f"{name}: expected two NMS launches per call, got {nms_launches['panoptic_dconv']}")
+    blocks = settle("a")
+    res = dict(predict_fn_b16_ms=ms_b16, img_s_b16=RCNN_BATCH * 1e3 / ms_b16, device_ms_b16=p16["device_ms"],
+               nms_kernel_ms_b16=p16["nms_kernel_ms"], dcn_fwd_ms_b16=k1_ms, block_forwards_a=blocks["forward"])
+    print(f"  predict_fn batch {RCNN_BATCH}: {ms_b16:.3f} ms = {res['img_s_b16']:.2f} img/s, {p16['device_ms']:.3f} ms "
+          f"on the card (K1 {k1_ms:.3f} ms, NMS kernel {p16['nms_kernel_ms']:.3f} ms); {blocks['forward']} K1 launches "
+          f"in {blocks['forward'] // R101_DEFORM_BLOCKS} forwards")
+    print(p16["events"].table(sort_by="cuda_time_total", row_limit=12, max_name_column_width=90))
+    del predictor, model, d16
+
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    print(f"== {number}c. tools/bench's train steps (bench.bench_training) at batch {DCONV_TRAIN_BATCH} x 800² (the "
+          f"YAML's {cfg.SOLVER.IMS_PER_BATCH} does not fit; {steps} steps, the last profiled) from the model's init, "
+          f"the synthetic {cfg.DATASETS.TRAIN[0]}")
+    tcfg = rcnn_cfg(name, "bfloat16", folder, extra=("SOLVER.IMS_PER_BATCH", str(DCONV_TRAIN_BATCH)))
+    nms_ops.greedy_nms.launches = 0
+    entries, trainer, clock = bench.bench_training(tcfg)
+    torch.cuda.synchronize()
+    nms_launches["panoptic_dconv"]["bench_training"] = nms_ops.greedy_nms.launches
+    blocks = settle("c", steps)
+    names = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls_stage0", "loss_cls_stage2", "loss_mask", "loss_sem_seg",
+             "total_loss")
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in names}
+    dcn_ms = dcn_device_ms(clock.events)
+    if not (nms_launches["panoptic_dconv"]["bench_training"] == steps
+            and all(len(v) == steps and all(math.isfinite(a) for a in v) for v in losses.values())):
+        raise SystemExit(f"{name}'s training: NMS launches {nms_launches['panoptic_dconv']}, losses {losses}")
+    print(f"  batch {entries['train_batch']}: loss_sem_seg {' '.join(f'{v:.4f}' for v in losses['loss_sem_seg'])}; "
+          f"total {' '.join(f'{v:.4f}' for v in losses['total_loss'])}; step times (ms) "
+          f"{' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} {entries['train_step_ms']:.1f} "
+          f"ms = {entries['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = "
+          f"{entries['train_busy_share']:.0%} of the median step; peak memory {entries['peak_memory_gib']:.2f} GiB; "
+          f"the profiled step's DCN device ms: K1 {dcn_ms['dcn_fwd']:.2f}, K2 {dcn_ms['dcn_bwd_dx']:.2f}, K5 (with "
+          f"its split sum) {dcn_ms['dcn_bwd_wq']:.2f}; {blocks['train']} block forwards with autograd in {steps} steps")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=90))
+    res.update(bench_training=entries, bench_losses=losses, bench_step_ms_all=clock.times,
+               bench_profiled_device_ms=clock.device_ms, bench_dcn_device_ms=dcn_ms, block_forwards_c=blocks["train"],
+               launches=dict(dcn_launches), nms_kernel_launches=nms_launches["panoptic_dconv"])
+    del trainer, clock
+    print(f"  DCN kernel launches on the {name} path: {dcn_launches}; NMS kernel launches "
+          f"{nms_launches['panoptic_dconv']}")
+    return res
+
+
 def roi_ops_inference(model, props, scores, deltas, n, p, size):
     """``fast_rcnn_inference`` of the box predictor's outputs on (N, P) proposals."""
     return roi_heads_ops.fast_rcnn_inference(props[0], props[2], scores.view(n, p, -1), deltas.view(n, p, -1),
@@ -3573,6 +4023,8 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False  # f32 comparisons in true f32
     torch.backends.cuda.matmul.allow_tf32 = False
+    # tools/bench's 20 timed requests, halved in this script's ~15 request timings: the whole run fits its limit
+    bench.REQUESTS = 10
     t_start = time.perf_counter()
     report = {}
 
@@ -3581,6 +4033,15 @@ def main() -> int:
     print(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     report["card"] = smi
+
+    laps, last_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Record and print the seconds since the last lap as ``name``'s."""
+        now = time.perf_counter()
+        laps[name] = now - last_lap[0]
+        last_lap[0] = now
+        print(f"  (phase {name}: {laps[name]:.1f} s)")
 
     print("== 2. build (one nvcc per source, started together)")
     built = cuda_lib.build_libraries()
@@ -3601,13 +4062,16 @@ def main() -> int:
             f"{dt} {r['smem_bytes']} B shared, {r['blocks_per_sm']} blocks = {r['warps_per_sm']} warps per SM"
             for dt, r in by_dtype.items()))
     report["kernel_resources"] = resources
+    lap("1-2")
 
     max_err, phase_launches = phase_kernels_vs_plain(report)
+    lap("3")
     rng = np.random.RandomState(0)
     calib = letterboxed(rng, "cpu", 2, (512, 512))
     weights = seeded_weights(ctdet_cfg(DLA, "float32"), calib, seed=0)
     predictor, batch, inference = phase_inference(report, weights)
     phase_inference_timing(report, predictor, batch)
+    lap("4-4c")
     os.makedirs("output", exist_ok=True)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
     try:
@@ -3616,26 +4080,33 @@ def main() -> int:
         train_eval = phase_train_with_eval(report, weights, os.path.join(scratch, "train_eval"))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    lap("4d-5b")
     phase_f32_step(report, weights)
+    lap("6")
     phase_configs(report)
     phase_backbones(report)
+    lap("8a-8b")
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
     try:
         train_net_launches = phase_train_net(report, os.path.join(scratch, "train_net"))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     bench_launches = phase_bench(report)
+    lap("8c-8d")
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
     try:
         retinanet_launches, retinanet_nms, retinanet_case = phase_retinanet(report, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    lap("9")
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
     try:
         rcnn_launches, rcnn_nms, rcnn_cases = phase_faster_rcnn(report, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    lap("10")
     dconv_rows, dconv_ms = phase_dconv_kernels(report)
+    lap("16k")
     head_launches, head_nms, head_cases = {}, {}, {}
     for kind in HEADS:
         scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
@@ -3644,6 +4115,7 @@ def main() -> int:
             head_cases.update(cases)
         finally:
             shutil.rmtree(scratch, ignore_errors=True)
+        lap(kind)
     for kind in VARIANTS:
         scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
         try:
@@ -3652,25 +4124,35 @@ def main() -> int:
                 head_cases.update(cases)
         finally:
             shutil.rmtree(scratch, ignore_errors=True)
+        lap(kind)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
     try:
         head_launches["fast"], head_nms["fast"] = phase_fast_rcnn(report, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    for kind, phase in (("lvis", phase_lvis), ("voc_cityscapes", phase_voc_cityscapes)):
+    lap("17")
+    for kind, phase in (("lvis", phase_lvis), ("voc_cityscapes", phase_voc_cityscapes),
+                        ("segmentation", phase_segmentation)):
         scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
         try:
             head_launches[kind], head_nms[kind], cases = phase(report, scratch)
             head_cases.update(cases)
         finally:
             shutil.rmtree(scratch, ignore_errors=True)
+        lap(kind)
+    segmentation_nms = head_nms.pop("segmentation")  # by path: panoptic, semantic, panoptic_dconv
+    head_nms.update(segmentation_nms)
     nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases, **head_cases))
+    lap("10c")
     totals = phase_kernel_timing(report)
+    lap("7")
+    report["phase_s"] = laps
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         t = totals[name]
-        dconv_path = head_launches["dconv"][name] + head_launches["dconv_s3"][name]
+        dconv_path = head_launches["dconv"][name] + head_launches["dconv_s3"][name] \
+            + head_launches["segmentation"][name]
         main_path = inference[name] + evaluation[name] + training[name] + train_eval[name] + bench_launches[name] \
             + dconv_path
         shapes = [r for r in dconv_ms if r["kernel"] == name]
@@ -3678,10 +4160,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_path or phase_launches[name],
             "launches_from": "main paths (DLA-34: inference, evaluation, training, training with PreciseBN and "
-            "evaluation, the bench; the dconv Mask R-CNN, both STRIDE_IN_1X1: 16a-16d)" if main_path else
+            "evaluation, the bench; the dconv Mask R-CNN, both STRIDE_IN_1X1: 16a-16d; the dconv Cascade GN "
+            "Panoptic FPN R101: 20ga-20gc)" if main_path else
             "autograd phase (weight or offset/mask frozen); 0 on the main paths",
             "launches_dconv_rcnn": head_launches["dconv"][name],  # phase 16, 13 per forward, 13 per train step
             "launches_dconv_stride_in_3x3_rcnn": head_launches["dconv_s3"][name],  # phase 16s
+            # phase 20g, 30 per forward, 30 per train step
+            "launches_panoptic_dconv_cascade_gn": head_launches["segmentation"][name],
             "launches_fast_rcnn": head_launches["fast"][name],  # phase 17, asserted 0
             "launches_lvis_rcnn": head_launches["lvis"][name],  # phase 18, asserted 0
             "launches_voc_cityscapes_rcnn": head_launches["voc_cityscapes"][name],  # phase 19, asserted 0
@@ -3725,13 +4210,16 @@ def main() -> int:
         "and the dconv Mask R-CNN (phases 13-16: the same), Fast R-CNN (phase 17: the ProposalNetwork writing its "
         "proposal files, predict_fn, train_net's evaluations), LVIS Mask R-CNN (phase 18: requests, batch 1 and 16, "
         "the training's proposals, the bench's train steps, LVISEvaluator), Faster R-CNN on VOC and Mask R-CNN on "
-        "Cityscapes (phase 19: their evaluations)",
+        "Cityscapes (phase 19: their evaluations), Panoptic FPN R50 and the dconv Cascade GN Panoptic FPN R101 "
+        "(phase 20: requests, batch 1 and 16, the training's proposals, the bench, train_net; none on Semantic FPN)",
         "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
         "launches_mask_rcnn": head_nms["mask"], "launches_keypoint_rcnn": head_nms["keypoint"],
         "launches_cascade_rcnn": head_nms["cascade"], "launches_c4_rcnn": head_nms["c4"],
         "launches_dc5_rcnn": head_nms["dc5"], "launches_dconv_rcnn": head_nms["dconv"],
         "launches_dconv_stride_in_3x3_rcnn": head_nms["dconv_s3"], "launches_fast_rcnn": head_nms["fast"],
         "launches_lvis_rcnn": head_nms["lvis"], "launches_voc_cityscapes_rcnn": head_nms["voc_cityscapes"],
+        "launches_panoptic_fpn": head_nms["panoptic"], "launches_semantic_fpn": head_nms["semantic"],
+        "launches_panoptic_dconv_cascade_gn": head_nms["panoptic_dconv"],
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,

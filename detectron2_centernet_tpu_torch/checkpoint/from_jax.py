@@ -32,7 +32,11 @@ the mask head (``roi_heads.mask_head.{mask_fcn{i},deconv,predictor}``) to
 the block's own ``res{s}_block{b}/conv2_kernel`` and its offset conv
 (``res{s}.{b}.conv2_offset``) to ``res{s}_block{b}/conv2_offset``; the torch
 key of the 3x3 is the same in a plain block, so ``canonical_key`` is told
-the deformable blocks (``deform``).
+the deformable blocks (``deform``); the sem-seg head
+(``sem_seg_head.{f}.{2k}``, its norm ``.norm``, ``sem_seg_head.predictor``)
+to ``{f}_conv{k}``, ``{f}_gn{k}`` and ``predictor`` under ``head``
+(``SemanticSegmentor``) or ``sem_seg_head`` (``PanopticFPN``; the owner is
+``canonical_key``'s ``sem_seg``).
 ``torch_key`` is its inverse, and ``state_dict_from_jax`` checks every key
 it makes against it.
 
@@ -249,6 +253,21 @@ def _res5_head_to_flax(body, norm: str):
     return None
 
 
+def _sem_seg_to_flax(body, owner: str):
+    """The sem-seg head (``sem_seg_head.{f}.{i}[.norm]``, ``.predictor``;
+    its towers' convs at the even indices, the upsamples between) →
+    (flax tokens under ``owner``, whether it is the norm), or None."""
+    if body[0] != "sem_seg_head":
+        return None
+    if body[1:] == ["predictor"]:
+        return [owner, "predictor"], False
+    if len(body) in (3, 4) and re.fullmatch(r"p\d", body[1]) and body[2].isdigit() and int(body[2]) % 2 == 0 \
+            and body[3:] in ([], ["norm"]):
+        k = int(body[2]) // 2
+        return ([owner, f"{body[1]}_gn{k}"], True) if body[3:] else ([owner, f"{body[1]}_conv{k}"], False)
+    return None
+
+
 def _retinanet_to_flax(body):
     """The FPN's own and the RetinaNet head's module path (torch tokens) →
     its flax module tokens, or None for any other path."""
@@ -265,7 +284,7 @@ def _retinanet_to_flax(body):
 
 
 def canonical_key(key: str, norm: str = "bn", trunk: str = "trunk",
-                  deform: Container[str] = ()) -> Optional[str]:
+                  deform: Container[str] = (), sem_seg: str = "sem_seg_head") -> Optional[str]:
     """Torch key of any ported backbone and its heads → flax variables
     path, or None when the key has no flax counterpart. ``norm`` is the
     flax name of the ResNet trunk's normalization: ``bn`` (BatchNorm and
@@ -273,8 +292,10 @@ def canonical_key(key: str, norm: str = "bn", trunk: str = "trunk",
     that holds a bare trunk under ``backbone``: ``trunk`` in CenterNet, ""
     in R-CNN's C4 and DC5, whose backbone is the ResNet itself. ``deform``
     names the ``DeformBottleneckBlock``s (``res3_block0``, ...), whose
-    deformable 3x3 is the block's ``conv2_kernel``."""
-    path = _canonical_key(key, norm, trunk)
+    deformable 3x3 is the block's ``conv2_kernel``. ``sem_seg`` is the flax
+    module of the sem-seg head: ``sem_seg_head`` in PanopticFPN, ``head``
+    in SemanticSegmentor."""
+    path = _canonical_key(key, norm, trunk, sem_seg)
     if path is not None and deform and path.endswith("/conv2/kernel"):
         block = path.split("/")[-3]
         if block in deform:
@@ -282,7 +303,7 @@ def canonical_key(key: str, norm: str = "bn", trunk: str = "trunk",
     return path
 
 
-def _canonical_key(key: str, norm: str, trunk: str) -> Optional[str]:
+def _canonical_key(key: str, norm: str, trunk: str, sem_seg: str) -> Optional[str]:
     parts = key.split(".")
     if parts and parts[0] == "module":
         parts = parts[1:]
@@ -296,6 +317,9 @@ def _canonical_key(key: str, norm: str, trunk: str) -> Optional[str]:
     head = _retinanet_to_flax(body) or _rcnn_to_flax(body)
     if head is not None:
         return _finish(head, leaf, False)
+    sem = _sem_seg_to_flax(body, sem_seg)
+    if sem is not None:
+        return _finish(sem[0], leaf, sem[1])
     res5 = _res5_head_to_flax(body, norm)
     if res5 is not None:
         return _finish(res5[0], leaf, res5[1])
@@ -330,6 +354,13 @@ def torch_key(path: str, towers: bool = True) -> str:
         return f"{prefix}{_trunk_to_torch(body[2:])}.{_FLAX_LEAF[leaf]}"
     if len(body) > 2 and body[0] == "backbone" and re.fullmatch(r"stem|res\d_block\d+", body[1]):  # R-CNN's trunk
         return f"backbone.{_trunk_to_torch(body[1:])}.{_FLAX_LEAF[leaf]}"
+    m = re.fullmatch(r"(p\d)_(conv|gn)(\d+)", body[1]) if len(body) == 2 and body[0] in ("head", "sem_seg_head") \
+        else None
+    if m:  # the sem-seg head's towers
+        norm_suffix = ".norm" if m.group(2) == "gn" else ""
+        return f"sem_seg_head.{m.group(1)}.{2 * int(m.group(3))}{norm_suffix}.{_FLAX_LEAF[leaf]}"
+    if body in (["head", "predictor"], ["sem_seg_head", "predictor"]):
+        return f"sem_seg_head.predictor.{_FLAX_LEAF[leaf]}"
     owners = {v: ".".join(k) for k, v in _RCNN_OWNERS.items()}
     if len(body) == 2 and body[0] in owners:
         return f"{owners[body[0]]}.{body[1]}.{_FLAX_LEAF[leaf]}"
@@ -411,12 +442,13 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     norm = "gn" if any("_norm/gn/" in p for p in flat) else "bn"
     trunk = "" if any(re.match(r"params/backbone/(stem|res\d_block\d+)/", p) for p in flat) else "trunk"
     deform = {p.split("/")[-2] for p in flat if p.endswith("/conv2_kernel")}
+    sem_seg = "head" if "params/head/predictor/kernel" in flat else "sem_seg_head"
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
         key = torch_key(path, towers)
-        if canonical_key(key, norm, trunk, deform) != path:
+        if canonical_key(key, norm, trunk, deform, sem_seg) != path:
             raise ValueError(f"{path} maps to {key}, which maps back to "
-                             f"{canonical_key(key, norm, trunk, deform)}")
+                             f"{canonical_key(key, norm, trunk, deform, sem_seg)}")
         if key in out:
             raise ValueError(f"two leaves map to {key}")
         arr = np.array(arr, np.float32)  # a writable copy

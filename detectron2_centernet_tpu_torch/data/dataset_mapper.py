@@ -33,10 +33,12 @@ carries the warp actually applied, for un-mapping the boxes.
 
 The warps are the port's PyTorch ones (the card's machine has no cv2), a
 uint8 image rounded to uint8 as cv2 rounds a uint8 warp, so a batch ships 1
-byte per pixel; a jittered image is float32 and stays so. Not ported: the
-``sem_seg`` output and reading ``sem_seg_file_name`` (the crop's category
-constraint takes a ``sem_seg`` array from the dict; a file name raises,
-ROADMAP A15).
+byte per pixel; a jittered image is float32 and stays so. A train record with
+a ``sem_seg`` array, or a ``sem_seg_file_name`` (read with PIL, imported
+then), gives ``sem_seg``: its labels through the same matrix by nearest
+neighbour, 255 off the source, int32 (H, W) (``:294-309``), by
+``warp_labels_nearest``, cv2's fixed-point nearest warp written in numpy;
+the crop's category constraint reads the same labels (``:139-145``).
 """
 
 import copy
@@ -119,11 +121,7 @@ class DatasetMapper:
         if self.crop is None and self.extent is None:
             return compose_affine(self.affine_aug(cur_h, cur_w, rng), m_pre)
         if self.crop is not None:
-            sem = dataset_dict.get("sem_seg")
-            if sem is None and "sem_seg_file_name" in dataset_dict:
-                raise NotImplementedError(
-                    "INPUT.CROP with sem_seg_file_name: reading sem-seg files is not ported yet (ROADMAP A15); "
-                    "give the dict a sem_seg array")
+            sem = self._sem_seg(dataset_dict)
             # the category constraint reads the source frame: with a rotation the window is drawn unconstrained
             window = self.crop(cur_h, cur_w, rng, sem_seg=sem if self.rotation is None else None)
         else:
@@ -132,6 +130,14 @@ class DatasetMapper:
         if rng.rand() < self.flip_prob:
             m = compose_affine(np.array([[-1, 0, out_size[1] - 1], [0, 1, 0]], np.float64), m)
         return m
+
+    @staticmethod
+    def _sem_seg(dataset_dict: dict) -> Optional[np.ndarray]:
+        """The record's sem-seg labels: its ``sem_seg`` array, or its
+        ``sem_seg_file_name`` read once (kept in the record's copy), or None."""
+        if dataset_dict.get("sem_seg") is None and "sem_seg_file_name" in dataset_dict:
+            dataset_dict["sem_seg"] = utils.read_sem_seg(dataset_dict["sem_seg_file_name"])
+        return dataset_dict.get("sem_seg")
 
     def __call__(self, dataset_dict: dict, rng: Optional[np.random.RandomState] = None) -> Dict[str, np.ndarray]:
         dataset_dict = copy.deepcopy(dataset_dict)
@@ -182,6 +188,9 @@ class DatasetMapper:
             out["gt_masks"] = self._masks(kept, boxes, m)
         if self.keypoint_on:
             out["gt_keypoints"] = self._keypoints(kept, m, out_size)
+        sem = self._sem_seg(dataset_dict)
+        if sem is not None:
+            out["sem_seg"] = utils.warp_labels_nearest(np.asarray(sem), m, out_size)
         return out
 
     def _proposals(self, dataset_dict: dict, m: np.ndarray, out_size) -> Dict[str, np.ndarray]:

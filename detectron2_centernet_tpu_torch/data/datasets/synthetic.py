@@ -7,9 +7,14 @@ classes, axis-aligned colored rectangles as the instances, each with its
 rectangle as a polygon (``segmentation``) and 17 keypoints on a 4×5 grid in
 it (``keypoints``), as the JAX package's. Names with ``keypoint`` in them
 carry COCO's person-keypoint names and flip map; ``synth_learnable_kp``
-gives the learnable scenes box-relative keypoints and one class. The JAX
-package's sem-seg and panoptic flavors are not ported (no port model reads
-them).
+gives the learnable scenes box-relative keypoints and one class. Names with
+``stuffonly`` or ``sem_seg`` add a ``sem_seg`` array (instance j's box
+filled with ``j % 53 + 1``, 0 elsewhere; 54 ``stuff_classes``, ignore label
+255, evaluator ``sem_seg``); ``panoptic_separated`` names add it too, with
+the panoptic ids ``pan_seg`` (instance j's box is segment j + 1) and their
+``segments_info`` (evaluator ``coco_panoptic_seg``); ``synth_learnable_semseg``
+labels each learnable rectangle with its class + 1 (``stuff_classes``
+background and the colors).
 
 Two differences, each keeping the JAX package's draws in their order:
   * the JAX package seeds a scene set with ``hash(name)``, which Python
@@ -83,14 +88,41 @@ def _set_person_keypoints(meta) -> None:
     meta.set(keypoint_names=COCO_PERSON_KEYPOINT_NAMES, keypoint_flip_map=COCO_PERSON_KEYPOINT_FLIP_MAP)
 
 
+def _boxes_of(annos) -> List[Tuple[int, int, int, int]]:
+    return [tuple(int(v) for v in a["bbox"]) for a in annos]
+
+
+def _stuff_map(annos, h: int, w: int) -> np.ndarray:
+    """(H, W) uint8: instance j's box filled with ``j % 53 + 1`` in drawing
+    order (a later box over an earlier one), 0 elsewhere."""
+    seg = np.zeros((h, w), np.uint8)
+    for j, (x0, y0, bw, bh) in enumerate(_boxes_of(annos)):
+        seg[y0 : y0 + bh, x0 : x0 + bw] = (j % 53) + 1
+    return seg
+
+
+def _panoptic(annos, h: int, w: int):
+    """(H, W) int32 segment ids (instance j's box is segment j + 1) and the
+    segments' info (every one a thing, not crowd)."""
+    pan = np.zeros((h, w), np.int32)
+    segments = []
+    for j, ((x0, y0, bw, bh), a) in enumerate(zip(_boxes_of(annos), annos)):
+        pan[y0 : y0 + bh, x0 : x0 + bw] = j + 1
+        segments.append({"id": j + 1, "category_id": a["category_id"], "isthing": True, "iscrowd": 0})
+    return pan, segments
+
+
 def register_synthetic_instances(
     name: str, num_images: int = 8, image_size: Tuple[int, int] = (96, 128), max_objs: int = 4,
-    keypoints: bool = False,
+    keypoints: bool = False, sem_seg: bool = False, panoptic: bool = False,
 ) -> None:
     """Register ``name`` with deterministic synthetic scenes of the 80 COCO
     classes (the category drawn independently of the appearance); with
     ``keypoints`` a person-keypoint set: every instance a person, the
-    keypoint names and flip map in the metadata."""
+    keypoint names and flip map in the metadata; with ``sem_seg`` or
+    ``panoptic`` each record's ``sem_seg`` (``_stuff_map``) and 54
+    ``stuff_classes``; with ``panoptic`` its ``pan_seg`` and
+    ``segments_info`` too (JAX ``synthetic.py:67-144``)."""
     h, w = image_size
 
     def load():
@@ -98,13 +130,21 @@ def register_synthetic_instances(
         dicts = []
         for i in range(num_images):
             img, annos = _scene(rng, h, w, max_objs, person_only=keypoints)
-            dicts.append({"image": img, "file_name": f"synthetic://{name}/{i}.png",
-                          "height": h, "width": w, "image_id": i, "annotations": annos})
+            d = {"image": img, "file_name": f"synthetic://{name}/{i}.png",
+                 "height": h, "width": w, "image_id": i, "annotations": annos}
+            if sem_seg or panoptic:
+                d["sem_seg"] = _stuff_map(annos, h, w)
+            if panoptic:
+                d["pan_seg"], d["segments_info"] = _panoptic(annos, h, w)
+            dicts.append(d)
         return dicts
 
     DatasetCatalog.register(name, load)
     meta = MetadataCatalog.get(name)
-    meta.set(thing_classes=[n for _, n in COCO_CATEGORIES], evaluator_type="coco", synthetic=True)
+    evaluator_type = "coco_panoptic_seg" if panoptic else "sem_seg" if sem_seg else "coco"
+    meta.set(thing_classes=[n for _, n in COCO_CATEGORIES], evaluator_type=evaluator_type, synthetic=True)
+    if sem_seg or panoptic:
+        meta.set(stuff_classes=[f"stuff_{i}" for i in range(54)], ignore_label=255)
     if keypoints:
         _set_person_keypoints(meta)
 
@@ -116,12 +156,15 @@ _LEARNABLE_COLORS = np.array(
 
 def register_learnable_instances(
     name: str, num_images: int = 24, image_size: Tuple[int, int] = (128, 128),
-    max_objs: int = 3, num_classes: int = 3, seed: int = 0, keypoints: bool = False,
+    max_objs: int = 3, num_classes: int = 3, seed: int = 0, keypoints: bool = False, sem_seg: bool = False,
 ) -> None:
     """Scenes a small detector can master: each class has a fixed color and
     boxes sit in distinct cells of a 2x2 grid, so they never overlap. Each
     instance has its rectangle as a polygon and, with ``keypoints``, 17
-    keypoints at fixed fractions of its box (exactly learnable)."""
+    keypoints at fixed fractions of its box (exactly learnable); with
+    ``sem_seg`` each record's ``sem_seg`` labels a rectangle with its class
+    + 1 and the rest 0 (learnable from the color alone; JAX
+    ``synthetic.py:146-250``)."""
     h, w = image_size
 
     def load():
@@ -149,13 +192,22 @@ def register_learnable_instances(
                 if keypoints:
                     anno["keypoints"] = _grid_keypoints(x0, y0, bw, bh)
                 annos.append(anno)
-            dicts.append({"image": img, "file_name": f"synthetic://{name}/{i}.png",
-                          "height": h, "width": w, "image_id": i, "annotations": annos})
+            d = {"image": img, "file_name": f"synthetic://{name}/{i}.png",
+                 "height": h, "width": w, "image_id": i, "annotations": annos}
+            if sem_seg:
+                seg = np.zeros((h, w), np.uint8)
+                for a, (x0, y0, bw, bh) in zip(annos, _boxes_of(annos)):
+                    seg[y0 : y0 + bh, x0 : x0 + bw] = a["category_id"] + 1
+                d["sem_seg"] = seg
+            dicts.append(d)
         return dicts
 
     DatasetCatalog.register(name, load)
     meta = MetadataCatalog.get(name)
-    meta.set(thing_classes=[f"color_{i}" for i in range(num_classes)], evaluator_type="coco", synthetic=True)
+    meta.set(thing_classes=[f"color_{i}" for i in range(num_classes)],
+             evaluator_type="sem_seg" if sem_seg else "coco", synthetic=True)
+    if sem_seg:
+        meta.set(stuff_classes=["background"] + [f"color_{i}" for i in range(num_classes)], ignore_label=255)
     if keypoints:
         _set_person_keypoints(meta)
 
@@ -165,8 +217,10 @@ def ensure_synthetic_datasets(names: Iterable[str]) -> None:
     or is registered but does not load (a builtin name whose files are not
     here: it and its metadata are removed first, as in the JAX package).
     ``synth_learnable*`` names get the learnable scenes, with keypoints and
-    one class when the name has ``_kp``; names with ``keypoint`` get the
-    person-keypoint flavor."""
+    one class when the name has ``_kp``, with stuff labels when it has
+    ``_semseg``; names with ``keypoint`` get the person-keypoint flavor,
+    ``stuffonly`` or ``sem_seg`` names the sem-seg one and
+    ``panoptic_separated`` names the panoptic one."""
     for name in names:
         if not name:
             continue
@@ -182,8 +236,12 @@ def ensure_synthetic_datasets(names: Iterable[str]) -> None:
         if name.startswith("synth_learnable"):
             if "_kp" in name:
                 register_learnable_instances(name, keypoints=True, num_classes=1)
+            elif "_semseg" in name:
+                register_learnable_instances(name, sem_seg=True)
             else:
                 register_learnable_instances(name)
             continue
-        register_synthetic_instances(name, keypoints="keypoint" in name)
+        register_synthetic_instances(name, keypoints="keypoint" in name,
+                                     sem_seg="stuffonly" in name or "sem_seg" in name,
+                                     panoptic="panoptic_separated" in name)
         logger.warning("registered synthetic stand-in for dataset '%s'", name)

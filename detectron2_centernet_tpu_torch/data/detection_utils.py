@@ -34,6 +34,16 @@ def read_image(file_name: str, format: Optional[str] = None) -> np.ndarray:
     return arr[:, :, ::-1].copy() if format == "BGR" else arr
 
 
+def read_sem_seg(file_name: str) -> np.ndarray:
+    """(H, W) labels of a sem-seg PNG, as PIL gives them (the JAX mapper's
+    ``np.asarray(Image.open(...))``); PIL is imported here, as in
+    ``read_image``."""
+    from PIL import Image
+
+    with Image.open(file_name) as im:
+        return np.asarray(im)
+
+
 def check_image_size(dataset_dict: dict, image: np.ndarray) -> None:
     """Raise when the image disagrees with the record's height and width;
     fill them in when the record has none."""
@@ -194,6 +204,49 @@ def warp_image(
         valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
         idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
         out += flat[idx] * (wgt * valid)[..., None]
+    return out
+
+
+_AB_BITS = 10  # cv2 warpAffine's fixed-point fraction bits for the source coordinates (AB_BITS)
+
+
+def warp_labels_nearest(labels: np.ndarray, m: np.ndarray, out_size: Tuple[int, int],
+                        border: int = 255) -> np.ndarray:
+    """An (H, W) label map through the 2x3 ``m`` by nearest neighbour, an
+    output pixel off the source ``border``: ``cv2.warpAffine(labels, m,
+    INTER_NEAREST, borderValue=border)`` pixel for pixel, which the JAX
+    mapper calls. cv2 inverts ``m`` in float64, then takes each output
+    pixel's source position in fixed point with 10 fraction bits, rounding
+    the row's term and the column's term separately (``cvRound``, half to
+    even) and adding half a unit before the shift; rounding the exact
+    position instead moves labels on the regions' borders. An axis-aligned
+    ``m`` (every warp but a rotation's) is separable: each output column
+    reads one source column and each row one source row, gathered once.
+    Returns (out_h, out_w) int32."""
+    h, w = labels.shape[:2]
+    out_h, out_w = out_size
+    mm = np.asarray(m, np.float64).reshape(6)
+    d = mm[0] * mm[4] - mm[1] * mm[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a12, a21, a22 = mm[4] * d, -mm[1] * d, -mm[3] * d, mm[0] * d
+    b1 = -a11 * mm[2] - a12 * mm[5]
+    b2 = -a21 * mm[2] - a22 * mm[5]
+    scale = float(1 << _AB_BITS)
+    xs, ys = np.arange(out_w, dtype=np.float64), np.arange(out_h, dtype=np.float64)
+    adelta, bdelta = np.rint(a11 * xs * scale).astype(np.int64), np.rint(a21 * xs * scale).astype(np.int64)
+    x0 = np.rint((a12 * ys + b1) * scale).astype(np.int64) + (1 << (_AB_BITS - 1))
+    y0 = np.rint((a22 * ys + b2) * scale).astype(np.int64) + (1 << (_AB_BITS - 1))
+    out = np.full((out_h, out_w), border, np.int32)
+    if a12 == 0 and a21 == 0:  # x0 the same on every row, bdelta 0
+        sx = np.clip((x0[0] + adelta) >> _AB_BITS, -32768, 32767)
+        sy = np.clip(y0 >> _AB_BITS, -32768, 32767)
+        cols, rows = (sx >= 0) & (sx < w), (sy >= 0) & (sy < h)
+        out[np.ix_(rows, cols)] = labels[np.ix_(sy[rows], sx[cols])]
+        return out
+    sx = np.clip((x0[:, None] + adelta[None, :]) >> _AB_BITS, -32768, 32767)  # cv2 keeps them as shorts
+    sy = np.clip((y0[:, None] + bdelta[None, :]) >> _AB_BITS, -32768, 32767)
+    inside = (sx >= 0) & (sx < w) & (sy >= 0) & (sy < h)
+    out[inside] = labels[sy[inside], sx[inside]]
     return out
 
 

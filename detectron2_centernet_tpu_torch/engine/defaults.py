@@ -119,8 +119,9 @@ class DefaultPredictor:
     """One image per call, with the config's test transform: BGR/RGB per
     ``INPUT.FORMAT``, the ctdet letterbox warped on the model's device, one
     forward, the decode, and ``{"instances": Instances}`` in the image's own
-    pixels. Batches go through ``CenterNet.predict_fn`` directly. Under
-    ``MODEL.LOAD_PROPOSALS`` it raises, as the JAX package's predictor
+    pixels (a segmentor's ``{"sem_seg"}``, PanopticFPN's with both and
+    ``"panoptic_seg"``). Batches go through ``CenterNet.predict_fn``
+    directly. Under ``MODEL.LOAD_PROPOSALS`` it raises, as the JAX package's predictor
     cannot pass proposals either: evaluate Fast R-CNN through the test
     loader (``DefaultTrainer.test``), whose mapper reads the proposal file."""
 
@@ -146,6 +147,8 @@ class DefaultPredictor:
         m = letterbox_transform(h, w, self._size)
         warped = warp_image(original_image, m, self._size, device=self.model.device)
         dets = self.model.predict_fn(warped.permute(2, 0, 1)[None])
+        if hasattr(self.model, "device_postprocess"):  # the segmentors' label maps, made on the device
+            dets = self.model.device_postprocess(dets, [m], [(h, w)])
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
         return self.model.postprocess(dets, [m], [(h, w)])[0]
 
@@ -250,7 +253,8 @@ class DefaultTrainer(SimpleTrainer):
                 data_loader = cls.build_test_loader(cfg, dataset_name)
                 try:
                     results_i = inference_on_dataset(model.predict_fn, data_loader, evaluator,
-                                                     postprocess=model.postprocess, device=model.device)
+                                                     postprocess=model.postprocess, device=model.device,
+                                                     device_postprocess=getattr(model, "device_postprocess", None))
                 finally:
                     data_loader.close()
                 results[dataset_name] = results_i

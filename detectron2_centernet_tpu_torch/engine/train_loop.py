@@ -118,8 +118,8 @@ class SimpleTrainer(TrainerBase):
     """
 
     BATCH_KEYS = ("gt_boxes", "gt_classes", "gt_valid")
-    # the mapper's, with MODEL.MASK_ON / KEYPOINT_ON / LOAD_PROPOSALS
-    OPTIONAL_KEYS = ("gt_masks", "gt_keypoints", "proposal_boxes", "proposal_valid")
+    # the mapper's, with MODEL.MASK_ON / KEYPOINT_ON / LOAD_PROPOSALS, and sem_seg when the records carry labels
+    OPTIONAL_KEYS = ("gt_masks", "gt_keypoints", "proposal_boxes", "proposal_valid", "sem_seg")
 
     def __init__(self, model, data_loader, optimizer, scheduler, metrics_period: int = 20) -> None:
         super().__init__()
@@ -140,11 +140,14 @@ class SimpleTrainer(TrainerBase):
 
     def to_device(self, data: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The host batch as the loss takes it: image (N, 3, H, W) f32, the
-        gt arrays as they are (masks, keypoints and precomputed proposals
-        when the mapper made them)."""
+        gt arrays as they are (masks, keypoints, precomputed proposals and
+        the sem-seg labels when the mapper made them; the labels shipped as
+        the mapper's int32 and widened to int64 on the device)."""
         dev = self.model.device
         keys = self.BATCH_KEYS + tuple(k for k in self.OPTIONAL_KEYS if k in data)
         batch = {k: torch.from_numpy(data[k]).to(dev, non_blocking=True) for k in keys}
+        if "sem_seg" in batch:
+            batch["sem_seg"] = batch["sem_seg"].long()
         image = torch.from_numpy(data["image"]).to(dev, non_blocking=True)
         batch["image"] = image.permute(0, 3, 1, 2).to(torch.float32)
         return batch

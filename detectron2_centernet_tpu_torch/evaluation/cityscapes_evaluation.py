@@ -17,7 +17,7 @@ computed in process from the dataset dicts, no files written):
 The ground-truth polygons are filled at the prediction's image size by the
 port's ``polygons_to_bitmask`` (cv2's ``fillPoly`` without cv2). The images
 are keyed by the dataset's own ids, the image file names (ROADMAP C22).
-The sem-seg evaluator waits for segmentation (ROADMAP A15). The port runs in
+The sem-seg evaluator waits for DeepLab (ROADMAP A15.2). The port runs in
 one process, so nothing is gathered across ranks.
 """
 

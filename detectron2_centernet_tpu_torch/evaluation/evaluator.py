@@ -18,8 +18,10 @@ Differences from the JAX loop:
 * ``LAST_INFERENCE_STATS`` counts the images dispatched after the warm-up
   batches exactly, and holds the whole run when there are no more batches
   than the warm-up; ``wall_s`` is the whole loop's, and on a card
-  ``device_s`` sums the span of every batch's forward on the stream between
-  two CUDA events (the card's busy share of the loop is their ratio);
+  ``device_s`` sums the span of every batch's forward (with the
+  meta-architecture's ``device_postprocess``: the segmentors' label maps)
+  on the stream between two CUDA events (the card's busy share of the loop
+  is their ratio);
 * each image's ``image_id`` reaches the evaluator as the dataset gave it,
   VOC's "000005" and Cityscapes' file names too, where the JAX loop casts
   it with ``int()`` (ROADMAP C22).
@@ -136,12 +138,18 @@ def _pinned_batches(data_loader, pin: bool, stats: Dict[str, float]) -> Iterator
         thread.join(timeout=30)
 
 
+def _sizes(batch) -> List[Tuple[int, int]]:
+    """The batch's images' original (height, width)."""
+    return [(int(h), int(w)) for h, w in zip(batch["height"].reshape(-1), batch["width"].reshape(-1))]
+
+
 def inference_on_dataset(
     predict_fn: Callable,
     data_loader,
     evaluator: Optional[Union[DatasetEvaluator, List[DatasetEvaluator]]],
     postprocess: Optional[Callable] = None,
     device: Union[str, torch.device] = "cuda",
+    device_postprocess: Optional[Callable] = None,
 ) -> Dict:
     """Run ``predict_fn`` over every batch, feed the evaluator, report timing.
 
@@ -150,8 +158,12 @@ def inference_on_dataset(
     (``MODEL.LOAD_PROPOSALS``) also hands it ``proposal_boxes`` and
     ``proposal_valid`` on ``device`` (JAX ``evaluator.py:219-222``);
     postprocess(dets (numpy), warps, orig_sizes) -> list[{"instances": ...}]
-    (the meta-architecture's host boundary). The evaluator's ``process``
-    sees (inputs list[dict], outputs list[dict]) as in the reference.
+    (the meta-architecture's host boundary);
+    device_postprocess(dets, warps, orig_sizes) -> dets, on ``device``
+    before the copy to the host, when the meta-architecture has one (the
+    segmentors' label maps, so the logits stay on the card). The
+    evaluator's ``process`` sees (inputs list[dict], outputs list[dict]) as
+    in the reference.
     """
     if isinstance(evaluator, list):
         evaluator = DatasetEvaluators(evaluator)
@@ -171,12 +183,19 @@ def inference_on_dataset(
         detections into pinned host buffers; returns what finish() needs."""
         images = images.to(device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
         proposals = [torch.from_numpy(batch[k]).to(device) for k in PROPOSAL_KEYS if k in batch]
+
+        def forward():
+            dets = predict_fn(images, *proposals)
+            if device_postprocess is None:
+                return dets
+            return device_postprocess(dets, [np.asarray(w) for w in batch["warp"]], _sizes(batch))
+
         if not on_card:
-            return batch, {k: v.numpy() for k, v in predict_fn(images, *proposals).items()}, None
+            return batch, {k: v.numpy() for k, v in forward().items()}, None
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        dets = predict_fn(images, *proposals)
+        dets = forward()
         end.record()
         forward_events.append((start, end))
         host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in dets.items()}
@@ -196,7 +215,7 @@ def inference_on_dataset(
             copied.synchronize()
         dets = {k: np.asarray(v) for k, v in host.items()}
         t1 = time.perf_counter()
-        orig_sizes = [(int(h), int(w)) for h, w in zip(batch["height"].reshape(-1), batch["width"].reshape(-1))]
+        orig_sizes = _sizes(batch)
         warps = [np.asarray(w) for w in batch["warp"]]
         if postprocess is not None:
             outputs = postprocess(dets, warps, orig_sizes)

@@ -20,7 +20,7 @@ CenterNet reads ``res4`` through its deconv neck (``meta_arch/centernet.py``):
 ``build_resnet_backbone`` and ``build_resnet_deconv_backbone`` both give
 the trunk, the JAX package's ``DeconvNeck`` and ``ResNetDeconv`` compute the
 same network. Not ported here: the DeepLab stem and dilated res4 (ROADMAP
-A15); they raise.
+A15.2); they raise.
 """
 
 from typing import Dict, Optional, Sequence
@@ -228,7 +228,7 @@ def build_resnet(cfg: CfgNode, out_features: Optional[Sequence[str]] = None) -> 
     if r.STEM_TYPE != "basic" or r.RES4_DILATION != 1 or tuple(r.RES5_MULTI_GRID) != (1, 1, 1):
         raise NotImplementedError(
             "the DeepLab trunk (STEM_TYPE deeplab, RES4_DILATION, RES5_MULTI_GRID) is not ported yet "
-            "(ROADMAP A15)")
+            "(ROADMAP A15.2)")
     return ResNet(
         depth=r.DEPTH, out_features=tuple(out_features or r.OUT_FEATURES), num_groups=r.NUM_GROUPS,
         width_per_group=r.WIDTH_PER_GROUP, stem_out_channels=r.STEM_OUT_CHANNELS,
@@ -254,4 +254,4 @@ def build_resnet_deconv_backbone(cfg: CfgNode) -> ResNet:
 @BACKBONE_REGISTRY.register()
 def build_resnet_deeplab_backbone(cfg: CfgNode) -> ResNet:
     raise NotImplementedError("build_resnet_deeplab_backbone (DeepLabStem, dilated res4/res5) is not "
-                              "ported yet (ROADMAP A15)")
+                              "ported yet (ROADMAP A15.2)")

@@ -1,6 +1,9 @@
 from .centernet import CenterNet, CenterNetModel
+from .panoptic_fpn import PanopticFPN, combine_semantic_and_instance_outputs
 from .rcnn import GeneralizedRCNN, ProposalNetwork, RCNNModel
 from .retinanet import RetinaNet, RetinaNetModel
+from .semantic_seg import SemanticSegmentor, SemSegFPNHead, sem_seg_loss
 
-__all__ = ["CenterNet", "CenterNetModel", "GeneralizedRCNN", "ProposalNetwork", "RCNNModel", "RetinaNet",
-           "RetinaNetModel"]
+__all__ = ["CenterNet", "CenterNetModel", "GeneralizedRCNN", "PanopticFPN", "ProposalNetwork", "RCNNModel",
+           "RetinaNet", "RetinaNetModel", "SemSegFPNHead", "SemanticSegmentor", "combine_semantic_and_instance_outputs",
+           "sem_seg_loss"]

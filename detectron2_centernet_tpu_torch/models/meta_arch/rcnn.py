@@ -107,7 +107,7 @@ logger = logging.getLogger(__name__)
 
 ROI_TYPES = {"StandardROIHeads": "standard", "CascadeROIHeads": "cascade", "Res5ROIHeads": "res5"}
 # ROI_HEADS.NAME -> the ROADMAP item that ports it
-QUEUED_ROI_HEADS = {"PointRendROIHeads": "A15", "DensePoseROIHeads": "A18", "RROIHeads": "A16"}
+QUEUED_ROI_HEADS = {"PointRendROIHeads": "A15.3", "DensePoseROIHeads": "A18", "RROIHeads": "A16"}
 
 
 class RPN(nn.Module):
@@ -246,7 +246,7 @@ def _check_supported(cfg: CfgNode, with_roi_heads: bool) -> None:
     queued = []
     if m.MASK_ON and (m.ROI_MASK_HEAD.NAME != "MaskRCNNConvUpsampleHead" or m.ROI_MASK_HEAD.POINT_HEAD_ON):
         queued.append(f"ROI_MASK_HEAD.NAME {m.ROI_MASK_HEAD.NAME} / POINT_HEAD_ON: PointRend's mask heads "
-                      "(ROADMAP A15)")
+                      "(ROADMAP A15.3)")
     if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "PrecomputedProposals") or m.RPN.HEAD_NAME != "StandardRPNHead":
         queued.append(f"PROPOSAL_GENERATOR {m.PROPOSAL_GENERATOR.NAME} / RPN.HEAD_NAME {m.RPN.HEAD_NAME}: "
                       "rotated proposals (ROADMAP A16)")
@@ -453,6 +453,12 @@ class GeneralizedRCNN:
         M), ``gt_masks`` (N, M, R, R) gt-box-relative rasters, ``gt_keypoints``
         (N, M, K, 3), the draws' source (module docstring), and for Fast
         R-CNN ``proposal_boxes`` (N, K, 4) and ``proposal_valid`` (N, K)."""
+        losses = self._losses(batch)[1]
+        return sum(losses.values()), losses
+
+    def _losses(self, batch: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """(the backbone's maps, the loss terms) of ``loss_fn``: a subclass
+        (``PanopticFPN``) feeds the same maps to its own head."""
         images = self.normalize(batch["image"])
         n, _, h, w = images.shape
         generator = self._generator(batch)
@@ -494,7 +500,7 @@ class GeneralizedRCNN:
                                            self.smooth_l1_beta))
         if (self.mask_on and "gt_masks" in batch) or (self.keypoint_on and "gt_keypoints" in batch):
             losses.update(self._roi_extra_losses(batch, feats, sampled, gt_boxes, shared))
-        return sum(losses.values()), losses
+        return feats, losses
 
     def _cascade_losses(self, batch, feats, sampled, flat, image_hw) -> Dict[str, torch.Tensor]:
         """``loss_cls_stage{t}`` and ``loss_box_reg_stage{t}`` of every stage
@@ -559,6 +565,12 @@ class GeneralizedRCNN:
         head ``keypoint_heatmaps`` (N, K, keypoints, 4P, 4P) logits. Fast
         R-CNN takes its proposals, ``proposal_boxes`` (N, P, 4) in input
         pixels and ``proposal_valid`` (N, P), and raises without them."""
+        return self._predict(images, proposal_boxes, proposal_valid)[0]
+
+    def _predict(self, images: torch.Tensor, proposal_boxes: Optional[torch.Tensor] = None,
+                 proposal_valid: Optional[torch.Tensor] = None) -> Tuple[Dict[str, torch.Tensor],
+                                                                          Dict[str, torch.Tensor]]:
+        """(``predict_fn``'s detections, the backbone's maps)."""
         x = self.normalize(images)
         n, _, h, w = x.shape
         if self.precomputed_proposals:  # JAX :752-770
@@ -592,7 +604,7 @@ class GeneralizedRCNN:
         if self.keypoint_on:
             kp = self.model.keypoint_predict(self.pool(feats, det_boxes, k, self.keypoint_pooler_resolution))
             dets["keypoint_heatmaps"] = kp.view(n, k, *kp.shape[1:])
-        return dets
+        return dets, feats
 
     def _cascade_inference(self, feats, boxes: torch.Tensor, image_hw: Tuple[int, int]):
         """Every stage on the previous one's boxes, clipped (JAX ``:774-797``):

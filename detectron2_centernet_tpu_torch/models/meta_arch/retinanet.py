@@ -309,6 +309,7 @@ class RetinaNet:
         dets: Dict[str, np.ndarray],
         warps: Optional[List[np.ndarray]],
         orig_sizes: List[Tuple[int, int]],
+        device_masks: Optional[List[torch.Tensor]] = None,
     ) -> List[Dict[str, Instances]]:
         """Fixed-size detections (numpy) → per-image Instances in original
         image coordinates: every one of the K slots above the score
@@ -316,7 +317,9 @@ class RetinaNet:
         carries them (an R-CNN with its mask or keypoint head), the kept
         slots' ``pred_masks`` (D, H, W) bool, pasted at the original size,
         and ``pred_keypoints`` (D, keypoints, 3) (x, y, score), decoded in
-        the original boxes, both computed on the model's device."""
+        the original boxes, both computed on the model's device; the pasted
+        masks are also appended to ``device_masks``, as they are there, when
+        it is given (``PanopticFPN``'s merge reads them)."""
         boxes, scores, classes = (np.asarray(dets[k]) for k in ("boxes", "scores", "classes"))
         results = []
         for i, (oh, ow) in enumerate(orig_sizes):
@@ -334,7 +337,10 @@ class RetinaNet:
             inst.pred_classes = classes[i][slots].astype(np.int64)
             if "masks" in dets:
                 masks = torch.from_numpy(np.asarray(dets["masks"][i][slots])).to(self.device)
-                inst.pred_masks = paste_masks_in_image(masks, inst.pred_boxes.tensor, (oh, ow)).cpu().numpy()
+                pasted = paste_masks_in_image(masks, inst.pred_boxes.tensor, (oh, ow))
+                inst.pred_masks = pasted.cpu().numpy()
+                if device_masks is not None:
+                    device_masks.append(pasted)
             if "keypoint_heatmaps" in dets:
                 maps = torch.from_numpy(np.asarray(dets["keypoint_heatmaps"][i][slots])).to(self.device)
                 inst.pred_keypoints = heatmaps_to_keypoints(maps, inst.pred_boxes.tensor)[:, :, [0, 1, 3]].cpu().numpy()

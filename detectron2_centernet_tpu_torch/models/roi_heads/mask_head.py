@@ -19,7 +19,7 @@ arithmetic op for op (its ``jnp.linspace`` as XLA compiles it included).
 ``mask_rcnn_loss`` (reference :32-111): mean BCE of the logits at each
 roi's gt class (the head's ``classes``) against the target > 0.5, over the
 foreground rois.
-PointRend's ``CoarseMaskHead`` is not ported (ROADMAP A15).
+PointRend's ``CoarseMaskHead`` is not ported (ROADMAP A15.3).
 """
 
 import math

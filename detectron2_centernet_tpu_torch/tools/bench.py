@@ -7,9 +7,11 @@ last, in the shape of the JAX package's ``bench.py``:
 
 ``<arch>`` is ``ctdet`` for CenterNet, ``retinanet`` for RetinaNet,
 ``faster_rcnn`` for GeneralizedRCNN, ``mask_rcnn`` for it with
-``MODEL.MASK_ON``, ``keypoint_rcnn`` with ``MODEL.KEYPOINT_ON``, and ``rpn``
-for ProposalNetwork (``<backbone>`` ends in ``_fpn`` on an FPN:
-``retinanet_res50_fpn_800``, ``faster_rcnn_res50_fpn_800``).
+``MODEL.MASK_ON``, ``keypoint_rcnn`` with ``MODEL.KEYPOINT_ON``, ``rpn``
+for ProposalNetwork, ``panoptic_fpn`` for PanopticFPN (``cascade_panoptic_fpn``
+with Cascade ROI heads) and ``semantic_fpn`` for SemanticSegmentor
+(``<backbone>`` ends in ``_fpn`` on an FPN: ``retinanet_res50_fpn_800``,
+``faster_rcnn_res50_fpn_800``).
 ``value`` is the meta-architecture's ``predict_fn`` throughput at
 ``TEST.BATCH_SIZE`` (CUDA events over ``ITERS`` calls after 2) on seeded
 random images at ``INPUT.TEST_SIZE``. The baselines are ``bench.py``'s: 104
@@ -17,8 +19,9 @@ img/s for ctdet (an A100's ctdet DLA-34 rate at 512², twice the paper's
 Titan Xp), and for RetinaNet, Faster R-CNN and Mask R-CNN the reference
 MODEL_ZOO's R50-FPN inference times (``BASELINE.md``): 0.056, 0.038 and
 0.043 s/im on a V100 (1 / 0.056 ≈ 17.9, 1 / 0.038 ≈ 26.3 and 1 / 0.043 ≈
-23.3 img/s). ``BASELINE.md`` has no number for the ProposalNetwork or
-Keypoint R-CNN: their ``vs_baseline`` is null. ``extra`` holds:
+23.3 img/s), and Panoptic FPN R50's 0.053 s/im (≈ 18.9 img/s).
+``BASELINE.md`` has no number for the ProposalNetwork, Keypoint R-CNN or
+Semantic FPN: their ``vs_baseline`` is null. ``extra`` holds:
   * ``predictor_latency_ms``: ``DefaultPredictor`` on one 480x640 image,
     median of ``REQUESTS`` requests after ``REQUEST_WARMUP`` (host clock;
     the call returns host arrays);
@@ -65,14 +68,16 @@ from ..engine import DefaultPredictor, DefaultTrainer, HookBase
 # META_ARCHITECTURE (with its R-CNN heads) -> (the metric's <arch>, its
 # baseline img/s): bench.py's A100 ctdet DLA-34 512² rate, and the reference
 # MODEL_ZOO's R50-FPN V100 inference times, 0.056 s/im for RetinaNet, 0.038
-# s/im for Faster R-CNN and 0.043 s/im for Mask R-CNN (BASELINE.md:13, :16,
-# :17); none for the ProposalNetwork, Keypoint R-CNN, Cascade, or an R-CNN
-# on the C4 or DC5 trunk (no time of theirs is in BASELINE.md)
+# s/im for Faster R-CNN, 0.043 s/im for Mask R-CNN and 0.053 s/im for Panoptic
+# FPN (BASELINE.md:13, :16, :17, :19); none for the ProposalNetwork, Keypoint
+# R-CNN, Cascade, Semantic FPN, or an R-CNN on the C4 or DC5 trunk (no time
+# of theirs is in BASELINE.md)
 ARCHS = {"CenterNet": ("ctdet", 104.0), "RetinaNet": ("retinanet", 1.0 / 0.056),
          "GeneralizedRCNN": ("faster_rcnn", 1.0 / 0.038), "GeneralizedRCNN+mask": ("mask_rcnn", 1.0 / 0.043),
          "GeneralizedRCNN+keypoint": ("keypoint_rcnn", None), "ProposalNetwork": ("rpn", None),
          "CascadeRCNN": ("cascade_rcnn", None), "CascadeRCNN+mask": ("cascade_mask_rcnn", None),
-         "CascadeRCNN+keypoint": ("cascade_keypoint_rcnn", None)}
+         "CascadeRCNN+keypoint": ("cascade_keypoint_rcnn", None), "PanopticFPN": ("panoptic_fpn", 1.0 / 0.053),
+         "CascadePanopticFPN": ("cascade_panoptic_fpn", None), "SemanticSegmentor": ("semantic_fpn", None)}
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                               "configs", "COCO-Detection", "ctdet_dla_34_1x.yaml")
 ITERS = 10  # timed predict_fn calls, after 2
@@ -97,8 +102,8 @@ def backbone_tag(cfg) -> str:
 
 def _arch(cfg):
     name = cfg.MODEL.META_ARCHITECTURE
-    if name == "GeneralizedRCNN" and cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads":
-        name = "CascadeRCNN"
+    if name in ("GeneralizedRCNN", "PanopticFPN") and cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads":
+        name = "Cascade" + ("RCNN" if name == "GeneralizedRCNN" else name)
     if name in ("GeneralizedRCNN", "CascadeRCNN") and cfg.MODEL.KEYPOINT_ON:
         name += "+keypoint"
     elif name in ("GeneralizedRCNN", "CascadeRCNN") and cfg.MODEL.MASK_ON:

@@ -21,17 +21,17 @@ import os
 from ..config import get_cfg
 from ..data import MetadataCatalog
 from ..engine import DefaultTrainer, default_argument_parser, default_setup, launch
-from ..evaluation import (CityscapesInstanceEvaluator, COCOEvaluator, LVISEvaluator, PascalVOCDetectionEvaluator,
-                          verify_results)
+from ..evaluation import (CityscapesInstanceEvaluator, COCOEvaluator, DatasetEvaluators, LVISEvaluator,
+                          PascalVOCDetectionEvaluator, SemSegEvaluator, verify_results)
 
-# evaluator_type -> the ROADMAP item that ports its evaluator: the sem-seg ones
-# (coco_panoptic_seg is COCO's and a sem-seg evaluator together)
-QUEUED_EVALUATORS = {"sem_seg": "A15", "coco_panoptic_seg": "A15", "cityscapes_sem_seg": "A15"}
+# evaluator_type -> the ROADMAP item that ports its evaluator
+QUEUED_EVALUATORS = {"cityscapes_sem_seg": "A15.2"}
 
 
 class Trainer(DefaultTrainer):
     """``DefaultTrainer`` with the evaluator of each dataset's
-    ``evaluator_type`` (JAX ``tools/train_net.py:30-63``)."""
+    ``evaluator_type`` (JAX ``tools/train_net.py:30-63``):
+    ``coco_panoptic_seg`` gets COCO's and the sem-seg one together."""
 
     @classmethod
     def build_evaluator(cls, cfg, dataset_name, output_folder=None):
@@ -42,16 +42,21 @@ class Trainer(DefaultTrainer):
             raise RuntimeError(
                 f"dataset {dataset_name}: the evaluator of evaluator_type '{evaluator_type}' is not "
                 f"ported yet (ROADMAP {QUEUED_EVALUATORS[evaluator_type]})")
-        if evaluator_type == "coco":
-            return COCOEvaluator(dataset_name, output_dir=output_folder, cfg=cfg)
+        evaluators = []
+        if evaluator_type in ("coco", "coco_panoptic_seg"):
+            evaluators.append(COCOEvaluator(dataset_name, output_dir=output_folder, cfg=cfg))
+        if evaluator_type in ("sem_seg", "coco_panoptic_seg"):
+            evaluators.append(SemSegEvaluator(dataset_name))
         if evaluator_type == "lvis":
-            return LVISEvaluator(dataset_name, output_dir=output_folder)
+            evaluators.append(LVISEvaluator(dataset_name, output_dir=output_folder))
         if evaluator_type == "pascal_voc":
-            return PascalVOCDetectionEvaluator(dataset_name)
+            evaluators.append(PascalVOCDetectionEvaluator(dataset_name))
         if evaluator_type == "cityscapes_instance":
-            return CityscapesInstanceEvaluator(dataset_name)
-        raise NotImplementedError(
-            f"No evaluator implemented for evaluator_type '{evaluator_type}' (dataset {dataset_name})")
+            evaluators.append(CityscapesInstanceEvaluator(dataset_name))
+        if not evaluators:
+            raise NotImplementedError(
+                f"No evaluator implemented for evaluator_type '{evaluator_type}' (dataset {dataset_name})")
+        return evaluators[0] if len(evaluators) == 1 else DatasetEvaluators(evaluators)
 
 
 def setup(args):

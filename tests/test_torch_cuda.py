@@ -11,8 +11,10 @@ loss and detections and the port's NMS, card against CPU, the NMS kernels
 (``ops/csrc/nms.cu``) against their plain loop and the algorithm's mirror at
 the RetinaNet, RPN, box head and LVIS shapes and on rows that take two
 or more chunks (disjoint and clustered boxes), a small Faster R-CNN's RPN heads, losses and detections,
-card against CPU, and the mask paste, the keypoint decode and a small R-CNN
-with the mask and keypoint heads, card against CPU.
+card against CPU, the mask paste, the keypoint decode and a small R-CNN
+with the mask and keypoint heads, card against CPU, and a small Semantic FPN
+and Panoptic FPN (logits, losses, gradients, the label maps and the
+panoptic merge on the card), card against CPU.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -911,3 +913,106 @@ def test_small_mask_and_keypoint_rcnn_on_card_matches_cpu(card):
     assert (det_c["masks"] - det_h["masks"]).abs().max().item() <= 1e-3
     hm = det_h["keypoint_heatmaps"]
     assert (det_c["keypoint_heatmaps"] - hm).abs().max().item() <= 1e-3 * hm.abs().max().item()
+
+
+_SMALL_SEM_SEG = ["MODEL.SEM_SEG_HEAD.CONVS_DIM", 16, "MODEL.SEM_SEG_HEAD.NUM_CLASSES", 7,
+                  "MODEL.SEM_SEG_HEAD.IN_FEATURES", ["p2", "p3", "p4", "p5"]]
+
+
+def test_small_semantic_fpn_on_card_matches_cpu(card):
+    """A small Semantic FPN (ResNet-18-FPN, 32 channels, a head of 16, 7
+    classes) in f32 on 96² images, the same weights on both devices: the
+    logits within 1e-4 of their scale, the loss (a tenth of the pixels
+    ignored) within 1e-4 relative, every gradient within 1e-3 of its own
+    max; the label maps un-warped on the card (a letterbox from 120x90)
+    agree with the CPU's where the CPU's top-2 gap exceeds 1e-3."""
+    from detectron2_centernet_tpu_torch.data import letterbox_transform
+
+    cfg = get_cfg()
+    cfg.merge_from_list(_SMALL_RCNN + _SMALL_SEM_SEG + ["MODEL.DEVICE", "cpu", "MODEL.META_ARCHITECTURE",
+                                                        "SemanticSegmentor"])
+    host = build_model(cfg)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    dev.model.load_state_dict(host.model.state_dict())
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand(2, 3, 96, 96, generator=g) * 255
+    labels = torch.randint(0, 7, (2, 96, 96), generator=g)
+    labels[torch.rand(2, 96, 96, generator=g) < 0.1] = 255
+    lh, lc = host.predict_fn(x)["sem_seg"], dev.predict_fn(x.to(card))["sem_seg"]
+    assert lc.dtype == torch.float32 and lc.shape == (2, 7, 96, 96)
+    assert (lc.cpu() - lh).abs().max().item() <= 1e-4 * lh.abs().max().item()
+    losses = []
+    for m, dv in ((host, "cpu"), (dev, card)):
+        m.model.train()
+        for p in m.model.parameters():
+            p.grad = None
+        total, _ = m.loss_fn({"image": x.to(dv), "sem_seg": labels.to(dv)})
+        total.backward()
+        m.model.eval()
+        losses.append(total.item())
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    for (k, ph), pc in zip(host.model.named_parameters(), dev.model.parameters()):
+        if ph.grad is not None and ph.grad.abs().max() > 0:
+            assert (pc.grad.cpu() - ph.grad).abs().max().item() <= 1e-3 * ph.grad.abs().max().item(), k
+    warps, sizes = [letterbox_transform(120, 90, (96, 96))] * 2, [(120, 90)] * 2
+    want = host.device_postprocess({"sem_seg": lh}, warps, sizes)["sem_seg"]
+    got = dev.device_postprocess({"sem_seg": lc}, warps, sizes)["sem_seg"].cpu()
+    assert got.shape == want.shape == (2, 120, 90) and got.dtype == torch.uint8
+    from detectron2_centernet_tpu_torch.data import warp_image
+    from detectron2_centernet_tpu_torch.data.detection_utils import invert_affine
+
+    for i in range(2):
+        warped = warp_image(lh[i].permute(1, 2, 0), invert_affine(warps[i]), sizes[i])
+        top = warped.topk(2, dim=-1).values
+        decided = (top[..., 0] - top[..., 1]) > 1e-3
+        assert torch.equal(got[i][decided], want[i][decided]) and decided.float().mean() > 0.5
+
+
+def test_small_panoptic_fpn_on_card_matches_cpu(card):
+    """A small Panoptic FPN (the small Mask R-CNN with the head of 16 and 7
+    stuff classes) in f32 on 96² images, the same weights on both devices:
+    the six training losses on the same draws within 1e-3 relative,
+    ``predict_fn``'s classes equal, masks within 1e-3 and sem-seg logits
+    within 1e-4 of their scale; the panoptic merge of the CPU's detections
+    on the card equal to the CPU's."""
+    cfg = get_cfg()
+    cfg.merge_from_list(_SMALL_RCNN + _SMALL_SEM_SEG + [
+        "MODEL.DEVICE", "cpu", "MODEL.META_ARCHITECTURE", "PanopticFPN", "MODEL.MASK_ON", True,
+        "MODEL.ROI_MASK_HEAD.CONV_DIM", 32, "INPUT.MASK_RASTER", 16,
+        "MODEL.PANOPTIC_FPN.COMBINE.STUFF_AREA_LIMIT", 50])
+    host = build_model(cfg)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    with torch.no_grad():
+        host.model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
+    dev.model.load_state_dict(host.model.state_dict())
+    g = torch.Generator().manual_seed(8)
+    x = torch.rand(2, 3, 96, 96, generator=g) * 255
+    anchors = sum(a.shape[0] for a in host.anchors_per_level((96, 96)))
+    draws = {"rpn": torch.rand(2, anchors, generator=g), "roi_sub": torch.rand(2, 102, generator=g),
+             "roi_tie": torch.rand(2, 102, generator=g)}
+    batch = {"image": x, "gt_boxes": torch.tensor([[[8.0, 10.0, 60.0, 70.0], [40.0, 30.0, 90.0, 80.0]]] * 2),
+             "gt_classes": torch.tensor([[1, 4]] * 2), "gt_valid": torch.tensor([[True, True], [False, False]]),
+             "gt_masks": (torch.rand(2, 2, 16, 16, generator=g) > 0.4).to(torch.uint8),
+             "sem_seg": torch.randint(0, 7, (2, 96, 96), generator=g)}
+    for m in (host, dev):
+        m.model.train()
+    _, losses_h = host.loss_fn(dict(batch, draws=draws))
+    _, losses_c = dev.loss_fn(dict({k: v.to(card) for k, v in batch.items()}, draws=draws))
+    assert "loss_sem_seg" in losses_h and len(losses_h) == 6
+    for k in losses_h:
+        assert abs(losses_c[k].item() - losses_h[k].item()) <= 1e-3 * abs(losses_h[k].item()), k
+    for m in (host, dev):
+        m.model.eval()
+    det_h = host.predict_fn(x)
+    det_c = {k: v.cpu() for k, v in dev.predict_fn(x.to(card)).items()}
+    assert torch.equal(det_c["classes"], det_h["classes"])
+    assert (det_c["masks"] - det_h["masks"]).abs().max().item() <= 1e-3
+    sem = det_h["sem_seg"]
+    assert (det_c["sem_seg"] - sem).abs().max().item() <= 1e-4 * sem.abs().max().item()
+    dets = {k: v.numpy() for k, v in host.device_postprocess(det_h, None, [(96, 96)] * 2).items()}
+    want, got = host.postprocess(dets, None, [(96, 96)] * 2), dev.postprocess(dets, None, [(96, 96)] * 2)
+    for w, c in zip(want, got):
+        assert torch.equal(torch.from_numpy(c["panoptic_seg"][0]), torch.from_numpy(w["panoptic_seg"][0]))
+        assert c["panoptic_seg"][1] == w["panoptic_seg"][1] and len(w["panoptic_seg"][1]) > 1

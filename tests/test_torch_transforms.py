@@ -101,6 +101,9 @@ def _compare(extra, seeds=range(8), dicts=None):
         np.testing.assert_allclose(got["gt_masks"], want["gt_masks"], rtol=0, atol=1e-4, err_msg="gt_masks")
         np.testing.assert_allclose(got["gt_keypoints"], want["gt_keypoints"], rtol=0, atol=1e-4,
                                    err_msg="gt_keypoints")
+        # the sem-seg labels through cv2's fixed-point nearest warp, pixel for pixel
+        assert got["sem_seg"].dtype == want["sem_seg"].dtype == np.int32
+        np.testing.assert_array_equal(got["sem_seg"], want["sem_seg"], err_msg="sem_seg")
         outs.append(got)
     return outs
 
@@ -147,15 +150,23 @@ def test_crop_with_the_category_area_constraint_reads_sem_seg_as_jax():
     assert sum(not np.array_equal(a["warp"], b["warp"]) for a, b in zip(outs, free)) >= 3
 
 
-def test_crop_of_a_sem_seg_file_raises_naming_a15():
-    """A dict with ``sem_seg_file_name`` and no ``sem_seg``: reading the
-    file is not ported (ROADMAP A15)."""
-    _, pcfg = _cfgs(["INPUT.CROP.ENABLED", True, "INPUT.CROP.SINGLE_CATEGORY_MAX_AREA", 0.5])
-    d = _dicts(1, n=1)[0]
-    del d["sem_seg"]
-    d["sem_seg_file_name"] = "sem_seg.png"
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        DatasetMapper(pcfg, is_train=True)(d, rng=np.random.RandomState(0))
+def test_crop_of_a_sem_seg_file_raises_naming_a15(tmp_path):
+    """A dict with ``sem_seg_file_name`` and no ``sem_seg`` (it raised naming
+    ROADMAP A15 until the port read sem-seg files): the PNG is read as the
+    JAX mapper reads it, so the category constraint draws the same windows
+    and the warped labels are JAX's, pixel for pixel."""
+    from PIL import Image
+
+    extra = ["INPUT.CROP.ENABLED", True, "INPUT.CROP.TYPE", "absolute", "INPUT.CROP.SIZE", [24, 24],
+             "INPUT.CROP.SINGLE_CATEGORY_MAX_AREA", 0.4]
+    dicts = _dicts(1)
+    for i, d in enumerate(dicts):
+        path = str(tmp_path / f"sem_seg_{i}.png")
+        Image.fromarray(d.pop("sem_seg")).save(path)
+        d["sem_seg_file_name"] = path
+    outs = _compare(extra, seeds=range(6), dicts=dicts)
+    assert all(o["sem_seg"].shape == (OUT, OUT) for o in outs)
+    assert any((o["sem_seg"] == 255).any() for o in outs) and any((o["sem_seg"] < 4).any() for o in outs)
 
 
 def test_extent_matrix_image_and_targets_equal_jax():
