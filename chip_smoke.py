@@ -11,14 +11,16 @@ R50-DC5, the dconv Mask R-CNN R50-FPN (its deformable trunk on the DCN
 kernels, at stride 1 and 2), Fast R-CNN R50-FPN on precomputed
 proposals, LVIS v1 Mask R-CNN R50-FPN (serving, training from a
 ``RepeatFactorTrainingSampler``, ``LVISEvaluator``) and the Pascal VOC and
-Cityscapes-instance evaluations, Panoptic FPN R50, Semantic FPN R50 and the
+Cityscapes-instance evaluations, Panoptic FPN R50, Semantic FPN R50, the
 dconv Cascade GN Panoptic FPN R101 (its 30 deformable blocks on the DCN
-kernels), every NMS of the R-CNN and RetinaNet paths on the hand-written NMS
-kernel (``ops/csrc/nms.cu``). Every config is read from its YAML file
-(``configs/COCO-Detection/``, ``COCO-InstanceSegmentation/``,
-``COCO-Keypoints/``, ``Misc/``, ``LVIS-InstanceSegmentation/``,
-``PascalVOC-Detection/``, ``Cityscapes/``, ``COCO-PanopticSegmentation/``)
-by the port's own reader.
+kernels), DeepLab V3+ R50 and V3 R-103, PointRend R-CNN R50-FPN and
+PointRend's semantic FPN R101, every NMS of the R-CNN and RetinaNet paths
+on the hand-written NMS kernel (``ops/csrc/nms.cu``). Every config is read
+from its YAML file (``configs/COCO-Detection/``,
+``COCO-InstanceSegmentation/``, ``COCO-Keypoints/``, ``Misc/``,
+``LVIS-InstanceSegmentation/``, ``PascalVOC-Detection/``, ``Cityscapes/``,
+``COCO-PanopticSegmentation/``, ``projects/DeepLab/configs/``,
+``projects/PointRend/configs/``) by the port's own reader.
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -225,6 +227,31 @@ Phases (any failure raises and the script exits non-zero):
      K1, K2 and K5 30 times each per train step, counted, the DCN kernels'
      device ms in the profiled step; Panoptic FPN's RPN and box-head NMS
      inputs go to 10c;
+  21. DeepLab V3+ R50,
+     ``projects/DeepLab/configs/Cityscapes-SemanticSegmentation/deeplab_v3_plus_R_50_os16_poly_90k_bs16.yaml``
+     (the DeepLab stem, BatchNorm, res5 at dilation 2 · (1, 2, 4), ASPP
+     and the decoder on res2, 19 classes, hard pixel mining), at
+     1024x2048, and 21v, DeepLab V3 R-103,
+     ``deeplab_v3_R_103_os16_mg124_poly_90k_bs16.yaml`` (at 512², the JAX
+     package's default sizes: the YAML sets only ``MIN_SIZE_*``); 22.
+     PointRend R-CNN R50-FPN,
+     ``projects/PointRend/configs/InstanceSegmentation/pointrend_rcnn_R_50_FPN_1x_coco.yaml``
+     (``CoarseMaskHead`` 7², the point head, 5 subdivision steps to 224²),
+     800²; 22s. PointRend's semantic FPN R101,
+     ``projects/PointRend/configs/SemanticSegmentation/pointrend_semantic_R_101_FPN_1x_cityscapes.yaml``
+     (2 refinement steps of 8192 points), 1024x2048; bf16, seeded weights,
+     each: (a) ``DefaultPredictor`` requests, ``predict_fn`` at batch 1 and
+     16 (peak memory, profile, the trunk's and the head's or the
+     subdivision's time); (b) f32 at batch 1, card against CPU on the card's
+     maps (the DeepLab head; the coarse heads and the point head on the same
+     points; the box predictor) within SAME_INPUT_TOL of their scale, the
+     TF32 control over it for the convolutional heads; (c) ``tools/bench``'s
+     train steps at the YAML's batch (22s: 32 x 512x1024), with the
+     hard-pixel-mining loss timed alone (21c); (d) ``tools/train_net`` 4
+     steps and ``--eval-only --resume``: 21d with ``CityscapesSemSegEvaluator``
+     on ``*_gtFine_labelTrainIds.png`` files that ``load_cityscapes_semantic``
+     reads, 22d bbox and segm; no DCN kernel on any, PointRend R-CNN's NMS
+     counted and its RPN and box-head rows added to 10c;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -268,7 +295,9 @@ from detectron2_centernet_tpu_torch.data import (DatasetCatalog, MetadataCatalog
 from detectron2_centernet_tpu_torch.data.datasets import (ensure_synthetic_datasets, load_cityscapes_instances,
                                                           load_lvis_json, load_voc_instances,
                                                           register_synthetic_instances)
-from detectron2_centernet_tpu_torch.data.datasets.cityscapes import CITYSCAPES_THING_CLASSES
+from detectron2_centernet_tpu_torch.data.datasets.cityscapes import (CITYSCAPES_STUFF_CLASSES,
+                                                                     CITYSCAPES_THING_CLASSES,
+                                                                     load_cityscapes_semantic)
 from detectron2_centernet_tpu_torch.data.datasets.pascal_voc import CLASS_NAMES as VOC_CLASS_NAMES
 from detectron2_centernet_tpu_torch.engine import DefaultPredictor, DefaultTrainer, hooks
 from detectron2_centernet_tpu_torch.evaluation import COCOEval
@@ -286,6 +315,7 @@ from detectron2_centernet_tpu_torch.ops import nms as nms_ops
 from detectron2_centernet_tpu_torch.ops.nms import batched_nms_fixed
 from detectron2_centernet_tpu_torch.ops import deform_conv as plain
 from detectron2_centernet_tpu_torch.models.proposal_generator import rpn as rpn_ops
+from detectron2_centernet_tpu_torch.models.roi_heads import point_head as point_head_ops
 from detectron2_centernet_tpu_torch.models.roi_heads import roi_heads as roi_heads_ops
 from detectron2_centernet_tpu_torch.ops import roi_align as roi_ops
 from detectron2_centernet_tpu_torch.structures.keypoints import heatmaps_to_keypoints
@@ -1681,7 +1711,7 @@ def phase_nms_kernel(report, cases):
         k = got[0].shape[1]
         kernel_ms = cuda_ms(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts), iters=20)
         host_ms, queued_ms = host_ms_behind(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts))
-        plain_ms = cuda_ms(lambda: nms_ops.nms_fixed(boxes, scores, thr, counts), iters=2, warmup=0)
+        plain_ms = cuda_ms(lambda: nms_ops.nms_fixed(boxes, scores, thr, counts), iters=1, warmup=0)
         live, picks = nms_work(boxes, scores, thr, counts)
         prefix, ious = nms_sorted_work(scores, *got)
         alive = torch.isfinite(scores)
@@ -4007,6 +4037,414 @@ def _segmentation_dconv(counted, nms_launches, dcn_launches):
     return res
 
 
+SLICE16 = {  # kind: (sub-phase, YAML)
+    "deeplab_v3_plus": ("21", "projects/DeepLab/configs/Cityscapes-SemanticSegmentation/"
+                              "deeplab_v3_plus_R_50_os16_poly_90k_bs16.yaml"),
+    "deeplab_v3": ("21v", "projects/DeepLab/configs/Cityscapes-SemanticSegmentation/"
+                          "deeplab_v3_R_103_os16_mg124_poly_90k_bs16.yaml"),
+    "pointrend_rcnn": ("22", "projects/PointRend/configs/InstanceSegmentation/pointrend_rcnn_R_50_FPN_1x_coco.yaml"),
+    "pointrend_semantic": ("22s", "projects/PointRend/configs/SemanticSegmentation/"
+                                  "pointrend_semantic_R_101_FPN_1x_cityscapes.yaml"),
+}
+POINTREND_SEM_TRAIN_BATCH = 32  # 22s's train batch: the YAML's SOLVER.IMS_PER_BATCH
+POINTREND_EVAL_IMAGES = 16  # 22d's synthetic coco_2017_val: 1600 detections of 224² masks to paste and score
+SEM_SEG_EVAL_IMAGES = 4  # 21d's Cityscapes val split at 2048x1024
+
+
+def yaml_cfg(path: str, dtype: str, extra=()):
+    """The YAML at ``path`` read by the port's own reader, with ``extra``, the
+    run's compute width, output directory and seed over it and no weights
+    file (the YAMLs name ImageNet or DeepLab weights that are not here)."""
+    cfg = get_cfg()
+    cfg.merge_from_file(path)
+    cfg.merge_from_list(list(extra) + ["TPU.DTYPE", dtype, "OUTPUT_DIR", "output/chip_smoke", "SEED", 0,
+                                       "MODEL.WEIGHTS", ""])
+    return cfg
+
+
+def slice16_full_width(kind, cfg) -> bool:
+    """The YAML's own widths and sizes, as the JAX package reads them."""
+    m, s, ph = cfg.MODEL, cfg.MODEL.SEM_SEG_HEAD, cfg.MODEL.POINT_HEAD
+    r = m.RESNETS
+    if kind.startswith("deeplab"):
+        plus = kind == "deeplab_v3_plus"
+        return (m.BACKBONE.NAME == "build_resnet_deeplab_backbone" and r.DEPTH == (50 if plus else 101)
+                and r.STEM_TYPE == "deeplab" and r.STEM_OUT_CHANNELS == 128 and r.RES5_DILATION == 2
+                and list(r.RES5_MULTI_GRID) == [1, 2, 4] and s.NUM_CLASSES == 19 and s.CONVS_DIM == 256
+                and list(s.ASPP_DILATIONS) == [6, 12, 18] and s.LOSS_TYPE == "hard_pixel_mining"
+                and s.NAME == ("DeepLabV3PlusHead" if plus else "DeepLabV3Head")
+                and s.COMMON_STRIDE == (4 if plus else 16) and cfg.SOLVER.IMS_PER_BATCH == 16
+                and tuple(cfg.INPUT.TEST_SIZE) == ((1024, 2048) if plus else (512, 512)))
+    full = (r.DEPTH == (50 if kind == "pointrend_rcnn" else 101) and m.FPN.OUT_CHANNELS == 256
+            and ph.FC_DIM == 256 and ph.NUM_FC == 3)
+    if kind == "pointrend_rcnn":
+        return full and (m.ROI_HEADS.NAME == "PointRendROIHeads" and m.ROI_MASK_HEAD.NAME == "CoarseMaskHead"
+                         and m.ROI_MASK_HEAD.FC_DIM == 1024 and m.ROI_HEADS.NUM_CLASSES == 80
+                         and ph.TRAIN_NUM_POINTS == 196 and ph.SUBDIVISION_STEPS == 5
+                         and ph.SUBDIVISION_NUM_POINTS == 784 and tuple(cfg.INPUT.TEST_SIZE) == (800, 800))
+    return full and (s.NAME == "PointRendSemSegHead" and ph.COARSE_SEM_SEG_HEAD_NAME == "SemSegFPNHead"
+                     and s.NUM_CLASSES == 19 and s.CONVS_DIM == 128 and ph.TRAIN_NUM_POINTS == 2048
+                     and ph.SUBDIVISION_STEPS == 2 and ph.SUBDIVISION_NUM_POINTS == 8192
+                     and cfg.SOLVER.IMS_PER_BATCH == 32 and tuple(cfg.INPUT.TEST_SIZE) == (1024, 2048))
+
+
+def synthetic_stand_in(name: str) -> None:
+    """``name`` afresh as its synthetic stand-in: a builtin Cityscapes split
+    whose files are not here loads as an empty list, which
+    ``ensure_synthetic_datasets`` (as the JAX package's) keeps."""
+    for catalog in (DatasetCatalog, MetadataCatalog):
+        if name in catalog:
+            catalog.remove(name)
+    ensure_synthetic_datasets([name])
+
+
+def random_images(rng, dev, n, size):
+    """``n`` (3, H, W) images of uniform 0..255 pixels at ``size``, on ``dev``."""
+    return torch.from_numpy(rng.randint(0, 256, (n, 3, *size)).astype(np.float32)).to(dev)
+
+
+def cityscapes_sem_seg_tree(root: str, n: int, seed: int, size=(1024, 2048)):
+    """A Cityscapes val split for semantic segmentation: ``n`` images over two
+    cities, each ``leftImg8bit/<city>/*_leftImg8bit.png`` an empty file (the
+    loader globs the names; the pixels go in the records) beside its
+    ``gtFine/<city>/*_gtFine_labelTrainIds.png`` (uint8 train ids: blocks of
+    the 19 classes, a tenth ignored, 255), which ``load_cityscapes_semantic``
+    names and ``CityscapesSemSegEvaluator`` reads; returns (image dir,
+    gtFine dir, pixels by file name)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    image_dir = os.path.join(root, "cityscapes", "leftImg8bit", "val")
+    gt_dir = os.path.join(root, "cityscapes", "gtFine", "val")
+    h, w = size
+    pixels = {}
+    for i in range(n):
+        city = ("frankfurt", "lindau")[i % 2]
+        base = f"{city}_{i:06d}_000019"
+        for d in (image_dir, gt_dir):
+            os.makedirs(os.path.join(d, city), exist_ok=True)
+        open(os.path.join(image_dir, city, base + "_leftImg8bit.png"), "wb").close()
+        labels = np.kron(rng.randint(0, 19, (h // 64, w // 64)), np.ones((64, 64), np.int64)).astype(np.uint8)
+        labels[rng.rand(h, w) < 0.1] = 255
+        Image.fromarray(labels).save(os.path.join(gt_dir, city, base + "_gtFine_labelTrainIds.png"))
+        pixels[base + "_leftImg8bit.png"] = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    return image_dir, gt_dir, pixels
+
+
+def slice16_heads(kind, model, x, size):
+    """The f32 head outputs 21b/22b compare, the card's maps fed to the
+    model's ``model``: the DeepLab head on the trunk's; PointRend's coarse
+    sem-seg head and its point head on the 8192 points of least top-2 gap of
+    the card's coarse logits; the R-CNN's box predictor on the first
+    HEAD_ROIS proposals, the coarse mask logits of the top 16 detections and
+    the point head on their subdivision's first-step points. Returns
+    ({name: output}, the inputs to feed the CPU)."""
+    net = model.model
+    with torch.inference_mode():
+        if kind == "pointrend_rcnn":
+            feats, lg, dl = net(model.normalize(x))
+            props = model.proposals(lg, dl, size, "test")[0][:, :HEAD_ROIS]
+            dets = model.predict_fn(x)
+            top = min(16, dets["boxes"].shape[1])
+            boxes = dets["boxes"][:, :top].reshape(-1, 4)
+            cls = torch.clamp(dets["classes"][:, :top].reshape(-1), 0, model.num_classes - 1)
+            pooled = model.pool(feats, props.reshape(-1, 4), props.shape[1])
+            mpooled = model.pool(feats, boxes, top, model.mask_pooler_resolution)
+            fine = model.pool(feats, boxes, top, 2 * model.mask_pooler_resolution)
+            return {"pooled": pooled, "mpooled": mpooled, "cls": cls, "fine": fine}
+        with layers.ieee_f32():
+            feats = net.backbone(model.normalize(x))
+        return {"feats": feats}
+
+
+def slice16_outputs(kind, model, inputs):
+    net, dev = model.model, model.device
+    on = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in inputs.items()}
+    out = {}
+    with torch.inference_mode():
+        if kind == "pointrend_rcnn":
+            out["cls_score"], out["bbox_pred"] = net.box_predict(on["pooled"])
+            coarse = net.mask_predict(on["mpooled"], on["cls"])  # (R, 7, 7)
+            out["coarse_mask_logits"] = coarse
+            up = torch.nn.functional.interpolate(coarse[:, None], scale_factor=2, mode="bilinear",
+                                                 align_corners=False)[:, 0]
+            coords = torch.rand(up.shape[0], 196, 2, generator=torch.Generator().manual_seed(5)).to(dev)
+            out["point_logits"] = net.point_predict(point_head_ops.point_sample(on["fine"], coords),
+                                                    point_head_ops.point_sample(up[:, None], coords))
+            return out
+        head = net.sem_seg_head
+        feats = {k: on["feats"][k].to(dev) for k in on["feats"]}
+        with semseg_module.ieee_f32():
+            if kind.startswith("deeplab"):
+                out["sem_seg_logits"] = head(feats)
+                return out
+            coarse = head.coarse_sem_seg_head(feats)
+            out["coarse_sem_seg_logits"] = coarse
+            n, c, h, w = coarse.shape
+            coords = torch.rand(n, 8192, 2, generator=torch.Generator().manual_seed(6)).to(dev)
+            fine = torch.cat([feats[f] for f in head.in_features], 1).float()
+            out["point_logits"] = head.point_head(point_head_ops.point_sample(fine, coords),
+                                                  point_head_ops.point_sample(coarse, coords))
+    return out
+
+
+def phase_slice16(report, out_dir):
+    """Phases 21 and 22: DeepLab V3+ R50 (21), DeepLab V3 R-103 (21v),
+    PointRend R-CNN R50-FPN (22) and PointRend's semantic FPN R101 (22s),
+    each from its YAML at full width with seeded weights, bf16: (a)
+    ``DefaultPredictor`` requests (median of 10), ``predict_fn`` at batch 1
+    and 16 (peak memory, the batch-16 profile; the trunk's and the head's
+    time, or the subdivision's); (b) f32 at batch 1, card against CPU on the
+    card's maps (the DeepLab head; PointRend's coarse heads and point head
+    on the same points; the box predictor), within SAME_INPUT_TOL of their
+    scale, the TF32 control over it for the convolutional heads; (c)
+    ``tools/bench``'s train steps (``bench.bench_training``) at the YAML's
+    batch (22s: POINTREND_SEM_TRAIN_BATCH), busy share, peak memory, every
+    loss finite; 21c also times the hard-pixel-mining loss at 16 x
+    512x1024; (d) 21d: ``tools/train_net`` 4 steps, then ``--eval-only
+    --resume`` with ``CityscapesSemSegEvaluator`` on a Cityscapes split of
+    ``*_gtFine_labelTrainIds.png`` files read by ``load_cityscapes_semantic``;
+    22d: the same with bbox and segm on the synthetic coco_2017_val. No DCN
+    kernel on any of them; PointRend R-CNN's NMS through the kernel, its
+    RPN and box-head rows to 10c."""
+    out, nms_launches, nms_cases = {}, {}, {}
+    for kind in SLICE16:
+        scratch = os.path.join(out_dir, kind)
+        os.makedirs(scratch, exist_ok=True)
+        out[kind] = _slice16_path(kind, scratch, nms_launches, nms_cases)
+        torch.cuda.empty_cache()
+    report["slice16"] = out
+    return {k: sum(r["launches"][k] for r in out.values()) for k in KERNELS}, nms_launches, nms_cases
+
+
+def _slice16_path(kind, out_dir, nms_launches, nms_cases):
+    number, yaml = SLICE16[kind]
+    semantic = kind != "pointrend_rcnn"
+    cfg = yaml_cfg(yaml, "bfloat16")
+    m = cfg.MODEL
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    classes = m.SEM_SEG_HEAD.NUM_CLASSES if semantic else m.ROI_HEADS.NUM_CLASSES
+    if not slice16_full_width(kind, cfg):
+        raise SystemExit(f"{yaml} is not at full width here: {m}")
+    head = m.SEM_SEG_HEAD.NAME if semantic else f"{m.ROI_MASK_HEAD.NAME} + PointHead"
+    print(f"== {number}a. {yaml}: {m.META_ARCHITECTURE}, ResNet-{m.RESNETS.DEPTH} {m.RESNETS.NORM} "
+          f"({m.BACKBONE.NAME}), {head}, {classes} classes, bf16: DefaultPredictor at {size[0]}x{size[1]}, "
+          f"predict_fn at batch 1 and {RCNN_BATCH}" + (" (no INPUT.TEST_SIZE in the YAML: the JAX package's "
+                                                       "default, 512²)" if kind == "deeplab_v3" else ""))
+    rng = np.random.RandomState(210 + len(kind))
+    reset_launches()
+    # the R-CNN's weights are calibrated on the letterboxed photos it serves (as 11a), the segmentors' on full frames
+    calib = random_images(rng, "cpu", 2, size) if semantic else letterboxed(rng, "cpu", 2, size)
+    cfg32 = yaml_cfg(yaml, "float32")
+    if semantic:
+        init = weights = seeded_weights(cfg32, calib, seed=0, device="cuda")
+    else:
+        init, weights = rcnn_weights(cfg32, calib, seed=0, device="cuda")
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    model.model.load_state_dict(weights)
+    res = {}
+    nms_ops.greedy_nms.launches = 0
+    request_sizes = ((1024, 2048), (480, 640), (375, 500)) if size[1] == 2048 else ((480, 640), (800, 800), (375, 500))
+    for h, w in request_sizes:
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        got = predictor(im)
+        if semantic:
+            check_segmentation(yaml, got, (h, w), classes, False)
+            text = f"{len(np.unique(got['sem_seg']))} labels in sem_seg"
+        else:
+            inst = got["instances"]
+            check_detections(yaml, im, inst, model.score_threshold)
+            if not (inst.pred_masks.dtype == bool and inst.pred_masks.shape == (len(inst), h, w)):
+                raise SystemExit(f"{yaml}: malformed masks {inst.pred_masks.shape}")
+            text = f"{len(inst)} detections, top score {inst.scores.max():.4f}, {int(inst.pred_masks.sum())} mask px"
+        print(f"  request {h}x{w}: {text}")
+    latency = bench.request_ms(predictor, rng.randint(0, 256, (*request_sizes[0], 3)).astype(np.uint8))
+    images = random_images if semantic else letterboxed
+    b1, b16 = images(rng, model.device, 1, size), images(rng, model.device, RCNN_BATCH, size)
+    nms_inputs = []
+    with capture_nms(nms_inputs):
+        d16 = model.predict_fn(b16)
+        if not semantic:
+            with torch.inference_mode():  # the training's proposals
+                model.proposals(*model.model(model.normalize(b16))[1:], size, "train")
+    torch.cuda.synchronize()
+    calls = 3 + bench.REQUEST_WARMUP + bench.REQUESTS + 1
+    nms_launches[kind] = {"serving": nms_ops.greedy_nms.launches}
+    if nms_launches[kind]["serving"] != (0 if semantic else 2 * calls + 1):
+        raise SystemExit(f"{yaml}: expected {0 if semantic else 2 * calls + 1} NMS kernel launches, got "
+                         f"{nms_launches[kind]['serving']}")
+    if semantic:
+        out16 = d16["sem_seg"]
+        ok = out16.dtype == torch.float32 and tuple(out16.shape) == (RCNN_BATCH, classes, *size)
+    else:
+        nms_cases.update({f"{k}_pointrend": c for k, c in zip(("rpn_test", "box_head", "rpn_train"), nms_inputs)})
+        out16 = d16["masks"]
+        side = m.ROI_MASK_HEAD.OUTPUT_SIDE_RESOLUTION * 2 ** m.POINT_HEAD.SUBDIVISION_STEPS
+        ok = tuple(out16.shape) == (RCNN_BATCH, cfg.TEST.DETECTIONS_PER_IMAGE, side, side)
+    if not (ok and bool(torch.isfinite(out16).all())):
+        raise SystemExit(f"{yaml}'s predict_fn gave malformed outputs: {out16.dtype} {tuple(out16.shape)}")
+    del d16, out16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_b1 = cuda_ms(lambda: model.predict_fn(b1), iters=5)
+    ms_b16 = cuda_ms(lambda: model.predict_fn(b16), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p16 = profiled(lambda: model.predict_fn(b16), calls=1)
+    net = model.model
+    with torch.inference_mode(), layers.ieee_f32(), torch.autocast("cuda", dtype=torch.bfloat16):
+        x16 = model.normalize(b16).to(torch.bfloat16)
+        trunk_ms = cuda_ms(lambda: net.backbone(x16), iters=3, warmup=1)
+        feats = net.backbone(x16)
+        if semantic:
+            stage = "the sem-seg head" + (" with the subdivision" if kind == "pointrend_semantic" else "")
+            stage_ms = cuda_ms(lambda: net.sem_seg_head(feats), iters=3, warmup=1)
+        else:  # the subdivision of the batch's 1600 detections' coarse logits, 7² → 224²
+            dets = model.predict_fn(b16)
+            k = dets["boxes"].shape[1]
+            boxes = dets["boxes"].reshape(-1, 4)
+            cls = torch.clamp(dets["classes"].reshape(-1), 0, classes - 1)
+            sel = net.mask_predict(model.pool(feats, boxes, k, model.mask_pooler_resolution), cls)
+            fine = model.pool(feats, boxes, k, 2 * model.mask_pooler_resolution)
+            stage = f"the subdivision of {boxes.shape[0]} detections"
+            stage_ms = cuda_ms(lambda: point_head_ops.refine_mask_with_points(
+                sel, fine, net.point_predict, model.point_subdiv_num, model.point_steps), iters=3, warmup=1)
+    del feats
+    res.update(request_ms=latency, request_median_ms=statistics.median(latency), predict_fn_b1_ms=ms_b1,
+               predict_fn_b16_ms=ms_b16, img_s_b1=1e3 / ms_b1, img_s_b16=RCNN_BATCH * 1e3 / ms_b16,
+               peak_memory_gib_b16=peak, device_ms_b16=p16["device_ms"], nms_kernel_ms_b16=p16["nms_kernel_ms"],
+               trunk_b16_ms=trunk_ms, stage_b16_ms=stage_ms, stage=stage)
+    print(f"  request ({request_sizes[0][0]}x{request_sizes[0][1]}) median {res['request_median_ms']:.3f} ms of "
+          f"{bench.REQUESTS}; predict_fn batch 1 {ms_b1:.3f} ms = {res['img_s_b1']:.2f} img/s; batch {RCNN_BATCH} "
+          f"{ms_b16:.3f} ms = {res['img_s_b16']:.2f} img/s ({p16['device_ms']:.3f} ms on the card, NMS kernel "
+          f"{p16['nms_kernel_ms']:.3f}); peak memory {peak:.2f} GiB; at batch {RCNN_BATCH} the trunk "
+          f"{trunk_ms:.3f} ms, {stage} {stage_ms:.3f} ms")
+    print(p16["events"].table(sort_by="cuda_time_total", row_limit=10, max_name_column_width=90))
+    del predictor
+
+    print(f"== {number}b. f32, batch 1, card against CPU on the card's maps"
+          + (": the DeepLab head" if kind.startswith("deeplab") else
+             ": the coarse sem-seg head, the point head on 8192 points" if semantic else
+             f": the box predictor on {HEAD_ROIS} proposals, the coarse mask logits of the top 16 detections, the "
+             "point head on 196 points of each") + "; with cuDNN's TF32 and ieee_f32 bypassed as the control")
+    card = build_model(cfg32)
+    cfg_host = cfg32.clone()
+    cfg_host.MODEL.DEVICE = "cpu"
+    host_model = build_model(cfg_host)
+    for mdl in (card, host_model):
+        mdl.model.load_state_dict(weights)
+    inputs = slice16_heads(kind, card, b1, size)
+    cpu_inputs = {k: ({f: t.cpu() for f, t in v.items()} if isinstance(v, dict) else
+                      v.cpu() if torch.is_tensor(v) else v) for k, v in inputs.items()}
+    got, want = slice16_outputs(kind, card, inputs), slice16_outputs(kind, host_model, cpu_inputs)
+    with pytorch_default_tf32(), bypass_ieee_f32(semseg_module), bypass_ieee_f32(rcnn):
+        ctrl = slice16_outputs(kind, card, inputs)
+    checks, tf32 = {}, {}
+    for n in got:
+        card_vs_cpu(checks, n, got[n], want[n], rel=SAME_INPUT_TOL)
+        card_vs_cpu(tf32, n, ctrl[n], want[n], rel=SAME_INPUT_TOL)
+        print(f"  {n}: max_abs_err={checks[n]['max_abs_err']:.3e} (scale {checks[n]['scale']:.3e}, tol "
+              f"{SAME_INPUT_TOL:.0e} x scale) {'ok' if checks[n]['max_abs_err'] <= checks[n]['tol'] else 'FAIL'}; "
+              f"TF32 control {tf32[n]['max_abs_err'] / tf32[n]['tol']:.2f}x the tol")
+    if any(ch["max_abs_err"] > ch["tol"] for ch in checks.values()):
+        raise SystemExit(f"{yaml}'s f32 heads differ between the card and the CPU: {checks}")
+    convolutional = [n for n in got if n.endswith("sem_seg_logits") or n == "coarse_mask_logits"]
+    if not all(tf32[n]["max_abs_err"] > tf32[n]["tol"] for n in convolutional if n != "coarse_mask_logits"):
+        raise SystemExit(f"{yaml}'s f32 head check did not see TF32: {tf32}")
+    res.update(card_vs_cpu=checks, tf32_control=tf32)
+    del card, host_model, inputs, cpu_inputs, got, want, ctrl
+
+    batch = POINTREND_SEM_TRAIN_BATCH if kind == "pointrend_semantic" else int(cfg.SOLVER.IMS_PER_BATCH)
+    train_size = tuple(cfg.INPUT.TRAIN_SIZE)
+    print(f"== {number}c. tools/bench's train steps (bench.bench_training) at {batch} x {train_size[0]}x{train_size[1]} "
+          f"on the synthetic {cfg.DATASETS.TRAIN[0]}, the model's own init")
+    if kind == "deeplab_v3_plus":  # the hard-pixel-mining loss alone, forward and backward, at the train batch
+        lg = torch.randn(batch, classes, *train_size, device=model.device, requires_grad=True)
+        tg = torch.randint(0, classes, (batch, *train_size), device=model.device)
+        loss_ms = {}
+        for top_k in (1.0, model.loss_top_k):
+            loss_ms[top_k] = cuda_ms(lambda: semseg_module.sem_seg_loss(lg, tg, 255, top_k).backward(), iters=5)
+        res["sem_seg_loss_ms"] = {str(k): v for k, v in loss_ms.items()}
+        print(f"  sem_seg_loss forward + backward on ({batch}, {classes}, {train_size[0]}, {train_size[1]}) f32 logits: "
+              f"all pixels {loss_ms[1.0]:.3f} ms; hard pixel mining (top {model.loss_top_k:.0%}) "
+              f"{loss_ms[model.loss_top_k]:.3f} ms")
+        del lg, tg
+    nms_ops.greedy_nms.launches = 0
+    synthetic_stand_in(cfg.DATASETS.TRAIN[0])
+    train_cfg = cfg.clone()
+    train_cfg.SOLVER.IMS_PER_BATCH = batch
+    entries, trainer, clock = bench.bench_training(train_cfg)
+    torch.cuda.synchronize()
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    nms_launches[kind]["bench"] = nms_ops.greedy_nms.launches
+    names = ("loss_sem_seg",) + (("loss_sem_seg_point",) if kind == "pointrend_semantic" else ()) if semantic else (
+        "loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "loss_mask", "loss_mask_point")
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in names + ("total_loss",)}
+    if not (all(len(v) == steps and all(math.isfinite(a) for a in v) for v in losses.values())
+            and nms_launches[kind]["bench"] == (0 if semantic else steps)):
+        raise SystemExit(f"{yaml}'s train steps: losses {losses}, NMS launches {nms_launches[kind]['bench']}")
+    top = [(e.key, e.self_device_time_total / 1e3) for e in sorted(
+        (e for e in clock.events if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+        key=lambda e: -e.self_device_time_total)[:8]]
+    print(f"  total loss {' '.join(f'{v:.4f}' for v in losses['total_loss'])}; step times (ms) "
+          f"{' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} {entries['train_step_ms']:.1f} ms "
+          f"= {entries['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = "
+          f"{entries['train_busy_share']:.0%} of the median step; peak memory {entries['peak_memory_gib']:.2f} GiB")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=10, max_name_column_width=90))
+    res.update(train=entries, train_losses=losses, train_step_ms_all=clock.times,
+               train_profiled_device_ms=clock.device_ms, train_top_device_ops_ms=top)
+    del trainer, clock
+
+    if kind in ("deeplab_v3_plus", "pointrend_rcnn"):
+        init_path = os.path.join(out_dir, "init_weights.pth")
+        torch.save(init, init_path)
+        os.environ["DETECTRON2_SYNTH_DATA"] = "1"
+        if semantic:
+            image_dir, gt_dir, pixels = cityscapes_sem_seg_tree(out_dir, SEM_SEG_EVAL_IMAGES, seed=21)
+            val = "chip_smoke_cityscapes_fine_sem_seg_val"
+            register_with_pixels(val, lambda i=image_dir, g=gt_dir: load_cityscapes_semantic(i, g), pixels,
+                                 stuff_classes=list(CITYSCAPES_STUFF_CLASSES), evaluator_type="cityscapes_sem_seg",
+                                 ignore_label=255, image_dir=image_dir, gt_dir=gt_dir)
+            tasks, extra = {"sem_seg"}, ["DATASETS.TEST", f"('{val}',)", "TEST.BATCH_SIZE", str(EVAL_BATCH)]
+        else:
+            val = "coco_2017_val"
+            for catalog in (DatasetCatalog, MetadataCatalog):
+                if val in catalog:
+                    catalog.remove(val)
+            register_synthetic_instances(val, num_images=POINTREND_EVAL_IMAGES, image_size=EVAL_SIZE)
+            # from the init (calibrated FrozenBN statistics), as 11d: 80 classes near 1/81
+            tasks, extra = {"bbox", "segm"}, ["MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.005",
+                                              "TEST.BATCH_SIZE", str(RCNN_BATCH)]
+        print(f"== {number}d. tools/train_net on {yaml}: {RCNN_STEPS} steps at batch {batch} from the init "
+              f"(MODEL.WEIGHTS; DETECTRON2_SYNTH_DATA: the synthetic {cfg.DATASETS.TRAIN[0]}), then --eval-only "
+              f"--resume on {val} ({len(DatasetCatalog.get(val))} images) {' '.join(extra)}")
+        argv = ["--config-file", yaml, "SOLVER.MAX_ITER", str(RCNN_STEPS), "SOLVER.IMS_PER_BATCH", str(batch),
+                "MODEL.WEIGHTS", init_path, "OUTPUT_DIR", out_dir, "SEED", "0"] + extra
+        nms_ops.greedy_nms.launches = 0
+        trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, f"output/chip_smoke_{kind}_train_net_log.txt")
+        nms_launches[kind]["train_net"] = nms_ops.greedy_nms.launches
+        keys = ("IoU",) if semantic else ("AP", "AP50")
+        print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
+              + "; ".join(f"{t} " + ", ".join(f"{k} {trained[t][k]:.4f}" for k in keys) for t in sorted(trained))
+              + f"; NMS kernel launches {nms_launches[kind]['train_net']}")
+        want_nms = 0 if semantic else RCNN_STEPS + 2 * 2 * -(-POINTREND_EVAL_IMAGES // RCNN_BATCH)
+        if not (resumed == [0, RCNN_STEPS] and set(trained) == tasks and same_results(trained, evaluated)
+                and nms_launches[kind]["train_net"] == want_nms
+                and all(math.isfinite(trained[t][k]) for t in tasks for k in keys)):
+            raise SystemExit(f"{yaml}'s train_net: resumed {resumed}, NMS launches {nms_launches[kind]['train_net']} "
+                             f"(expected {want_nms}), results {trained} vs {evaluated}")
+        if semantic and not len(trained["sem_seg"]) == 1 + classes:
+            raise SystemExit(f"{yaml}: CityscapesSemSegEvaluator gave {trained['sem_seg']}")
+        res.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, results=trained))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  DCN kernel launches on the {kind} path: {launches}; NMS kernel launches {nms_launches[kind]}")
+    if any(launches.values()):
+        raise SystemExit(f"the {yaml} path launched DCN kernels: {launches}")
+    res.update(launches=launches, nms_kernel_launches=nms_launches[kind], train_batch=batch)
+    return res
+
+
 def roi_ops_inference(model, props, scores, deltas, n, p, size):
     """``fast_rcnn_inference`` of the box predictor's outputs on (N, P) proposals."""
     return roi_heads_ops.fast_rcnn_inference(props[0], props[2], scores.view(n, p, -1), deltas.view(n, p, -1),
@@ -4132,7 +4570,7 @@ def main() -> int:
         shutil.rmtree(scratch, ignore_errors=True)
     lap("17")
     for kind, phase in (("lvis", phase_lvis), ("voc_cityscapes", phase_voc_cityscapes),
-                        ("segmentation", phase_segmentation)):
+                        ("segmentation", phase_segmentation), ("slice16", phase_slice16)):
         scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
         try:
             head_launches[kind], head_nms[kind], cases = phase(report, scratch)
@@ -4140,8 +4578,8 @@ def main() -> int:
         finally:
             shutil.rmtree(scratch, ignore_errors=True)
         lap(kind)
-    segmentation_nms = head_nms.pop("segmentation")  # by path: panoptic, semantic, panoptic_dconv
-    head_nms.update(segmentation_nms)
+    for kind in ("segmentation", "slice16"):  # by path: panoptic, semantic, panoptic_dconv; DeepLab, PointRend
+        head_nms.update(head_nms.pop(kind))
     nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases, **head_cases))
     lap("10c")
     totals = phase_kernel_timing(report)
@@ -4170,6 +4608,8 @@ def main() -> int:
             "launches_fast_rcnn": head_launches["fast"][name],  # phase 17, asserted 0
             "launches_lvis_rcnn": head_launches["lvis"][name],  # phase 18, asserted 0
             "launches_voc_cityscapes_rcnn": head_launches["voc_cityscapes"][name],  # phase 19, asserted 0
+            # phases 21, 21v, 22, 22s (DeepLab V3+ and V3, PointRend R-CNN and semantic), asserted 0
+            "launches_deeplab_pointrend": head_launches["slice16"][name],
             "launches_inference": inference[name], "launches_evaluation": evaluation[name],
             "launches_training": training[name], "launches_train_eval": train_eval[name],
             "launches_bench": bench_launches[name],
@@ -4211,7 +4651,9 @@ def main() -> int:
         "proposal files, predict_fn, train_net's evaluations), LVIS Mask R-CNN (phase 18: requests, batch 1 and 16, "
         "the training's proposals, the bench's train steps, LVISEvaluator), Faster R-CNN on VOC and Mask R-CNN on "
         "Cityscapes (phase 19: their evaluations), Panoptic FPN R50 and the dconv Cascade GN Panoptic FPN R101 "
-        "(phase 20: requests, batch 1 and 16, the training's proposals, the bench, train_net; none on Semantic FPN)",
+        "(phase 20: requests, batch 1 and 16, the training's proposals, the bench, train_net; none on Semantic FPN), "
+        "PointRend R-CNN (phase 22: requests, batch 1 and 16, the training's proposals, its train steps, train_net; "
+        "none on DeepLab or PointRend's semantic FPN)",
         "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
         "launches_mask_rcnn": head_nms["mask"], "launches_keypoint_rcnn": head_nms["keypoint"],
         "launches_cascade_rcnn": head_nms["cascade"], "launches_c4_rcnn": head_nms["c4"],
@@ -4220,6 +4662,7 @@ def main() -> int:
         "launches_lvis_rcnn": head_nms["lvis"], "launches_voc_cityscapes_rcnn": head_nms["voc_cityscapes"],
         "launches_panoptic_fpn": head_nms["panoptic"], "launches_semantic_fpn": head_nms["semantic"],
         "launches_panoptic_dconv_cascade_gn": head_nms["panoptic_dconv"],
+        "launches_pointrend_rcnn": head_nms["pointrend_rcnn"],
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,

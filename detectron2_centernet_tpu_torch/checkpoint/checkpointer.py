@@ -5,9 +5,12 @@
 A checkpoint is one file ``<name>.pth`` holding ``{"model": state_dict,
 "optimizer": state_dict, "scheduler": state_dict, "iteration": int}``, with a
 ``last_checkpoint`` file naming the newest. ``resume_or_load`` resumes from
-it, or loads weights alone from ``MODEL.WEIGHTS``: a reference ``.pth`` (its
-keys are the port's), or a JAX tree saved as a state dict through
-``checkpoint/from_jax.py::state_dict_from_jax``.
+it, or loads weights alone from ``MODEL.WEIGHTS``: a checkpoint of the same
+network (the port's, a reference ``.pth`` with its keys, a JAX tree saved
+through ``checkpoint/from_jax.py::state_dict_from_jax``) strictly; any other
+``.pth`` or ``.pkl`` (an ImageNet trunk, a partial checkpoint) aligned by
+shape and name as the JAX package's trainer aligns it, its ``params`` and
+``batch_stats`` apart (``checkpoint/torch_import.py``).
 """
 
 import logging
@@ -15,6 +18,8 @@ import os
 from typing import Optional
 
 import torch
+
+from .torch_import import load_model_weights, own_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -50,16 +55,19 @@ class Checkpointer:
     def load(self, path: str, weights_only: bool = False) -> int:
         """Load ``path`` into the model (and, unless ``weights_only``, the
         optimizer and scheduler); returns the iteration to start from (0 for
-        weights alone). A bare state dict, or one under "model" or
-        "state_dict", with or without a DataParallel "module." prefix."""
-        data = torch.load(path, map_location="cpu", weights_only=True)
-        state = data
-        for wrapper in ("model", "state_dict"):
-            if isinstance(state, dict) and wrapper in state:
-                state = state[wrapper]
-                break
-        self.model.load_state_dict({k.removeprefix("module."): v for k, v in state.items()})
-        if weights_only or "iteration" not in data:
+        weights alone). A checkpoint of this network (a bare state dict, or
+        one under "model" or "state_dict", with or without a DataParallel
+        "module." prefix) loads strictly; with ``weights_only`` any other
+        file is aligned (``torch_import.load_model_weights``)."""
+        if weights_only:
+            data = load_model_weights(self.model, path, per_collection=True)
+        else:
+            data = torch.load(path, map_location="cpu", weights_only=True)
+            state = own_checkpoint(self.model, data)
+            if state is None:
+                raise ValueError(f"{path} is not a checkpoint of this network: resume takes the port's own")
+            self.model.load_state_dict(state)
+        if weights_only or not isinstance(data, dict) or "iteration" not in data:
             return 0
         if self.optimizer is not None and "optimizer" in data:
             self.optimizer.load_state_dict(data["optimizer"])

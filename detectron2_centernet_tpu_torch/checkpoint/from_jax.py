@@ -66,7 +66,8 @@ from typing import Container, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["canonical_dla_key", "canonical_key", "state_dict_from_jax", "torch_key"]
+__all__ = ["canonical_dla_key", "canonical_key", "jax_shape", "key_options", "port_layout", "state_dict_from_jax",
+           "torch_key"]
 
 _LEAF = {"weight": "kernel", "bias": "bias", "running_mean": "mean", "running_var": "var"}
 _BN_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
@@ -165,8 +166,9 @@ def _trunk_to_flax(body, norm: str):
     (flax tokens after ``backbone/trunk``, whether it is a normalization),
     or None."""
     head = body[0]
-    if head == "stem" and len(body) >= 2 and body[1] == "conv1":  # ResNet stem
-        return (["stem", "conv1_norm", norm], True) if body[2:] == ["norm"] else (["stem", "conv1"], False)
+    if head == "stem" and len(body) >= 2 and re.fullmatch(r"conv[123]", body[1]):  # ResNet / DeepLab stem
+        conv = body[1]
+        return (["stem", conv + "_norm", norm], True) if body[2:] == ["norm"] else (["stem", conv], False)
     m = re.fullmatch(r"res(\d)", head)
     if m and len(body) >= 3:
         block = f"res{m.group(1)}_block{body[1]}"
@@ -199,7 +201,7 @@ def _trunk_to_torch(body):
     → the torch module path after ``backbone``."""
     head = body[0]
     if head == "stem":
-        return "stem.conv1.norm" if len(body) == 3 else "stem.conv1"
+        return f"stem.{body[1].removesuffix('_norm')}" + (".norm" if body[1].endswith("_norm") else "")
     m = re.fullmatch(r"res(\d)_block(\d+)", head)
     if m:
         conv = body[1].removesuffix("_norm")
@@ -224,10 +226,12 @@ def _trunk_to_torch(body):
 _RETINA_TOWERS = {"cls_subnet": "cls_tower", "bbox_subnet": "box_tower"}
 _RCNN_OWNERS = {("proposal_generator", "rpn_head"): "rpn_head", ("roi_heads", "box_head"): "box_head",
                 ("roi_heads", "box_predictor"): "box_predictor", ("roi_heads", "mask_head"): "mask_head",
-                ("roi_heads", "keypoint_head"): "keypoint_head"}
+                ("roi_heads", "keypoint_head"): "keypoint_head", ("roi_heads", "mask_point_head"): "point_head"}
 _RCNN_MODULES = {"rpn_head": r"conv|objectness_logits|anchor_deltas", "box_head": r"(conv|fc)\d+",
-                 "box_predictor": r"cls_score|bbox_pred", "mask_head": r"mask_fcn\d+|deconv|predictor",
-                 "keypoint_head": r"conv_fcn\d+|score_lowres"}
+                 "box_predictor": r"cls_score|bbox_pred",
+                 "mask_head": r"mask_fcn\d+|deconv|predictor|reduce_(channel|spatial)_dim_conv|coarse_mask_fc\d+|"
+                              r"prediction",
+                 "keypoint_head": r"conv_fcn\d+|score_lowres", "point_head": r"fc\d+|predictor"}
 
 
 def _rcnn_to_flax(body):
@@ -253,18 +257,56 @@ def _res5_head_to_flax(body, norm: str):
     return None
 
 
+_ASPP_BRANCHES = ["conv1x1", "dilated0", "dilated1", "dilated2"]
+
+
 def _sem_seg_to_flax(body, owner: str):
-    """The sem-seg head (``sem_seg_head.{f}.{i}[.norm]``, ``.predictor``;
-    its towers' convs at the even indices, the upsamples between) →
-    (flax tokens under ``owner``, whether it is the norm), or None."""
-    if body[0] != "sem_seg_head":
+    """The sem-seg heads (torch tokens) → (flax tokens under ``owner``,
+    whether it is a norm), or None: Semantic FPN's towers
+    (``sem_seg_head.{f}.{i}[.norm]``, the convs at the even indices, the
+    upsamples between) and ``predictor``; the DeepLab heads' ASPP
+    (``aspp.convs.{0-3}``, the pooling branch's ``aspp.convs.4.1``,
+    ``aspp.project``), ``low_level_proj`` and ``decoder{i}``; PointRend's
+    ``coarse_sem_seg_head.<a coarse head's key>`` (flax ``coarse``) and
+    ``point_head.{fc<i>, predictor}``."""
+    if body[0] != "sem_seg_head" or len(body) < 2:
         return None
-    if body[1:] == ["predictor"]:
-        return [owner, "predictor"], False
+    if body[1] == "coarse_sem_seg_head":
+        inner = _sem_seg_to_flax(["sem_seg_head"] + body[2:], owner)
+        return ([owner, "coarse"] + inner[0][1:], inner[1]) if inner else None
+    if body[1:] == ["predictor"] or (len(body) == 2 and re.fullmatch(r"low_level_proj|decoder\d", body[1])):
+        return [owner, body[1]], False
+    if len(body) == 3 and body[1] == "point_head" and re.fullmatch(r"fc\d+|predictor", body[2]):
+        return [owner, "point_head", body[2]], False
+    if body[1:] == ["aspp", "project"]:
+        return [owner, "aspp", "project"], False
+    if body[1:3] == ["aspp", "convs"] and (body[3:] in (["0"], ["1"], ["2"], ["3"]) or body[3:] == ["4", "1"]):
+        branch = "image_pool" if body[3] == "4" else _ASPP_BRANCHES[int(body[3])]
+        return [owner, "aspp", branch], False
     if len(body) in (3, 4) and re.fullmatch(r"p\d", body[1]) and body[2].isdigit() and int(body[2]) % 2 == 0 \
             and body[3:] in ([], ["norm"]):
         k = int(body[2]) // 2
         return ([owner, f"{body[1]}_gn{k}"], True) if body[3:] else ([owner, f"{body[1]}_conv{k}"], False)
+    return None
+
+
+def _sem_seg_to_torch(body) -> Optional[str]:
+    """The inverse of ``_sem_seg_to_flax`` for flax tokens after the head's
+    owner: the torch module path after ``sem_seg_head.``, or None."""
+    if body[0] == "coarse":
+        inner = _sem_seg_to_torch(body[1:])
+        return f"coarse_sem_seg_head.{inner}" if inner else None
+    m = re.fullmatch(r"(p\d)_(conv|gn)(\d+)", body[0]) if len(body) == 1 else None
+    if m:  # Semantic FPN's towers
+        return f"{m.group(1)}.{2 * int(m.group(3))}" + (".norm" if m.group(2) == "gn" else "")
+    if len(body) == 1 and re.fullmatch(r"predictor|low_level_proj|decoder\d", body[0]):
+        return body[0]
+    if len(body) == 2 and body[0] == "point_head":
+        return f"point_head.{body[1]}"
+    if len(body) == 2 and body[0] == "aspp":
+        if body[1] == "project":
+            return "aspp.project"
+        return "aspp.convs.4.1" if body[1] == "image_pool" else f"aspp.convs.{_ASPP_BRANCHES.index(body[1])}"
     return None
 
 
@@ -354,13 +396,9 @@ def torch_key(path: str, towers: bool = True) -> str:
         return f"{prefix}{_trunk_to_torch(body[2:])}.{_FLAX_LEAF[leaf]}"
     if len(body) > 2 and body[0] == "backbone" and re.fullmatch(r"stem|res\d_block\d+", body[1]):  # R-CNN's trunk
         return f"backbone.{_trunk_to_torch(body[1:])}.{_FLAX_LEAF[leaf]}"
-    m = re.fullmatch(r"(p\d)_(conv|gn)(\d+)", body[1]) if len(body) == 2 and body[0] in ("head", "sem_seg_head") \
-        else None
-    if m:  # the sem-seg head's towers
-        norm_suffix = ".norm" if m.group(2) == "gn" else ""
-        return f"sem_seg_head.{m.group(1)}.{2 * int(m.group(3))}{norm_suffix}.{_FLAX_LEAF[leaf]}"
-    if body in (["head", "predictor"], ["sem_seg_head", "predictor"]):
-        return f"sem_seg_head.predictor.{_FLAX_LEAF[leaf]}"
+    sem = _sem_seg_to_torch(body[1:]) if len(body) > 1 and body[0] in ("head", "sem_seg_head") else None
+    if sem is not None:  # the sem-seg heads
+        return f"sem_seg_head.{sem}.{_FLAX_LEAF[leaf]}"
     owners = {v: ".".join(k) for k, v in _RCNN_OWNERS.items()}
     if len(body) == 2 and body[0] in owners:
         return f"{owners[body[0]]}.{body[1]}.{_FLAX_LEAF[leaf]}"
@@ -423,13 +461,75 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _flattened_channels(flat: Mapping[str, np.ndarray], owner: str) -> int:
+def _flattened_channels(shapes: Mapping[str, tuple], owner: str) -> int:
     """The width of the pooled map the box head ``owner`` (``box_head``, or
     Cascade's ``box_head_stage{t}``) flattens: its last conv's output, else
     the RPN head's input (the width of the map the rois pool from)."""
-    convs = sorted((int(m.group(1)), p) for p in flat
+    convs = sorted((int(m.group(1)), p) for p in shapes
                    if (m := re.fullmatch(rf"params/{owner}/conv(\d+)/kernel", p)))
-    return flat[convs[-1][1]].shape[-1] if convs else flat["params/rpn_head/conv/kernel"].shape[2]
+    return shapes[convs[-1][1]][-1] if convs else shapes["params/rpn_head/conv/kernel"][2]
+
+
+def _fc_input_channels(key: str, shapes: Mapping[str, tuple]) -> Optional[int]:
+    """For an fc layer that reads a pooled map flattened (NHWC in the JAX
+    package, NCHW here), the map's width; None for any other key: the box
+    head's ``fc1`` (each Cascade stage's too) and ``CoarseMaskHead``'s
+    ``coarse_mask_fc1``, which reads its ``reduce_spatial_dim_conv``."""
+    fc1 = re.fullmatch(r"roi_heads\.box_head\.(?:(\d+)\.)?fc1\.weight", key)
+    if fc1:
+        return _flattened_channels(shapes, "box_head" if fc1.group(1) is None else f"box_head_stage{fc1.group(1)}")
+    if key == "roi_heads.mask_head.coarse_mask_fc1.weight":
+        return shapes["params/mask_head/reduce_spatial_dim_conv/kernel"][-1]
+    return None
+
+
+def _transposed_conv(key: str) -> bool:
+    """A ConvTranspose2d whose kernel crosses from JAX flipped, (k, k, Cin,
+    Cout) → (Cin, Cout, k, k)."""
+    return key.startswith("deconv_layers.") or key == "roi_heads.mask_head.deconv.weight"
+
+
+def port_layout(key: str, arr: np.ndarray, shapes: Mapping[str, tuple]) -> np.ndarray:
+    """A leaf in the JAX package's layout → the port's, f32, for the port's
+    ``key``; ``shapes`` maps the tree's flax paths to their shapes (the
+    flattening fc layers read the width of the map they flatten)."""
+    arr = np.array(arr, np.float32)  # a writable copy
+    if arr.ndim == 4:
+        if key.split(".")[-2].startswith("up_"):
+            return np.transpose(arr[::-1, ::-1], (3, 2, 0, 1))  # (2f, 2f, 1, C) → (C, 1, 2f, 2f)
+        if _transposed_conv(key):
+            return np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))  # (k, k, Cin, Cout) → (Cin, Cout, k, k)
+        # HWIO → OIHW; the keypoint head's score_lowres (4, 4, K, C) → (C, K, 4, 4), which flax flips itself
+        return np.transpose(arr, (3, 2, 0, 1))
+    if arr.ndim == 2:
+        c = _fc_input_channels(key, shapes)
+        if c is not None:
+            side = int(round((arr.shape[0] // c) ** 0.5))
+            arr = arr.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(arr.shape)  # HWC → CHW rows
+        return arr.T  # (I, O) → (O, I)
+    return arr
+
+
+def jax_shape(key: str, shape: tuple) -> tuple:
+    """The shape of the port's ``key`` in the JAX package's layout (the
+    inverse of ``port_layout``'s transposes)."""
+    if len(shape) == 4:
+        o, i, h, w = shape
+        return (h, w, o, i) if _transposed_conv(key) else (h, w, i, o)
+    return tuple(shape[::-1]) if len(shape) == 2 else tuple(shape)
+
+
+def key_options(model: torch.nn.Module) -> dict:
+    """``canonical_key``'s options for a port network (``CenterNetModel``,
+    ``RCNNModel``, ``SemSegModel``, ...), read off its modules: the trunk's
+    normalization, the flax module of a bare trunk, the deformable blocks and
+    the sem-seg head's owner."""
+    names = dict(model.named_modules())
+    gn = any(isinstance(m, torch.nn.GroupNorm) and re.search(r"(^|\.)(stem|res\d)\.", n) for n, m in names.items())
+    deform = {f"{m.group(1)}_block{m.group(2)}" for n, mod in names.items()
+              if type(mod).__name__ == "DeformBottleneckBlock" and (m := re.search(r"(res\d)\.(\d+)$", n))}
+    return {"norm": "gn" if gn else "bn", "trunk": "trunk" if type(model).__name__ == "CenterNetModel" else "",
+            "deform": deform, "sem_seg": "head" if type(model).__name__ == "SemSegModel" else "sem_seg_head"}
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -440,9 +540,12 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     flat = _flatten(variables)
     towers = any("_tower/" in p for p in flat)
     norm = "gn" if any("_norm/gn/" in p for p in flat) else "bn"
-    trunk = "" if any(re.match(r"params/backbone/(stem|res\d_block\d+)/", p) for p in flat) else "trunk"
+    trunk = "" if any(re.match(r"\w+/backbone/(stem|res\d_block\d+)/", p) for p in flat) else "trunk"
     deform = {p.split("/")[-2] for p in flat if p.endswith("/conv2_kernel")}
-    sem_seg = "head" if "params/head/predictor/kernel" in flat else "sem_seg_head"
+    # SemanticSegmentor's head is "head", as RetinaNet's: RetinaNet's holds only its towers and predictors
+    sem_seg = "head" if any(re.match(r"params/head/(?!(cls|box)_tower\d|cls_score/|bbox_pred/)", p)
+                            for p in flat) else "sem_seg_head"
+    shapes = {p: a.shape for p, a in flat.items()}
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
         key = torch_key(path, towers)
@@ -451,23 +554,7 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                              f"{canonical_key(key, norm, trunk, deform, sem_seg)}")
         if key in out:
             raise ValueError(f"two leaves map to {key}")
-        arr = np.array(arr, np.float32)  # a writable copy
-        if arr.ndim == 4:
-            if key.split(".")[-2].startswith("up_"):
-                arr = np.transpose(arr[::-1, ::-1], (3, 2, 0, 1))  # (2f, 2f, 1, C) → (C, 1, 2f, 2f)
-            elif key.startswith("deconv_layers.") or key == "roi_heads.mask_head.deconv.weight":
-                arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))  # (k, k, Cin, Cout) → (Cin, Cout, k, k)
-            elif key == "roi_heads.keypoint_head.score_lowres.weight":
-                arr = np.transpose(arr, (3, 2, 0, 1))  # (4, 4, K, C) → (C, K, 4, 4), flax flips it itself
-            else:
-                arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
-        elif arr.ndim == 2:
-            fc1 = re.fullmatch(r"roi_heads\.box_head\.(?:(\d+)\.)?fc1\.weight", key)
-            if fc1:
-                c = _flattened_channels(flat, "box_head" if fc1.group(1) is None else f"box_head_stage{fc1.group(1)}")
-                side = int(round((arr.shape[0] // c) ** 0.5))
-                arr = arr.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(arr.shape)  # HWC → CHW rows
-            arr = arr.T  # (I, O) → (O, I)
+        arr = port_layout(key, arr, shapes)
         out[key] = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)  # 0-d stays 0-d
         if key.endswith(".running_var"):  # a FrozenBatchNorm drops it when it loads
             out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)

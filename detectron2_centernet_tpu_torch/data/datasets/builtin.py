@@ -7,8 +7,8 @@ COCO panoptic "separated" and Cityscapes, each rooted at
 a file is read only when its dataset is first loaded, so a name whose files
 are missing registers all the same and raises when loaded
 (``synthetic.ensure_synthetic_datasets`` replaces it). The panoptic names'
-sem-seg half and the Cityscapes sem-seg names evaluate with segmentation
-(ROADMAP A15).
+sem-seg half evaluates with ``SemSegEvaluator``, the Cityscapes sem-seg
+names with ``CityscapesSemSegEvaluator``.
 """
 
 import os

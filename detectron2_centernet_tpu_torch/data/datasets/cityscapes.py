@@ -8,7 +8,7 @@ A ``<class>group`` label is a crowd region of its class; polygons with
 fewer than 3 points are dropped; labels outside the 8 thing classes are
 left out. The image id is the image's file name, a string, and stays one
 (ROADMAP C22). The sem-seg records name their ``*_gtFine_labelTrainIds.png``
-rasters; their evaluator waits for segmentation (ROADMAP A15).
+rasters, which ``CityscapesSemSegEvaluator`` reads.
 """
 
 import glob

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import Checkpointer, PeriodicCheckpointer
+from ..checkpoint.torch_import import load_model_weights
 from ..config import CfgNode
 from ..data import (
     build_detection_test_loader,
@@ -105,14 +106,14 @@ def launch(main_func: Callable, num_gpus_per_machine: int = 1, num_machines: int
 
 
 def load_weights(model: torch.nn.Module, path: str) -> None:
-    """Load a torch checkpoint whose keys are the reference fork's (a bare
-    state dict, or one under "model" or "state_dict"; a DataParallel
-    "module." prefix is dropped). Every key must match."""
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    for wrapper in ("model", "state_dict"):
-        if isinstance(data, dict) and wrapper in data:
-            data = data[wrapper]
-    model.load_state_dict({k.removeprefix("module."): v for k, v in data.items()})
+    """``MODEL.WEIGHTS`` for the predictor: a checkpoint of this network (a
+    bare state dict, or one under "model" or "state_dict"; a DataParallel
+    "module." prefix dropped) loads strictly; any other ``.pth`` or ``.pkl``
+    (an ImageNet trunk, a partial checkpoint) is aligned by shape and name
+    as the JAX package's predictor aligns it, one tree
+    (``checkpoint/torch_import.py``), and what nothing matches keeps its
+    init."""
+    load_model_weights(model, path, per_collection=False)
 
 
 class DefaultPredictor:

@@ -1,10 +1,10 @@
 """Evaluation of the port (counterpart of the JAX package's
 ``evaluation/``): COCO (bbox, segm, keypoints), LVIS (bbox), Pascal VOC
 (bbox), Cityscapes instances (segm), semantic segmentation (mIoU, fwIoU,
-mACC, pACC) and Panoptic Quality. The Cityscapes sem-seg evaluator waits for
-DeepLab (ROADMAP A15.2), the rotated-COCO one for rotated boxes (A16)."""
+mACC, pACC), Cityscapes' sem-seg IoU and Panoptic Quality. The rotated-COCO
+evaluator waits for rotated boxes (ROADMAP A16)."""
 
-from .cityscapes_evaluation import CityscapesInstanceEvaluator
+from .cityscapes_evaluation import CityscapesInstanceEvaluator, CityscapesSemSegEvaluator
 from .coco_evaluation import COCOEvaluator, instances_to_coco_json
 from .cocoeval_np import COCOEval
 from .evaluator import DatasetEvaluator, DatasetEvaluators, inference_on_dataset
@@ -18,6 +18,7 @@ __all__ = [
     "COCOEval",
     "COCOEvaluator",
     "CityscapesInstanceEvaluator",
+    "CityscapesSemSegEvaluator",
     "DatasetEvaluator",
     "DatasetEvaluators",
     "LVISEvaluator",

@@ -17,8 +17,21 @@ computed in process from the dataset dicts, no files written):
 The ground-truth polygons are filled at the prediction's image size by the
 port's ``polygons_to_bitmask`` (cv2's ``fillPoly`` without cv2). The images
 are keyed by the dataset's own ids, the image file names (ROADMAP C22).
-The sem-seg evaluator waits for DeepLab (ROADMAP A15.2). The port runs in
-one process, so nothing is gathered across ranks.
+
+``CityscapesSemSegEvaluator`` (JAX ``:212-266``): the "IoU classes" of
+cityscapesscripts' pixel-level protocol from one confusion matrix over the
+pixels whose ground truth is not ``ignore_label``: per class tp / (tp + fp
++ fn), NaN for a class that is neither predicted nor in the ground truth,
+their mean ``IoU`` and each class's ``IoU-<name>``, in percent. The ground
+truth is ``sem_seg`` of the evaluator's input when it carries one (JAX
+reads it only there, and its evaluation loop does not pass it: through its
+``train_net`` the evaluator raises KeyError, ROADMAP C28), else the
+record's ``sem_seg`` array or ``sem_seg_file_name`` PNG (the
+``*_gtFine_labelTrainIds.png`` of ``load_cityscapes_semantic``), as
+``SemSegEvaluator`` reads it. The confusion matrix's index is taken in
+int64: JAX's ``gt * num_classes + pred`` keeps a uint8 label map's dtype
+and wraps from trainId 14 on (C28). The port runs in one process, so nothing is
+gathered across ranks.
 """
 
 import logging
@@ -33,7 +46,7 @@ from .evaluator import DatasetEvaluator
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["CityscapesInstanceEvaluator"]
+__all__ = ["CityscapesInstanceEvaluator", "CityscapesSemSegEvaluator"]
 
 _OVERLAPS = np.arange(0.5, 1.0, 0.05)
 _MIN_REGION_SIZE = 100  # the official minRegionSizes[0]
@@ -145,4 +158,55 @@ class CityscapesInstanceEvaluator(DatasetEvaluator):
         for c, name in enumerate(classes):
             res["segm"][f"AP-{name}"] = nanmean(ap_per_cls[c]) * 100.0
         logger.info("Cityscapes instance AP: %.2f  AP50: %.2f", ap, ap50)
+        return res
+
+
+class CityscapesSemSegEvaluator(DatasetEvaluator):
+    def __init__(self, dataset_name: str, num_classes: int = 19, ignore_label: int = 255) -> None:
+        self._dataset_name = dataset_name
+        self._metadata = MetadataCatalog.get(dataset_name)
+        self._num_classes = int(len(self._metadata.get("stuff_classes") or []) or num_classes)
+        self._ignore = int(ignore_label)
+        self._gt_lookup = None
+        self.reset()
+
+    def reset(self) -> None:
+        n = self._num_classes
+        self._conf = np.zeros((n, n), np.int64)
+
+    def _gt_for(self, inp: dict) -> np.ndarray:
+        if "sem_seg" in inp:
+            return np.asarray(inp["sem_seg"])
+        if self._gt_lookup is None:
+            self._gt_lookup = {d["image_id"]: d for d in DatasetCatalog.get(self._dataset_name)}
+        record = self._gt_lookup[inp["image_id"]]
+        if "sem_seg" in record:
+            return np.asarray(record["sem_seg"])
+        from ..data.detection_utils import read_sem_seg
+
+        return read_sem_seg(record["sem_seg_file_name"])
+
+    def process(self, inputs: List[dict], outputs: List[dict]) -> None:
+        n = self._num_classes
+        for inp, out in zip(inputs, outputs):
+            if "sem_seg" not in out:
+                continue
+            pred = np.asarray(out["sem_seg"])
+            if pred.ndim == 3:  # logits (C, H, W) or (H, W, C)
+                pred = pred.argmax(0 if pred.shape[0] < pred.shape[-1] else -1)
+            gt = self._gt_for(inp)
+            valid = gt != self._ignore
+            idx = gt[valid].astype(np.int64) * n + pred[valid]
+            self._conf += np.bincount(idx, minlength=n ** 2).reshape(n, n)
+
+    def evaluate(self) -> Optional[Dict]:
+        tp = np.diag(self._conf).astype(np.float64)
+        union = (self._conf.sum(0) + self._conf.sum(1) - np.diag(self._conf)).astype(np.float64)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            iou = np.where(union > 0, tp / union, np.nan)
+        miou = float(np.nanmean(iou)) * 100.0
+        res = OrderedDict({"sem_seg": {"IoU": miou}})
+        for i, name in enumerate((self._metadata.get("stuff_classes") or [])[: self._num_classes]):
+            res["sem_seg"][f"IoU-{name}"] = float(iou[i]) * 100.0
+        logger.info("Cityscapes mIoU: %.2f", miou)
         return res

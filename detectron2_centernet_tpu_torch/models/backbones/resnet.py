@@ -19,8 +19,16 @@ C12; the reference sets ``requires_grad=False`` instead).
 CenterNet reads ``res4`` through its deconv neck (``meta_arch/centernet.py``):
 ``build_resnet_backbone`` and ``build_resnet_deconv_backbone`` both give
 the trunk, the JAX package's ``DeconvNeck`` and ``ResNetDeconv`` compute the
-same network. Not ported here: the DeepLab stem and dilated res4 (ROADMAP
-A15.2); they raise.
+same network.
+
+DeepLab's trunk (JAX ``DeepLabStem`` :77-96, ``ResNet.__call__`` :292-316,
+``build_resnet_deeplab_backbone`` :369-376): ``STEM_TYPE deeplab`` is three
+3x3 convs with their norms (``stem.conv1`` stride 2 and ``stem.conv2`` at
+half the stem's width, ``stem.conv3`` at its width; the reference's keys)
+before the max pool; ``RES4_DILATION`` and ``RES5_DILATION`` > 1 keep
+their stage's first stride at 1; ``RES5_MULTI_GRID`` (other than (1, 1,
+1)) gives res5's block b the dilation ``RES5_DILATION · grid[b]`` (the
+last entry for later blocks). A dilated 3x3 pads by its dilation, as JAX's.
 """
 
 from typing import Dict, Optional, Sequence
@@ -33,8 +41,9 @@ from ...config import CfgNode
 from ..layers import DeformConvNorm, ZeroInitConv2d, get_norm, ieee_f32
 from ..registry import BACKBONE_REGISTRY
 
-__all__ = ["RESNET_SPECS", "BasicBlock", "BasicStem", "BottleneckBlock", "ConvNorm", "DeformBottleneckBlock",
-           "ResNet", "build_resnet", "build_resnet_backbone", "build_resnet_deconv_backbone"]
+__all__ = ["RESNET_SPECS", "BasicBlock", "BasicStem", "BottleneckBlock", "ConvNorm", "DeepLabStem",
+           "DeformBottleneckBlock", "ResNet", "build_resnet", "build_resnet_backbone", "build_resnet_deconv_backbone",
+           "build_resnet_deeplab_backbone"]
 
 # depth -> (block type, blocks per stage res2..res5)
 RESNET_SPECS = {
@@ -69,6 +78,22 @@ class BasicStem(nn.Module):
 
     def forward(self, x):
         return F.max_pool2d(F.relu_(self.conv1(x)), 3, 2, 1)
+
+
+class DeepLabStem(nn.Module):
+    """Three 3x3 convs with norm and ReLU (stride 2, then 1, 1; ``cout``/2,
+    ``cout``/2, ``cout`` channels) + 3x3 s2 max pool (JAX ``DeepLabStem``)."""
+
+    def __init__(self, cin: int = 3, cout: int = 128, norm: str = "BN"):
+        super().__init__()
+        half = cout // 2
+        self.conv1 = ConvNorm(cin, half, 3, stride=2, padding=1, norm=norm)
+        self.conv2 = ConvNorm(half, half, 3, stride=1, padding=1, norm=norm)
+        self.conv3 = ConvNorm(half, cout, 3, stride=1, padding=1, norm=norm)
+
+    def forward(self, x):
+        x = F.relu_(self.conv3(F.relu_(self.conv2(F.relu_(self.conv1(x))))))
+        return F.max_pool2d(x, 3, 2, 1)
 
 
 class BasicBlock(nn.Module):
@@ -163,12 +188,13 @@ class ResNet(nn.Module):
                  width_per_group: int = 64, stem_out_channels: int = 64, res2_out_channels: int = 256,
                  stride_in_1x1: bool = True, res5_dilation: int = 1, norm: str = "FrozenBN",
                  freeze_at: int = 0, deform_on_per_stage: Sequence[bool] = (False,) * 4,
-                 deform_modulated: bool = False):
+                 deform_modulated: bool = False, stem_type: str = "basic", res4_dilation: int = 1,
+                 res5_multi_grid: Sequence[int] = (1, 1, 1)):
         super().__init__()
         block_type, stage_blocks = RESNET_SPECS[depth]
         self.out_features = tuple(out_features)
         self.freeze_at = freeze_at
-        self.stem = BasicStem(3, stem_out_channels, norm)
+        self.stem = (DeepLabStem if stem_type == "deeplab" else BasicStem)(3, stem_out_channels, norm)
         self.out_feature_channels: Dict[str, int] = {"stem": stem_out_channels}
         self.out_feature_strides: Dict[str, int] = {"stem": 4}
         feature_stride = 4
@@ -179,11 +205,13 @@ class ResNet(nn.Module):
             stage = idx + 2
             if stage > max_stage:
                 break
-            dilation = res5_dilation if stage == 5 else 1
+            dilation = {4: res4_dilation, 5: res5_dilation}.get(stage, 1)
             first_stride = 1 if stage == 2 or dilation > 1 else 2
             layers = []
             for b in range(blocks):
                 stride = first_stride if b == 0 else 1
+                if stage == 5 and tuple(res5_multi_grid) != (1, 1, 1):  # DeepLab's multi-grid
+                    dilation = res5_dilation * int(res5_multi_grid[min(b, len(res5_multi_grid) - 1)])
                 if block_type == "basic":  # the JAX BasicBlock takes no dilation
                     layers.append(BasicBlock(cin, cout, stride, norm))
                 elif deform_on_per_stage[idx]:
@@ -225,17 +253,16 @@ class ResNet(nn.Module):
 def build_resnet(cfg: CfgNode, out_features: Optional[Sequence[str]] = None) -> ResNet:
     """The trunk of ``cfg.MODEL.RESNETS`` and ``MODEL.BACKBONE.FREEZE_AT``."""
     r = cfg.MODEL.RESNETS
-    if r.STEM_TYPE != "basic" or r.RES4_DILATION != 1 or tuple(r.RES5_MULTI_GRID) != (1, 1, 1):
-        raise NotImplementedError(
-            "the DeepLab trunk (STEM_TYPE deeplab, RES4_DILATION, RES5_MULTI_GRID) is not ported yet "
-            "(ROADMAP A15.2)")
+    if r.STEM_TYPE not in ("basic", "deeplab"):
+        raise ValueError(f"unknown RESNETS.STEM_TYPE {r.STEM_TYPE!r}: basic or deeplab")
     return ResNet(
         depth=r.DEPTH, out_features=tuple(out_features or r.OUT_FEATURES), num_groups=r.NUM_GROUPS,
         width_per_group=r.WIDTH_PER_GROUP, stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS, stride_in_1x1=r.STRIDE_IN_1X1,
         res5_dilation=r.RES5_DILATION, norm=r.NORM, freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
         deform_on_per_stage=tuple(bool(d) for d in r.DEFORM_ON_PER_STAGE),
-        deform_modulated=bool(r.DEFORM_MODULATED),
+        deform_modulated=bool(r.DEFORM_MODULATED), stem_type=str(r.STEM_TYPE),
+        res4_dilation=int(r.RES4_DILATION), res5_multi_grid=tuple(int(g) for g in r.RES5_MULTI_GRID),
     )
 
 
@@ -253,5 +280,10 @@ def build_resnet_deconv_backbone(cfg: CfgNode) -> ResNet:
 
 @BACKBONE_REGISTRY.register()
 def build_resnet_deeplab_backbone(cfg: CfgNode) -> ResNet:
-    raise NotImplementedError("build_resnet_deeplab_backbone (DeepLabStem, dilated res4/res5) is not "
-                              "ported yet (ROADMAP A15.2)")
+    """DeepLab's trunk (JAX ``build_resnet_deeplab_backbone``): the config's
+    ResNet, which must take the DeepLab stem or a dilated res4 or res5."""
+    r = cfg.MODEL.RESNETS
+    if not (r.STEM_TYPE == "deeplab" or r.RES5_DILATION > 1 or r.RES4_DILATION > 1):
+        raise ValueError("build_resnet_deeplab_backbone needs RESNETS.STEM_TYPE deeplab or RES4_DILATION / "
+                         "RES5_DILATION > 1, as the JAX package asserts")
+    return build_resnet(cfg)

@@ -229,6 +229,27 @@ def get_norm(norm: str, channels: int):
     raise ValueError(f"Unknown norm: {norm!r}")
 
 
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling as the JAX package builds it
+    (``layers.py:326-354``): a 1x1 conv, three 3x3 convs at ``dilations``
+    (padding = dilation) and a 1x1 conv on the global mean, each with a bias
+    and a ReLU and no norm, concatenated in that order and projected by a
+    1x1 conv with a bias and a ReLU. The reference's keys: ``convs.{0-3}``,
+    the pooling branch ``convs.4`` (its conv ``convs.4.1``), ``project``."""
+
+    def __init__(self, cin: int, cout: int, dilations=(6, 12, 18)):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            [nn.Conv2d(cin, cout, 1)] + [nn.Conv2d(cin, cout, 3, padding=d, dilation=d) for d in dilations]
+            + [nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Conv2d(cin, cout, 1))])
+        self.project = nn.Conv2d(cout * (len(dilations) + 2), cout, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        branches = [F.relu(conv(x)) for conv in self.convs]
+        branches[-1] = branches[-1].expand(-1, -1, *x.shape[2:])
+        return F.relu(self.project(torch.cat(branches, 1)))
+
+
 def bilinear_kernel(f: int) -> np.ndarray:
     """(2f, 2f) bilinear interpolation stencil (reference fill_up_weights)."""
     size = 2 * f

@@ -31,7 +31,7 @@ from ..layers import ieee_f32, init_weights
 from ..registry import META_ARCH_REGISTRY
 from .rcnn import GeneralizedRCNN
 from .retinanet import RetinaNet
-from .semantic_seg import SemanticSegmentor, build_sem_seg_head, host_label_maps, sem_seg_loss
+from .semantic_seg import SemanticSegmentor, SemSegFPNHead, host_label_maps, sem_seg_loss
 
 __all__ = ["PanopticFPN", "combine_semantic_and_instance_outputs"]
 
@@ -50,7 +50,9 @@ class PanopticFPN(GeneralizedRCNN):
         self.combine_overlap_thresh = float(c.OVERLAP_THRESH)
         self.combine_stuff_area = int(c.STUFF_AREA_LIMIT)
         self.combine_conf_thresh = float(c.INSTANCES_CONFIDENCE_THRESH)
-        head = build_sem_seg_head(cfg, self.model.backbone.out_feature_channels[s.IN_FEATURES[0]])
+        # JAX's PanopticFPN builds SemSegFPNHead whatever SEM_SEG_HEAD.NAME says (panoptic_fpn.py:38)
+        head = SemSegFPNHead(tuple(s.IN_FEATURES), self.model.backbone.out_feature_channels[s.IN_FEATURES[0]],
+                             int(s.NUM_CLASSES), int(s.CONVS_DIM), int(s.COMMON_STRIDE))
         init_weights(head, torch.Generator().manual_seed(max(int(cfg.SEED), 0) + 1))  # JAX: fold_in(rng, 1)
         self.model.add_module("sem_seg_head", head.to(self.device).eval())
 

@@ -56,11 +56,13 @@ flatten (``retinanet.nhwc_flat``), so anchors run in ``grid_anchors``'
 
 Random draws: the RPN and ROI samplers draw uniforms, as the JAX package
 draws them from ``batch["rng"]``. Here they come from ``batch["draws"]``
-when given ({"rpn": (N, R), "roi_sub": (N, P'), "roi_tie": (N, P')}, as the
-tests hand in JAX's own), else from ``batch["generator"]`` (the step's
-``torch.Generator`` on the model's device, which ``SimpleTrainer`` seeds per
-step), in that order: rpn, roi_sub, roi_tie. A batch with neither
-raises.
+when given ({"rpn": (N, R), "roi_sub": (N, P'), "roi_tie": (N, P')} and for
+PointRend "point_cand" (N·S, k·P, 2) and "point_rand" (N·S, P - int(β·P),
+2), every sampled roi's, as the tests hand in JAX's own), else from
+``batch["generator"]`` (the step's ``torch.Generator`` on the model's
+device, which ``SimpleTrainer`` seeds per step), in that order: rpn,
+roi_sub, roi_tie, point_cand, point_rand (the foreground block's rois
+only). A batch with neither raises.
 
 Fast R-CNN (``MODEL.LOAD_PROPOSALS``, or ``PROPOSAL_GENERATOR.NAME``
 ``PrecomputedProposals``; JAX ``:534-541``, ``:752-770``): the proposals come
@@ -72,10 +74,26 @@ where it runs and gets a zero gradient: here its forward is skipped, and
 ``SimpleTrainer`` starts every gradient at 0, so weight decay and momentum
 move it as under optax.
 
-Not ported (each raises naming its ROADMAP item): PointRend (its mask heads
-included), DensePose and other ROI-head extensions, rotated proposals, and
-any other ``ROI_HEADS.NAME`` (the JAX package builds Res5ROIHeads for a name it does
-not know; the port raises).
+PointRend (JAX ``:184-205``, ``:333``, ``:361-371``, ``:661-701``,
+``:838-853``): with ``MODEL.MASK_ON`` and ``ROI_HEADS.NAME``
+``PointRendROIHeads`` (standard ROI heads), ``ROI_MASK_HEAD.POINT_HEAD_ON``
+or ``ROI_MASK_HEAD.NAME`` ``PointRendMaskHead``, a class-agnostic
+``PointHead`` (``roi_heads.mask_point_head``: one output, one coarse
+channel) refines the mask head's logits (``CoarseMaskHead`` when
+``ROI_MASK_HEAD.NAME`` names it, else the conv head). Its fine features are
+the rois pooled over ``ROI_HEADS.IN_FEATURES`` at twice
+``ROI_MASK_HEAD.POOLER_RESOLUTION``, as JAX's ``_pool`` does (the reference
+reads p2 alone). Training (``loss_mask_point``): per foreground-block roi,
+``sample_uncertain_points`` on its gt class's logits from its uniforms, the
+point head at those points against the gt crop sampled there (> 0.5), the
+mean BCE per roi over the foreground rois. Inference: ``refine_mask_with_
+points`` from the detection's class logits (7² → 224² in the COCO config's 5
+steps), whose sigmoid is ``masks``.
+
+Not ported (each raises naming its ROADMAP item): DensePose and other
+ROI-head extensions, rotated proposals, and any other ``ROI_HEADS.NAME`` or
+``ROI_MASK_HEAD.NAME`` (the JAX package builds Res5ROIHeads and the conv
+mask head for a name it does not know; the port raises).
 """
 
 import logging
@@ -97,7 +115,8 @@ from ..proposal_generator.rpn import StandardRPNHead, find_top_rpn_proposals, rp
 from ..registry import BACKBONE_REGISTRY, META_ARCH_REGISTRY
 from ..roi_heads.box_head import FastRCNNConvFCHead, FastRCNNOutputLayers
 from ..roi_heads.keypoint_head import KRCNNConvDeconvUpsampleHead, encode_keypoint_targets, keypoint_rcnn_loss
-from ..roi_heads.mask_head import MaskRCNNConvUpsampleHead, crop_gt_masks, mask_rcnn_loss
+from ..roi_heads.mask_head import CoarseMaskHead, MaskRCNNConvUpsampleHead, crop_gt_masks, mask_rcnn_loss
+from ..roi_heads.point_head import PointHead, point_sample, refine_mask_with_points, sample_uncertain_points
 from ..roi_heads.roi_heads import fast_rcnn_inference, fast_rcnn_losses, label_and_sample_proposals
 from .retinanet import RetinaNet, nhwc_flat
 
@@ -105,9 +124,11 @@ __all__ = ["GeneralizedRCNN", "ProposalNetwork", "RCNNModel", "cascade_relabel",
 
 logger = logging.getLogger(__name__)
 
-ROI_TYPES = {"StandardROIHeads": "standard", "CascadeROIHeads": "cascade", "Res5ROIHeads": "res5"}
+ROI_TYPES = {"StandardROIHeads": "standard", "PointRendROIHeads": "standard", "CascadeROIHeads": "cascade",
+             "Res5ROIHeads": "res5"}
 # ROI_HEADS.NAME -> the ROADMAP item that ports it
-QUEUED_ROI_HEADS = {"PointRendROIHeads": "A15.3", "DensePoseROIHeads": "A18", "RROIHeads": "A16"}
+QUEUED_ROI_HEADS = {"DensePoseROIHeads": "A18", "RROIHeads": "A16"}
+MASK_HEADS = ("MaskRCNNConvUpsampleHead", "CoarseMaskHead", "PointRendMaskHead")
 
 
 class RPN(nn.Module):
@@ -240,13 +261,19 @@ class RCNNModel(nn.Module):
         with ieee_f32(), self._autocast(pooled.device):
             return self.roi_heads.keypoint_head(pooled)
 
+    def point_predict(self, fine: torch.Tensor, coarse: torch.Tensor) -> torch.Tensor:
+        """PointRend's point head: fine (R, P, C) and coarse (R, P, 1) → f32
+        (R, P, 1) logits."""
+        with ieee_f32(), self._autocast(fine.device):
+            return self.roi_heads.mask_point_head(fine, coarse)
+
 
 def _check_supported(cfg: CfgNode, with_roi_heads: bool) -> None:
     m = cfg.MODEL
     queued = []
-    if m.MASK_ON and (m.ROI_MASK_HEAD.NAME != "MaskRCNNConvUpsampleHead" or m.ROI_MASK_HEAD.POINT_HEAD_ON):
-        queued.append(f"ROI_MASK_HEAD.NAME {m.ROI_MASK_HEAD.NAME} / POINT_HEAD_ON: PointRend's mask heads "
-                      "(ROADMAP A15.3)")
+    if with_roi_heads and m.MASK_ON and m.ROI_MASK_HEAD.NAME not in MASK_HEADS:
+        raise ValueError(f"unknown ROI_MASK_HEAD.NAME {m.ROI_MASK_HEAD.NAME!r}: the port builds {list(MASK_HEADS)} "
+                         "(the JAX package would build MaskRCNNConvUpsampleHead for it)")
     if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "PrecomputedProposals") or m.RPN.HEAD_NAME != "StandardRPNHead":
         queued.append(f"PROPOSAL_GENERATOR {m.PROPOSAL_GENERATOR.NAME} / RPN.HEAD_NAME {m.RPN.HEAD_NAME}: "
                       "rotated proposals (ROADMAP A16)")
@@ -332,8 +359,16 @@ class GeneralizedRCNN:
             self.pooler_sampling_ratio = 2
         self.mask_on = self.with_roi_heads and bool(cfg.MODEL.MASK_ON)
         self.keypoint_on = self.with_roi_heads and bool(cfg.MODEL.KEYPOINT_ON)
-        mh, kh = cfg.MODEL.ROI_MASK_HEAD, cfg.MODEL.ROI_KEYPOINT_HEAD
+        mh, kh, ph = cfg.MODEL.ROI_MASK_HEAD, cfg.MODEL.ROI_KEYPOINT_HEAD, cfg.MODEL.POINT_HEAD
         self.mask_pooler_resolution = int(mh.POOLER_RESOLUTION)
+        # PointRend (JAX :361-371)
+        self.point_rend_on = self.mask_on and (mh.NAME == "PointRendMaskHead" or bool(mh.POINT_HEAD_ON)
+                                               or rh.NAME == "PointRendROIHeads")
+        self.point_train_num = int(ph.TRAIN_NUM_POINTS)
+        self.point_oversample = int(ph.OVERSAMPLE_RATIO)
+        self.point_importance = float(ph.IMPORTANCE_SAMPLE_RATIO)
+        self.point_steps = int(ph.SUBDIVISION_STEPS)
+        self.point_subdiv_num = int(ph.SUBDIVISION_NUM_POINTS)
         self.num_keypoints = int(kh.NUM_KEYPOINTS)
         self.keypoint_pooler_resolution = int(kh.POOLER_RESOLUTION)
         self.keypoint_loss_weight = float(kh.LOSS_WEIGHT)
@@ -388,9 +423,16 @@ class GeneralizedRCNN:
                 heads["box_head"] = box_head()
                 heads["box_predictor"] = FastRCNNOutputLayers(heads["box_head"].out_dim, self.num_classes,
                                                               bool(bh.CLS_AGNOSTIC_BBOX_REG))
-        if self.mask_on:
+        if self.mask_on and mh.NAME == "CoarseMaskHead":
+            side = self.pooler_resolution // 2 if self.roi_type == "res5" else self.mask_pooler_resolution
+            heads["mask_head"] = CoarseMaskHead(mask_channels, self.num_classes, side, int(mh.CONV_DIM),
+                                                int(mh.FC_DIM), int(mh.NUM_FC), int(mh.OUTPUT_SIDE_RESOLUTION))
+        elif self.mask_on:
             heads["mask_head"] = MaskRCNNConvUpsampleHead(mask_channels, self.num_classes, int(mh.NUM_CONV),
                                                           int(mh.CONV_DIM))
+        if self.point_rend_on:  # class-agnostic: one output, the roi's class's coarse logit in (JAX :200-204)
+            ph = cfg.MODEL.POINT_HEAD
+            heads["mask_point_head"] = PointHead(channels, 1, 1, int(ph.FC_DIM), int(ph.NUM_FC))
         if self.keypoint_on:
             heads["keypoint_head"] = KRCNNConvDeconvUpsampleHead(channels, self.num_keypoints,
                                                                  [int(d) for d in kh.CONV_DIMS])
@@ -545,6 +587,8 @@ class GeneralizedRCNN:
             logits = self.model.mask_predict(mask_in, classes)
             targets = crop_gt_masks(batch["gt_masks"].to(self.device), gt_boxes, matched, boxes, logits.shape[-1])
             losses["loss_mask"] = mask_rcnn_loss(logits, targets, fg)
+            if self.point_rend_on:
+                losses["loss_mask_point"] = self._point_loss(batch, feats, flat_boxes, s, k, logits, targets, fg)
         if self.keypoint_on and "gt_keypoints" in batch:
             logits = self.model.keypoint_predict(self.pool(feats, flat_boxes, k, self.keypoint_pooler_resolution))
             gt_kp = batch["gt_keypoints"].to(self.device, torch.float32)
@@ -553,6 +597,35 @@ class GeneralizedRCNN:
                                                  logits.shape[-2])
             losses["loss_keypoint"] = keypoint_rcnn_loss(logits, idx, valid, fg) * self.keypoint_loss_weight
         return losses
+
+    def _point_uniforms(self, batch: Dict, n: int, s: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each foreground-block roi's (k·P, 2) candidates and (P - int(β·P),
+        2) uniform points: ``batch["draws"]``'s, given for all N·S sampled
+        rois, or the step generator's for the N·k of the block."""
+        p = self.point_train_num
+        shapes = {"point_cand": (self.point_oversample * p, 2),
+                  "point_rand": (p - int(self.point_importance * p), 2)}
+        draws = batch.get("draws")
+        if draws is not None:
+            return tuple(draws[name].to(self.device, torch.float32).view(n, s, *shape)[:, :k].reshape(n * k, *shape)
+                         for name, shape in shapes.items())
+        return tuple(self._uniform(batch, batch["generator"], name, (n * k, *shape)) for name, shape in shapes.items())
+
+    def _point_loss(self, batch, feats, boxes, s, k, logits, targets, fg) -> torch.Tensor:
+        """``loss_mask_point`` (JAX :661-701) of the N·k foreground-block rois:
+        their (N·k, M, M) gt-class mask logits and gt crops, foreground
+        weights (N·k,)."""
+        n = boxes.shape[0] // k
+        fine = self.pool(feats, boxes, k, 2 * self.mask_pooler_resolution)
+        cand, rand = self._point_uniforms(batch, n, s, k)
+        with torch.no_grad():
+            points = sample_uncertain_points(logits.detach(), cand, rand, self.point_train_num,
+                                             self.point_importance)
+        point_logits = self.model.point_predict(point_sample(fine, points), point_sample(logits[:, None], points))
+        point_logits = point_logits[..., 0]
+        t = (point_sample(targets[:, None], points)[..., 0] > 0.5).to(torch.float32)
+        ce = torch.clamp(point_logits, min=0) - point_logits * t + torch.log1p(torch.exp(-torch.abs(point_logits)))
+        return (ce.mean(1) * fg).sum() / torch.clamp(fg.sum(), min=1.0)
 
     # -- inference -----------------------------------------------------------------
     @torch.inference_mode()
@@ -600,6 +673,10 @@ class GeneralizedRCNN:
                 mask_in = self.pool(feats, det_boxes, k, self.mask_pooler_resolution)
             cls = torch.clamp(dets["classes"].reshape(n * k), 0, self.num_classes - 1)
             sel = self.model.mask_predict(mask_in, cls)
+            if self.point_rend_on:  # JAX :838-853
+                fine = self.pool(feats, det_boxes, k, 2 * self.mask_pooler_resolution)
+                sel = refine_mask_with_points(sel, fine, self.model.point_predict, self.point_subdiv_num,
+                                              self.point_steps)
             dets["masks"] = torch.sigmoid(sel).view(n, k, *sel.shape[1:])
         if self.keypoint_on:
             kp = self.model.keypoint_predict(self.pool(feats, det_boxes, k, self.keypoint_pooler_resolution))

@@ -19,7 +19,15 @@ arithmetic op for op (its ``jnp.linspace`` as XLA compiles it included).
 ``mask_rcnn_loss`` (reference :32-111): mean BCE of the logits at each
 roi's gt class (the head's ``classes``) against the target > 0.5, over the
 foreground rois.
-PointRend's ``CoarseMaskHead`` is not ported (ROADMAP A15.3).
+
+``CoarseMaskHead`` (JAX ``:45-84``; reference PointRend's
+``coarse_mask_head.py``): a 1x1 ``reduce_channel_dim_conv`` + ReLU when the
+input is wider than ``conv_dim``, a 2x2 stride-2 ``reduce_spatial_dim_conv``
++ ReLU (flax's SAME: an odd side padded at its end), the map flattened
+(C, H, W)-major, as the reference (JAX flattens (H, W, C); ``fc1``'s input
+is permuted when weights cross, ``checkpoint/from_jax.py``), ``num_fc`` f32
+``coarse_mask_fc{i}`` + ReLU and the f32 ``prediction`` of classes ×
+side² logits, (class, y, x)-major: (R, C, P, P) → (R, classes, side, side).
 """
 
 import math
@@ -31,7 +39,7 @@ import torch.nn.functional as F
 
 from ..meta_arch.centernet import F32Conv2d
 
-__all__ = ["MaskRCNNConvUpsampleHead", "crop_gt_masks", "fan_out_normal_", "mask_rcnn_loss"]
+__all__ = ["CoarseMaskHead", "MaskRCNNConvUpsampleHead", "crop_gt_masks", "fan_out_normal_", "mask_rcnn_loss"]
 
 
 @torch.no_grad()
@@ -80,6 +88,41 @@ class MaskRCNNConvUpsampleHead(nn.Module):
             w = self.predictor.weight[classes, :, 0, 0]  # (R, D), f32
             out = torch.bmm(w[:, None, :], x.float().flatten(2))[:, 0] + self.predictor.bias[classes][:, None]
         return out.view(x.shape[0], *x.shape[2:])
+
+
+class CoarseMaskHead(nn.Module):
+    def __init__(self, in_channels: int, num_classes: int, input_side: int, conv_dim: int = 256,
+                 fc_dim: int = 1024, num_fc: int = 2, output_side: int = 7):
+        super().__init__()
+        self.num_classes, self.num_fc, self.output_side = num_classes, num_fc, output_side
+        c = in_channels
+        self.reduce_channel_dim_conv = nn.Conv2d(c, conv_dim, 1) if c > conv_dim else None
+        self.reduce_spatial_dim_conv = nn.Conv2d(conv_dim if c > conv_dim else c, conv_dim, 2, stride=2)
+        d = conv_dim * (-(-input_side // 2)) ** 2
+        for i in range(num_fc):
+            self.add_module(f"coarse_mask_fc{i + 1}", nn.Linear(d, fc_dim))
+            d = fc_dim
+        self.prediction = nn.Linear(d, num_classes * output_side ** 2)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's init of ``prediction``: N(0, 0.001), bias 0."""
+        self.prediction.weight.normal_(0.0, 0.001, generator=generator)
+        self.prediction.bias.zero_()
+
+    def forward(self, x: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(R, C, P, P) → the (R, num_classes, side, side) f32 logits, or
+        with ``classes`` (R,) each roi's class's, (R, side, side)."""
+        if self.reduce_channel_dim_conv is not None:
+            x = F.relu(self.reduce_channel_dim_conv(x))
+        x = F.pad(x, (0, x.shape[-1] % 2, 0, x.shape[-2] % 2))  # flax's SAME at stride 2
+        x = F.relu(self.reduce_spatial_dim_conv(x))
+        with torch.autocast(x.device.type, enabled=False):
+            x = x.float().flatten(1)
+            for i in range(self.num_fc):
+                x = F.relu(getattr(self, f"coarse_mask_fc{i + 1}")(x))
+            x = self.prediction(x).view(-1, self.num_classes, self.output_side, self.output_side)
+        return x if classes is None else x[torch.arange(x.shape[0], device=x.device), classes]
 
 
 def _linspace(lo: torch.Tensor, hi: torch.Tensor, num: int) -> torch.Tensor:

@@ -7,11 +7,12 @@ last, in the shape of the JAX package's ``bench.py``:
 
 ``<arch>`` is ``ctdet`` for CenterNet, ``retinanet`` for RetinaNet,
 ``faster_rcnn`` for GeneralizedRCNN, ``mask_rcnn`` for it with
-``MODEL.MASK_ON``, ``keypoint_rcnn`` with ``MODEL.KEYPOINT_ON``, ``rpn``
-for ProposalNetwork, ``panoptic_fpn`` for PanopticFPN (``cascade_panoptic_fpn``
-with Cascade ROI heads) and ``semantic_fpn`` for SemanticSegmentor
-(``<backbone>`` ends in ``_fpn`` on an FPN: ``retinanet_res50_fpn_800``,
-``faster_rcnn_res50_fpn_800``).
+``MODEL.MASK_ON``, ``keypoint_rcnn`` with ``MODEL.KEYPOINT_ON``, ``pointrend_rcnn`` with
+PointRend's point head, ``rpn`` for ProposalNetwork, ``panoptic_fpn`` for
+PanopticFPN (``cascade_panoptic_fpn`` with Cascade ROI heads) and, for
+SemanticSegmentor, ``semantic_fpn``, ``deeplab_v3``, ``deeplab_v3_plus`` or
+``pointrend_semantic`` by its head (``<backbone>`` ends in ``_fpn`` on an
+FPN: ``retinanet_res50_fpn_800``, ``faster_rcnn_res50_fpn_800``).
 ``value`` is the meta-architecture's ``predict_fn`` throughput at
 ``TEST.BATCH_SIZE`` (CUDA events over ``ITERS`` calls after 2) on seeded
 random images at ``INPUT.TEST_SIZE``. The baselines are ``bench.py``'s: 104
@@ -20,8 +21,8 @@ Titan Xp), and for RetinaNet, Faster R-CNN and Mask R-CNN the reference
 MODEL_ZOO's R50-FPN inference times (``BASELINE.md``): 0.056, 0.038 and
 0.043 s/im on a V100 (1 / 0.056 ≈ 17.9, 1 / 0.038 ≈ 26.3 and 1 / 0.043 ≈
 23.3 img/s), and Panoptic FPN R50's 0.053 s/im (≈ 18.9 img/s).
-``BASELINE.md`` has no number for the ProposalNetwork, Keypoint R-CNN or
-Semantic FPN: their ``vs_baseline`` is null. ``extra`` holds:
+``BASELINE.md`` has no number for the ProposalNetwork, Keypoint R-CNN,
+PointRend, Semantic FPN or DeepLab: their ``vs_baseline`` is null. ``extra`` holds:
   * ``predictor_latency_ms``: ``DefaultPredictor`` on one 480x640 image,
     median of ``REQUESTS`` requests after ``REQUEST_WARMUP`` (host clock;
     the call returns host arrays);
@@ -77,7 +78,10 @@ ARCHS = {"CenterNet": ("ctdet", 104.0), "RetinaNet": ("retinanet", 1.0 / 0.056),
          "GeneralizedRCNN+keypoint": ("keypoint_rcnn", None), "ProposalNetwork": ("rpn", None),
          "CascadeRCNN": ("cascade_rcnn", None), "CascadeRCNN+mask": ("cascade_mask_rcnn", None),
          "CascadeRCNN+keypoint": ("cascade_keypoint_rcnn", None), "PanopticFPN": ("panoptic_fpn", 1.0 / 0.053),
-         "CascadePanopticFPN": ("cascade_panoptic_fpn", None), "SemanticSegmentor": ("semantic_fpn", None)}
+         "CascadePanopticFPN": ("cascade_panoptic_fpn", None), "GeneralizedRCNN+pointrend": ("pointrend_rcnn", None),
+         "SemanticSegmentor": ("semantic_fpn", None), "SemanticSegmentor+DeepLabV3Head": ("deeplab_v3", None),
+         "SemanticSegmentor+DeepLabV3PlusHead": ("deeplab_v3_plus", None),
+         "SemanticSegmentor+PointRendSemSegHead": ("pointrend_semantic", None)}
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                               "configs", "COCO-Detection", "ctdet_dla_34_1x.yaml")
 ITERS = 10  # timed predict_fn calls, after 2
@@ -104,10 +108,16 @@ def _arch(cfg):
     name = cfg.MODEL.META_ARCHITECTURE
     if name in ("GeneralizedRCNN", "PanopticFPN") and cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads":
         name = "Cascade" + ("RCNN" if name == "GeneralizedRCNN" else name)
+    mh = cfg.MODEL.ROI_MASK_HEAD
+    point_rend = mh.NAME == "PointRendMaskHead" or mh.POINT_HEAD_ON or cfg.MODEL.ROI_HEADS.NAME == "PointRendROIHeads"
     if name in ("GeneralizedRCNN", "CascadeRCNN") and cfg.MODEL.KEYPOINT_ON:
         name += "+keypoint"
+    elif name == "GeneralizedRCNN" and cfg.MODEL.MASK_ON and point_rend:
+        name += "+pointrend"
     elif name in ("GeneralizedRCNN", "CascadeRCNN") and cfg.MODEL.MASK_ON:
         name += "+mask"
+    if name == "SemanticSegmentor" and cfg.MODEL.SEM_SEG_HEAD.NAME != "SemSegFPNHead":
+        name += "+" + cfg.MODEL.SEM_SEG_HEAD.NAME
     if name not in ARCHS:
         raise ValueError(f"tools/bench has no metric for META_ARCHITECTURE {name!r}; it benches {sorted(ARCHS)}")
     return ARCHS[name]

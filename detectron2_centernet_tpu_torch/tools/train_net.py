@@ -21,11 +21,8 @@ import os
 from ..config import get_cfg
 from ..data import MetadataCatalog
 from ..engine import DefaultTrainer, default_argument_parser, default_setup, launch
-from ..evaluation import (CityscapesInstanceEvaluator, COCOEvaluator, DatasetEvaluators, LVISEvaluator,
-                          PascalVOCDetectionEvaluator, SemSegEvaluator, verify_results)
-
-# evaluator_type -> the ROADMAP item that ports its evaluator
-QUEUED_EVALUATORS = {"cityscapes_sem_seg": "A15.2"}
+from ..evaluation import (CityscapesInstanceEvaluator, CityscapesSemSegEvaluator, COCOEvaluator, DatasetEvaluators,
+                          LVISEvaluator, PascalVOCDetectionEvaluator, SemSegEvaluator, verify_results)
 
 
 class Trainer(DefaultTrainer):
@@ -38,10 +35,6 @@ class Trainer(DefaultTrainer):
         if output_folder is None:
             output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
         evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
-        if evaluator_type in QUEUED_EVALUATORS:
-            raise RuntimeError(
-                f"dataset {dataset_name}: the evaluator of evaluator_type '{evaluator_type}' is not "
-                f"ported yet (ROADMAP {QUEUED_EVALUATORS[evaluator_type]})")
         evaluators = []
         if evaluator_type in ("coco", "coco_panoptic_seg"):
             evaluators.append(COCOEvaluator(dataset_name, output_dir=output_folder, cfg=cfg))
@@ -53,6 +46,8 @@ class Trainer(DefaultTrainer):
             evaluators.append(PascalVOCDetectionEvaluator(dataset_name))
         if evaluator_type == "cityscapes_instance":
             evaluators.append(CityscapesInstanceEvaluator(dataset_name))
+        if evaluator_type == "cityscapes_sem_seg":
+            evaluators.append(CityscapesSemSegEvaluator(dataset_name))
         if not evaluators:
             raise NotImplementedError(
                 f"No evaluator implemented for evaluator_type '{evaluator_type}' (dataset {dataset_name})")

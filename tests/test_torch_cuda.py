@@ -14,7 +14,9 @@ or more chunks (disjoint and clustered boxes), a small Faster R-CNN's RPN heads,
 card against CPU, the mask paste, the keypoint decode and a small R-CNN
 with the mask and keypoint heads, card against CPU, and a small Semantic FPN
 and Panoptic FPN (logits, losses, gradients, the label maps and the
-panoptic merge on the card), card against CPU.
+panoptic merge on the card), card against CPU; small DeepLab V3 and V3+
+networks, and PointRend's point head, subdivision, training losses and
+semantic head, card against CPU.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -1016,3 +1018,128 @@ def test_small_panoptic_fpn_on_card_matches_cpu(card):
     for w, c in zip(want, got):
         assert torch.equal(torch.from_numpy(c["panoptic_seg"][0]), torch.from_numpy(w["panoptic_seg"][0]))
         assert c["panoptic_seg"][1] == w["panoptic_seg"][1] and len(w["panoptic_seg"][1]) > 1
+
+
+_SMALL_DEEPLAB = ["MODEL.META_ARCHITECTURE", "SemanticSegmentor", "MODEL.BACKBONE.NAME", "build_resnet_deeplab_backbone",
+                  "MODEL.RESNETS.DEPTH", 50, "MODEL.RESNETS.RES2_OUT_CHANNELS", 32,
+                  "MODEL.RESNETS.WIDTH_PER_GROUP", 8, "MODEL.RESNETS.STEM_OUT_CHANNELS", 16,
+                  "MODEL.RESNETS.NORM", "BN", "MODEL.RESNETS.STEM_TYPE", "deeplab", "MODEL.RESNETS.RES5_DILATION", 2,
+                  "MODEL.RESNETS.RES5_MULTI_GRID", [1, 2, 4], "MODEL.RESNETS.OUT_FEATURES", ["res2", "res5"],
+                  "MODEL.BACKBONE.FREEZE_AT", 0, "MODEL.SEM_SEG_HEAD.NAME", "DeepLabV3PlusHead",
+                  "MODEL.SEM_SEG_HEAD.IN_FEATURES", ["res2", "res5"], "MODEL.SEM_SEG_HEAD.CONVS_DIM", 16,
+                  "MODEL.SEM_SEG_HEAD.NUM_CLASSES", 5, "MODEL.SEM_SEG_HEAD.COMMON_STRIDE", 4,
+                  "MODEL.SEM_SEG_HEAD.LOSS_TYPE", "hard_pixel_mining", "TPU.DTYPE", "float32", "DATASETS.TRAIN", ()]
+
+
+@pytest.mark.parametrize("head", ["DeepLabV3PlusHead", "DeepLabV3Head"])
+def test_small_deeplab_on_card_matches_cpu(card, head):
+    """A small DeepLab (ResNet-50 with RES2 32, the DeepLab stem, BatchNorm,
+    res5 at dilation 2 · (1, 2, 4); ASPP of 16; 5 classes) in f32 on 96²
+    images, the same weights on both devices: the trunk's res2 and res5
+    within 1e-4 of their scale, each head on the card's maps (on both
+    devices) within 1e-5, the logits within 1e-4, the hard-mining loss in
+    training mode within 1e-4 relative; the head's gradients of the pixel
+    loss on the card's maps (on both devices; through the train-mode trunk
+    the gradients of two correct implementations drift apart, as
+    tests/test_torch_deeplab.py measured) within 1e-3 of their own max."""
+    extra = [] if head == "DeepLabV3PlusHead" else [
+        "MODEL.SEM_SEG_HEAD.NAME", head, "MODEL.SEM_SEG_HEAD.IN_FEATURES", ["res5"],
+        "MODEL.SEM_SEG_HEAD.COMMON_STRIDE", 16, "MODEL.RESNETS.OUT_FEATURES", ["res5"]]
+    cfg = get_cfg()
+    cfg.merge_from_list(_SMALL_DEEPLAB + extra + ["MODEL.DEVICE", "cpu"])
+    host = build_model(cfg)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    dev.model.load_state_dict(host.model.state_dict())
+    g = torch.Generator().manual_seed(9)
+    x = torch.rand(2, 3, 96, 96, generator=g) * 255
+    with torch.no_grad(), ieee_f32():
+        fh, fc = host.model.backbone(host.normalize(x)), dev.model.backbone(dev.normalize(x.to(card)))
+        for k in fh:
+            assert (fc[k].cpu() - fh[k]).abs().max().item() <= 1e-4 * fh[k].abs().max().item(), k
+        on_card = dev.model.sem_seg_head(fc)
+        on_host = host.model.sem_seg_head({k: v.cpu() for k, v in fc.items()})
+    assert (on_card.cpu() - on_host).abs().max().item() <= 1e-5 * on_host.abs().max().item()
+    lh, lc = host.predict_fn(x)["sem_seg"], dev.predict_fn(x.to(card))["sem_seg"]
+    assert lc.dtype == torch.float32 and lc.shape == (2, 5, 96, 96)
+    assert (lc.cpu() - lh).abs().max().item() <= 1e-4 * lh.abs().max().item()
+    labels = torch.randint(0, 5, (2, 96, 96), generator=g)
+    labels[torch.rand(2, 96, 96, generator=g) < 0.1] = 255
+    losses = []
+    for m, dv in ((host, "cpu"), (dev, card)):
+        m.model.train()
+        with torch.no_grad():
+            losses.append(m.loss_fn({"image": x.to(dv), "sem_seg": labels.to(dv)})[0].item())
+        m.model.eval()
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    from detectron2_centernet_tpu_torch.models.meta_arch.semantic_seg import sem_seg_loss
+
+    for m, maps in ((host, {k: v.cpu() for k, v in fc.items()}), (dev, fc)):
+        for p in m.model.sem_seg_head.parameters():
+            p.grad = None
+        with ieee_f32():
+            sem_seg_loss(m.model.sem_seg_head(maps), labels.to(m.device)).backward()
+    for (k, ph), pc in zip(host.model.sem_seg_head.named_parameters(), dev.model.sem_seg_head.parameters()):
+        assert (pc.grad.cpu() - ph.grad).abs().max().item() <= 1e-3 * ph.grad.abs().max().item(), k
+
+
+def test_small_pointrend_on_card_matches_cpu(card):
+    """A small PointRend R-CNN (the small Mask R-CNN with
+    ``PointRendROIHeads``, ``CoarseMaskHead`` 7² and a point head of 3 fc
+    of 32) in f32 on 96² images, the same weights on both devices: the
+    point head on the same points (on both devices) within 1e-5 of its
+    scale, the subdivision (3 steps of 100 points, 7² → 56²) of the same
+    coarse logits and fine maps within 1e-4, the six training losses on the
+    same draws within 1e-3 relative, ``loss_mask_point`` among them; and a
+    small PointRend semantic head's refined logits within 1e-4."""
+    from detectron2_centernet_tpu_torch.models.roi_heads.point_head import refine_mask_with_points
+
+    cfg = get_cfg()
+    cfg.merge_from_list(_SMALL_RCNN + [
+        "MODEL.DEVICE", "cpu", "MODEL.MASK_ON", True, "MODEL.ROI_HEADS.NAME", "PointRendROIHeads",
+        "MODEL.ROI_MASK_HEAD.NAME", "CoarseMaskHead", "MODEL.ROI_MASK_HEAD.CONV_DIM", 32,
+        "MODEL.ROI_MASK_HEAD.FC_DIM", 64, "MODEL.POINT_HEAD.FC_DIM", 32, "MODEL.POINT_HEAD.TRAIN_NUM_POINTS", 28,
+        "MODEL.POINT_HEAD.SUBDIVISION_STEPS", 3, "MODEL.POINT_HEAD.SUBDIVISION_NUM_POINTS", 100,
+        "INPUT.MASK_RASTER", 16])
+    host = build_model(cfg)
+    cfg.MODEL.DEVICE = "cuda"
+    dev = build_model(cfg)
+    dev.model.load_state_dict(host.model.state_dict())
+    g = torch.Generator().manual_seed(10)
+    fine, coarse = torch.randn(40, 28, 32, generator=g), torch.randn(40, 28, 1, generator=g)
+    with torch.no_grad():
+        ph, pc = host.model.point_predict(fine, coarse), dev.model.point_predict(fine.to(card), coarse.to(card))
+        assert (pc.cpu() - ph).abs().max().item() <= 1e-5 * ph.abs().max().item()
+        logits, maps = torch.randn(40, 7, 7, generator=g) * 3, torch.randn(40, 32, 14, 14, generator=g)
+        rh = refine_mask_with_points(logits, maps, host.model.point_predict, 100, 3)
+        rc = refine_mask_with_points(logits.to(card), maps.to(card), dev.model.point_predict, 100, 3)
+    assert rc.shape == (40, 56, 56) and (rc.cpu() - rh).abs().max().item() <= 1e-4 * rh.abs().max().item()
+    x = torch.rand(2, 3, 96, 96, generator=g) * 255
+    anchors = sum(a.shape[0] for a in host.anchors_per_level((96, 96)))
+    draws = {"rpn": torch.rand(2, anchors, generator=g), "roi_sub": torch.rand(2, 102, generator=g),
+             "roi_tie": torch.rand(2, 102, generator=g), "point_cand": torch.rand(128, 84, 2, generator=g),
+             "point_rand": torch.rand(128, 7, 2, generator=g)}
+    batch = {"image": x, "gt_boxes": torch.tensor([[[8.0, 10.0, 60.0, 70.0], [40.0, 30.0, 90.0, 80.0]]] * 2),
+             "gt_classes": torch.tensor([[1, 4]] * 2), "gt_valid": torch.tensor([[True, True], [True, False]]),
+             "gt_masks": (torch.rand(2, 2, 16, 16, generator=g) > 0.4).to(torch.uint8)}
+    for m in (host, dev):
+        m.model.train()
+    _, losses_h = host.loss_fn(dict(batch, draws=draws))
+    _, losses_c = dev.loss_fn(dict({k: v.to(card) for k, v in batch.items()}, draws=draws))
+    assert len(losses_h) == 6 and losses_h["loss_mask_point"].item() > 0
+    for k in losses_h:
+        assert abs(losses_c[k].item() - losses_h[k].item()) <= 1e-3 * abs(losses_h[k].item()), k
+
+    sem = get_cfg()
+    sem.merge_from_list(_SMALL_RCNN + _SMALL_SEM_SEG + [
+        "MODEL.DEVICE", "cpu", "MODEL.META_ARCHITECTURE", "SemanticSegmentor",
+        "MODEL.SEM_SEG_HEAD.NAME", "PointRendSemSegHead", "MODEL.POINT_HEAD.SUBDIVISION_NUM_POINTS", 512])
+    host = build_model(sem)
+    sem.MODEL.DEVICE = "cuda"
+    dev = build_model(sem)
+    dev.model.load_state_dict(host.model.state_dict())
+    with torch.no_grad(), ieee_f32():
+        fc = dev.model.backbone(dev.normalize(x.to(card)))
+        lc = dev.model.sem_seg_head(fc)
+        lh = host.model.sem_seg_head({k: v.cpu() for k, v in fc.items()})
+    assert lc.shape == (2, 7, 96, 96) and (lc.cpu() - lh).abs().max().item() <= 1e-4 * lh.abs().max().item()

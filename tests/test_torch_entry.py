@@ -253,15 +253,17 @@ def test_train_net_trains_then_resumes_into_eval_only(tmp_path, monkeypatch):
     assert (tmp_path / "model_final.pth").exists() and (tmp_path / "config.yaml").exists()
 
 
-@pytest.mark.parametrize("evaluator_type, item", [pytest.param("cityscapes_sem_seg", "A15.2",
-                                                               id="cityscapes_sem_seg-A15")])
-def test_train_net_queued_evaluators_raise_and_name_their_item(evaluator_type, item):
+@pytest.mark.parametrize("evaluator_type, evaluator", [pytest.param("cityscapes_sem_seg", "CityscapesSemSegEvaluator",
+                                                                    id="cityscapes_sem_seg-A15")])
+def test_train_net_formerly_queued_evaluators_build(evaluator_type, evaluator):
+    """The evaluator that raised naming its ROADMAP item (A15.2) before it
+    was ported builds for its ``evaluator_type``, as the JAX package's
+    ``tools/train_net.py`` builds it."""
     name = f"test_torch_entry_{evaluator_type}"
     if name not in DatasetCatalog:
         DatasetCatalog.register(name, lambda: [])
         MetadataCatalog.get(name).set(evaluator_type=evaluator_type)
-    with pytest.raises(RuntimeError, match=item):
-        train_net.Trainer.build_evaluator(get_cfg(), name)
+    assert type(train_net.Trainer.build_evaluator(get_cfg(), name)).__name__ == evaluator
 
 
 def test_train_net_refuses_test_time_augmentation():

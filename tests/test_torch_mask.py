@@ -668,13 +668,24 @@ def test_mask_rcnn_raises_without_a_card():
         build_model(cfg)
 
 
-@pytest.mark.parametrize("extra", [["MODEL.ROI_MASK_HEAD.NAME", "CoarseMaskHead"],
-                                   ["MODEL.ROI_MASK_HEAD.POINT_HEAD_ON", True]])
-def test_pointrend_mask_heads_still_raise_naming_a15(extra):
-    cfg = get_cfg()
-    cfg.merge_from_list(["MODEL.DEVICE", "cpu", "MODEL.MASK_ON", True] + extra)
-    with pytest.raises(NotImplementedError, match="A15"):
-        build_model(cfg)
+@pytest.mark.parametrize("extra, head, point_head", [
+    (["MODEL.ROI_MASK_HEAD.NAME", "CoarseMaskHead"], "CoarseMaskHead", False),
+    (["MODEL.ROI_MASK_HEAD.POINT_HEAD_ON", True], "MaskRCNNConvUpsampleHead", True),
+], ids=["coarse_mask_head", "point_head_on"])
+def test_pointrend_mask_heads_build_as_jax(extra, head, point_head):
+    """PointRend's mask options, which raised naming A15 before they were
+    ported, build on this file's Mask R-CNN as JAX builds them (every leaf
+    of JAX's tree crosses, strictly): ``CoarseMaskHead`` alone predicts 7²
+    masks; ``POINT_HEAD_ON`` keeps the conv head and adds the point head,
+    whose subdivision doubles its 28² masks at each step (2 here)
+    (tests/test_torch_pointrend.py holds them to JAX's outputs)."""
+    jm, variables, pm = _pair(MASK + extra + ["MODEL.POINT_HEAD.SUBDIVISION_STEPS", 2,
+                                              "MODEL.POINT_HEAD.SUBDIVISION_NUM_POINTS", 64])
+    heads = pm.model.roi_heads
+    assert type(heads.mask_head).__name__ == head and hasattr(heads, "mask_point_head") == point_head
+    masks = pm.predict_fn(_nchw(_images(1, seed=3)))["masks"]
+    side = 112 if point_head else 7
+    assert masks.shape == (1, 100, side, side) and bool(torch.isfinite(masks).all())
 
 
 def test_bench_names_mask_rcnn_against_its_v100_time():

@@ -744,14 +744,12 @@ def test_rcnn_raises_without_a_card(name):
 
 @pytest.mark.parametrize("extra, item", [
     # Cascade, Res5/C4 and DC5 build now (tests/test_torch_cascade.py, tests/test_torch_c4.py), and so do
-    # precomputed proposals and deformable trunks (test_formerly_queued_rcnn_options_build below)
-    (["MODEL.ROI_HEADS.NAME", "PointRendROIHeads"], "ROADMAP A15"),
-    (["MODEL.PROPOSAL_GENERATOR.NAME", "RRPN"], "ROADMAP A16"),
-    (["MODEL.ROI_HEADS.EXTENSIONS", ["DensePoseExtension"]], "ROADMAP A18"),
-    (["MODEL.MASK_ON", True, "MODEL.ROI_MASK_HEAD.NAME", "CoarseMaskHead"], "ROADMAP A15"),
-    (["MODEL.ROI_HEADS.NAME", "MyROIHeads"], "unknown ROI_HEADS.NAME 'MyROIHeads'"),
-    (["MODEL.ROI_HEADS.NAME", "Res5ROIHeads", "MODEL.MASK_ON", True, "MODEL.ROI_MASK_HEAD.POINT_HEAD_ON", True],
-     "ROADMAP A15"),
+    # precomputed proposals, deformable trunks and PointRend (test_formerly_queued_rcnn_options_build below);
+    # the ids are the ones these cases had among PointRend's
+    pytest.param(["MODEL.PROPOSAL_GENERATOR.NAME", "RRPN"], "ROADMAP A16", id="extra1-ROADMAP A16"),
+    pytest.param(["MODEL.ROI_HEADS.EXTENSIONS", ["DensePoseExtension"]], "ROADMAP A18", id="extra2-ROADMAP A18"),
+    pytest.param(["MODEL.ROI_HEADS.NAME", "MyROIHeads"], "unknown ROI_HEADS.NAME 'MyROIHeads'",
+                 id="extra4-unknown ROI_HEADS.NAME 'MyROIHeads'"),
 ])
 def test_unported_rcnn_options_raise_naming_their_roadmap_item(extra, item):
     """Each option the port has not ported raises naming its ROADMAP item;
@@ -762,26 +760,47 @@ def test_unported_rcnn_options_raise_naming_their_roadmap_item(extra, item):
         build_model(pcfg)
 
 
-@pytest.mark.parametrize("extra, precomputed, deform", [
-    (["MODEL.LOAD_PROPOSALS", True], True, 0),
-    (["MODEL.PROPOSAL_GENERATOR.NAME", "PrecomputedProposals"], True, 0),
+POINTREND_C4 = ["MODEL.ROI_HEADS.NAME", "Res5ROIHeads", "MODEL.BACKBONE.NAME", "build_resnet_backbone",
+                "MODEL.RESNETS.OUT_FEATURES", ["res4"], "MODEL.RPN.IN_FEATURES", ["res4"],
+                "MODEL.ROI_HEADS.IN_FEATURES", ["res4"], "MODEL.ANCHOR_GENERATOR.SIZES", [[32, 64]],
+                "MODEL.MASK_ON", True, "MODEL.ROI_MASK_HEAD.POINT_HEAD_ON", True]
+
+
+@pytest.mark.parametrize("extra, precomputed, deform, heads", [
+    (["MODEL.LOAD_PROPOSALS", True], True, 0, ("box_head", "box_predictor")),
+    (["MODEL.PROPOSAL_GENERATOR.NAME", "PrecomputedProposals"], True, 0, ("box_head", "box_predictor")),
     (["MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True], "MODEL.RESNETS.DEPTH", 50,
-      "MODEL.RESNETS.WIDTH_PER_GROUP", 4], False, 4 + 6 + 3),
-    (["MODEL.ROI_HEADS.NAME", "CascadeROIHeads", "MODEL.LOAD_PROPOSALS", True], True, 0),
-])
-def test_formerly_queued_rcnn_options_build(extra, precomputed, deform):
-    """Precomputed proposals (ROADMAP A14.6; Cascade with them too) and the
-    deformable trunk (A14.5), which raised before they were ported, build:
-    Fast R-CNN keeps its RPN head (JAX builds and runs it), and the trunk
-    holds a ``DeformBottleneckBlock`` per block of its deformable stages
-    (tests/test_torch_fast_rcnn.py and tests/test_torch_dconv.py hold them
+      "MODEL.RESNETS.WIDTH_PER_GROUP", 4], False, 4 + 6 + 3, ("box_head", "box_predictor")),
+    (["MODEL.ROI_HEADS.NAME", "CascadeROIHeads", "MODEL.LOAD_PROPOSALS", True], True, 0,
+     ("box_head", "box_predictor")),
+    # PointRend (A15.3): its ROI heads name without MASK_ON (the box path alone, as JAX), its coarse mask
+    # head, and C4 with a point head, which JAX builds too
+    (["MODEL.ROI_HEADS.NAME", "PointRendROIHeads"], False, 0, ("box_head", "box_predictor")),
+    (["MODEL.MASK_ON", True, "MODEL.ROI_MASK_HEAD.NAME", "CoarseMaskHead"], False, 0,
+     ("box_head", "box_predictor", "mask_head")),
+    (POINTREND_C4, False, 0, ("res5", "box_predictor", "mask_head", "mask_point_head")),
+], ids=["load_proposals", "precomputed_proposals", "deform_trunk", "cascade_precomputed", "pointrend_roi_heads",
+        "coarse_mask_head", "res5_point_head"])
+def test_formerly_queued_rcnn_options_build(extra, precomputed, deform, heads):
+    """Precomputed proposals (ROADMAP A14.6; Cascade with them too), the
+    deformable trunk (A14.5) and PointRend's ROI options (A15.3), which
+    raised before they were ported, build as the JAX package builds them
+    (every leaf of JAX's tree crosses, strictly): Fast R-CNN keeps its RPN
+    head (JAX builds and runs it), the trunk holds a
+    ``DeformBottleneckBlock`` per block of its deformable stages, the ROI
+    heads are the ones named (tests/test_torch_fast_rcnn.py,
+    tests/test_torch_dconv.py and tests/test_torch_pointrend.py hold them
     to the JAX package)."""
-    _, pcfg = _cfgs(extra)
+    jcfg, pcfg = _cfgs(extra)
     model = build_model(pcfg)
     assert model.precomputed_proposals == precomputed
     assert hasattr(model.model.proposal_generator, "rpn_head")
     blocks = [m for m in model.model.backbone.modules() if type(m).__name__ == "DeformBottleneckBlock"]
     assert len(blocks) == deform
+    assert tuple(n for n, _ in model.model.roi_heads.named_children()) == heads
+    jm = jax_build_model(jcfg)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), (SIZE, SIZE)))
+    model.model.load_state_dict(state_dict_from_jax(_random_variables(shapes, 0)))
 
 
 def _flat(node, prefix=""):

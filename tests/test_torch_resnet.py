@@ -254,20 +254,31 @@ def test_resnet_stages_after_the_last_feature_run_only_in_training():
 
 
 def test_unported_resnet_options_raise_and_name_their_item():
-    """The DeepLab trunk (ROADMAP A15) raises; the deformable trunk
-    (``DEFORM_ON_PER_STAGE``, A14.5), which raised before it was ported,
-    builds a ``DeformBottleneckBlock`` for each block of its deformable
-    stages up to res4, CenterNet's (tests/test_torch_dconv.py holds it to
-    the JAX package)."""
+    """The trunk options that raised before they were ported build: the
+    deformable trunk (``DEFORM_ON_PER_STAGE``, A14.5) holds a
+    ``DeformBottleneckBlock`` for each block of its deformable stages up to
+    res4, CenterNet's (tests/test_torch_dconv.py holds it to the JAX
+    package); the DeepLab stem (``STEM_TYPE deeplab``) and
+    ``build_resnet_deeplab_backbone`` (A15.2) build CenterNet's trunk as
+    JAX builds it, the three-conv stem, and res4 at the stride the blocks
+    take (JAX's tree crosses strictly; tests/test_torch_deeplab.py holds
+    the DeepLab trunk to JAX's). An unknown ``STEM_TYPE`` raises."""
     _, pcfg = _cfgs(R50 + ["MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]])
     trunk = build_model(pcfg).model.backbone
     assert [type(b).__name__ for b in trunk.res3] == ["DeformBottleneckBlock"] * 4
     assert [type(b).__name__ for b in trunk.res2] == ["BottleneckBlock"] * 3
-    for extra, item in ((["MODEL.RESNETS.STEM_TYPE", "deeplab"], "A15"),
-                        (["MODEL.BACKBONE.NAME", "build_resnet_deeplab_backbone"], "A15")):
-        _, pcfg = _cfgs(R50 + extra)
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(pcfg)
+    for extra in (["MODEL.RESNETS.STEM_TYPE", "deeplab"],
+                  ["MODEL.BACKBONE.NAME", "build_resnet_deeplab_backbone", "MODEL.RESNETS.STEM_TYPE", "deeplab"]):
+        jcfg, pcfg = _cfgs(R50 + extra)
+        model = build_model(pcfg)
+        assert type(model.model.backbone.stem).__name__ == "DeepLabStem"
+        jm = jax_build_model(jcfg)
+        shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), (SIZE, SIZE)))
+        model.model.load_state_dict(state_dict_from_jax(_random_variables(shapes, 0)))
+        assert model.model.backbone.out_feature_strides["res4"] == 16
+    _, pcfg = _cfgs(R50 + ["MODEL.RESNETS.STEM_TYPE", "wide"])
+    with pytest.raises(ValueError, match="STEM_TYPE"):
+        build_model(pcfg)
 
 
 # -- the deconv neck and the heads -----------------------------------------------------
