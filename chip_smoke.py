@@ -14,8 +14,11 @@ proposals, LVIS v1 Mask R-CNN R50-FPN (serving, training from a
 Cityscapes-instance evaluations, Panoptic FPN R50, Semantic FPN R50, the
 dconv Cascade GN Panoptic FPN R101 (its 30 deformable blocks on the DCN
 kernels), DeepLab V3+ R50 and V3 R-103, PointRend R-CNN R50-FPN and
-PointRend's semantic FPN R101, every NMS of the R-CNN and RetinaNet paths
-on the hand-written NMS kernel (``ops/csrc/nms.cu``). Every config is read
+PointRend's semantic FPN R101, the rotated Faster R-CNN R50-C4 (its rotated
+IoU and rotated NMS on the hand-written kernels ``ops/csrc/iou_rotated.cu``
+and ``nms.cu``'s rotated pipeline) and TridentNet R50-C4 (Fast and full),
+every NMS of the R-CNN and RetinaNet paths on the hand-written NMS kernel
+(``ops/csrc/nms.cu``). Every config is read
 from its YAML file (``configs/COCO-Detection/``,
 ``COCO-InstanceSegmentation/``, ``COCO-Keypoints/``, ``Misc/``,
 ``LVIS-InstanceSegmentation/``, ``PascalVOC-Detection/``, ``Cityscapes/``,
@@ -24,8 +27,8 @@ from its YAML file (``configs/COCO-Detection/``,
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build the three kernel libraries (``ops/csrc/dcn_fwd.cu``,
-     ``dcn_bwd.cu``, ``nms.cu``), one nvcc each, at once, and the COCO matcher (``ops/csrc/cocoeval.cpp``,
+  2. build the four kernel libraries (``ops/csrc/dcn_fwd.cu``,
+     ``dcn_bwd.cu``, ``nms.cu``, ``iou_rotated.cu``), one nvcc each, at once, and the COCO matcher (``ops/csrc/cocoeval.cpp``,
      g++) beside them, and print each kernel's registers and spills,
      and the shared memory and resident warps per SM of K1 (at each Cout
      tile) and of the backward kernels;
@@ -138,7 +141,8 @@ Phases (any failure raises and the script exits non-zero):
      (c) ``tools/bench`` at ``TEST.BATCH_SIZE`` 16 with its train steps at
      16 × 800² (busy share, peak memory, ROIAlign's ``embedding_bag``
      forward and backward in the profiled step); (d) ``tools/train_net`` 4
-     steps from the calibrated init, then ``--eval-only --resume``: resumed
+     steps from the calibrated init, then ``--eval-only --resume`` on 16
+     synthetic scenes (``HEAD_EVAL_IMAGES``, as for 13-16sd): resumed
      at 4, the same dict with ``segm`` (or ``keypoints``) in it; the NMS
      kernel's launches counted per path, and its inputs at test (the
      RPN's, the box head's) and for the training's proposals recorded for
@@ -252,6 +256,19 @@ Phases (any failure raises and the script exits non-zero):
      on ``*_gtFine_labelTrainIds.png`` files that ``load_cityscapes_semantic``
      reads, 22d bbox and segm; no DCN kernel on any, PointRend R-CNN's NMS
      counted and its RPN and box-head rows added to 10c;
+  23. the rotated Faster R-CNN R50-C4 (``configs/Base-RCNN-C4.yaml`` with
+     RRPN, RROIHeads, 45 rotated anchors a cell, ROIAlignRotated; no YAML
+     has it), 800², bf16 (``phase_rotated``): requests, ``predict_fn`` at
+     batch 1 and 16, the f32 stages card against CPU with the TF32 control,
+     ``SimpleTrainer`` steps at 16 on rotated gts (the synthetic scenes'
+     boxes at seeded angles), ``RotatedCOCOEvaluator`` on 16 scenes; R1 and
+     R2 against their plain versions on the path's own inputs (23e);
+  24. TridentNet R50-C4 (``projects/TridentNet/configs/
+     tridentnet_fast_R_50_C4_1x.yaml``), Fast and full (``phase_trident``):
+     requests, ``predict_fn`` at batch 1 and 16 (full mode at 12: 16 is 48
+     images through the trunk and res5, past 80 GB), the bench's train steps
+     at the YAML's 16, ``tools/train_net`` and ``--eval-only``; full mode's
+     merge rows go to 10c; no DCN and no rotated kernel on either;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -300,7 +317,8 @@ from detectron2_centernet_tpu_torch.data.datasets.cityscapes import (CITYSCAPES_
                                                                      load_cityscapes_semantic)
 from detectron2_centernet_tpu_torch.data.datasets.pascal_voc import CLASS_NAMES as VOC_CLASS_NAMES
 from detectron2_centernet_tpu_torch.engine import DefaultPredictor, DefaultTrainer, hooks
-from detectron2_centernet_tpu_torch.evaluation import COCOEval
+from detectron2_centernet_tpu_torch.engine.train_loop import HookBase, SimpleTrainer
+from detectron2_centernet_tpu_torch.evaluation import COCOEval, RotatedCOCOEvaluator
 from detectron2_centernet_tpu_torch.evaluation import evaluator as eval_loop
 from detectron2_centernet_tpu_torch.models import build_model
 from detectron2_centernet_tpu_torch.models import layers
@@ -309,15 +327,19 @@ from detectron2_centernet_tpu_torch.models.backbones.resnet import DeformBottlen
 from detectron2_centernet_tpu_torch.models.layers import DCNv2, DeformConvV2
 from detectron2_centernet_tpu_torch.models.meta_arch import centernet, rcnn
 from detectron2_centernet_tpu_torch.models.meta_arch import panoptic_fpn as panoptic_module
+from detectron2_centernet_tpu_torch.models.meta_arch import rotated_rcnn as rotated_module
 from detectron2_centernet_tpu_torch.models.meta_arch import semantic_seg as semseg_module
 from detectron2_centernet_tpu_torch.ops import cuda_lib, dcn, fast_cocoeval
 from detectron2_centernet_tpu_torch.ops import nms as nms_ops
 from detectron2_centernet_tpu_torch.ops.nms import batched_nms_fixed
 from detectron2_centernet_tpu_torch.ops import deform_conv as plain
 from detectron2_centernet_tpu_torch.models.proposal_generator import rpn as rpn_ops
+from detectron2_centernet_tpu_torch.models.proposal_generator import rrpn as rrpn_module
 from detectron2_centernet_tpu_torch.models.roi_heads import point_head as point_head_ops
 from detectron2_centernet_tpu_torch.models.roi_heads import roi_heads as roi_heads_ops
 from detectron2_centernet_tpu_torch.ops import roi_align as roi_ops
+from detectron2_centernet_tpu_torch.ops import roi_align_rotated as rot_ops
+from detectron2_centernet_tpu_torch.solver import build_optimizer
 from detectron2_centernet_tpu_torch.structures.keypoints import heatmaps_to_keypoints
 from detectron2_centernet_tpu_torch.structures.masks import paste_masks_in_image
 from detectron2_centernet_tpu_torch.tools import bench, train_net
@@ -701,6 +723,9 @@ def bypass_ieee_f32(module=centernet):
 
 
 EVAL_IMAGES, EVAL_SIZE = 64, (480, 640)  # the synthetic stand-in for coco_2017_val
+# the R-CNN heads' and variants' tools/train_net evaluations (11d-16sd), as PointRend's 22d: their masks and
+# keypoints are pasted and scored on the host, twice a run
+HEAD_EVAL_IMAGES = 16
 BBOX_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")
 
 
@@ -1213,16 +1238,16 @@ def same_results(a, b) -> bool:
     return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
 
 
-def fresh_synthetic_val(name: str = "coco_2017_val", keypoints: bool = False):
+def fresh_synthetic_val(name: str = "coco_2017_val", keypoints: bool = False, num_images: int = EVAL_IMAGES):
     """``name`` (coco_2017_val, or with ``keypoints`` the person-keypoint
-    keypoints_coco_2017_val) as the synthetic stand-in, afresh (its metadata
-    may name a COCO json an earlier phase cached in a directory since
-    removed)."""
+    keypoints_coco_2017_val) as the synthetic stand-in of ``num_images``
+    images, afresh (its metadata may name a COCO json an earlier phase
+    cached in a directory since removed)."""
     os.environ["DETECTRON2_SYNTH_DATA"] = "1"
     for catalog in (DatasetCatalog, MetadataCatalog):
         if name in catalog:
             catalog.remove(name)
-    register_synthetic_instances(name, num_images=EVAL_IMAGES, image_size=EVAL_SIZE, keypoints=keypoints)
+    register_synthetic_instances(name, num_images=num_images, image_size=EVAL_SIZE, keypoints=keypoints)
 
 
 def run_train_net(argv, log_path):
@@ -1615,18 +1640,18 @@ def profiled(fn, calls=3):
                 nms_kernel_ms=sum(e.self_device_time_total for e in nms) / calls / 1e3)
 
 
-def nms_work(boxes, scores, iou_threshold, counts):
+def nms_work(boxes, scores, iou_threshold, keep, valid):
     """(live candidates summed over every valid pick, valid picks) of the
-    greedy NMS of these inputs: the plain loop replayed on the card (the
-    argmax loop's work, PR 9-13's bound)."""
+    greedy NMS of these inputs, whose picks (``keep``, ``valid``) the plain
+    loop gave: the loop replayed on the card (the argmax loop's work, PR
+    9-13's bound), read back once."""
     live = torch.isfinite(scores)
-    keep, valid = nms_ops.nms_fixed(boxes, scores, iou_threshold, counts)
-    total = 0
+    total = torch.zeros((), dtype=torch.int64, device=boxes.device)
     areas = nms_ops._areas(boxes)
     rows = torch.arange(boxes.shape[0], device=boxes.device)
     for p in range(keep.shape[1]):
         ok = valid[:, p]
-        total += int((live.sum(1) * ok).sum())
+        total += (live.sum(1) * ok).sum()
         j = keep[:, p]
         box = boxes[rows, j][:, None]
         lt = torch.maximum(box[..., :2], boxes[..., :2])
@@ -1635,8 +1660,8 @@ def nms_work(boxes, scores, iou_threshold, counts):
         inter = wh[..., 0] * wh[..., 1]
         iou = nms_ops._iou(inter, areas[rows, j][:, None] + areas - inter)
         live &= ~((iou > iou_threshold) & ok[:, None])
-        live[rows[ok], j[ok]] = False
-    return total, int(valid.sum())
+        live[rows, j] &= ~ok
+    return int(total), int(valid.sum())
 
 
 def nms_sorted_work(scores, keep, valid):
@@ -1701,7 +1726,7 @@ def phase_nms_kernel(report, cases):
         rounds = nms_ops.rounds_taken()
         got = nms_ops.greedy_nms(boxes, scores, thr, counts)
         rounds = nms_ops.rounds_taken() - rounds
-        want = nms_ops.nms_fixed(boxes, scores, thr, counts)  # the check's call, also the timing's warm-up
+        want, plain_ms = timed_once(lambda: nms_ops.nms_fixed(boxes, scores, thr, counts))
         mirror = nms_ops.nms_sorted_reference(boxes, scores, thr, counts)
         torch.cuda.synchronize()
         equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -1711,8 +1736,7 @@ def phase_nms_kernel(report, cases):
         k = got[0].shape[1]
         kernel_ms = cuda_ms(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts), iters=20)
         host_ms, queued_ms = host_ms_behind(lambda: nms_ops.greedy_nms(boxes, scores, thr, counts))
-        plain_ms = cuda_ms(lambda: nms_ops.nms_fixed(boxes, scores, thr, counts), iters=1, warmup=0)
-        live, picks = nms_work(boxes, scores, thr, counts)
+        live, picks = nms_work(boxes, scores, thr, *want)
         prefix, ious = nms_sorted_work(scores, *got)
         alive = torch.isfinite(scores)
         n_live, row_live = int(alive.sum()), int(alive.sum(1).max())
@@ -2340,16 +2364,16 @@ def phase_rcnn_head(report, out_dir, kind: str):
     thresh = ["MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.005"] if kind == "mask" else []
     print(f"== {number}d. tools/train_net on {name}.yaml: {RCNN_STEPS} steps at batch {RCNN_BATCH} from the init with "
           f"calibrated FrozenBN statistics (MODEL.WEIGHTS; DETECTRON2_SYNTH_DATA), then --eval-only --resume on the "
-          f"{EVAL_IMAGES} synthetic {val} images {' '.join(thresh)}")
+          f"{HEAD_EVAL_IMAGES} synthetic {val} images {' '.join(thresh)}")
     argv = ["--config-file", os.path.join("configs", folder, name + ".yaml"), "SOLVER.MAX_ITER", str(RCNN_STEPS),
             "SOLVER.IMS_PER_BATCH", str(RCNN_BATCH), "TEST.BATCH_SIZE", str(RCNN_BATCH), "MODEL.WEIGHTS", init_path,
             "OUTPUT_DIR", out_dir, "SEED", "0"] + thresh
-    fresh_synthetic_val(val, keypoints=kind == "keypoint")
+    fresh_synthetic_val(val, keypoints=kind == "keypoint", num_images=HEAD_EVAL_IMAGES)
     log_path = f"output/chip_smoke_{kind}_rcnn_train_net_log.txt"
     nms_ops.greedy_nms.launches = 0
     trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
     nms_launches["train_net"] = nms_ops.greedy_nms.launches
-    want = RCNN_STEPS + 2 * 2 * -(-EVAL_IMAGES // RCNN_BATCH)
+    want = RCNN_STEPS + 2 * 2 * -(-HEAD_EVAL_IMAGES // RCNN_BATCH)
     if nms_launches["train_net"] != want:
         raise SystemExit(f"expected {want} NMS kernel launches in train_net, got {nms_launches['train_net']}")
     print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
@@ -2798,16 +2822,16 @@ def _rcnn_variant(report, out_dir, kind, counted):
     thresh = "0.0" if dconv else "0.005"
     print(f"== {number}d. tools/train_net on {name}.yaml: {RCNN_STEPS} steps at batch {RCNN_BATCH} from the init with "
           f"calibrated FrozenBN statistics (MODEL.WEIGHTS; DETECTRON2_SYNTH_DATA), then --eval-only --resume on the "
-          f"{EVAL_IMAGES} synthetic {val} images, ROI_HEADS.SCORE_THRESH_TEST {thresh}")
+          f"{HEAD_EVAL_IMAGES} synthetic {val} images, ROI_HEADS.SCORE_THRESH_TEST {thresh}")
     argv = ["--config-file", config_file, "SOLVER.MAX_ITER", str(RCNN_STEPS), "SOLVER.IMS_PER_BATCH", str(RCNN_BATCH),
             "TEST.BATCH_SIZE", str(RCNN_BATCH), "MODEL.WEIGHTS", init_path, "MODEL.ROI_HEADS.SCORE_THRESH_TEST",
             thresh, "OUTPUT_DIR", out_dir, "SEED", "0"] + list(extra) + (["TEST.DETECTIONS_PER_IMAGE", "20"] if dconv else [])
-    fresh_synthetic_val(val)
+    fresh_synthetic_val(val, num_images=HEAD_EVAL_IMAGES)
     log_path = f"output/chip_smoke_{kind}_rcnn_train_net_log.txt"
     nms_ops.greedy_nms.launches = 0
     trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, log_path)
     nms_launches["train_net"] = nms_ops.greedy_nms.launches
-    want = RCNN_STEPS + 2 * 2 * -(-EVAL_IMAGES // RCNN_BATCH)
+    want = RCNN_STEPS + 2 * 2 * -(-HEAD_EVAL_IMAGES // RCNN_BATCH)
     if nms_launches["train_net"] != want:
         raise SystemExit(f"expected {want} NMS kernel launches in train_net, got {nms_launches['train_net']}")
     print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; "
@@ -4445,6 +4469,551 @@ def _slice16_path(kind, out_dir, nms_launches, nms_cases):
     return res
 
 
+# -- phases 23 and 24: the rotated Faster R-CNN and TridentNet ----------------------------------------------------
+
+ROTATED = ["MODEL.RESNETS.DEPTH", 50, "MODEL.MASK_ON", False, "MODEL.PROPOSAL_GENERATOR.NAME", "RRPN",
+           "MODEL.ROI_HEADS.NAME", "RROIHeads", "MODEL.ANCHOR_GENERATOR.NAME", "RotatedAnchorGenerator",
+           "MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignRotated", "MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS", [10, 10, 5, 5, 1]]
+ROTATED_YAML = "configs/Base-RCNN-C4.yaml"
+TRIDENT_YAML = "projects/TridentNet/configs/tridentnet_fast_R_50_C4_1x.yaml"
+ROTATED_EVAL_IMAGES = 16  # 23d's synthetic scenes
+TRIDENT_TRAIN_BATCH = 16  # SOLVER.IMS_PER_BATCH of Base-TridentNet-Fast-C4.yaml: 48 images at res4
+TRIDENT_STEPS = 2  # tools/train_net's steps in 24d before its --eval-only
+ROTATED_ANGLE = 45.0  # 23c's gts: the synthetic scenes' boxes at seeded angles in ±45°
+# the least f32 operations of one rotated IoU in csrc/iou_rotated.cuh: a pair whose circles lie apart takes the
+# test alone (two sqrt, ~14 operations); the others the corners (two sincos, ~40), four clips of at most 8
+# vertices (~12 operations a vertex an edge) and the shoelace sum, ~400
+IOU_FAR_OPS, IOU_CLIP_OPS = 14, 400
+# 23e: the rows of each case the plain argmax loop takes (None: all); it costs ~150 small launches a pick, 3 s
+# for a test row's 1000 picks
+ROTATED_PLAIN_ROWS = {"rpn_test_rotated": 1, "rpn_train_rotated": 1, "box_head_rotated": None}
+TRIDENT_FULL_BATCH = 12  # 24b's predict_fn batch, the largest of 8, 12, 16 that fits in 80 GB: 16 is 48 images
+# through res4 and 48 000 rois through res5
+
+
+def rotated_cfg(dtype: str):
+    """``configs/Base-RCNN-C4.yaml`` with the rotated R-CNN's overrides (RRPN,
+    RROIHeads, rotated anchors at the defaults' sizes, ratios and angles: 45 a
+    cell, ROIAlignRotated, box weights (10, 10, 5, 5, 1)), the C4 base's RPN
+    top-k on res4, 800² inputs. Neither this repo nor the reference has a
+    rotated YAML."""
+    return yaml_cfg(ROTATED_YAML, dtype, ROTATED)
+
+
+@contextmanager
+def capture_rotated(iou_into, nms_into):
+    """Record the arguments of every rotated IoU and rotated NMS call of the
+    rotated R-CNN (the names ``rrpn`` and ``rotated_rcnn`` call), each call
+    going on to its kernel, whose wrapper counts it."""
+    real_iou, real_nms = rot_ops.pairwise_iou_rotated, rot_ops.nms_rotated
+
+    def iou(a, b):
+        iou_into.append((a.clone(), b.clone()))
+        return real_iou(a, b)
+
+    def nms(boxes, scores, thr, max_out=100, classes=None):
+        counts = max_out if isinstance(max_out, int) else tuple(int(c) for c in max_out)
+        nms_into.append((boxes.clone(), scores.clone(), None if classes is None else classes.clone(), float(thr),
+                         counts))
+        return real_nms(boxes, scores, thr, max_out, classes)
+
+    for mod in (rrpn_module, rotated_module):
+        mod.pairwise_iou_rotated, mod.nms_rotated = iou, nms
+    try:
+        yield
+    finally:
+        for mod in (rrpn_module, rotated_module):
+            mod.pairwise_iou_rotated, mod.nms_rotated = real_iou, real_nms
+
+
+def reset_rotated_launches():
+    rot_ops.pairwise_iou_rotated.launches = rot_ops.nms_rotated.launches = 0
+
+
+def read_rotated_launches():
+    return {"iou_rotated": rot_ops.pairwise_iou_rotated.launches, "nms_rotated": rot_ops.nms_rotated.launches}
+
+
+def near_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, 5) x (M, 5) → (N, M): the pairs ``rotated::iou`` clips (its circles
+    test, ``far_apart`` in csrc/iou_rotated.cuh, false)."""
+    a, b = a.float(), b.float()
+    r = 0.5 * (torch.sqrt(a[:, 2] ** 2 + a[:, 3] ** 2)[:, None] + torch.sqrt(b[:, 2] ** 2 + b[:, 3] ** 2)[None])
+    margin = 1e-3 * r + 1e-4 * ((a[:, 0].abs() + a[:, 1].abs())[:, None] + (b[:, 0].abs() + b[:, 1].abs())[None]) \
+        + 1e-3
+    d2 = (a[:, 0, None] - b[None, :, 0]) ** 2 + (a[:, 1, None] - b[None, :, 1]) ** 2
+    return d2 <= (r + margin) ** 2
+
+
+def rotated_iou_ops(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The f32 operations R1 needs for (B, N, 5) x (B or 1, M, 5) (or 2-d) pairs."""
+    a = a if a.dim() == 3 else a[None]
+    b = b if b.dim() == 3 else b[None]
+    near = sum(int(near_pairs(a[i], b[i if b.shape[0] > 1 else 0]).sum()) for i in range(a.shape[0]))
+    pairs = a.shape[0] * a.shape[1] * b.shape[1]
+    return near * IOU_CLIP_OPS + (pairs - near) * IOU_FAR_OPS
+
+
+def rotated_nms_work(boxes, scores, classes, keep, valid):
+    """(sorted candidates up to each row's last valid pick, summed over the
+    rows; the f32 operations of the IoUs greedy NMS cannot do without: one
+    per pair of kept picks of a class, as ``rotated::iou`` costs it, and a
+    clip per suppressed candidate up to the row's last pick, which some pick
+    overlaps)."""
+    prefix, needed = nms_sorted_work(scores, keep, valid)  # needed = kept pairs + suppressed, every row
+    ops = 0
+    for r in range(scores.shape[0]):
+        k = keep[r][valid[r]]
+        if len(k) < 2:
+            continue
+        pairs = torch.ones(len(k), len(k), dtype=torch.bool, device=k.device).triu(1)
+        if classes is not None:
+            pairs &= classes[r, k][:, None] == classes[r, k][None, :]
+        near = near_pairs(boxes[r, k], boxes[r, k]) & pairs
+        ops += int(near.sum()) * IOU_CLIP_OPS + int((pairs & ~near).sum()) * IOU_FAR_OPS
+        needed -= len(k) * (len(k) - 1) // 2  # the kept pairs, counted above by class
+    return prefix, ops + needed * IOU_CLIP_OPS
+
+
+def rotated_batches(cfg, seed: int):
+    """The train loader's batches of the synthetic scenes with each gt box
+    made rotated: XYXY → (cx, cy, w, h) and an angle drawn in ±45° from
+    ``seed`` (as ``tests/modeling/test_rotated_rcnn.py`` builds its gts): the
+    (N, M, 5) batches ``RotatedRCNN.loss_fn`` takes (the mapper's XYXY ones
+    raise)."""
+    rng = np.random.RandomState(seed)
+    loader = DefaultTrainer.build_train_loader(cfg)
+    try:
+        for batch in loader:
+            b = batch["gt_boxes"]
+            angle = rng.uniform(-ROTATED_ANGLE, ROTATED_ANGLE, b.shape[:2]).astype(np.float32)
+            batch["gt_boxes"] = np.stack([(b[..., 0] + b[..., 2]) / 2, (b[..., 1] + b[..., 3]) / 2,
+                                          b[..., 2] - b[..., 0], b[..., 3] - b[..., 1], angle], -1).astype(np.float32)
+            yield batch
+    finally:
+        loader.close()
+
+
+def check_rotated_detections(name, img, inst, score_threshold, classes=80):
+    """Some detections, finite rotated (cx, cy, w, h, angle) boxes centred in
+    the image, angles in [-180, 180), above the threshold, of the classes."""
+    b, (h, w) = inst.pred_boxes.tensor, img.shape[:2]
+    if not (len(inst) > 0 and b.shape[1] == 5 and np.isfinite(b).all() and np.isfinite(inst.scores).all()
+            and (b[:, 2:4] >= 0).all() and (b[:, 4] >= -180).all() and (b[:, 4] < 180).all()
+            and (inst.scores > score_threshold).all() and (inst.pred_classes < classes).all()):
+        raise SystemExit(f"{name}: bad rotated detections for a {h}x{w} image: {inst}")
+
+
+def phase_rotated(report, out_dir):
+    """Phase 23: the rotated Faster R-CNN R50-C4 at full width (``rotated_cfg``:
+    RRPN on res4, 45 rotated anchors a cell, 6000/1000 proposals at test and
+    12 000/2000 at training, ROIAlignRotated at 7², 2 fc of 1024, a
+    class-agnostic 5-d predictor, 80 classes), bf16, seeded weights
+    (``rcnn_weights``, calibrated on the card): (a) ``DefaultPredictor``
+    requests (median of 10), ``predict_fn`` at batch 1 and 16 (peak memory,
+    the batch-16 profile, ROIAlignRotated's and the two kernels' share);
+    (b) f32, batch 1, card against CPU: the RPN head, then on the card's
+    first HEAD_ROIS proposals the rotated pools and the box predictor, within
+    HEAD_TOL (SAME_INPUT_TOL for the pools, which read the card's maps on
+    both sides), with cuDNN's TF32 as the control; (c) ``SimpleTrainer``
+    steps (``bench.TRAIN_WARMUP`` + ``bench.TRAIN_STEPS`` + 1 profiled) at 16
+    x 800² on the synthetic scenes with rotated gts (``rotated_batches``),
+    busy share, peak memory, every loss finite; (d) ``RotatedCOCOEvaluator``
+    on 16 synthetic scenes through ``inference_on_dataset``; (e) R1 against
+    its plain clip on the captured matching and sampling inputs (1e-5), R2
+    against the plain argmax loop on the captured RPN rows (test and
+    training) and box-head rows, index for index but for counted ties within
+    1e-5 of the threshold (at most 0.1% of the picks). No DCN kernel and no
+    axis-aligned NMS (``greedy_nms``) anywhere on it. Returns (the DCN
+    launches, the rotated kernels' launches, their checks by case)."""
+    cfg = rotated_cfg("bfloat16")
+    m = cfg.MODEL
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    print(f"== 23a. rotated Faster R-CNN R50-C4 ({ROTATED_YAML} + RRPN / RROIHeads, {m.ANCHOR_GENERATOR.SIZES} x "
+          f"{m.ANCHOR_GENERATOR.ASPECT_RATIOS} x {m.ANCHOR_GENERATOR.ANGLES}, RPN top-k {m.RPN.PRE_NMS_TOPK_TEST}/"
+          f"{m.RPN.POST_NMS_TOPK_TEST} at test, {m.RPN.PRE_NMS_TOPK_TRAIN}/{m.RPN.POST_NMS_TOPK_TRAIN} at training), bf16: "
+          f"DefaultPredictor, predict_fn at batch 1 and {RCNN_BATCH}")
+    rng = np.random.RandomState(230)
+    cfg32 = rotated_cfg("float32")
+    init, weights = rcnn_weights(cfg32, letterboxed(rng, "cpu", 2, size), seed=0, device="cuda")
+    predictor = DefaultPredictor(cfg)
+    model = predictor.model
+    if type(model).__name__ != "RotatedRCNN" or model.anchor_generator.num_anchors != [45]:
+        raise SystemExit(f"the rotated config built {type(model).__name__} with {model.anchor_generator.num_anchors}")
+    model.model.load_state_dict(weights)
+    res, cases, iou_inputs = {}, {}, []
+    reset_launches()
+    reset_rotated_launches()
+    nms_ops.greedy_nms.launches = 0
+    for h, w in ((480, 640), (800, 800), (375, 500)):
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        inst = predictor(im)["instances"]
+        check_rotated_detections("rotated", im, inst, model.score_threshold)
+        print(f"  request {h}x{w}: {len(inst)} detections, top score {inst.scores.max():.4f}, angles "
+              f"{inst.pred_boxes.tensor[:, 4].min():.1f}..{inst.pred_boxes.tensor[:, 4].max():.1f}")
+    latency = bench.request_ms(predictor, rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+    b1, b16 = letterboxed(rng, model.device, 1, size), letterboxed(rng, model.device, RCNN_BATCH, size)
+    nms_inputs = []
+    with capture_rotated(iou_inputs, nms_inputs):
+        d16 = model.predict_fn(b16)
+    cases.update(zip(("rpn_test_rotated", "box_head_rotated"), nms_inputs))
+    if not (tuple(d16["boxes"].shape) == (RCNN_BATCH, cfg.TEST.DETECTIONS_PER_IMAGE, 5)
+            and bool(torch.isfinite(d16["boxes"]).all())):
+        raise SystemExit(f"the rotated predict_fn gave {tuple(d16['boxes'].shape)}")
+    serving = read_rotated_launches()
+    calls = 3 + bench.REQUEST_WARMUP + bench.REQUESTS + 1
+    if serving["nms_rotated"] != 2 * calls or serving["iou_rotated"] != 0:
+        raise SystemExit(f"rotated serving: expected {2 * calls} R2 and no R1 launches, got {serving}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_b1 = cuda_ms(lambda: model.predict_fn(b1), iters=5)
+    ms_b16 = cuda_ms(lambda: model.predict_fn(b16), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p16 = profiled(lambda: model.predict_fn(b16), calls=1)
+    kernel_ms = {k: sum(e.self_device_time_total for e in p16["events"] if e.device_type == DeviceType.CUDA
+                        and not e.is_user_annotation and any(n in e.key.lower() for n in names)) / 1e3
+                 for k, names in (("roi_align_rotated_embedding_bag", ("embeddingbag",)),
+                                  ("nms_rotated", NMS_KERNELS))}
+    res.update(request_ms=latency, request_median_ms=statistics.median(latency), predict_fn_b1_ms=ms_b1,
+               predict_fn_b16_ms=ms_b16, img_s_b1=1e3 / ms_b1, img_s_b16=RCNN_BATCH * 1e3 / ms_b16,
+               peak_memory_gib_b16=peak, device_ms_b16=p16["device_ms"], kernel_ms_b16=kernel_ms)
+    print(f"  request (480x640) median {res['request_median_ms']:.3f} ms of {bench.REQUESTS}; predict_fn batch 1 "
+          f"{ms_b1:.3f} ms = {res['img_s_b1']:.2f} img/s; batch {RCNN_BATCH} {ms_b16:.3f} ms = {res['img_s_b16']:.2f} "
+          f"img/s ({p16['device_ms']:.3f} ms on the card: ROIAlignRotated's embedding_bag "
+          f"{kernel_ms['roi_align_rotated_embedding_bag']:.3f} ms, R2 {kernel_ms['nms_rotated']:.3f} ms); peak memory "
+          f"{peak:.2f} GiB")
+    print(p16["events"].table(sort_by="cuda_time_total", row_limit=10, max_name_column_width=90))
+    del predictor, d16
+
+    print(f"== 23b. f32, batch 1, card against CPU: the RPN head; on the card's first {HEAD_ROIS} proposals the "
+          f"rotated pools (the card's maps on both sides) and the box predictor; cuDNN's TF32 as the control")
+    card = build_model(cfg32)
+    cfg_host = cfg32.clone()
+    cfg_host.MODEL.DEVICE = "cpu"
+    host = build_model(cfg_host)
+    for mdl in (card, host):
+        mdl.model.load_state_dict(weights)
+    checks, tf32 = {}, {}
+    with torch.inference_mode():
+        def stages(mdl, feats, lg, dl, props):
+            out = {"objectness_logits": lg[0], "anchor_deltas": dl[0]}
+            out["pooled"] = mdl.pool({k: v.to(mdl.device) for k, v in feats_c.items()}, props.to(mdl.device).reshape(-1, 5),
+                                     props.shape[1])
+            out["cls_score"], out["bbox_pred"] = mdl.model.box_predict(mdl.pool(feats, props.to(mdl.device).reshape(-1, 5),
+                                                                                props.shape[1]))
+            return out
+
+        feats_c, lg_c, dl_c = card.model(card.normalize(b1))
+        props = card.proposals(lg_c, dl_c, size, "test")[0][:, :HEAD_ROIS].contiguous()
+        got = stages(card, feats_c, lg_c, dl_c, props)
+        feats_h, lg_h, dl_h = host.model(host.normalize(b1.cpu()))
+        want = stages(host, feats_h, lg_h, dl_h, props.cpu())
+        with pytorch_default_tf32(), bypass_ieee_f32(rcnn), bypass_ieee_f32(resnet_module):
+            feats_t, lg_t, dl_t = card.model(card.normalize(b1))
+            ctrl = stages(card, feats_t, lg_t, dl_t, props)
+    for k in got:
+        rel = SAME_INPUT_TOL if k == "pooled" else HEAD_TOL
+        card_vs_cpu(checks, k, got[k], want[k], rel=rel)
+        card_vs_cpu(tf32, k, ctrl[k], want[k], rel=rel)
+        print(f"  {k}: max_abs_err={checks[k]['max_abs_err']:.3e} (scale {checks[k]['scale']:.3e}, tol {rel:.0e} x "
+              f"scale) {'ok' if checks[k]['max_abs_err'] <= checks[k]['tol'] else 'FAIL'}; TF32 control "
+              f"{tf32[k]['max_abs_err'] / tf32[k]['tol']:.2f}x the tol")
+    if any(v["max_abs_err"] > v["tol"] for v in checks.values()):
+        raise SystemExit(f"the rotated R-CNN's f32 stages differ between the card and the CPU: {checks}")
+    if not max(v["max_abs_err"] / v["tol"] for k, v in tf32.items() if k != "pooled") > 1:
+        raise SystemExit(f"the rotated R-CNN's f32 check did not see TF32: {tf32}")
+    res.update(card_vs_cpu=checks, tf32_control=tf32)
+    del card, host, feats_c, feats_h, feats_t
+
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    print(f"== 23c. SimpleTrainer: {steps} steps at {RCNN_BATCH} x 800² on the synthetic coco_2017_train, each gt "
+          f"box turned by a seeded angle in ±{ROTATED_ANGLE:.0f}° ((N, M, 5) batches), from the init")
+    synthetic_stand_in(cfg.DATASETS.TRAIN[0])
+    train_cfg = cfg.clone()
+    train_cfg.SOLVER.IMS_PER_BATCH = RCNN_BATCH
+    train_cfg.SOLVER.MAX_ITER = steps
+    tmodel = build_model(train_cfg)
+    tmodel.model.load_state_dict(init)
+    optimizer, scheduler = build_optimizer(train_cfg, tmodel.model)
+    trainer = SimpleTrainer(tmodel, rotated_batches(train_cfg, seed=23), optimizer, scheduler)
+    clock = bench.StepClock(bench.Clock("cuda"), profiled=steps - 1)
+    train_nms = []
+    trainer.register_hooks([clock])
+    capture = capture_rotated(iou_inputs, train_nms)
+
+    class CaptureFirst(HookBase):  # the first step's rotated IoU and NMS inputs
+        def before_step(self):
+            if self.trainer.iter == 0:
+                capture.__enter__()
+
+        def after_step(self):
+            if self.trainer.iter == 0:
+                capture.__exit__(None, None, None)
+
+    trainer.register_hooks([CaptureFirst()])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(0, steps)
+    torch.cuda.synchronize()
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(clock.times[bench.TRAIN_WARMUP:])
+    names = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "total_loss")
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in names}
+    if not all(len(v) == steps and all(math.isfinite(a) for a in v) for v in losses.values()):
+        raise SystemExit(f"the rotated train steps: losses {losses}")
+    cases["rpn_train_rotated"] = train_nms[0]  # the first step's 16 rows of 12 000
+    busy = clock.device_ms / step_ms
+    res.update(train=dict(train_step_ms=step_ms, train_img_s=RCNN_BATCH * 1e3 / step_ms, train_batch=RCNN_BATCH,
+                          train_busy_share=busy, peak_memory_gib=peak_train), train_losses=losses,
+               train_step_ms_all=clock.times, train_profiled_device_ms=clock.device_ms)
+    print(f"  total loss {' '.join(f'{v:.4f}' for v in losses['total_loss'])}; step times (ms) "
+          f"{' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} {step_ms:.1f} ms = "
+          f"{RCNN_BATCH * 1e3 / step_ms:.1f} img/s; card busy {clock.device_ms:.1f} ms = {busy:.0%} of the median "
+          f"step; peak memory {peak_train:.2f} GiB")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=10, max_name_column_width=90))
+    del trainer, tmodel, optimizer, clock
+
+    val = "chip_smoke_rotated_val"
+    print(f"== 23d. RotatedCOCOEvaluator through inference_on_dataset: {ROTATED_EVAL_IMAGES} synthetic scenes "
+          f"({EVAL_SIZE[0]}x{EVAL_SIZE[1]}, their XYWH gts at angle 0), batch {RCNN_BATCH}, the served weights")
+    for catalog in (DatasetCatalog, MetadataCatalog):
+        if val in catalog:
+            catalog.remove(val)
+    register_synthetic_instances(val, num_images=ROTATED_EVAL_IMAGES, image_size=EVAL_SIZE)
+    eval_cfg = cfg.clone()
+    eval_cfg.TEST.BATCH_SIZE = RCNN_BATCH
+    emodel = build_model(eval_cfg)
+    emodel.model.load_state_dict(weights)
+    loader = DefaultTrainer.build_test_loader(eval_cfg, val)
+    t0 = time.perf_counter()
+    try:
+        result = eval_loop.inference_on_dataset(emodel.predict_fn, loader, RotatedCOCOEvaluator(val),
+                                                postprocess=emodel.postprocess, device=emodel.device)
+    finally:
+        loader.close()
+    eval_s = time.perf_counter() - t0
+    if not (set(result.get("bbox", {})) == {"AP", "AP50", "AP75"} and all(math.isfinite(v) for v in result["bbox"].values())):
+        raise SystemExit(f"RotatedCOCOEvaluator gave {result}")
+    print(f"  {result['bbox']} in {eval_s:.1f} s")
+    res.update(evaluation=result["bbox"], eval_s=eval_s)
+    del emodel
+    torch.cuda.synchronize()
+    launches, rotated = read_launches(), read_rotated_launches()
+    nms_axis = nms_ops.greedy_nms.launches
+    print(f"  launches on the rotated path: R1 {rotated['iou_rotated']}, R2 {rotated['nms_rotated']}; DCN {launches}; "
+          f"axis-aligned NMS {nms_axis}")
+    if any(launches.values()) or nms_axis or not (rotated["iou_rotated"] > 0 and rotated["nms_rotated"] > 0):
+        raise SystemExit(f"the rotated path's launches: DCN {launches}, greedy_nms {nms_axis}, rotated {rotated}")
+    res.update(launches=launches, rotated_launches=rotated)
+    checks = phase_rotated_kernels(res, iou_inputs, cases)
+    report["rotated"] = res
+    return launches, rotated, checks
+
+
+def timed_once(fn):
+    """(``fn()``, its ms on the card's clock): one call, no warm-up (the plain
+    versions' thousands of small launches dwarf their first call's)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_rotated_kernels(res, iou_inputs, cases):
+    """23e: R1 and R2 against their plain versions on the card, on the inputs
+    the rotated path gave them, timed beside their bounds."""
+    print("== 23e. R1 (csrc/iou_rotated.cu) and R2 (nms.cu's rotated pipeline) against their plain versions on the "
+          "card, on the rotated path's inputs")
+    out = {}
+    # the first matching chunk (the gts against the anchors, one 2-d set) and the first proposal sampling
+    picked = {"rrpn_matching": next(c for c in iou_inputs if c[1].dim() == 2),
+              "proposal_sampling": next(c for c in iou_inputs if c[1].dim() == 3)}
+    for name, (a, b) in picked.items():
+        got = rot_ops.pairwise_iou_rotated(a, b)
+        want, plain_ms = timed_once(lambda: rot_ops.pairwise_iou_rotated_plain(a, b))
+        # a pair clipped by a box of no area (the gt slots past an image's gts, appended to its proposals) is
+        # f32 noise in both versions, as in the JAX package's: the matcher masks those slots out
+        keep = (b[..., 2] * b[..., 3] > 0).unsqueeze(-2).expand_as(got)
+        err = (got - want).abs()[keep].max().item()
+        ms = cuda_ms(lambda: rot_ops.pairwise_iou_rotated(a, b), iters=10)
+        ops = rotated_iou_ops(a, b)
+        nbytes = (a.numel() + b.numel() + got.numel()) * 4
+        bound, by = bound_of(ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3)
+        out[name] = dict(shape=[list(a.shape), list(b.shape)], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, ops=ops, bytes=nbytes, noise_pairs=int((~keep).sum()))
+        print(f"  R1 {name}: {tuple(a.shape)} x {tuple(b.shape)} -> {tuple(got.shape)}: max |kernel - plain| {err:.2e} "
+              f"(tol 1e-5; {int((~keep).sum())} pairs clipped by a box of no area left out); kernel {ms:.3f} ms, plain clip {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}: {ops:.3e} "
+              f"operations, {nbytes} bytes)")
+        if not err <= 1e-5:
+            raise SystemExit(f"R1 disagrees with its plain version on {name}: {err}")
+    for name, (boxes, scores, classes, thr, counts) in cases.items():
+        rows = ROTATED_PLAIN_ROWS[name]
+        sub = slice(None) if rows is None else slice(0, rows)
+        bx, sc = boxes[sub].contiguous(), scores[sub].contiguous()
+        cl = None if classes is None else classes[sub].contiguous()
+        cn = counts if isinstance(counts, int) else counts[sub]
+        rounds = nms_ops.rounds_taken()
+        got = rot_ops.nms_rotated(bx, sc, thr, cn, cl)
+        rounds = nms_ops.rounds_taken() - rounds
+        want, plain_ms = timed_once(lambda: rot_ops.nms_rotated_fixed(bx, sc, thr, cn, cl))
+        ties = rot_ops.nms_pick_ties(bx, sc, thr, got, want, cl)
+        equal = ties["differing_rows"] == 0 and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ms = cuda_ms(lambda: rot_ops.nms_rotated(bx, sc, thr, cn, cl), iters=10)
+        full_ms = cuda_ms(lambda: rot_ops.nms_rotated(boxes, scores, thr, counts, classes), iters=5)
+        prefix, ops = rotated_nms_work(bx, sc, cl, *got)
+        k = got[0].shape[1]
+        nbytes = sc.numel() * 4 + prefix * (20 + (4 if cl is not None else 0)) + sc.shape[0] * k * 9
+        bound, by = bound_of(ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3)
+        out[name] = dict(rows=sc.shape[0], all_rows=scores.shape[0], candidates=sc.shape[1], picks=ties["picks"],
+                         equal=equal, ties=ties, rounds=rounds, ms=ms, plain_ms=plain_ms, ms_all_rows=full_ms,
+                         bound_ms=bound, bound_by=by, sorted_prefix=prefix, ops=ops, classes=cl is not None)
+        print(f"  R2 {name}: {sc.shape[0]} of {scores.shape[0]} rows x {sc.shape[1]} candidates, picks "
+              f"{counts if isinstance(counts, int) else sorted(set(counts))}, {ties['picks']} valid"
+              f"{', per class' if cl is not None else ''}: {'equal' if equal else 'DIFFERENT'} to the loop "
+              f"({ties['ties']} rows differ at a tie, {ties['not_ties']} otherwise); {rounds} chunks; kernel {ms:.3f} ms "
+              f"({full_ms:.3f} ms on all {scores.shape[0]} rows), plain loop {plain_ms:.3f} ms; bound {bound:.4f} ms "
+              f"({by}: {ops:.3e} operations, {nbytes} bytes)")
+        if ties["not_ties"] or ties["ties"] > 0.001 * ties["picks"]:
+            raise SystemExit(f"R2 disagrees with the plain loop on {name}: {ties}")
+    res["kernels_vs_plain"] = out
+    return out
+
+
+def phase_trident(report, out_dir):
+    """Phase 24: TridentNet R50-C4 (``TRIDENT_YAML``: three weight-shared
+    branches at dilations 1/2/3 in res4, Res5ROIHeads, 128 rois, 500
+    training proposals, no gt appended, 80 classes) at full width, bf16,
+    seeded weights: (a) Fast mode (``TEST_BRANCH_IDX`` 1) and (b) full mode
+    (-1: the batch tiled to 3N, each image's 3 x 100 detections merged by
+    class-aware NMS on nms.cu): ``DefaultPredictor`` requests, ``predict_fn``
+    at batch 1 and 16 (full mode at ``TRIDENT_FULL_BATCH``), peak memory;
+    full mode's merge rows go to 10c; (c) ``tools/bench``'s train steps
+    (``bench.bench_training``) at ``TRIDENT_TRAIN_BATCH`` (48 images at res4),
+    busy share, peak memory, every loss finite; (d) ``tools/train_net`` ``TRIDENT_STEPS`` steps from
+    the init, then ``--eval-only --resume`` on 16 synthetic coco_2017_val
+    scenes. No DCN kernel, no rotated kernel. Returns (DCN launches, NMS
+    launches by part, NMS cases for 10c)."""
+    cfg = yaml_cfg(TRIDENT_YAML, "bfloat16")
+    m = cfg.MODEL
+    size = tuple(cfg.INPUT.TEST_SIZE)
+    print(f"== 24a. {TRIDENT_YAML}: TridentRCNN, ResNet-{m.RESNETS.DEPTH} trident res4 (dilations "
+          f"{list(m.TRIDENT.BRANCH_DILATIONS)}), {m.ROI_HEADS.BATCH_SIZE_PER_IMAGE} rois, proposals "
+          f"{m.RPN.PRE_NMS_TOPK_TEST}/{m.RPN.POST_NMS_TOPK_TEST}, bf16; Fast (branch {m.TRIDENT.TEST_BRANCH_IDX}) and "
+          f"full: DefaultPredictor, predict_fn at batch 1 and {RCNN_BATCH}")
+    rng = np.random.RandomState(240)
+    init, weights = rcnn_weights(yaml_cfg(TRIDENT_YAML, "float32"), letterboxed(rng, "cpu", 2, size), seed=0,
+                                 device="cuda")
+    res, nms_launches, nms_cases = {}, {}, {}
+    reset_launches()
+    reset_rotated_launches()
+    for mode, branch in (("fast", int(m.TRIDENT.TEST_BRANCH_IDX)), ("full", -1)):
+        mcfg = cfg.clone()
+        mcfg.MODEL.TRIDENT.TEST_BRANCH_IDX = branch
+        predictor = DefaultPredictor(mcfg)
+        model = predictor.model
+        model.model.load_state_dict(weights)
+        nms_ops.greedy_nms.launches = 0
+        for h, w in ((480, 640), (800, 800), (375, 500)):
+            im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            inst = predictor(im)["instances"]
+            check_detections(f"trident {mode}", im, inst, model.score_threshold)
+        latency = bench.request_ms(predictor, rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+        n = RCNN_BATCH if mode == "fast" else TRIDENT_FULL_BATCH
+        b1, bn = letterboxed(rng, model.device, 1, size), letterboxed(rng, model.device, n, size)
+        nms_inputs = []
+        with capture_nms(nms_inputs):
+            dn = model.predict_fn(bn)
+        torch.cuda.synchronize()
+        calls = 3 + bench.REQUEST_WARMUP + bench.REQUESTS + 1
+        per_call = 2 if mode == "fast" else 3  # the RPN's rows, the box head's, full mode's merge
+        nms_launches[f"trident_{mode}"] = {"serving": nms_ops.greedy_nms.launches}
+        if nms_ops.greedy_nms.launches != per_call * calls:
+            raise SystemExit(f"trident {mode}: expected {per_call * calls} NMS kernel launches, got "
+                             f"{nms_ops.greedy_nms.launches}")
+        names = ("rpn_test", "box_head") + (("merge",) if mode == "full" else ())
+        nms_cases.update({f"{k}_trident_{mode}": c for k, c in zip(names, nms_inputs)})
+        if not (tuple(dn["boxes"].shape) == (n, cfg.TEST.DETECTIONS_PER_IMAGE, 4)
+                and bool(torch.isfinite(dn["boxes"]).all())):
+            raise SystemExit(f"trident {mode}'s predict_fn gave {tuple(dn['boxes'].shape)}")
+        del dn
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms_b1 = cuda_ms(lambda: model.predict_fn(b1), iters=5)
+        ms_bn = cuda_ms(lambda: model.predict_fn(bn), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        res[mode] = dict(request_ms=latency, request_median_ms=statistics.median(latency), predict_fn_b1_ms=ms_b1,
+                         batch=n, predict_fn_batch_ms=ms_bn, img_s_b1=1e3 / ms_b1, img_s_batch=n * 1e3 / ms_bn,
+                         peak_memory_gib_batch=peak)
+        print(f"  {mode}: request (480x640) median {res[mode]['request_median_ms']:.3f} ms of {bench.REQUESTS}; "
+              f"predict_fn batch 1 {ms_b1:.3f} ms = {1e3 / ms_b1:.2f} img/s; batch {n} {ms_bn:.3f} ms = "
+              f"{n * 1e3 / ms_bn:.2f} img/s; peak memory {peak:.2f} GiB"
+              + ("" if n == RCNN_BATCH else f" (batch {RCNN_BATCH} is {3 * RCNN_BATCH} images through res4 and "
+                 f"{3 * RCNN_BATCH}k rois through res5: it does not fit in 80 GB)"))
+        del predictor, model, b1, bn
+        torch.cuda.empty_cache()
+
+    print(f"== 24c. tools/bench's train steps (bench.bench_training) at the YAML's {TRIDENT_TRAIN_BATCH} x 800² (3 x "
+          f"{TRIDENT_TRAIN_BATCH} at res4) on the synthetic {cfg.DATASETS.TRAIN[0]}, the model's own init")
+    synthetic_stand_in(cfg.DATASETS.TRAIN[0])
+    train_cfg = cfg.clone()
+    train_cfg.SOLVER.IMS_PER_BATCH = TRIDENT_TRAIN_BATCH
+    nms_ops.greedy_nms.launches = 0
+    entries, trainer, clock = bench.bench_training(train_cfg)
+    torch.cuda.synchronize()
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_STEPS + 1
+    nms_launches["trident_fast"]["bench"] = nms_ops.greedy_nms.launches
+    names = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "total_loss")
+    losses = {k: [v for v, _ in trainer.storage.history(k).values()] for k in names}
+    if not (all(len(v) == steps and all(math.isfinite(a) for a in v) for v in losses.values())
+            and nms_ops.greedy_nms.launches == steps):
+        raise SystemExit(f"trident's train steps: losses {losses}, NMS launches {nms_ops.greedy_nms.launches}")
+    print(f"  total loss {' '.join(f'{v:.4f}' for v in losses['total_loss'])}; step times (ms) "
+          f"{' '.join(f'{t:.1f}' for t in clock.times)}, median of {bench.TRAIN_STEPS} {entries['train_step_ms']:.1f} ms "
+          f"= {entries['train_img_s']:.1f} img/s; card busy {clock.device_ms:.1f} ms = "
+          f"{entries['train_busy_share']:.0%} of the median step; peak memory {entries['peak_memory_gib']:.2f} GiB")
+    print(clock.events.table(sort_by="cuda_time_total", row_limit=8, max_name_column_width=90))
+    res.update(train=entries, train_losses=losses, train_step_ms_all=clock.times,
+               train_profiled_device_ms=clock.device_ms)
+    del trainer, clock
+
+    init_path = os.path.join(out_dir, "init_weights.pth")
+    torch.save(init, init_path)
+    os.environ["DETECTRON2_SYNTH_DATA"] = "1"
+    val = "coco_2017_val"
+    for catalog in (DatasetCatalog, MetadataCatalog):
+        if val in catalog:
+            catalog.remove(val)
+    register_synthetic_instances(val, num_images=ROTATED_EVAL_IMAGES, image_size=EVAL_SIZE)
+    extra = ["MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.005", "TEST.BATCH_SIZE", str(RCNN_BATCH)]
+    print(f"== 24d. tools/train_net on {TRIDENT_YAML}: {TRIDENT_STEPS} steps at batch {TRIDENT_TRAIN_BATCH} from the "
+          f"init, then --eval-only --resume on {val} ({ROTATED_EVAL_IMAGES} synthetic images) {' '.join(extra)}")
+    argv = ["--config-file", TRIDENT_YAML, "SOLVER.MAX_ITER", str(TRIDENT_STEPS), "SOLVER.IMS_PER_BATCH",
+            str(TRIDENT_TRAIN_BATCH), "MODEL.WEIGHTS", init_path, "OUTPUT_DIR", out_dir, "SEED", "0"] + extra
+    nms_ops.greedy_nms.launches = 0
+    trained, evaluated, resumed, train_s, eval_s = run_train_net(argv, "output/chip_smoke_trident_train_net_log.txt")
+    nms_launches["trident_fast"]["train_net"] = nms_ops.greedy_nms.launches
+    want_nms = TRIDENT_STEPS + 2 * 2 * -(-ROTATED_EVAL_IMAGES // RCNN_BATCH)
+    print(f"  train: {train_s:.1f} s; eval-only: {eval_s:.1f} s; iterations resumed at {resumed}; bbox AP "
+          f"{trained['bbox']['AP']:.4f}, AP50 {trained['bbox']['AP50']:.4f}; NMS kernel launches "
+          f"{nms_ops.greedy_nms.launches}")
+    if not (resumed == [0, TRIDENT_STEPS] and same_results(trained, evaluated) and nms_ops.greedy_nms.launches == want_nms
+            and all(math.isfinite(trained["bbox"][k]) for k in ("AP", "AP50"))):
+        raise SystemExit(f"trident's train_net: resumed {resumed}, NMS launches {nms_ops.greedy_nms.launches} "
+                         f"(expected {want_nms}), results {trained} vs {evaluated}")
+    res.update(train_net=dict(train_s=train_s, eval_only_s=eval_s, resumed=resumed, results=trained))
+    torch.cuda.synchronize()
+    launches, rotated = read_launches(), read_rotated_launches()
+    print(f"  DCN kernel launches on the trident paths: {launches}; rotated kernels {rotated}; NMS kernel launches "
+          f"{nms_launches}")
+    if any(launches.values()) or any(rotated.values()):
+        raise SystemExit(f"the trident paths launched DCN or rotated kernels: {launches}, {rotated}")
+    res.update(launches=launches, nms_kernel_launches=nms_launches)
+    report["trident"] = res
+    return launches, nms_launches, nms_cases
+
+
 def roi_ops_inference(model, props, scores, deltas, n, p, size):
     """``fast_rcnn_inference`` of the box predictor's outputs on (N, P) proposals."""
     return roi_heads_ops.fast_rcnn_inference(props[0], props[2], scores.view(n, p, -1), deltas.view(n, p, -1),
@@ -4580,6 +5149,16 @@ def main() -> int:
         lap(kind)
     for kind in ("segmentation", "slice16"):  # by path: panoptic, semantic, panoptic_dconv; DeepLab, PointRend
         head_nms.update(head_nms.pop(kind))
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+    try:
+        head_launches["rotated"], rotated_launches, rotated_checks = phase_rotated(report, scratch)
+        lap("23")
+        head_launches["trident"], trident_nms, cases = phase_trident(report, scratch)
+        head_cases.update(cases)
+        head_nms.update(trident_nms)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    lap("24")
     nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases, **head_cases))
     lap("10c")
     totals = phase_kernel_timing(report)
@@ -4610,6 +5189,8 @@ def main() -> int:
             "launches_voc_cityscapes_rcnn": head_launches["voc_cityscapes"][name],  # phase 19, asserted 0
             # phases 21, 21v, 22, 22s (DeepLab V3+ and V3, PointRend R-CNN and semantic), asserted 0
             "launches_deeplab_pointrend": head_launches["slice16"][name],
+            "launches_rotated_rcnn": head_launches["rotated"][name],  # phase 23, asserted 0
+            "launches_trident_rcnn": head_launches["trident"][name],  # phase 24, asserted 0
             "launches_inference": inference[name], "launches_evaluation": evaluation[name],
             "launches_training": training[name], "launches_train_eval": train_eval[name],
             "launches_bench": bench_launches[name],
@@ -4653,7 +5234,9 @@ def main() -> int:
         "Cityscapes (phase 19: their evaluations), Panoptic FPN R50 and the dconv Cascade GN Panoptic FPN R101 "
         "(phase 20: requests, batch 1 and 16, the training's proposals, the bench, train_net; none on Semantic FPN), "
         "PointRend R-CNN (phase 22: requests, batch 1 and 16, the training's proposals, its train steps, train_net; "
-        "none on DeepLab or PointRend's semantic FPN)",
+        "none on DeepLab or PointRend's semantic FPN), TridentNet Fast and full (phase 24: requests, batch 1 and 16, "
+        "full mode's branch merge, the bench's train steps, train_net; none on the rotated R-CNN, whose NMS is "
+        "nms_rotated's)",
         "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
         "launches_mask_rcnn": head_nms["mask"], "launches_keypoint_rcnn": head_nms["keypoint"],
         "launches_cascade_rcnn": head_nms["cascade"], "launches_c4_rcnn": head_nms["c4"],
@@ -4663,6 +5246,7 @@ def main() -> int:
         "launches_panoptic_fpn": head_nms["panoptic"], "launches_semantic_fpn": head_nms["semantic"],
         "launches_panoptic_dconv_cascade_gn": head_nms["panoptic_dconv"],
         "launches_pointrend_rcnn": head_nms["pointrend_rcnn"],
+        "launches_trident_fast_rcnn": head_nms["trident_fast"], "launches_trident_full_rcnn": head_nms["trident_full"],
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,
@@ -4672,6 +5256,35 @@ def main() -> int:
         "max_abs_err 0 means equal",
         **{f"{k}_{name}": r[k] for name, r in nms_rows.items()
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "old_bound_ms", "most_live_in_a_row", "rounds")},
+    })
+    rr = rotated_checks
+    kernels.append({
+        "name": "iou_rotated", "route": "cuda", "source": CSRC + "iou_rotated.cu",
+        "replaces": "detectron2_centernet_tpu/ops/roi_align_rotated.py:140", "launches": rotated_launches["iou_rotated"],
+        "launches_from": "the rotated Faster R-CNN (phase 23: the train steps' RRPN matching and proposal sampling; "
+        "none in serving); none on any other path",
+        "max_abs_err": max(rr[k]["max_abs_err"] for k in ("rrpn_matching", "proposal_sampling")),
+        "ms": rr["rrpn_matching"]["ms"], "plain_ms": rr["rrpn_matching"]["plain_ms"],
+        "bound_ms": rr["rrpn_matching"]["bound_ms"], "bound_by": rr["rrpn_matching"]["bound_by"], "library_ms": None,
+        "per": "one call of a train step's RRPN matching: "
+        f"{rr['rrpn_matching']['shape'][0]} gts x {rr['rrpn_matching']['shape'][1][0]} anchors",
+        **{f"{k}_proposal_sampling": rr["proposal_sampling"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+    })
+    head = rr["rpn_test_rotated"]
+    kernels.append({
+        "name": "nms_rotated", "route": "cuda", "source": CSRC + "nms.cu",
+        "replaces": "detectron2_centernet_tpu/ops/roi_align_rotated.py:148", "launches": rotated_launches["nms_rotated"],
+        "launches_from": "the rotated Faster R-CNN (phase 23: requests and batch 1 and 16, the RRPN's rows and the "
+        "class-aware box-head rows, the training's proposals, the evaluation); none on any other path",
+        "max_abs_err": 0.0 if all(r["equal"] for n, r in rr.items() if "ties" in r) else None,
+        "ties": {n: r["ties"]["ties"] for n, r in rr.items() if "ties" in r},
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "per": f"one nms_rotated call on {head['rows']} of the {head['all_rows']} RRPN level rows of a batch-16 800² "
+        f"test forward ({head['candidates']} candidates, 1000 picks); kernel on all {head['all_rows']} rows "
+        f"{head['ms_all_rows']:.3f} ms; indices and validity compared, max_abs_err 0 means equal",
+        **{f"{k}_{n}": r[k] for n, r in rr.items() if "ties" in r
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "ms_all_rows", "rounds")},
     })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -30,9 +30,12 @@ the mask head (``roi_heads.mask_head.{mask_fcn{i},deconv,predictor}``) to
 ``res5_block{b}/conv1`` and ``res5_block{b}/conv1_norm/bn``; a
 ``DeformBottleneckBlock``'s deformable 3x3 (``res{s}.{b}.conv2.weight``) to
 the block's own ``res{s}_block{b}/conv2_kernel`` and its offset conv
-(``res{s}.{b}.conv2_offset``) to ``res{s}_block{b}/conv2_offset``; the torch
-key of the 3x3 is the same in a plain block, so ``canonical_key`` is told
-the deformable blocks (``deform``); the sem-seg head
+(``res{s}.{b}.conv2_offset``) to ``res{s}_block{b}/conv2_offset``, and a
+TridentNet block's shared 3x3 (``backbone.res4.{b}.conv2.weight``) to its
+``res4_block{b}/conv2_kernel`` too; the torch key of the 3x3 is the same in
+a plain block, so ``canonical_key`` is told those blocks (``deform``); the
+rotated R-CNN's RPN head (5-d ``anchor_deltas``), box head and predictor
+take R-CNN's names; the sem-seg head
 (``sem_seg_head.{f}.{2k}``, its norm ``.norm``, ``sem_seg_head.predictor``)
 to ``{f}_conv{k}``, ``{f}_gn{k}`` and ``predictor`` under ``head``
 (``SemanticSegmentor``) or ``sem_seg_head`` (``PanopticFPN``; the owner is
@@ -333,8 +336,9 @@ def canonical_key(key: str, norm: str = "bn", trunk: str = "trunk",
     FrozenBatchNorm) or ``gn`` (GroupNorm). ``trunk`` is the flax module
     that holds a bare trunk under ``backbone``: ``trunk`` in CenterNet, ""
     in R-CNN's C4 and DC5, whose backbone is the ResNet itself. ``deform``
-    names the ``DeformBottleneckBlock``s (``res3_block0``, ...), whose
-    deformable 3x3 is the block's ``conv2_kernel``. ``sem_seg`` is the flax
+    names the ``DeformBottleneckBlock``s (``res3_block0``, ...) and the
+    ``TridentBottleneckBlock``s (``res4_block0``, ...), whose 3x3 is the
+    block's ``conv2_kernel``. ``sem_seg`` is the flax
     module of the sem-seg head: ``sem_seg_head`` in PanopticFPN, ``head``
     in SemanticSegmentor."""
     path = _canonical_key(key, norm, trunk, sem_seg)
@@ -527,7 +531,8 @@ def key_options(model: torch.nn.Module) -> dict:
     names = dict(model.named_modules())
     gn = any(isinstance(m, torch.nn.GroupNorm) and re.search(r"(^|\.)(stem|res\d)\.", n) for n, m in names.items())
     deform = {f"{m.group(1)}_block{m.group(2)}" for n, mod in names.items()
-              if type(mod).__name__ == "DeformBottleneckBlock" and (m := re.search(r"(res\d)\.(\d+)$", n))}
+              if type(mod).__name__ in ("DeformBottleneckBlock", "TridentBottleneckBlock")
+              and (m := re.search(r"(res\d)\.(\d+)$", n))}
     return {"norm": "gn" if gn else "bn", "trunk": "trunk" if type(model).__name__ == "CenterNetModel" else "",
             "deform": deform, "sem_seg": "head" if type(model).__name__ == "SemSegModel" else "sem_seg_head"}
 

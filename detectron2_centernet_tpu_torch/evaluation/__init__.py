@@ -1,8 +1,8 @@
 """Evaluation of the port (counterpart of the JAX package's
 ``evaluation/``): COCO (bbox, segm, keypoints), LVIS (bbox), Pascal VOC
 (bbox), Cityscapes instances (segm), semantic segmentation (mIoU, fwIoU,
-mACC, pACC), Cityscapes' sem-seg IoU and Panoptic Quality. The rotated-COCO
-evaluator waits for rotated boxes (ROADMAP A16)."""
+mACC, pACC), Cityscapes' sem-seg IoU, Panoptic Quality and the rotated-box
+COCO AP (``RotatedCOCOEvaluator``)."""
 
 from .cityscapes_evaluation import CityscapesInstanceEvaluator, CityscapesSemSegEvaluator
 from .coco_evaluation import COCOEvaluator, instances_to_coco_json
@@ -11,6 +11,7 @@ from .evaluator import DatasetEvaluator, DatasetEvaluators, inference_on_dataset
 from .lvis_evaluation import LVISEvaluator
 from .panoptic_evaluation import PanopticEvaluator, pq_compute_single_image
 from .pascal_voc_evaluation import PascalVOCDetectionEvaluator
+from .rotated_coco_evaluation import RotatedCOCOEvaluator
 from .sem_seg_evaluation import SemSegEvaluator
 from .testing import flatten_results_dict, print_csv_format, verify_results
 
@@ -24,6 +25,7 @@ __all__ = [
     "LVISEvaluator",
     "PanopticEvaluator",
     "PascalVOCDetectionEvaluator",
+    "RotatedCOCOEvaluator",
     "SemSegEvaluator",
     "flatten_results_dict",
     "inference_on_dataset",

@@ -12,10 +12,10 @@ Semantics (COCOeval's defaults for ``iou_type="bbox"``):
     ignored rather than counted as false positives
   * 101-point interpolated precision averaging
 
-``iou_type="keypoints"`` (OKS, pycocotools' keypoint parameters) and
-``"segm"`` (the mask IoU of RLE masks, ``structures/rle.py::rle_iou``) are
-carried too. ``rotated_bbox`` needs the rotated IoU, which the port does not
-have yet: it raises (ROADMAP A16).
+``iou_type="keypoints"`` (OKS, pycocotools' keypoint parameters),
+``"segm"`` (the mask IoU of RLE masks, ``structures/rle.py::rle_iou``) and
+``"rotated_bbox"`` (boxes (cx, cy, w, h, angle), the float64 polygon IoU of
+``structures/rotated_boxes.py::pairwise_iou_rotated``) are carried too.
 """
 
 from collections import defaultdict
@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..structures.rle import rle_area, rle_iou
+from ..structures.rotated_boxes import pairwise_iou_rotated
 
 __all__ = ["COCOEval", "iou_xywh"]
 
@@ -91,10 +92,6 @@ class COCOEval:
         assert iou_type in (
             ("bbox", "segm", "rotated_bbox", "keypoints") + self.EXTRA_IOU_TYPES
         ), iou_type
-        if iou_type == "rotated_bbox":
-            raise NotImplementedError(
-                "rotated-box COCO evaluation is not ported yet (ROADMAP A16)"
-            )
         self.iou_type = iou_type
         if iou_type == "keypoints":
             # pycocotools keypoint params: maxDets [20], no "small" range
@@ -204,6 +201,10 @@ class COCOEval:
     def _compute_iou(self, dts, gts, iscrowd) -> np.ndarray:
         if self.iou_type == "keypoints":
             return self._compute_oks(dts, gts)
+        if self.iou_type == "rotated_bbox":
+            d5 = np.array([d["bbox"] for d in dts], np.float64).reshape(-1, 5)
+            g5 = np.array([g["bbox"] for g in gts], np.float64).reshape(-1, 5)
+            return pairwise_iou_rotated(d5, g5)
         if self.iou_type == "segm":
             return rle_iou([d["segmentation"] for d in dts], [g["segmentation"] for g in gts], iscrowd)
         g_boxes = np.array([g["bbox"] for g in gts], np.float64).reshape(-1, 4)

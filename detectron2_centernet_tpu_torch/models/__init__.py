@@ -1,7 +1,7 @@
 """Models of the port. Importing this package registers the backbones
-(DLA-34, ResNet, ResNet-deconv, ResNet-FPN, VoVNet) and the CenterNet,
-RetinaNet, GeneralizedRCNN, ProposalNetwork, SemanticSegmentor and
-PanopticFPN meta-architectures."""
+(DLA-34, ResNet, ResNet-deconv, ResNet-FPN, VoVNet, TridentNet's ResNet) and
+the CenterNet, RetinaNet, GeneralizedRCNN, ProposalNetwork, RotatedRCNN,
+TridentRCNN, SemanticSegmentor and PanopticFPN meta-architectures."""
 
 from . import backbones, meta_arch  # noqa: F401  (registration)
 from .build import build_model, resolve_device

@@ -28,8 +28,15 @@ def build_model(cfg: CfgNode):
     ``INPUT.COLOR_AUG_SSD`` selects the SSD distortion, else
     ``INPUT.COLOR_JITTER`` the color jitter. With the flag off none is
     attached: the train mapper jitters on the host instead
-    (``data/transforms.py::PhotometricAug``), as the JAX mapper does."""
-    model = META_ARCH_REGISTRY.get(cfg.MODEL.META_ARCHITECTURE)(cfg)
+    (``data/transforms.py::PhotometricAug``), as the JAX mapper does. A
+    ``GeneralizedRCNN`` config that names ``PROPOSAL_GENERATOR.NAME`` ``RRPN``
+    or ``ROI_HEADS.NAME`` ``RROIHeads`` builds a ``RotatedRCNN``, the
+    reference's convention (JAX ``build.py:14-19``)."""
+    meta_arch = cfg.MODEL.META_ARCHITECTURE
+    if meta_arch == "GeneralizedRCNN" and (cfg.MODEL.PROPOSAL_GENERATOR.NAME == "RRPN"
+                                           or cfg.MODEL.ROI_HEADS.NAME == "RROIHeads"):
+        meta_arch = "RotatedRCNN"
+    model = META_ARCH_REGISTRY.get(meta_arch)(cfg)
     if getattr(model, "device_augment", None) is None and cfg.DATALOADER.DEVICE_PHOTOMETRIC:
         if cfg.INPUT.COLOR_AUG_SSD:
             model.device_augment = device_color_aug_ssd

@@ -91,7 +91,7 @@ points`` from the detection's class logits (7² → 224² in the COCO config's 5
 steps), whose sigmoid is ``masks``.
 
 Not ported (each raises naming its ROADMAP item): DensePose and other
-ROI-head extensions, rotated proposals, and any other ``ROI_HEADS.NAME`` or
+ROI-head extensions, and any other ``ROI_HEADS.NAME`` or
 ``ROI_MASK_HEAD.NAME`` (the JAX package builds Res5ROIHeads and the conv
 mask head for a name it does not know; the port raises).
 """
@@ -127,7 +127,7 @@ logger = logging.getLogger(__name__)
 ROI_TYPES = {"StandardROIHeads": "standard", "PointRendROIHeads": "standard", "CascadeROIHeads": "cascade",
              "Res5ROIHeads": "res5"}
 # ROI_HEADS.NAME -> the ROADMAP item that ports it
-QUEUED_ROI_HEADS = {"DensePoseROIHeads": "A18", "RROIHeads": "A16"}
+QUEUED_ROI_HEADS = {"DensePoseROIHeads": "A18"}
 MASK_HEADS = ("MaskRCNNConvUpsampleHead", "CoarseMaskHead", "PointRendMaskHead")
 
 
@@ -275,8 +275,9 @@ def _check_supported(cfg: CfgNode, with_roi_heads: bool) -> None:
         raise ValueError(f"unknown ROI_MASK_HEAD.NAME {m.ROI_MASK_HEAD.NAME!r}: the port builds {list(MASK_HEADS)} "
                          "(the JAX package would build MaskRCNNConvUpsampleHead for it)")
     if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "PrecomputedProposals") or m.RPN.HEAD_NAME != "StandardRPNHead":
-        queued.append(f"PROPOSAL_GENERATOR {m.PROPOSAL_GENERATOR.NAME} / RPN.HEAD_NAME {m.RPN.HEAD_NAME}: "
-                      "rotated proposals (ROADMAP A16)")
+        raise ValueError(f"unknown PROPOSAL_GENERATOR.NAME {m.PROPOSAL_GENERATOR.NAME!r} / RPN.HEAD_NAME "
+                         f"{m.RPN.HEAD_NAME!r}: the port builds RPN, PrecomputedProposals and, through "
+                         "models/build.py's RotatedRCNN, RRPN, with the StandardRPNHead")
     if with_roi_heads:
         name = m.ROI_HEADS.NAME
         if name in QUEUED_ROI_HEADS:
@@ -511,6 +512,9 @@ class GeneralizedRCNN:
             prop_valid = batch["proposal_valid"].to(self.device, torch.bool)
         else:
             feats, logits, deltas = self.model(images)
+            # the batch size from the RPN's outputs, not the images' (JAX :526-528): TridentNet's trunk folds
+            # its branches into the batch, and every later stage runs on its 3N maps
+            n = logits[0].shape[0]
             losses = {k: v * self.rpn_loss_weight
                       for k, v in self._rpn_losses(batch, generator, logits, deltas, (h, w)).items()}
             with torch.no_grad():

@@ -1,5 +1,8 @@
 // Fixed-K greedy non-maximum suppression on Hopper (sm_90a): sorted
-// candidates, a suppression bitmask, many CTAs a row.
+// candidates, a suppression bitmask, many CTAs a row. One pipeline for two
+// kinds of boxes: axis-aligned XYXY boxes (`nms_sorted`) and rotated
+// (cx, cy, w, h, angle) boxes with an optional class per candidate
+// (`nms_rotated_sorted`, R2), the kernels templated on the box kind.
 //
 // Replaces no Pallas kernel. The JAX package's `nms_fixed`
 // (detectron2_centernet_tpu/ops/nms.py) is a `lax.fori_loop` of K picks over
@@ -8,11 +11,19 @@
 // launches ~25 small kernels a pick; this pipeline takes a handful of
 // launches a call, whatever K.
 //
-// What it computes, for every row r of `cands` candidates (boxes XYXY f32,
+// The rotated kind replaces the JAX package's `nms_rotated_fixed`
+// (detectron2_centernet_tpu/ops/roi_align_rotated.py:147-180), the same
+// argmax loop with the rotated IoU of `iou_rotated.cuh` (the pick the
+// clipped subject) and, with classes, suppression only within the pick's
+// class (a same-class mask, not the coordinate-offset trick); its plain
+// version is `ops/roi_align_rotated.py::nms_rotated_fixed`.
+//
+// What it computes, for every row r of `cands` candidates (boxes f32,
 // scores f32 with -inf for a dead candidate) and picks p < min(max_out[r], k):
 //   keep[r, p]  = the index of the first maximal live score;
 //   valid[r, p] = that score > -inf;
-// then every live candidate whose IoU with the pick is > thr dies, and the
+// then every live candidate whose IoU with the pick is > thr (and, for
+// rotated boxes with classes, whose class is the pick's) dies, and the
 // pick itself. Once no candidate lives, the remaining slots are (0, false),
 // as `jnp.argmax` over an all -inf row gives index 0; so are the slots at
 // or past max_out[r]. NaN scores are outside the contract (the argmax loop
@@ -27,7 +38,8 @@
 // is the loop's: pick first, `inter / max((area_pick + area) - inter,
 // 1e-12)` where the union is > 0, else 0, every step rounded on its own (the
 // `__f*_rn` intrinsics, which the compiler never contracts into an FMA, and
-// IEEE division). So only the sorted prefix up to a row's last pick matters.
+// IEEE division); the rotated IoU likewise (`-fmad=false`). So only the
+// sorted prefix up to a row's last pick matters.
 //
 // The pipeline, per round, over every row still at work (`nms_sorted`):
 //   1. select: each live score becomes an order-preserving 32-bit key; the
@@ -58,12 +70,15 @@
 // What bounds it on this card: reading every score once per selection pass
 // (LVIS's 16 x 1.2 M candidates are 77 MB, past the 50 MB L2), ~20 f32
 // operations per IoU of the tiles and of (kept pick, later candidate)
-// pairs, and the scan's dependent steps: one warp per row, one shuffle per
-// kept candidate, one load of a 64-candidate block's words at a time.
+// pairs (~400 and two sincos per rotated IoU of boxes that overlap), and
+// the scan's dependent steps: one warp per row, one shuffle per kept
+// candidate, one load of a 64-candidate block's words at a time.
 
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstdio>
+
+#include "iou_rotated.cuh"
 
 namespace {
 
@@ -103,6 +118,36 @@ __device__ __forceinline__ float iou_with(float4 a, float area_a, float4 b, floa
   const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
   return uni > 0.f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.f;
 }
+
+// The two kinds of boxes. Each loads a candidate's box from the input, gives
+// its area (the scan records it with the pick) and says whether a pick
+// suppresses a candidate.
+struct AxisBoxes {
+  using Box = float4;
+  const float4* boxes;
+  __device__ __forceinline__ Box load(size_t i) const { return boxes[i]; }
+  __device__ static __forceinline__ float area(const Box& b) { return area_of(b); }
+  __device__ static __forceinline__ bool suppresses(const Box& pick, float pick_area, const Box& b, float b_area,
+                                                    float thr) {
+    return iou_with(pick, pick_area, b, b_area) > thr;
+  }
+};
+
+struct RotatedBoxes {
+  struct Box {
+    rotated::Box5 b;
+    int cls;
+  };
+  const float* boxes;  // (rows * cands, 5)
+  const int* classes;  // (rows * cands,), or null: one class
+  __device__ __forceinline__ Box load(size_t i) const {
+    return Box{rotated::load_box(boxes + i * 5), classes != nullptr ? classes[i] : 0};
+  }
+  __device__ static __forceinline__ float area(const Box& b) { return b.b.w * b.b.h; }
+  __device__ static __forceinline__ bool suppresses(const Box& pick, float, const Box& b, float, float thr) {
+    return pick.cls == b.cls && rotated::iou(pick.b, b.b) > thr;
+  }
+};
 
 // The word of a live score `v` at index `i`: ascending words are descending
 // scores, ties by ascending index; -0.0 is +0.0.
@@ -280,9 +325,10 @@ __global__ void __launch_bounds__(kSegThreads) nms_compact(const float* __restri
 // Stage 2: one CTA of 1024 per row sorts its chunk's words ascending
 // (bitonic, in shared memory) and gathers the boxes and areas in that order.
 // Also zeroes the row's "removed" words and the count of rows going on.
-__global__ void __launch_bounds__(1024) nms_sort(const float4* __restrict__ boxes, RowState* __restrict__ state,
+template <class B>
+__global__ void __launch_bounds__(1024) nms_sort(const B src, RowState* __restrict__ state,
                                                  const unsigned long long* __restrict__ words,
-                                                 int* __restrict__ sidx, float4* __restrict__ sbox,
+                                                 int* __restrict__ sidx, typename B::Box* __restrict__ sbox,
                                                  float* __restrict__ sarea, unsigned long long* __restrict__ removed,
                                                  int* __restrict__ going_on, int cands, int m, int nbw,
                                                  int idx_bits) {
@@ -315,10 +361,10 @@ __global__ void __launch_bounds__(1024) nms_sort(const float4* __restrict__ boxe
   const unsigned long long idx_mask = (1ull << idx_bits) - 1ull;
   for (int p = tid; p < n; p += nt) {
     const int i = static_cast<int>(sw[p] & idx_mask);
-    const float4 b = boxes[static_cast<size_t>(r) * cands + i];
+    const typename B::Box b = src.load(static_cast<size_t>(r) * cands + i);
     sidx[static_cast<size_t>(r) * m + p] = i;
     sbox[static_cast<size_t>(r) * m + p] = b;
-    sarea[static_cast<size_t>(r) * m + p] = area_of(b);
+    sarea[static_cast<size_t>(r) * m + p] = B::area(b);
   }
   if (tid == 0) {
     if (n > 0) st->last = sw[n - 1];
@@ -337,19 +383,23 @@ __global__ void __launch_bounds__(1024) nms_sort(const float4* __restrict__ boxe
 // slice of kSlice picks kept so far (their boxes and areas as the scan
 // recorded them) and OR the bits of the candidates they suppress into
 // removed[bi].
-__global__ void __launch_bounds__(64) nms_mask(const RowState* __restrict__ state, const float4* __restrict__ kbox,
-                                               const float* __restrict__ karea, const float4* __restrict__ sbox,
+template <class B>
+__global__ void __launch_bounds__(64) nms_mask(const RowState* __restrict__ state,
+                                               const typename B::Box* __restrict__ kbox,
+                                               const float* __restrict__ karea,
+                                               const typename B::Box* __restrict__ sbox,
                                                const float* __restrict__ sarea, unsigned long long* __restrict__ mask,
                                                unsigned long long* __restrict__ removed, int m, int nbw, int pw, int k,
                                                int p0, int p1, float thr) {
-  __shared__ float4 cb[64];
+  using Box = typename B::Box;
+  __shared__ Box cb[64];
   __shared__ float ca[64];
   __shared__ unsigned halves[2];
   const int r = blockIdx.y, tid = threadIdx.x;
   const RowState st = state[r];
   if (!st.active || !st.scanning || st.pos != p0 || st.n <= p0) return;
   const int n = min(st.n, p1), pb0 = p0 / 64, npb = (p1 - p0) / 64, nb = (n - p0 + 63) / 64;
-  const float4* sb = sbox + static_cast<size_t>(r) * m;
+  const Box* sb = sbox + static_cast<size_t>(r) * m;
   const float* sa = sarea + static_cast<size_t>(r) * m;
   const int x = blockIdx.x;
   if (x < npb * npb) {
@@ -362,12 +412,12 @@ __global__ void __launch_bounds__(64) nms_mask(const RowState* __restrict__ stat
     }
     __syncthreads();
     if (i >= n) return;
-    const float4 a = sb[i];
+    const Box a = sb[i];
     const float aa = sa[i];
     const int cmax = min(64, n - (p0 + bj * 64));
     unsigned long long bits = 0ull;
     for (int c = bi == bj ? tid + 1 : 0; c < cmax; ++c)
-      if (iou_with(a, aa, cb[c], ca[c]) > thr) bits |= 1ull << c;
+      if (B::suppresses(a, aa, cb[c], ca[c], thr)) bits |= 1ull << c;
     mask[(static_cast<size_t>(r) * m + i) * pw + bj] = bits;
     return;
   }
@@ -375,7 +425,7 @@ __global__ void __launch_bounds__(64) nms_mask(const RowState* __restrict__ stat
   const int q0 = slice * kSlice, q1 = min(st.kept, q0 + kSlice);
   if (bi >= nb || q0 >= q1) return;
   const int i = p0 + bi * 64 + tid;
-  const float4 b = i < n ? sb[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const Box b = i < n ? sb[i] : Box{};
   const float ba = i < n ? sa[i] : 0.f;
   bool gone = false;
   for (int q = q0; q < q1; q += 64) {
@@ -386,7 +436,7 @@ __global__ void __launch_bounds__(64) nms_mask(const RowState* __restrict__ stat
     }
     __syncthreads();
     const int qn = min(64, q1 - q);
-    for (int c = 0; c < qn && !gone; ++c) gone = iou_with(cb[c], ca[c], b, ba) > thr;
+    for (int c = 0; c < qn && !gone; ++c) gone = i < n && B::suppresses(cb[c], ca[c], b, ba, thr);
   }
   const unsigned half = __ballot_sync(kFull, gone && i < n);
   if ((tid & 31) == 0) halves[tid >> 5] = half;
@@ -408,12 +458,14 @@ __global__ void __launch_bounds__(64) nms_mask(const RowState* __restrict__ stat
 // At the row's count, or at the end of its chunk, the round ends for the
 // row: it goes on to the next chunk when it still has picks to make and the
 // chunk did not hold all its live candidates.
+template <class B>
 __global__ void __launch_bounds__(32) nms_scan(RowState* __restrict__ state,
                                                const unsigned long long* __restrict__ mask,
                                                const unsigned long long* __restrict__ removed,
-                                               const int* __restrict__ sidx, const float4* __restrict__ sbox,
+                                               const int* __restrict__ sidx,
+                                               const typename B::Box* __restrict__ sbox,
                                                const float* __restrict__ sarea, long long* __restrict__ keep,
-                                               bool* __restrict__ valid, float4* __restrict__ kbox,
+                                               bool* __restrict__ valid, typename B::Box* __restrict__ kbox,
                                                float* __restrict__ karea, int* __restrict__ going_on, int m, int nbw,
                                                int pw, int k, int p0, int p1, int total_bits) {
   const int r = blockIdx.x, lane = threadIdx.x;
@@ -490,14 +542,15 @@ __global__ void __launch_bounds__(32) nms_scan(RowState* __restrict__ state,
 }
 
 // What one round's launches take.
+template <class B>
 struct Round {
-  const float4* box;
+  B box;
   const float* score;
   RowState* state;
   unsigned* hist;
   unsigned long long *words, *removed, *mask, *chunks;
   int* sidx;
-  float4 *sbox, *kbox;
+  typename B::Box *sbox, *kbox;
   float *sarea, *karea;
   int* going_on;
   long long* keep;
@@ -511,7 +564,8 @@ struct Round {
 // panel's bitmask and scan. From the host for the first round; from
 // `nms_next` into its tail-launch stream for the others. Returns the first
 // launch's error.
-__host__ __device__ int launch_round(const Round& a, cudaStream_t stream) {
+template <class B>
+__host__ __device__ int launch_round(const Round<B>& a, cudaStream_t stream) {
 #define NMS_CHECK()                                   \
   do {                                                \
     const cudaError_t e = cudaGetLastError();         \
@@ -526,15 +580,15 @@ __host__ __device__ int launch_round(const Round& a, cudaStream_t stream) {
   nms_compact<<<dim3(a.segs, a.rows), kSegThreads, 0, stream>>>(a.score, a.state, a.words, a.cands, a.m,
                                                                  a.idx_bits);
   NMS_CHECK();
-  nms_sort<<<a.rows, 1024, a.sort_bytes, stream>>>(a.box, a.state, a.words, a.sidx, a.sbox, a.sarea, a.removed,
+  nms_sort<B><<<a.rows, 1024, a.sort_bytes, stream>>>(a.box, a.state, a.words, a.sidx, a.sbox, a.sarea, a.removed,
                                                    a.going_on, a.cands, a.m, a.nbw, a.idx_bits);
   NMS_CHECK();
   for (int p = 0; p < kNumPanels && panel_start(p) < a.m; ++p) {
     const int p0 = panel_start(p), p1 = panel_start(p + 1), npb = (p1 - p0) / 64;
-    nms_mask<<<dim3(npb * npb + npb * a.slices, a.rows), 64, 0, stream>>>(
+    nms_mask<B><<<dim3(npb * npb + npb * a.slices, a.rows), 64, 0, stream>>>(
         a.state, a.kbox, a.karea, a.sbox, a.sarea, a.mask, a.removed, a.m, a.nbw, a.pw, a.k, p0, p1, a.thr);
     NMS_CHECK();
-    nms_scan<<<a.rows, 32, 0, stream>>>(a.state, a.mask, a.removed, a.sidx, a.sbox, a.sarea, a.keep, a.valid,
+    nms_scan<B><<<a.rows, 32, 0, stream>>>(a.state, a.mask, a.removed, a.sidx, a.sbox, a.sarea, a.keep, a.valid,
                                         a.kbox, a.karea, a.going_on, a.m, a.nbw, a.pw, a.k, p0, p1, a.total_bits);
     NMS_CHECK();
   }
@@ -545,13 +599,14 @@ __host__ __device__ int launch_round(const Round& a, cudaStream_t stream) {
 // After a round, one thread: when rows go on, count their chunks and
 // tail-launch the next round, then itself. A launch the card refuses traps,
 // which fails the stream, rather than leave rows short of their picks.
-__global__ void nms_next(Round a) {
+template <class B>
+__global__ void nms_next(Round<B> a) {
   const int more = *a.going_on;
   if (more == 0) return;
   atomicAdd(a.chunks, static_cast<unsigned long long>(more));
   int err = launch_round(a, cudaStreamTailLaunch);
   if (err == 0) {
-    nms_next<<<1, 1, 0, cudaStreamTailLaunch>>>(a);
+    nms_next<B><<<1, 1, 0, cudaStreamTailLaunch>>>(a);
     err = static_cast<int>(cudaGetLastError());
   }
   if (err != 0) {
@@ -574,7 +629,7 @@ int panel_words(int m) {
   return (panel_start(p + 1) - panel_start(p)) / 64;
 }
 
-Layout layout_of(int rows, int cands, int k) {
+Layout layout_of(int rows, int cands, int k, size_t box_bytes) {
   const size_t m = cands < kChunk ? cands : kChunk, nbw = (m + 63) / 64, R = rows, pw = panel_words(static_cast<int>(m));
   Layout L{};
   size_t at = 0;
@@ -587,46 +642,33 @@ Layout layout_of(int rows, int cands, int k) {
   L.hist = take(R * kBins * sizeof(unsigned));
   L.words = take(R * m * sizeof(unsigned long long));
   L.sidx = take(R * m * sizeof(int));
-  L.sbox = take(R * m * sizeof(float4));
+  L.sbox = take(R * m * box_bytes);
   L.sarea = take(R * m * sizeof(float));
   L.removed = take(R * nbw * sizeof(unsigned long long));
   L.mask = take(R * m * pw * sizeof(unsigned long long));
-  L.kbox = take(R * static_cast<size_t>(k) * sizeof(float4));
+  L.kbox = take(R * static_cast<size_t>(k) * box_bytes);
   L.karea = take(R * static_cast<size_t>(k) * sizeof(float));
   L.going_on = take(sizeof(int));
   L.total = at;
   return L;
 }
 
-}  // namespace
-
-extern "C" {
-
-// The bytes of scratch `nms_sorted` needs for (rows, cands, k), into *out (a long long).
-int nms_scratch_bytes(int rows, int cands, int k, void* out) {
-  *static_cast<long long*>(out) = static_cast<long long>(layout_of(rows, cands, k).total);
-  return 0;
-}
-
-// boxes (rows, cands, 4) f32 and scores (rows, cands) f32, contiguous, boxes
-// 16-byte aligned; max_out (rows,) int32, or null for k picks in every row;
-// scratch: nms_scratch_bytes(rows, cands, k) bytes, 256-byte aligned; keep
-// (rows, k) int64 and valid (rows, k) bool, written in full; chunks, one
-// unsigned long long on the card, gets the chunks the rows take added to it.
-// The call never waits for the card: the rounds after the first are the
-// card's to launch (`nms_next`).
-int nms_sorted(const void* boxes, const void* scores, const void* max_out, void* scratch, void* keep, void* valid,
-               int rows, int cands, int k, float thr, void* chunks, cudaStream_t stream) {
+// One call: the scratch laid out, every row's state initialised, the first
+// round launched from the host and, when rows hold more than a chunk,
+// `nms_next` behind it.
+template <class B>
+int run_nms(const B src, const void* scores, const void* max_out, void* scratch, void* keep, void* valid, int rows,
+            int cands, int k, float thr, void* chunks, cudaStream_t stream) {
   if (rows <= 0 || k <= 0) return 0;
-  const Layout L = layout_of(rows, cands, k);
+  const Layout L = layout_of(rows, cands, k, sizeof(typename B::Box));
   char* base = static_cast<char*>(scratch);
   int idx_bits = 1;
   while (idx_bits < 31 && (1ll << idx_bits) < cands) ++idx_bits;
   const int select = cands > kChunk, m = cands < kChunk ? cands : kChunk;
   int n2 = 1;
   while (n2 < m) n2 <<= 1;
-  Round a{};
-  a.box = static_cast<const float4*>(boxes);
+  Round<B> a{};
+  a.box = src;
   a.score = static_cast<const float*>(scores);
   a.state = reinterpret_cast<RowState*>(base + L.state);
   a.hist = reinterpret_cast<unsigned*>(base + L.hist);
@@ -635,8 +677,8 @@ int nms_sorted(const void* boxes, const void* scores, const void* max_out, void*
   a.mask = reinterpret_cast<unsigned long long*>(base + L.mask);
   a.chunks = static_cast<unsigned long long*>(chunks);
   a.sidx = reinterpret_cast<int*>(base + L.sidx);
-  a.sbox = reinterpret_cast<float4*>(base + L.sbox);
-  a.kbox = reinterpret_cast<float4*>(base + L.kbox);
+  a.sbox = reinterpret_cast<typename B::Box*>(base + L.sbox);
+  a.kbox = reinterpret_cast<typename B::Box*>(base + L.kbox);
   a.sarea = reinterpret_cast<float*>(base + L.sarea);
   a.karea = reinterpret_cast<float*>(base + L.karea);
   a.going_on = reinterpret_cast<int*>(base + L.going_on);
@@ -656,7 +698,8 @@ int nms_sorted(const void* boxes, const void* scores, const void* max_out, void*
   a.sort_bytes = n2 * static_cast<int>(sizeof(unsigned long long));
   a.thr = thr;
   if (a.sort_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(nms_sort, cudaFuncAttributeMaxDynamicSharedMemorySize, a.sort_bytes);
+    const cudaError_t err =
+        cudaFuncSetAttribute(nms_sort<B>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.sort_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   nms_init<<<rows, 256, 0, stream>>>(static_cast<const int*>(max_out), a.state, a.hist, a.keep, a.valid, a.chunks, k,
@@ -665,8 +708,49 @@ int nms_sorted(const void* boxes, const void* scores, const void* max_out, void*
   if (err != cudaSuccess || cands <= 0) return static_cast<int>(err);
   const int first = launch_round(a, stream);
   if (first != 0 || !select) return first;  // without selection every row's chunk held all its live candidates
-  nms_next<<<1, 1, 0, stream>>>(a);
+  nms_next<B><<<1, 1, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The bytes of scratch `nms_sorted` needs for (rows, cands, k), into *out (a long long).
+int nms_scratch_bytes(int rows, int cands, int k, void* out) {
+  *static_cast<long long*>(out) = static_cast<long long>(layout_of(rows, cands, k, sizeof(float4)).total);
+  return 0;
+}
+
+// The bytes of scratch `nms_rotated_sorted` needs for (rows, cands, k), into *out (a long long).
+int nms_rotated_scratch_bytes(int rows, int cands, int k, void* out) {
+  *static_cast<long long*>(out) =
+      static_cast<long long>(layout_of(rows, cands, k, sizeof(RotatedBoxes::Box)).total);
+  return 0;
+}
+
+// boxes (rows, cands, 4) f32 and scores (rows, cands) f32, contiguous, boxes
+// 16-byte aligned; max_out (rows,) int32, or null for k picks in every row;
+// scratch: nms_scratch_bytes(rows, cands, k) bytes, 256-byte aligned; keep
+// (rows, k) int64 and valid (rows, k) bool, written in full; chunks, one
+// unsigned long long on the card, gets the chunks the rows take added to it.
+// The call never waits for the card: the rounds after the first are the
+// card's to launch (`nms_next`).
+int nms_sorted(const void* boxes, const void* scores, const void* max_out, void* scratch, void* keep, void* valid,
+               int rows, int cands, int k, float thr, void* chunks, cudaStream_t stream) {
+  return run_nms(AxisBoxes{static_cast<const float4*>(boxes)}, scores, max_out, scratch, keep, valid, rows, cands, k,
+                 thr, chunks, stream);
+}
+
+// `nms_sorted` for rotated boxes (rows, cands, 5) f32 (cx, cy, w, h, angle
+// in degrees), contiguous, with classes (rows, cands) int32 (suppression
+// only within a class), or null; scratch: nms_rotated_scratch_bytes(rows,
+// cands, k) bytes.
+int nms_rotated_sorted(const void* boxes, const void* classes, const void* scores, const void* max_out,
+                       void* scratch, void* keep, void* valid, int rows, int cands, int k, float thr, void* chunks,
+                       cudaStream_t stream) {
+  return run_nms(RotatedBoxes{static_cast<const float*>(boxes), static_cast<const int*>(classes)}, scores, max_out,
+                 scratch, keep, valid, rows, cands, k, thr, chunks, stream);
 }
 
 }  // extern "C"

@@ -5,11 +5,15 @@ minutes).
 
 The libraries are built at first use into ``_build/`` beside this package,
 one ``nvcc`` process per source, all started together, and cached by the
-hash of the source and its flags. ``SOURCES`` names them: the DCN forward
-(``fwd``, ``ops/dcn.py``), the four DCN backward kernels (``bwd``) and the
-fixed-K NMS (``nms``, ``ops/nms.py``), which launches kernels from the card
-and so is built as relocatable device code against the device runtime
-(``SOURCE_FLAGS``).
+hash of the source, the headers beside it (``*.cuh``) and its flags.
+``SOURCES`` names them: the DCN forward (``fwd``, ``ops/dcn.py``), the four
+DCN backward kernels (``bwd``), the fixed-K NMS of axis-aligned and rotated
+boxes (``nms``, ``ops/nms.py`` and ``ops/roi_align_rotated.py``), which
+launches kernels from the card and so is built as relocatable device code
+against the device runtime, and the pairwise rotated IoU (``iou_rotated``,
+``ops/roi_align_rotated.py``). The two that compute the rotated IoU
+(``iou_rotated.cuh``) are built with ``-fmad=false``, so that it rounds as
+its plain version's tensor ops do (``SOURCE_FLAGS``).
 """
 
 import ctypes
@@ -26,14 +30,16 @@ import torch
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "SOURCE_FLAGS", "build_libraries", "launch", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"fwd": CSRC / "dcn_fwd.cu", "bwd": CSRC / "dcn_bwd.cu", "nms": CSRC / "nms.cu"}
+SOURCES = {"fwd": CSRC / "dcn_fwd.cu", "bwd": CSRC / "dcn_bwd.cu", "nms": CSRC / "nms.cu",
+           "iou_rotated": CSRC / "iou_rotated.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# after the source on the command line: the NMS's rounds after the first are tail launches from the card
-SOURCE_FLAGS = {"nms": ("-rdc=true", "-lcudadevrt")}
+# after the source on the command line: the NMS's rounds after the first are tail launches from the card; the
+# rotated IoU's multiplies and adds are never contracted into FMAs
+SOURCE_FLAGS = {"nms": ("-fmad=false", "-rdc=true", "-lcudadevrt"), "iou_rotated": ("-fmad=false",)}
 
 
 def _nvcc() -> str:
@@ -46,7 +52,8 @@ def _nvcc() -> str:
 def _library_path(name: str) -> Path:
     source = SOURCES[name]
     flags = " ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ()))
-    tag = hashlib.sha256(source.read_bytes() + flags.encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(source.read_bytes() + headers + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 
 

@@ -23,6 +23,9 @@ and its index is that of the first maximal (``-inf``) entry, 0, as JAX's
   ``nms_fixed``, reached by sorting.
 * ``batched_nms_fixed`` adds each image's class offsets
   (``class_offset_boxes``) in front of ``greedy_nms``.
+* ``sorted_nms_on_card`` launches the pipeline for either kind of box:
+  ``greedy_nms``'s, and the rotated boxes of
+  ``ops/roi_align_rotated.py::nms_rotated``.
 
 Each row has its own pick count (``max_out`` a sequence, or a tensor on
 the host): the RPN's level rows keep ``min(POST_NMS_TOPK, k_level)``. Slots
@@ -36,19 +39,22 @@ There is no torchvision in the port: this is its own NMS.
 
 import ctypes
 import functools
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from . import cuda_lib
 
 __all__ = ["CHUNK", "batched_nms_fixed", "class_offset_boxes", "greedy_nms", "nms_fixed", "nms_sorted_reference",
-           "pairwise_iou_xyxy", "rounds_taken"]
+           "pairwise_iou_xyxy", "rounds_taken", "sorted_nms_on_card"]
 
 MaxOut = Union[int, Sequence[int], torch.Tensor]
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# nms_sorted: six pointers, rows, cands, k, the threshold, the card's chunk counter, the stream
-_SIGNATURES = {"nms_sorted": [_P] * 6 + [_I] * 3 + [ctypes.c_float, _P, _P], "nms_scratch_bytes": [_I] * 3 + [_P]}
+# nms_sorted: six pointers, rows, cands, k, the threshold, the card's chunk counter, the stream;
+# nms_rotated_sorted: the same with the classes' pointer after the boxes'
+_SIGNATURES = {"nms_sorted": [_P] * 6 + [_I] * 3 + [ctypes.c_float, _P, _P], "nms_scratch_bytes": [_I] * 3 + [_P],
+               "nms_rotated_sorted": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P, _P],
+               "nms_rotated_scratch_bytes": [_I] * 3 + [_P]}
 CHUNK = 8192  # T: the sorted candidates a round takes from a row (``kChunk`` in csrc/nms.cu)
 _CHUNKS = {}  # device → the chunks the rows of its calls took, a counter on that card
 
@@ -220,6 +226,21 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         return nms_fixed(boxes, scores, iou_threshold, max_out)
     if boxes.device.type != "cuda":
         raise ValueError(f"no NMS kernel for device {boxes.device}")
+    return sorted_nms_on_card(boxes, scores, iou_threshold, max_out, greedy_nms)
+
+
+greedy_nms.launches = 0
+
+
+def sorted_nms_on_card(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float, max_out: MaxOut,
+                       counter, classes: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of ``csrc/nms.cu``'s pipeline on the card: (R, C, 4) XYXY
+    boxes (``nms_sorted``) or (R, C, 5) rotated boxes with, optionally, (R,
+    C) classes (``nms_rotated_sorted``), f32, checked by the callers. Adds
+    one to ``counter.launches`` where it launches the kernels (a call with
+    no rows or no picks launches nothing). Returns (keep_idx, keep_valid),
+    never waiting for the card."""
+    rotated = boxes.shape[-1] == 5
     rows, cands = scores.shape
     host = None if isinstance(max_out, int) else _host_counts(max_out, rows)
     counts, k = (None, max_out) if host is None else (_counts_on(host, boxes.device), max(host, default=0))
@@ -228,23 +249,25 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     if rows == 0 or k == 0:
         return keep, valid
     boxes = boxes.contiguous()
-    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+    if boxes.data_ptr() % 16 and not rotated:  # the kernel reads an XYXY box as one float4
         boxes = boxes.clone()
     scores = scores.contiguous()
     lib = cuda_lib.library("nms", _SIGNATURES)
     size = ctypes.c_longlong(0)
-    lib.nms_scratch_bytes(rows, cands, k, ctypes.addressof(size))
+    (lib.nms_rotated_scratch_bytes if rotated else lib.nms_scratch_bytes)(rows, cands, k, ctypes.addressof(size))
     scratch = torch.empty(size.value, dtype=torch.uint8, device=boxes.device)
     if boxes.device not in _CHUNKS:
         _CHUNKS[boxes.device] = torch.zeros((), dtype=torch.int64, device=boxes.device)
-    cuda_lib.launch(lib, "nms_sorted", boxes.device, boxes.data_ptr(), scores.data_ptr(),
-                    None if counts is None else counts.data_ptr(), scratch.data_ptr(), keep.data_ptr(),
-                    valid.data_ptr(), rows, cands, k, float(iou_threshold), _CHUNKS[boxes.device].data_ptr())
-    greedy_nms.launches += 1
+    rest = (scores.data_ptr(), None if counts is None else counts.data_ptr(), scratch.data_ptr(), keep.data_ptr(),
+            valid.data_ptr(), rows, cands, k, float(iou_threshold), _CHUNKS[boxes.device].data_ptr())
+    if rotated:
+        classes = None if classes is None else classes.to(torch.int32).contiguous()
+        cuda_lib.launch(lib, "nms_rotated_sorted", boxes.device, boxes.data_ptr(),
+                        None if classes is None else classes.data_ptr(), *rest)
+    else:
+        cuda_lib.launch(lib, "nms_sorted", boxes.device, boxes.data_ptr(), *rest)
+    counter.launches += 1
     return keep, valid
-
-
-greedy_nms.launches = 0
 
 
 def rounds_taken() -> int:

@@ -1,4 +1,5 @@
 from .boxes import Boxes, BoxMode
 from .instances import Instances
+from .rotated_boxes import RotatedBoxes
 
-__all__ = ["BoxMode", "Boxes", "Instances"]
+__all__ = ["BoxMode", "Boxes", "Instances", "RotatedBoxes"]

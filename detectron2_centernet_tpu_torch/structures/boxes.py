@@ -2,10 +2,13 @@
 
 Host-side and numpy-backed: the decode's fixed-size device output becomes
 ``Boxes`` at the host boundary (``CenterNet.postprocess``). ``BoxMode``
-converts between the two absolute axis-aligned modes the train mapper reads;
-the relative and rotated modes and the pairwise overlaps are not copied yet.
+converts between the two absolute axis-aligned modes the train mapper reads,
+and, as the JAX package does, a rotated XYWHA_ABS box to the XYXY_ABS hull
+of its corners and an XYWH_ABS box to XYWHA_ABS at angle 0; the relative
+modes and the pairwise overlaps are not copied.
 """
 
+import math
 from enum import IntEnum
 from typing import List, Tuple
 
@@ -23,13 +26,28 @@ class BoxMode(IntEnum):
 
     @staticmethod
     def convert(box, from_mode: "BoxMode", to_mode: "BoxMode") -> np.ndarray:
-        """XYXY_ABS <-> XYWH_ABS of a (4,) box or (N, 4) boxes, as float64."""
+        """XYXY_ABS <-> XYWH_ABS of a (4,) box or (N, 4) boxes, XYWHA_ABS (5
+        values, angle in degrees, counter-clockwise) -> XYXY_ABS, XYWH_ABS
+        -> XYWHA_ABS; float64, the input's leading shape."""
         arr = np.array(box, dtype=np.float64)
-        modes = {BoxMode.XYXY_ABS, BoxMode.XYWH_ABS}
-        if from_mode not in modes or to_mode not in modes:
-            raise NotImplementedError(f"BoxMode {from_mode} -> {to_mode} is not ported")
         if from_mode == to_mode:
             return arr
+        if (from_mode, to_mode) == (BoxMode.XYWHA_ABS, BoxMode.XYXY_ABS):
+            flat = arr.reshape(-1, 5)
+            c = np.abs(np.cos(flat[:, 4] * math.pi / 180.0))
+            s = np.abs(np.sin(flat[:, 4] * math.pi / 180.0))
+            half_w = (c * flat[:, 2] + s * flat[:, 3]) / 2.0  # the axis-aligned hull of the rotated box
+            half_h = (c * flat[:, 3] + s * flat[:, 2]) / 2.0
+            out = np.stack([flat[:, 0] - half_w, flat[:, 1] - half_h, flat[:, 0] + half_w, flat[:, 1] + half_h], 1)
+            return out.reshape(arr.shape[:-1] + (4,))
+        if (from_mode, to_mode) == (BoxMode.XYWH_ABS, BoxMode.XYWHA_ABS):
+            flat = arr.reshape(-1, 4)
+            out = np.stack([flat[:, 0] + flat[:, 2] / 2.0, flat[:, 1] + flat[:, 3] / 2.0, flat[:, 2], flat[:, 3],
+                            np.zeros(len(flat))], 1)
+            return out.reshape(arr.shape[:-1] + (5,))
+        modes = {BoxMode.XYXY_ABS, BoxMode.XYWH_ABS}
+        if from_mode not in modes or to_mode not in modes:
+            raise NotImplementedError(f"BoxMode {from_mode} -> {to_mode} is not supported")
         flat = arr.reshape(-1, 4)
         sign = 1.0 if from_mode == BoxMode.XYWH_ABS else -1.0
         flat[:, 2:] += sign * flat[:, :2]

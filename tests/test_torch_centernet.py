@@ -311,7 +311,7 @@ def test_port_builds_only_its_own_sources(tmp_path, monkeypatch):
         m.setattr(cuda_lib, "BUILD_DIR", tmp_path / "cuda")
         m.setattr(cuda_lib.subprocess, "Popen", FakeNvcc)
         built = cuda_lib.build_libraries()
-    assert set(built) == set(cuda_lib.SOURCES) and len(commands) == len(cuda_lib.SOURCES) == 3
+    assert set(built) == set(cuda_lib.SOURCES) and len(commands) == len(cuda_lib.SOURCES) == 4
     assert dcn.build_libraries is cuda_lib.build_libraries
 
     real_run = fast_cocoeval.subprocess.run
@@ -324,13 +324,13 @@ def test_port_builds_only_its_own_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(fast_cocoeval, "_LIB", None)
     monkeypatch.setattr(fast_cocoeval.subprocess, "run", recording_run)
     library = fast_cocoeval.build_library()
-    assert library.exists() and len(commands) == 4
+    assert library.exists() and len(commands) == 5
     sources = [pathlib.Path(a).resolve() for argv in commands for a in argv
                if a.endswith((".cu", ".cpp", ".cc", ".c"))]
-    assert len(sources) == 4, [shlex.join(c) for c in commands]
+    assert len(sources) == 5, [shlex.join(c) for c in commands]
     for src in sources:
         assert src.is_relative_to(port) and src.exists(), src
-    assert {s.name for s in sources} == {"dcn_fwd.cu", "dcn_bwd.cu", "nms.cu", "cocoeval.cpp"}
+    assert {s.name for s in sources} == {"dcn_fwd.cu", "dcn_bwd.cu", "nms.cu", "iou_rotated.cu", "cocoeval.cpp"}
 
     spec = importlib.util.spec_from_file_location(
         "_cocoeval_oracle", os.path.join(REPO, "tests", "evaluation", "test_cocoeval_oracle.py"))

@@ -21,6 +21,7 @@ branches out of order (``ASPP_MISPAIRED``, ROADMAP C27). The port's own
 checkpoint still loads strictly and resumes.
 """
 
+import logging
 import os
 import pickle
 
@@ -183,7 +184,8 @@ def test_a_file_of_the_whole_network_loads_strictly_as_jax_pairs_it(network, tra
 
 
 @pytest.mark.parametrize("entry", ["DefaultPredictor", "DefaultTrainer"])
-def test_entry_points_take_a_pkl_trunk_and_keep_their_own_init_elsewhere(network, entry, tmp_path, caplog):
+def test_entry_points_take_a_pkl_trunk_and_keep_their_own_init_elsewhere(network, entry, tmp_path, caplog,
+                                                                         monkeypatch):
     """``MODEL.WEIGHTS`` a trunk-only ``.pkl`` through the entry points
     themselves, from the port's own seeded init: the trunk's entries equal
     JAX's from the same file (its predictor's path for ``DefaultPredictor``,
@@ -197,6 +199,9 @@ def test_entry_points_take_a_pkl_trunk_and_keep_their_own_init_elsewhere(network
     cfg.MODEL.WEIGHTS = path
     fresh = build_model(cfg).model.state_dict()
     caplog.set_level("INFO", logger="detectron2_centernet_tpu_torch.checkpoint.torch_import")
+    # an entry point run earlier in this process (tools/train_net's setup_logger) stops the package's records
+    # at its own logger; caplog reads them at the root
+    monkeypatch.setattr(logging.getLogger("detectron2_centernet_tpu_torch"), "propagate", True)
     if entry == "DefaultPredictor":
         got = DefaultPredictor(cfg).model.model.state_dict()
     else:

@@ -16,7 +16,11 @@ with the mask and keypoint heads, card against CPU, and a small Semantic FPN
 and Panoptic FPN (logits, losses, gradients, the label maps and the
 panoptic merge on the card), card against CPU; small DeepLab V3 and V3+
 networks, and PointRend's point head, subdivision, training losses and
-semantic head, card against CPU.
+semantic head, card against CPU; the rotated IoU kernel
+(``ops/csrc/iou_rotated.cu``) and the rotated NMS (``nms.cu``'s rotated
+pipeline) against their plain versions on random, degenerate, matching-
+and sampling-shaped pairs and on RPN-like, ragged, all-suppressed,
+multi-chunk and per-class rows.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -1143,3 +1147,131 @@ def test_small_pointrend_on_card_matches_cpu(card):
         lc = dev.model.sem_seg_head(fc)
         lh = host.model.sem_seg_head({k: v.cpu() for k, v in fc.items()})
     assert lc.shape == (2, 7, 96, 96) and (lc.cpu() - lh).abs().max().item() <= 1e-4 * lh.abs().max().item()
+
+
+# -- the rotated IoU (R1, ops/csrc/iou_rotated.cu) and the rotated NMS (R2, nms.cu's rotated kind) -----------
+
+
+def _rotated(g, n, lo=0.0, hi=800.0, size=(8.0, 300.0), angles=180.0):
+    """(n, 5) rotated boxes: centres in [lo, hi)², sides in ``size``, angles in ±``angles``°."""
+    xy = lo + torch.rand(n, 2, generator=g) * (hi - lo)
+    wh = size[0] + torch.rand(n, 2, generator=g) * (size[1] - size[0])
+    return torch.cat([xy, wh, (torch.rand(n, 1, generator=g) * 2 - 1) * angles], 1)
+
+
+def _degenerate_pairs():
+    """(a, b) pairs: identical, a shared (collinear) edge, one inside the
+    other, 90° turns, a thin box, a zero-size subject, -180 against 180, a
+    touching corner, far apart; both ways round but for the clip by the
+    zero-size box (its edges clip nothing: the union is rounding)."""
+    a = torch.tensor([[20, 20, 10, 6, 30], [20, 20, 10, 6, 0], [20, 20, 10, 6, 0], [20, 20, 4, 2, 15],
+                      [20, 20, 10, 6, 0], [20, 20, 8, 8, 0], [20, 20, 10, 1e-4, 20], [20, 20, 10, 6, -180],
+                      [20, 20, 10, 10, 0], [20, 20, 10, 6, 45], [20, 20, 0, 0, 0]], dtype=torch.float32)
+    b = torch.tensor([[20, 20, 10, 6, 30], [30, 20, 10, 6, 0], [20, 23, 10, 6, 0], [20, 20, 10, 6, 15],
+                      [20, 20, 10, 6, 90], [20, 20, 8, 8, 90], [20, 20, 10, 6, 20], [20, 20, 10, 6, 180],
+                      [30, 30, 10, 10, 0], [60, 60, 10, 6, 45], [20, 20, 10, 6, 0]], dtype=torch.float32)
+    return torch.cat([a, b[:-1]]), torch.cat([b, a[:-1]])
+
+
+@pytest.mark.parametrize("case", ["random", "degenerate", "matching", "sampling"])
+def test_iou_rotated_kernel_matches_plain(card, case):
+    """R1 against the plain clip on the card, within 1e-5: 300 x 500 random
+    pairs; the degenerate pairs (each pair alone); the RRPN's matching shape,
+    2 images of 20 gts against the 112 500 anchors of a 50 x 50 res4 map at
+    45 anchors a cell (broadcast over the batch); the proposal sampling's,
+    16 images of 20 gts against their own 2020 boxes. One launch a call."""
+    from detectron2_centernet_tpu_torch.models.anchors import RotatedAnchorGenerator
+    from detectron2_centernet_tpu_torch.ops import roi_align_rotated as rot
+
+    g = torch.Generator().manual_seed(2)
+    if case == "random":
+        a, b = _rotated(g, 300), _rotated(g, 500)
+    elif case == "degenerate":
+        a, b = _degenerate_pairs()
+        a, b = a[:, None], b[:, None]  # (pairs, 1, 5): each pair its own batch entry
+    elif case == "matching":
+        anchors = RotatedAnchorGenerator([[32, 64, 128, 256, 512]], [[0.5, 1.0, 2.0]], [[-90, 0, 90]], [16])
+        a = torch.stack([_rotated(g, 20, 50, 750, (20, 400), 45) for _ in range(2)])
+        b = torch.from_numpy(anchors([(50, 50)]))
+    else:
+        a = torch.stack([_rotated(g, 20, 50, 750, (20, 400), 45) for _ in range(16)])
+        b = torch.cat([torch.stack([_rotated(g, 2000) for _ in range(16)]), a], 1)
+    before = rot.pairwise_iou_rotated.launches
+    got = rot.pairwise_iou_rotated(a.to(card), b.to(card))
+    assert rot.pairwise_iou_rotated.launches == before + 1
+    want = rot.pairwise_iou_rotated_plain(a.to(card), b.to(card))
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-5
+    if case == "degenerate":
+        torch.testing.assert_close(got.cpu().flatten(), rot.pairwise_iou_rotated(a, b).flatten(), rtol=0, atol=1e-5)
+    assert got.max().item() > 0.3
+
+
+def _rotated_nms_case(name):
+    """(boxes (R, C, 5), scores (R, C), classes or None, picks, threshold) of a
+    rotated NMS case, from seed 3."""
+    g = torch.Generator().manual_seed(3)
+    if name == "rpn":  # 2 images' level rows of 3000, 300 picks, the RRPN's threshold
+        rows, cands, picks, thr = 2, 3000, 300, 0.7
+    elif name == "ragged":  # rows of their own counts and their own live shares
+        rows, cands, picks, thr = 5, 1500, [400, 7, 1500, 60, 200], 0.5
+    elif name == "multi_chunk":  # 200 tight clusters of 50: the picks run out of the first chunk of 8192
+        g2 = torch.Generator().manual_seed(4)
+        centres = torch.rand(1, 200, 1, 2, generator=g2) * 3000
+        size = 20 + torch.rand(1, 200, 1, 3, generator=g2) * torch.tensor([60.0, 60.0, 90.0])
+        jitter = torch.randn(1, 200, 50, 5, generator=g2) * torch.tensor([1.0, 1.0, 1.0, 1.0, 2.0])
+        boxes = (torch.cat([centres.expand(1, 200, 50, 2), size.expand(1, 200, 50, 3)], -1) + jitter).reshape(1, -1, 5)
+        return boxes, torch.rand(1, 10000, generator=g2), None, 300, 0.5
+    else:  # the box head's: 4 x 100 candidates of 80 classes, 100 picks, suppression within a class
+        rows, cands, picks, thr = 4, 400, 100, 0.5
+    centres = torch.rand(rows, cands // 6, 1, 2, generator=g) * 800
+    xy = (centres + torch.randn(rows, cands // 6, 6, 2, generator=g) * 12).reshape(rows, -1, 2)
+    xy = torch.cat([xy, torch.rand(rows, cands - xy.shape[1], 2, generator=g) * 800], 1)
+    boxes = torch.cat([xy, 16 + torch.rand(rows, cands, 2, generator=g) * 80,
+                       (torch.rand(rows, cands, 1, generator=g) * 2 - 1) * 90], -1)
+    scores = torch.rand(rows, cands, generator=g)
+    if name == "ragged":
+        for r, live in enumerate((1.0, 0.5, 0.2, 0.0, 0.9)):
+            scores[r, torch.rand(cands, generator=g) >= live] = float("-inf")
+        boxes[4, :] = boxes[4, :1]  # one box repeated: all suppressed by the first pick
+    classes = torch.randint(0, 80, (rows, cands), generator=g) if name == "classes" else None
+    if isinstance(picks, list):
+        picks = torch.tensor(picks, dtype=torch.int32)
+    return boxes, scores, classes, picks, thr
+
+
+@pytest.mark.parametrize("case", ["rpn", "ragged", "multi_chunk", "classes", "degenerate"])
+def test_nms_rotated_kernel_matches_plain(card, case):
+    """R2 (nms.cu's pipeline for rotated boxes) against the plain argmax loop
+    (``nms_rotated_fixed``) on the card: an RRPN-like row pair, ragged pick
+    counts and live shares (a row dead, a row of one repeated box, all
+    suppressed by its first pick), a row of 200 clusters of 50 whose picks
+    run out of its first chunk (the card's own next round), per-class rows, and
+    the degenerate pairs as one row. Index for index, but a row whose first
+    difference is decided by an IoU within 1e-5 of the threshold
+    (``nms_pick_ties``), at most 0.1% of the picks; one launch a call."""
+    from detectron2_centernet_tpu_torch.ops import nms
+    from detectron2_centernet_tpu_torch.ops import roi_align_rotated as rot
+
+    if case == "degenerate":
+        a, b = _degenerate_pairs()
+        boxes, classes, picks, thr = torch.cat([a, b])[None], None, 44, 0.5
+        scores = torch.linspace(1, 0.1, boxes.shape[1])[None]
+    else:
+        boxes, scores, classes, picks, thr = _rotated_nms_case(case)
+    boxes, scores = boxes.to(card), scores.to(card)
+    classes = None if classes is None else classes.to(card)
+    before, rounds = rot.nms_rotated.launches, nms.rounds_taken()
+    got = rot.nms_rotated(boxes, scores, thr, picks, classes)
+    assert rot.nms_rotated.launches == before + 1
+    taken = nms.rounds_taken() - rounds
+    want = rot.nms_rotated_fixed(boxes, scores, thr, picks, classes)
+    ties = rot.nms_pick_ties(boxes, scores, thr, got, want, classes)
+    assert ties["not_ties"] == 0 and ties["ties"] <= 0.001 * ties["picks"], ties
+    if ties["differing_rows"] == 0:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert taken >= 1 + (case == "multi_chunk")
+    if case == "ragged":
+        assert not bool(got[1][3].any()) and int(got[1][4].sum()) == 1 and int(got[1][1].sum()) == 7
+    assert int(want[1].sum()) > boxes.shape[0]

@@ -209,15 +209,16 @@ def test_cocoeval_keypoints_equal_jax():
 
 
 def test_cocoeval_segm_raises():
-    """segm evaluation is ported (it raised naming A15 until then): an empty
-    one runs to the no-data stats; the rotated-box type, not ported, raises
-    naming its item."""
-    ev = COCOEval([], [], [1], [1], iou_type="segm")
-    ev.evaluate()
-    ev.summarize()
-    assert len(ev.stats) == 12 and all(v == -1 for v in ev.stats)
-    with pytest.raises(NotImplementedError, match="A16"):
-        COCOEval([], [], [1], [1], iou_type="rotated_bbox")
+    """segm evaluation is ported (it raised naming A15 until then), and so is
+    the rotated-box type (it raised naming A16): an empty one of each runs to
+    the no-data stats; an unknown type still fails."""
+    for iou_type in ("segm", "rotated_bbox"):
+        ev = COCOEval([], [], [1], [1], iou_type=iou_type)
+        ev.evaluate()
+        ev.summarize()
+        assert len(ev.stats) == 12 and all(v == -1 for v in ev.stats)
+    with pytest.raises(AssertionError):
+        COCOEval([], [], [1], [1], iou_type="obb")
 
 
 # -- data -----------------------------------------------------------------------

@@ -744,9 +744,10 @@ def test_rcnn_raises_without_a_card(name):
 
 @pytest.mark.parametrize("extra, item", [
     # Cascade, Res5/C4 and DC5 build now (tests/test_torch_cascade.py, tests/test_torch_c4.py), and so do
-    # precomputed proposals, deformable trunks and PointRend (test_formerly_queued_rcnn_options_build below);
+    # precomputed proposals, deformable trunks and PointRend (test_formerly_queued_rcnn_options_build below),
+    # and the RRPN builds a RotatedRCNN (tests/test_torch_rotated.py): its case holds DensePose's ROI heads now;
     # the ids are the ones these cases had among PointRend's
-    pytest.param(["MODEL.PROPOSAL_GENERATOR.NAME", "RRPN"], "ROADMAP A16", id="extra1-ROADMAP A16"),
+    pytest.param(["MODEL.ROI_HEADS.NAME", "DensePoseROIHeads"], "ROADMAP A18", id="extra1-ROADMAP A16"),
     pytest.param(["MODEL.ROI_HEADS.EXTENSIONS", ["DensePoseExtension"]], "ROADMAP A18", id="extra2-ROADMAP A18"),
     pytest.param(["MODEL.ROI_HEADS.NAME", "MyROIHeads"], "unknown ROI_HEADS.NAME 'MyROIHeads'",
                  id="extra4-unknown ROI_HEADS.NAME 'MyROIHeads'"),
