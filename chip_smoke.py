@@ -342,7 +342,7 @@ from detectron2_centernet_tpu_torch.ops import roi_align_rotated as rot_ops
 from detectron2_centernet_tpu_torch.solver import build_optimizer
 from detectron2_centernet_tpu_torch.structures.keypoints import heatmaps_to_keypoints
 from detectron2_centernet_tpu_torch.structures.masks import paste_masks_in_image
-from detectron2_centernet_tpu_torch.tools import bench, train_net
+from detectron2_centernet_tpu_torch.tools import bench, rotated_ab, train_net
 
 # DLA-34 at 512x512: the 16 DCN launches of one forward as (Cin, Cout, H=W, count)
 DLA_SHAPES = [
@@ -4480,13 +4480,20 @@ ROTATED_EVAL_IMAGES = 16  # 23d's synthetic scenes
 TRIDENT_TRAIN_BATCH = 16  # SOLVER.IMS_PER_BATCH of Base-TridentNet-Fast-C4.yaml: 48 images at res4
 TRIDENT_STEPS = 2  # tools/train_net's steps in 24d before its --eval-only
 ROTATED_ANGLE = 45.0  # 23c's gts: the synthetic scenes' boxes at seeded angles in ±45°
-# the least f32 operations of one rotated IoU in csrc/iou_rotated.cuh: a pair whose circles lie apart takes the
-# test alone (two sqrt, ~14 operations); the others the corners (two sincos, ~40), four clips of at most 8
-# vertices (~12 operations a vertex an edge) and the shoelace sum, ~400
+# the least f32 operations of one rotated IoU, as R1's and R2's first kernels (one IoU from the boxes' five
+# numbers) counted them, kept so that the bounds before and after their redesign are one yardstick: a pair whose
+# circles lie apart takes the test alone (two sqrt, ~14 operations); the others the corners (two sincos, ~40),
+# four clips of at most 8 vertices (~12 operations a vertex an edge) and the shoelace sum, ~400
 IOU_FAR_OPS, IOU_CLIP_OPS = 14, 400
 # 23e: the rows of each case the plain argmax loop takes (None: all); it costs ~150 small launches a pick, 3 s
 # for a test row's 1000 picks
-ROTATED_PLAIN_ROWS = {"rpn_test_rotated": 1, "rpn_train_rotated": 1, "box_head_rotated": None}
+ROTATED_PLAIN_ROWS = rotated_ab.PLAIN_ROWS
+# 23e: R1's and R2's times before their redesign (PERF.md, runs CO; CJ where CO took none), in ms: (the plain
+# rows, all rows)
+ROTATED_MS_BEFORE = {"rrpn_matching": (0.740, None), "proposal_sampling": (0.348, None),
+                   "rpn_test_rotated": (4.912, 8.386), "rpn_train_rotated": (6.264, 19.722),
+                   "box_head_rotated": (0.428, None)}
+ROTATED_CASES = None  # --rotated-cases: where 23e saves its inputs for tools/rotated_ab.py
 TRIDENT_FULL_BATCH = 12  # 24b's predict_fn batch, the largest of 8, 12, 16 that fits in 80 GB: 16 is 48 images
 # through res4 and 48 000 rois through res5
 
@@ -4830,6 +4837,11 @@ def phase_rotated_kernels(res, iou_inputs, cases):
     # the first matching chunk (the gts against the anchors, one 2-d set) and the first proposal sampling
     picked = {"rrpn_matching": next(c for c in iou_inputs if c[1].dim() == 2),
               "proposal_sampling": next(c for c in iou_inputs if c[1].dim() == 3)}
+    if ROTATED_CASES:
+        cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
+        torch.save({"iou": {k: tuple(map(cpu, v)) for k, v in picked.items()},
+                    "nms": {k: tuple(map(cpu, v)) for k, v in cases.items()}}, ROTATED_CASES)
+        print(f"  the inputs saved to {ROTATED_CASES}")
     for name, (a, b) in picked.items():
         got = rot_ops.pairwise_iou_rotated(a, b)
         want, plain_ms = timed_once(lambda: rot_ops.pairwise_iou_rotated_plain(a, b))
@@ -4841,11 +4853,14 @@ def phase_rotated_kernels(res, iou_inputs, cases):
         ops = rotated_iou_ops(a, b)
         nbytes = (a.numel() + b.numel() + got.numel()) * 4
         bound, by = bound_of(ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3)
+        stages = rotated_ab.stage_table(lambda: rot_ops.pairwise_iou_rotated(a, b), calls=1)
         out[name] = dict(shape=[list(a.shape), list(b.shape)], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=by, ops=ops, bytes=nbytes, noise_pairs=int((~keep).sum()))
+                         bound_ms=bound, bound_by=by, ops=ops, bytes=nbytes, noise_pairs=int((~keep).sum()),
+                         ms_before=ROTATED_MS_BEFORE[name][0], stages=stages)
         print(f"  R1 {name}: {tuple(a.shape)} x {tuple(b.shape)} -> {tuple(got.shape)}: max |kernel - plain| {err:.2e} "
-              f"(tol 1e-5; {int((~keep).sum())} pairs clipped by a box of no area left out); kernel {ms:.3f} ms, plain clip {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}: {ops:.3e} "
-              f"operations, {nbytes} bytes)")
+              f"(tol 1e-5; {int((~keep).sum())} pairs clipped by a box of no area left out); kernel {ms:.3f} ms "
+              f"(before the redesign {ROTATED_MS_BEFORE[name][0]:.3f}), plain clip {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}: "
+              f"{ops:.3e} operations, {nbytes} bytes); stages: {rotated_ab.format_table(stages)}")
         if not err <= 1e-5:
             raise SystemExit(f"R1 disagrees with its plain version on {name}: {err}")
     for name, (boxes, scores, classes, thr, counts) in cases.items():
@@ -4866,15 +4881,22 @@ def phase_rotated_kernels(res, iou_inputs, cases):
         k = got[0].shape[1]
         nbytes = sc.numel() * 4 + prefix * (20 + (4 if cl is not None else 0)) + sc.shape[0] * k * 9
         bound, by = bound_of(ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3)
+        stages = rotated_ab.stage_table(lambda: rot_ops.nms_rotated(bx, sc, thr, cn, cl), calls=1)
+        stages_all = rotated_ab.stage_table(lambda: rot_ops.nms_rotated(boxes, scores, thr, counts, classes), calls=1)
+        before, before_all = ROTATED_MS_BEFORE[name]
         out[name] = dict(rows=sc.shape[0], all_rows=scores.shape[0], candidates=sc.shape[1], picks=ties["picks"],
                          equal=equal, ties=ties, rounds=rounds, ms=ms, plain_ms=plain_ms, ms_all_rows=full_ms,
-                         bound_ms=bound, bound_by=by, sorted_prefix=prefix, ops=ops, classes=cl is not None)
+                         bound_ms=bound, bound_by=by, sorted_prefix=prefix, ops=ops, classes=cl is not None,
+                         ms_before=before, ms_all_rows_before=before_all, stages=stages, stages_all_rows=stages_all)
         print(f"  R2 {name}: {sc.shape[0]} of {scores.shape[0]} rows x {sc.shape[1]} candidates, picks "
               f"{counts if isinstance(counts, int) else sorted(set(counts))}, {ties['picks']} valid"
               f"{', per class' if cl is not None else ''}: {'equal' if equal else 'DIFFERENT'} to the loop "
               f"({ties['ties']} rows differ at a tie, {ties['not_ties']} otherwise); {rounds} chunks; kernel {ms:.3f} ms "
-              f"({full_ms:.3f} ms on all {scores.shape[0]} rows), plain loop {plain_ms:.3f} ms; bound {bound:.4f} ms "
+              f"({full_ms:.3f} ms on all {scores.shape[0]} rows; before the redesign {before:.3f}"
+              f"{'' if before_all is None else f', {before_all:.3f}'}), plain loop {plain_ms:.3f} ms; bound {bound:.4f} ms "
               f"({by}: {ops:.3e} operations, {nbytes} bytes)")
+        print(f"    stages, {sc.shape[0]} rows: {rotated_ab.format_table(stages)}")
+        print(f"    stages, all {scores.shape[0]} rows: {rotated_ab.format_table(stages_all)}")
         if ties["not_ties"] or ties["ties"] > 0.001 * ties["picks"]:
             raise SystemExit(f"R2 disagrees with the plain loop on {name}: {ties}")
     res["kernels_vs_plain"] = out
@@ -5024,7 +5046,10 @@ def roi_ops_inference(model, props, scores, deltas, n, p, size):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", help="also write every number of the run to this file")
+    parser.add_argument("--rotated-cases", help="save 23e's R1 and R2 inputs to this file (tools/rotated_ab.py)")
     args = parser.parse_args()
+    global ROTATED_CASES
+    ROTATED_CASES = args.rotated_cases
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is false", file=sys.stderr)
         return 1

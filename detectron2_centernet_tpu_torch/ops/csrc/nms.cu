@@ -70,9 +70,21 @@
 // What bounds it on this card: reading every score once per selection pass
 // (LVIS's 16 x 1.2 M candidates are 77 MB, past the 50 MB L2), ~20 f32
 // operations per IoU of the tiles and of (kept pick, later candidate)
-// pairs (~400 and two sincos per rotated IoU of boxes that overlap), and
-// the scan's dependent steps: one warp per row, one shuffle per kept
-// candidate, one load of a 64-candidate block's words at a time.
+// pairs (~400 per rotated IoU of boxes whose circles overlap, ~15 for the
+// others), and the scan's dependent steps: one warp per row, one shuffle
+// per kept candidate, one load of a 64-candidate block's words at a time.
+//
+// The rotated kind's bitmask (`nms_mask_rotated`): the sort makes each
+// sorted candidate's record once (corners, diagonal, area, class:
+// `iou_rotated.cuh`), the scan copies it with each pick, so a pair does no
+// trigonometry and no square root. Its work items are kRotRows x 64
+// pairs, a quarter of a tile or kRotRows kept picks against 64 candidates,
+// which a row's CTAs (kRotThreads each) take in turn: every thread tests
+// its share of an item's classes, circles and edge normals (`far_apart`,
+// `separated`: exact, see `iou_rotated.cuh`), queues the pairs that need
+// the clip, and then every thread clips queued pairs (a warp's lanes clip
+// together, not behind the one lane whose pair overlaps), so that even
+// one RRPN row of 6000 candidates spreads over the card.
 
 #include <cuda_runtime.h>
 #include <cmath>
@@ -89,6 +101,10 @@ constexpr int kSeg = 8192;          // candidates per CTA in the row-wide passes
 constexpr int kSegThreads = 256;
 constexpr int kNumPanels = 6;       // panels of the sorted chunk: [0, 256), [256, 512), [512, 1024), ... [4096, 8192)
 constexpr int kSlice = 256;         // kept picks per CTA when a panel is checked against them
+constexpr int kRotThreads = 128;    // threads of a rotated bitmask CTA
+constexpr int kRotRows = 16;        // rows of a rotated bitmask work item: a quarter tile, or kept picks
+constexpr int kRotCtas = 2048;      // rotated bitmask CTAs a panel, about, over every row
+constexpr int kRotCtasPerSm = 5;    // in 88 registers (112 with no minimum: 4 CTAs an SM; 6 spills)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kAll = ~0ull;
 
@@ -119,11 +135,12 @@ __device__ __forceinline__ float iou_with(float4 a, float area_a, float4 b, floa
   return uni > 0.f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.f;
 }
 
-// The two kinds of boxes. Each loads a candidate's box from the input, gives
-// its area (the scan records it with the pick) and says whether a pick
-// suppresses a candidate.
+// The two kinds of boxes. Each loads a candidate's box from the input and
+// gives its area (the scan records it with the pick); the axis kind says
+// whether a pick suppresses a candidate (`nms_mask`).
 struct AxisBoxes {
   using Box = float4;
+  static constexpr bool kRotated = false;
   const float4* boxes;
   __device__ __forceinline__ Box load(size_t i) const { return boxes[i]; }
   __device__ static __forceinline__ float area(const Box& b) { return area_of(b); }
@@ -133,20 +150,17 @@ struct AxisBoxes {
   }
 };
 
+// A rotated candidate is its record (`iou_rotated.cuh`), made once by the
+// sort; its bitmask is `nms_mask_rotated`'s.
 struct RotatedBoxes {
-  struct Box {
-    rotated::Box5 b;
-    int cls;
-  };
+  using Box = rotated::Record;
+  static constexpr bool kRotated = true;
   const float* boxes;  // (rows * cands, 5)
   const int* classes;  // (rows * cands,), or null: one class
   __device__ __forceinline__ Box load(size_t i) const {
-    return Box{rotated::load_box(boxes + i * 5), classes != nullptr ? classes[i] : 0};
+    return rotated::make_record(rotated::load_box(boxes + i * 5), classes != nullptr ? classes[i] : 0);
   }
-  __device__ static __forceinline__ float area(const Box& b) { return b.b.w * b.b.h; }
-  __device__ static __forceinline__ bool suppresses(const Box& pick, float, const Box& b, float, float thr) {
-    return pick.cls == b.cls && rotated::iou(pick.b, b.b) > thr;
-  }
+  __device__ static __forceinline__ float area(const Box& b) { return b.area; }
 };
 
 // The word of a live score `v` at index `i`: ascending words are descending
@@ -446,6 +460,109 @@ __global__ void __launch_bounds__(64) nms_mask(const RowState* __restrict__ stat
              static_cast<unsigned long long>(halves[0]) | (static_cast<unsigned long long>(halves[1]) << 32));
 }
 
+// Stage 3 for rotated boxes, for the panel [p0, p1): nms_mask's outputs,
+// kRotThreads a CTA, gridDim.x CTAs a row sharing the row's work items in
+// turn. An item is kRotRows rows against 64 columns: a quarter of a tile
+// (rows of block bi, columns of block bj >= bi), or kRotRows kept picks
+// against the panel's block bi; the rows are the subjects. Each thread
+// tests its pairs' classes, circles and edge normals, the pairs left go to
+// the CTA's queue, and the threads clip the queue's pairs; a set bit goes into the
+// row's word in shared memory (for kept picks, the candidate's, whose pairs
+// are skipped once some pick suppressed it).
+__global__ void __launch_bounds__(kRotThreads, kRotCtasPerSm)
+    nms_mask_rotated(const RowState* __restrict__ state, const rotated::Record* __restrict__ kbox,
+                     const rotated::Record* __restrict__ sbox, unsigned long long* __restrict__ mask,
+                     unsigned long long* __restrict__ removed, int m, int nbw, int pw, int k, int p0, int p1,
+                     float thr) {
+  constexpr int kParts = 64 / kRotRows;  // items a tile
+  __shared__ rotated::RecordBlock<kRotRows> rows;
+  __shared__ rotated::RecordBlock<64> cols;
+  __shared__ float2 scratch[kRotThreads / 32][2][rotated::kMaxVertices];  // a warp's, for the general clip
+  __shared__ unsigned short queue[kRotRows * 64];
+  __shared__ unsigned bits[kRotRows][2];
+  __shared__ int count;
+  const int r = blockIdx.y, tid = threadIdx.x;
+  const RowState st = state[r];
+  if (!st.active || !st.scanning || st.pos != p0 || st.n <= p0) return;
+  const int n = min(st.n, p1), pb0 = p0 / 64, nb = (n - p0 + 63) / 64;
+  const int tiles = nb * (nb + 1) / 2 * kParts, items = tiles + nb * ((st.kept + kRotRows - 1) / kRotRows);
+  const rotated::Record* sb = sbox + static_cast<size_t>(r) * m;
+  volatile unsigned long long* gone = removed + static_cast<size_t>(r) * nbw + pb0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const bool tile = item < tiles;
+    int bi, row0, nr, col0;
+    bool diagonal = false;  // a tile on the diagonal: only the pairs j > i
+    const rotated::Record* row_src;
+    if (tile) {
+      int t = item / kParts;
+      bi = 0;
+      while (t >= nb - bi) {  // the upper triangle, row by row: row bi holds nb - bi tiles
+        t -= nb - bi;
+        ++bi;
+      }
+      row0 = p0 + bi * 64 + item % kParts * kRotRows;
+      row_src = sb + row0;
+      nr = min(kRotRows, n - row0);
+      col0 = p0 + (bi + t) * 64;
+      diagonal = t == 0;
+    } else {
+      const int x = item - tiles, q0 = x / nb * kRotRows;
+      bi = x % nb;
+      row0 = q0;
+      row_src = kbox + static_cast<size_t>(r) * k + q0;
+      nr = min(kRotRows, st.kept - q0);
+      col0 = p0 + bi * 64;
+    }
+    if (nr <= 0) continue;  // a tile's last rows past the chunk's end
+    const int nc = min(64, n - col0);
+    __syncthreads();  // the last item's shared arrays are read
+    if (tid < kRotRows) {
+      if (tid < nr) rows.put(tid, row_src[tid]);
+      bits[tid][0] = bits[tid][1] = 0u;
+    } else if (tid == kRotRows) {
+      count = 0;
+    }
+    if (tid >= 64 && tid - 64 < nc) cols.put(tid - 64, sb[col0 + tid - 64]);
+    __syncthreads();
+    for (int q = tid; q < kRotRows * 64; q += kRotThreads) {
+      const int i = q >> 6, j = q & 63;
+      const bool take = i < nr && j < nc && (!diagonal || col0 + j > row0 + i) && rows.cls(i) == cols.cls(j)
+                        && !rows.far_from(i, cols, j) && !rotated::separated(rows.get(i), cols.get(j));
+      rotated::enqueue(take, static_cast<unsigned short>(q), queue, &count);
+    }
+    __syncthreads();
+    const int queued = count;
+    for (int e0 = tid & ~31; e0 < queued; e0 += kRotThreads) {  // a warp's lanes together
+      const int e = e0 + (tid & 31), i = e < queued ? queue[e] >> 6 : 0, j = e < queued ? queue[e] & 63 : 0;
+      bool take = e < queued;
+      if (take && !tile)  // a candidate some kept pick suppressed already needs no more
+        take = !((*reinterpret_cast<volatile unsigned*>(&bits[0][j >> 5]) >> (j & 31) & 1u)
+                 || (gone[bi] >> j & 1ull));
+      if (rotated::near_iou(take, rows.get(i), cols.get(j), scratch[tid >> 5]) > thr && take)
+        atomicOr(&bits[tile ? i : 0][j >> 5], 1u << (j & 31));
+    }
+    __syncthreads();
+    if (tile) {
+      if (tid < nr)
+        mask[(static_cast<size_t>(r) * m + row0 + tid) * pw + (col0 - p0) / 64] =
+            static_cast<unsigned long long>(bits[tid][0]) | (static_cast<unsigned long long>(bits[tid][1]) << 32);
+    } else if (tid == 0 && (bits[0][0] | bits[0][1])) {
+      atomicOr(&removed[static_cast<size_t>(r) * nbw + pb0 + bi],
+               static_cast<unsigned long long>(bits[0][0]) | (static_cast<unsigned long long>(bits[0][1]) << 32));
+    }
+  }
+}
+
+// The CTAs a row's `nms_mask_rotated` takes for the panel [p0, p1): its
+// most work items (every tile and every slice of the picks that can be
+// kept before p0), at most about kRotCtas over the rows.
+__host__ __device__ int rotated_mask_ctas(int rows, int k, int p0, int p1) {
+  const int npb = (p1 - p0) / 64, kept = k < p0 ? k : p0;
+  const int items = npb * (npb + 1) / 2 * (64 / kRotRows) + npb * ((kept + kRotRows - 1) / kRotRows);
+  const int cap = (kRotCtas + rows - 1) / rows;
+  return items < cap ? items : cap;
+}
+
 // Stage 4, for the panel [p0, p1): one warp per row walks the panel's
 // blocks of 64 in order. Lane l holds the panel's "removed" words l and
 // l + 32; a block's own words (the tile on the diagonal) are loaded while
@@ -585,8 +702,13 @@ __host__ __device__ int launch_round(const Round<B>& a, cudaStream_t stream) {
   NMS_CHECK();
   for (int p = 0; p < kNumPanels && panel_start(p) < a.m; ++p) {
     const int p0 = panel_start(p), p1 = panel_start(p + 1), npb = (p1 - p0) / 64;
-    nms_mask<B><<<dim3(npb * npb + npb * a.slices, a.rows), 64, 0, stream>>>(
-        a.state, a.kbox, a.karea, a.sbox, a.sarea, a.mask, a.removed, a.m, a.nbw, a.pw, a.k, p0, p1, a.thr);
+    if constexpr (B::kRotated) {
+      nms_mask_rotated<<<dim3(rotated_mask_ctas(a.rows, a.k, p0, p1), a.rows), kRotThreads, 0, stream>>>(
+          a.state, a.kbox, a.sbox, a.mask, a.removed, a.m, a.nbw, a.pw, a.k, p0, p1, a.thr);
+    } else {
+      nms_mask<B><<<dim3(npb * npb + npb * a.slices, a.rows), 64, 0, stream>>>(
+          a.state, a.kbox, a.karea, a.sbox, a.sarea, a.mask, a.removed, a.m, a.nbw, a.pw, a.k, p0, p1, a.thr);
+    }
     NMS_CHECK();
     nms_scan<B><<<a.rows, 32, 0, stream>>>(a.state, a.mask, a.removed, a.sidx, a.sbox, a.sarea, a.keep, a.valid,
                                         a.kbox, a.karea, a.going_on, a.m, a.nbw, a.pw, a.k, p0, p1, a.total_bits);

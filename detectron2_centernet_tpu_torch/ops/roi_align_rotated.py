@@ -48,7 +48,10 @@ MAX_VERTICES = 16  # polygon slots of the clip (``kMaxVertices`` in csrc/iou_rot
 PAIR_CHUNK = 2 ** 19  # pairs the plain clip takes at once: ~40 (chunk, 16) f32 temporaries
 TIE_EPS = 1e-5
 _SIGNATURES = {"iou_rotated": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                               ctypes.c_void_p],
+               "iou_rotated_scratch_bytes": [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_void_p]}
 
 
 # -- ROIAlignRotated ----------------------------------------------------------------------------
@@ -204,8 +207,11 @@ def pairwise_iou_rotated(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Te
         a = a if a.stride(0) == 0 and a[0].is_contiguous() else a.contiguous()
         b = b if b.stride(0) == 0 and b[0].is_contiguous() else b.contiguous()
         lib = cuda_lib.library("iou_rotated", _SIGNATURES)
+        size = ctypes.c_longlong(0)
+        lib.iou_rotated_scratch_bytes(a.stride(0), b.stride(0), bsz, n, m, ctypes.addressof(size))
+        scratch = torch.empty(size.value, dtype=torch.uint8, device=a.device)  # each box's record
         cuda_lib.launch(lib, "iou_rotated", a.device, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-                        out.data_ptr(), bsz, n, m)
+                        out.data_ptr(), bsz, n, m, scratch.data_ptr())
         pairwise_iou_rotated.launches += 1
     return out[0] if squeeze else out
 

@@ -1275,3 +1275,122 @@ def test_nms_rotated_kernel_matches_plain(card, case):
     if case == "ragged":
         assert not bool(got[1][3].any()) and int(got[1][4].sum()) == 1 and int(got[1][1].sum()) == 7
     assert int(want[1].sum()) > boxes.shape[0]
+
+
+def test_iou_rotated_kernel_at_the_rrpn_matching_shape(card):
+    """R1 on a train step's RRPN matching: 2 images of 128 gt slots, the
+    first 23 and 41 of them gts (angles in ±45°), the rest padded as the
+    train loader pads them (zero boxes at the origin, with an angle), against
+    the 112 500 anchors of a 50 x 50 res4 map: within 1e-5 of the plain clip
+    on the card; a padded slot's IoU is 0 throughout. One launch."""
+    from detectron2_centernet_tpu_torch.models.anchors import RotatedAnchorGenerator
+    from detectron2_centernet_tpu_torch.ops import roi_align_rotated as rot
+
+    g = torch.Generator().manual_seed(5)
+    anchors = RotatedAnchorGenerator([[32, 64, 128, 256, 512]], [[0.5, 1.0, 2.0]], [[-90, 0, 90]], [16])
+    b = torch.from_numpy(anchors([(50, 50)])).to(card)
+    a = torch.zeros(2, 128, 5)
+    a[..., 4] = (torch.rand(2, 128, generator=g) * 2 - 1) * 45
+    a[0, :23] = _rotated(g, 23, 50, 750, (20, 400), 45)
+    a[1, :41] = _rotated(g, 41, 50, 750, (20, 400), 45)
+    a = a.to(card)
+    before = rot.pairwise_iou_rotated.launches
+    got = rot.pairwise_iou_rotated(a, b)
+    assert rot.pairwise_iou_rotated.launches == before + 1
+    want = rot.pairwise_iou_rotated_plain(a, b)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 128, 112500) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-5
+    assert not bool(got[0, 23:].any()) and not bool(got[1, 41:].any())
+    assert int((got[:, :23] > 0.7).sum()) > 20
+
+
+def _rpn_train_rows(g, rows=16, cands=12000):
+    """(rows, cands, 5) clustered rotated proposals in an 800² image, as the
+    RRPN's training rows are (most of a row's picks kept, ~2600 sorted
+    candidates deep for 2000 picks), and their scores."""
+    centres = torch.rand(rows, cands // 4, 1, 2, generator=g) * 800
+    xy = (centres + torch.randn(rows, cands // 4, 4, 2, generator=g) * 6).reshape(rows, cands, 2)
+    wh = 16 + torch.rand(rows, cands, 2, generator=g) * 200
+    angle = (torch.rand(rows, cands, 1, generator=g) * 2 - 1) * 90
+    return torch.cat([xy, wh, angle], -1), torch.rand(rows, cands, generator=g)
+
+
+def test_nms_rotated_kernel_at_the_rrpn_training_shape(card):
+    """R2 on the RRPN's training rows: 16 x 12 000 clustered candidates (past
+    one chunk of 8192: the selection passes), 2000 picks, threshold 0.7, in
+    one call; its first two rows index for index to the plain argmax loop
+    (``nms_rotated_fixed``) on those rows, but for rows whose first
+    difference is a tie within 1e-5 of the threshold; every row makes its
+    2000 picks."""
+    from detectron2_centernet_tpu_torch.ops import roi_align_rotated as rot
+
+    boxes, scores = _rpn_train_rows(torch.Generator().manual_seed(6))
+    boxes, scores = boxes.to(card), scores.to(card)
+    before = rot.nms_rotated.launches
+    keep, valid = rot.nms_rotated(boxes, scores, 0.7, 2000)
+    assert rot.nms_rotated.launches == before + 1
+    want = rot.nms_rotated_fixed(boxes[:2], scores[:2], 0.7, 2000)
+    ties = rot.nms_pick_ties(boxes[:2], scores[:2], 0.7, (keep[:2], valid[:2]), want)
+    assert ties["not_ties"] == 0 and ties["ties"] <= 0.001 * ties["picks"], ties
+    if ties["differing_rows"] == 0:
+        assert torch.equal(keep[:2], want[0]) and torch.equal(valid[:2], want[1])
+    assert bool(valid.all())
+
+
+def test_nms_rotated_kernel_on_near_duplicates_at_the_threshold(card):
+    """A row of 600 pairs of near-duplicate rotated boxes: each box's twin
+    moved along its own axis so that their IoU lies within 1e-3 of the
+    threshold 0.5 (either side; ten of them within 1e-5), the pairs apart
+    from each other, scores random. R2 against the plain argmax loop: a difference only where an IoU
+    within 1e-5 of the threshold decides it (``nms_pick_ties``)."""
+    from detectron2_centernet_tpu_torch.ops import roi_align_rotated as rot
+
+    g = torch.Generator().manual_seed(7)
+    n = 600
+    # a 30 x 20 grid 40 apart around the origin (f32's rounding of the shoelace grows with the coordinates)
+    grid = torch.stack(torch.meshgrid(torch.arange(30.0) - 14.5, torch.arange(20.0) - 9.5, indexing="ij"),
+                       -1).reshape(-1, 2) * 40
+    w, h = 10 + torch.rand(n, generator=g) * 6, 5 + torch.rand(n, generator=g) * 3
+    angle = (torch.rand(n, generator=g) * 2 - 1) * 180
+    # same-size boxes shifted by d along the width: IoU = (w - d) / (w + d) = 0.5 at d = w / 3
+    d = w / 3 * (1 + (torch.rand(n, generator=g) * 2 - 1) * 2e-3)
+    t = torch.deg2rad(angle)
+    first = torch.stack([grid[:, 0], grid[:, 1], w, h, angle], -1)
+    twin = first.clone()
+    twin[:, 0] += d * torch.cos(t)
+    twin[:, 1] += d * torch.sin(t)
+    boxes = torch.stack([first, twin], 1).reshape(1, 2 * n, 5)
+    iou = rot.pairwise_iou_rotated_plain(first[:, None], twin[:, None]).flatten()
+    assert (iou - 0.5).abs().max().item() <= 1e-3 and bool((iou > 0.5).any()) and bool((iou <= 0.5).any())
+    scores = torch.rand(1, 2 * n, generator=g)
+    boxes, scores = boxes.to(card), scores.to(card)
+    got = rot.nms_rotated(boxes, scores, 0.5, 2 * n)
+    want = rot.nms_rotated_fixed(boxes, scores, 0.5, 2 * n)
+    ties = rot.nms_pick_ties(boxes, scores, 0.5, got, want)
+    assert ties["not_ties"] == 0, ties
+    if ties["differing_rows"] == 0:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert n < int(want[1].sum()) < 2 * n
+
+
+@pytest.mark.parametrize("case", ["retinanet", "rpn_c4_train", "clusters"])
+def test_axis_nms_beside_the_rotated_kind(card, case):
+    """The axis-aligned kernels (``greedy_nms``) on existing cases, called
+    between two rotated calls of the same library: the picks still equal the
+    plain loop's, and only ``greedy_nms``'s count moves."""
+    from detectron2_centernet_tpu_torch.ops import nms
+    from detectron2_centernet_tpu_torch.ops import roi_align_rotated as rot
+
+    rb, rs = _rpn_train_rows(torch.Generator().manual_seed(8), rows=2, cands=3000)
+    rb, rs = rb.to(card), rs.to(card)
+    boxes, scores, counts = _nms_case(case)
+    boxes, scores, thr = boxes.to(card), scores.to(card), _NMS_CASES[case][4]
+    rotated_before = rot.nms_rotated(rb, rs, 0.7, 300)
+    launches = (nms.greedy_nms.launches, rot.nms_rotated.launches)
+    keep, valid = nms.greedy_nms(boxes, scores, thr, counts)
+    assert (nms.greedy_nms.launches, rot.nms_rotated.launches) == (launches[0] + 1, launches[1])
+    rotated_after = rot.nms_rotated(rb, rs, 0.7, 300)
+    want_keep, want_valid = nms.nms_fixed(boxes, scores, thr, counts)
+    assert torch.equal(valid, want_valid) and torch.equal(keep, want_keep)
+    assert all(torch.equal(x, y) for x, y in zip(rotated_before, rotated_after))

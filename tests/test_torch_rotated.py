@@ -218,6 +218,47 @@ def test_plain_rotated_iou_equals_jax(case):
         assert abs(diag[2] - 1 / 3) < 1e-5 and abs(diag[3] - 8 / 60) < 1e-5 and abs(diag[7] - 1e-3 / 60) < 1e-6
 
 
+def _separated(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """A float32 mirror of the kernels' reject ``csrc/iou_rotated.cuh::
+    separated``: (P,) whether an edge normal of either box splits the pair
+    by ``far_apart``'s margin, both boxes' sides at least 2e-2."""
+    def halves(b):  # half the width and height vectors, rotated, from the corners as the kernels make them
+        x, y = rot._corners(b)
+        return (0.5 * (x[:, 0] - x[:, 1]), 0.5 * (y[:, 0] - y[:, 1])), (0.5 * (x[:, 0] - x[:, 3]), 0.5 * (y[:, 0] - y[:, 3]))
+    (up, vp), (uq, vq) = halves(p), halves(q)
+    tx, ty = q[:, 0] - p[:, 0], q[:, 1] - p[:, 1]
+    diag = lambda b: torch.sqrt(b[:, 2] * b[:, 2] + b[:, 3] * b[:, 3])  # noqa: E731
+    margin = 1e-3 * (0.5 * (diag(p) + diag(q))) + 1e-4 * ((p[:, 0].abs() + p[:, 1].abs() + q[:, 0].abs())
+                                                        + q[:, 1].abs()) + 1e-3
+    out = torch.zeros(len(p), dtype=torch.bool)
+    for (ax, ay), length in ((up, p[:, 2] / 2), (vp, p[:, 3] / 2), (uq, q[:, 2] / 2), (vq, q[:, 3] / 2)):
+        reach = sum((ax * bx + ay * by).abs() for bx, by in (up, vp, uq, vq))
+        out |= (ax * tx + ay * ty).abs() > reach + margin * length
+    return out & (p[:, 2:4] >= 2e-2).all(1) & (q[:, 2:4] >= 2e-2).all(1)
+
+
+def test_plain_iou_is_zero_where_an_edge_normal_separates():
+    """The kernels skip the clip of a pair that an edge normal of either box
+    separates by ``far_apart``'s margin (``separated``), taking its IoU as 0:
+    the plain clip gives exactly 0 for every such pair, both ways round, on
+    pairs of rotated boxes 150 px apart about, of sides 0.02-300 px (one of
+    each pair's boxes thin), centred anywhere in ±3000 px; and the reject
+    takes a good share of the pairs whose circles overlap."""
+    rng = np.random.RandomState(19)
+    n = 12000
+    centre = rng.uniform(-3000, 3000, (n, 2))
+    p = np.concatenate([centre, rng.uniform(0.02, 300, (n, 2)), rng.uniform(-180, 180, (n, 1))], 1)
+    q = np.concatenate([centre + rng.normal(0, 150, (n, 2)), rng.uniform(0.02, 300, (n, 1)),
+                        rng.uniform(0.02, 0.5, (n, 1)), rng.uniform(-180, 180, (n, 1))], 1)
+    p, q = torch.from_numpy(p.astype(np.float32)), torch.from_numpy(q.astype(np.float32))
+    r = 0.5 * (torch.sqrt(p[:, 2] ** 2 + p[:, 3] ** 2) + torch.sqrt(q[:, 2] ** 2 + q[:, 3] ** 2))
+    near = (p[:, 0] - q[:, 0]) ** 2 + (p[:, 1] - q[:, 1]) ** 2 <= r * r
+    sep = _separated(p, q)
+    assert int((sep & near).sum()) > 0.2 * int(near.sum())
+    assert float(rot._pair_iou(p[sep], q[sep]).abs().max()) == 0.0
+    assert float(rot._pair_iou(q[sep], p[sep]).abs().max()) == 0.0
+
+
 def _nms_rows(rng, rows, cands, dead=0.15):
     """Rows of clustered rotated boxes (about 8 clusters, so many IoUs lie
     above and below 0.5-0.7) with scores, a share dead (-inf)."""
@@ -327,8 +368,9 @@ def test_rrpn_losses_equal_jax(beta):
     deltas = (rng.randn(2, len(anchors), 5) * 0.2).astype(np.float32)
     key = jax.random.PRNGKey(3)
     jm, b2b = JaxMatcher([0.3, 0.7], [0, -1, 1], allow_low_quality_matches=True), JaxB2BRot()
-    want = jax_rrpn.rrpn_losses(jnp.asarray(anchors), jnp.asarray(logits), jnp.asarray(deltas), jnp.asarray(gt),
-                                jnp.asarray(valid), key, jm, b2b, 32, 0.5, beta)
+    want = jax.jit(jax_rrpn.rrpn_losses, static_argnums=(6, 7, 8, 9, 10))(
+        jnp.asarray(anchors), jnp.asarray(logits), jnp.asarray(deltas), jnp.asarray(gt), jnp.asarray(valid), key, jm,
+        b2b, 32, 0.5, beta)
     lg, dl = torch.from_numpy(logits).requires_grad_(), torch.from_numpy(deltas).requires_grad_()
     got = rrpn.rrpn_losses(torch.from_numpy(anchors), lg, dl, torch.from_numpy(gt), torch.from_numpy(valid),
                            torch.from_numpy(_rpn_draws(key, 2, len(anchors))),
@@ -352,8 +394,9 @@ def test_find_top_rrpn_proposals_equal_jax(mode):
     logits = [rng.randn(2, len(a)).astype(np.float32) for a in anchors]
     deltas = [(rng.randn(2, len(a), 5) * 0.3).astype(np.float32) for a in anchors]
     pre, post = (40, 15) if mode == "test" else (60, 30)
-    want = jax_rrpn.find_top_rrpn_proposals([jnp.asarray(x) for x in logits], [jnp.asarray(x) for x in deltas],
-                                            [jnp.asarray(a) for a in anchors], (40, 48), JaxB2BRot(), 0.7, pre, post)
+    want = jax.jit(jax_rrpn.find_top_rrpn_proposals, static_argnums=(3, 4, 5, 6, 7))(
+        [jnp.asarray(x) for x in logits], [jnp.asarray(x) for x in deltas], [jnp.asarray(a) for a in anchors], (40, 48),
+        JaxB2BRot(), 0.7, pre, post)
     got = rrpn.find_top_rrpn_proposals([torch.from_numpy(x) for x in logits], [torch.from_numpy(x) for x in deltas],
                                        [torch.from_numpy(a) for a in anchors], (40, 48), Box2BoxTransformRotated(),
                                        0.7, pre, post)
