@@ -57,7 +57,7 @@ Phases (any failure raises and the script exits non-zero):
   5. the training path: ``DefaultTrainer`` on the synthetic stand-in for
      coco_2017_train (80 classes, warped to 512²), batch 32, bf16, color
      jitter on the card, SGD at the config's LR, ``tools/bench.py``'s
-     steps (2 warm-up, 4 timed, 1 more profiled) and clocks: each step
+     steps (2 warm-up, 2 timed, 1 more profiled) and clocks: each step
      launches 16 x K1, K2 and K5, every loss is finite, peak memory printed,
      and the profiled step's device time per DCN kernel;
   5b. ``DefaultTrainer`` at batch 32 for 4 steps with PreciseBN (2 batches)
@@ -269,6 +269,31 @@ Phases (any failure raises and the script exits non-zero):
      images through the trunk and res5, past 80 GB), the bench's train steps
      at the YAML's 16, ``tools/train_net`` and ``--eval-only``; full mode's
      merge rows go to 10c; no DCN and no rotated kernel on either;
+  25. deployment (``phase_deploy``): (a) ``DefaultTrainer.test_with_TTA`` on
+     ctdet DLA-34 (the config's ``TEST.AUG.MIN_SIZES`` rounded up to 32,
+     with the flip: 18 variants) over 8 synthetic scenes with
+     ``COCOEvaluator``, K1 launched exactly 16 x 18 x 8 times, the AP
+     finite, its img/s; the merged detections of one image at two sizes
+     with the flip, f32, card against CPU (``merged_close``: pairs within
+     the tolerances, at most TTA_MAX_TIES near-ties a side unpaired;
+     ``tools/tta_check.py`` runs it over more cases and wrong K1s); (b)
+     ``torch.export`` of ctdet
+     DLA-34 at 512² (batch 1 and 16) and RetinaNet R50-FPN at 800² (batch
+     16), each ``.pt2`` loaded and run in a fresh process that imports the
+     port only, with the plain versions replaced by a function that raises:
+     K1 16 times a forward and the NMS as eager RetinaNet launches it
+     (counted again after the timed calls, and added to the kernels' line
+     as counted), none of JAX imported there, the
+     outputs eager ``predict_fn``'s within EXPORT_TOL, the export seconds and
+     sizes, eager against exported img/s; at PyTorch's TF32 defaults the
+     loaded program still equals eager and the bare program (no
+     ``ieee_f32``) does not (the control); Faster R-CNN R50-FPN exported
+     at batch 1 (its two NMS nodes counted, the program not run); (c)
+     int8 PTQ of DLA-34's weights, ``quantization_error`` under the JAX
+     package's 0.08, the dequantized weights served; (d)
+     ``utils/analysis.py``'s parameters and FLOPs of one image of DLA-34 at
+     512², RetinaNet and Faster R-CNN at 800²; (e) ``hooks.TorchProfiler``
+     over two DLA-34 train steps: its chrome traces name K1, K2 and K5;
   7. kernel times.
 Weights are random, made from a seed (no trained checkpoint is in the repo);
 the offset convs get random weights too, so the DCNs sample off the grid.
@@ -294,6 +319,7 @@ import math
 import os
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -1356,7 +1382,7 @@ def retinanet_cfg(dtype: str):
     return cfg
 
 
-def retinanet_weights(cfg, images: torch.Tensor, seed: int) -> dict:
+def retinanet_weights(cfg, images: torch.Tensor, seed: int, device: str = "cpu") -> dict:
     """Seeded weights under which the RetinaNet detects: ``seeded_weights``
     (the model's own init, FrozenBN statistics measured on ``images``), then
     the head's weights drawn anew from ``seed`` (tower convs N(0, 2/fan_in),
@@ -1367,15 +1393,16 @@ def retinanet_weights(cfg, images: torch.Tensor, seed: int) -> dict:
     the NMS nothing to pick) and ``bbox_pred``'s deltas with std 0.1 (boxes
     near their anchors). Weights to serve with, not to train from: from
     them, SGD at the config's LR on the synthetic train scenes reached a
-    NaN loss within 4 steps."""
-    state = seeded_weights(cfg, images, seed)
+    NaN loss within 4 steps. The calibration runs on ``device`` (the CPU
+    by default; phase 25 calibrates its own copy on the card)."""
+    state = seeded_weights(cfg, images, seed, device)
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for k, v in state.items():
             if k.startswith("head.") and k.endswith(".weight"):
-                v.copy_(torch.randn(v.shape, generator=g) * math.sqrt(2.0 / v[0].numel()))
+                v.copy_(torch.randn(v.shape, generator=g).to(v.device) * math.sqrt(2.0 / v[0].numel()))
         cfg = cfg.clone()
-        cfg.MODEL.DEVICE = "cpu"
+        cfg.MODEL.DEVICE = device
         host = build_model(cfg)
         host.model.load_state_dict(state)
         logits, deltas = host.model(host.normalize(images[:1]))
@@ -1640,27 +1667,36 @@ def profiled(fn, calls=3):
                 nms_kernel_ms=sum(e.self_device_time_total for e in nms) / calls / 1e3)
 
 
-def nms_work(boxes, scores, iou_threshold, keep, valid):
+def nms_work(boxes, scores, iou_threshold, keep, valid, elements=1 << 26):
     """(live candidates summed over every valid pick, valid picks) of the
     greedy NMS of these inputs, whose picks (``keep``, ``valid``) the plain
-    loop gave: the loop replayed on the card (the argmax loop's work, PR
-    9-13's bound), read back once."""
-    live = torch.isfinite(scores)
-    total = torch.zeros((), dtype=torch.int64, device=boxes.device)
+    loop gave (the argmax loop's work: the older bound). A live candidate
+    is counted at each valid pick up to the first that suppresses or picks
+    it: the IoUs of every valid pick against every candidate, in the plain
+    loop's rounded steps, ``elements`` (pick, candidate) pairs at a time on
+    the card, read back once."""
+    rows, cands = scores.shape
+    k = keep.shape[1]
+    if k == 0 or cands == 0:
+        return 0, int(valid.sum())
     areas = nms_ops._areas(boxes)
-    rows = torch.arange(boxes.shape[0], device=boxes.device)
-    for p in range(keep.shape[1]):
-        ok = valid[:, p]
-        total += (live.sum(1) * ok).sum()
-        j = keep[:, p]
-        box = boxes[rows, j][:, None]
-        lt = torch.maximum(box[..., :2], boxes[..., :2])
-        rb = torch.minimum(box[..., 2:], boxes[..., 2:])
+    index = torch.arange(cands, device=boxes.device)
+    death = torch.full((rows, cands), k - 1, dtype=torch.int64, device=boxes.device)  # k - 1: never suppressed
+    found = torch.zeros((rows, cands), dtype=torch.bool, device=boxes.device)
+    step = max(1, elements // (rows * cands))
+    for p0 in range(0, k, step):
+        j, ok = keep[:, p0:p0 + step], valid[:, p0:p0 + step]
+        box = torch.gather(boxes, 1, j[..., None].expand(-1, -1, 4))[:, :, None]
+        lt = torch.maximum(box[..., :2], boxes[:, None, :, :2])
+        rb = torch.minimum(box[..., 2:], boxes[:, None, :, 2:])
         wh = torch.clamp(rb - lt, min=0)
         inter = wh[..., 0] * wh[..., 1]
-        iou = nms_ops._iou(inter, areas[rows, j][:, None] + areas - inter)
-        live &= ~((iou > iou_threshold) & ok[:, None])
-        live[rows, j] &= ~ok
+        iou = nms_ops._iou(inter, torch.gather(areas, 1, j)[..., None] + areas[:, None] - inter)
+        removed = ((iou > iou_threshold) | (j[..., None] == index)) & ok[..., None]
+        hit = removed.any(1)
+        death = torch.where(hit & ~found, removed.to(torch.uint8).argmax(1) + p0, death)
+        found |= hit
+    total = (torch.gather(valid.cumsum(1), 1, death) * torch.isfinite(scores)).sum()
     return int(total), int(valid.sum())
 
 
@@ -3593,7 +3629,8 @@ def phase_voc_cityscapes(report, out_dir):
     reset_launches()
     out, nms_launches, nms_cases = {}, {}, {}
     specs = (("voc", "PascalVOC-Detection", "faster_rcnn_R_50_FPN", 20, 8, "bbox", ("AP", "AP50", "AP75")),
-             ("cityscapes", "Cityscapes", "mask_rcnn_R_50_FPN", 8, 4, "segm", ("AP", "AP50")))
+             # Cityscapes: 2 images; the evaluator's per-class mask loops run on the host (PERF.md §3: ~5 s an image)
+             ("cityscapes", "Cityscapes", "mask_rcnn_R_50_FPN", 8, 2, "segm", ("AP", "AP50")))
     for number, (kind, folder, name, classes, n, task, keys) in zip("ab", specs):
         cfg = rcnn_cfg(name, "bfloat16", folder, extra=("TEST.BATCH_SIZE", str(EVAL_BATCH)))
         cfg.OUTPUT_DIR = out_dir
@@ -5043,6 +5080,361 @@ def roi_ops_inference(model, props, scores, deltas, n, p, size):
                                              model.nms_threshold, model.max_detections)
 
 
+TTA_IMAGES = 8  # 25a's synthetic scenes
+TTA_SIZES_CPU = (416, 512)  # 25a's card-against-CPU check: the config's two smallest sizes, with the flip
+# 25a, f32 card against CPU on one image: the merged detections matched one for one (class, score, box); the
+# scores are sigmoids of the f32 heads, held in phase 4 to HEAD_TOL of their scale. At most TTA_MAX_TIES of
+# either side's 100 may stay unpaired, near-ties (merged_close)
+TTA_SCORE_TOL, TTA_BOX_TOL, TTA_MAX_TIES = HEAD_TOL, 5e-2, 4
+EXPORT_TOL = 1e-5  # 25b: a loaded program against eager predict_fn, relative to each output's max |value|
+EXPORT_SIZE, EXPORT_BATCH = 512, 16  # 25b: ctdet DLA-34's programs (and batch 1); RetinaNet's at 800²
+INT8_BOUND = 0.08  # 25c: the JAX package's bound on quantization_error (tests/test_export.py)
+PROFILE_BATCH = 8  # 25e: the two profiled train steps' batch
+# the kernels' names in a profiler trace: K5 is dcn_bwd_wq_kernel with both gradients (DQ, DW) on
+TRACE_KERNELS = {"dcn_fwd": ("dcn_fwd_kernel",), "dcn_bwd_dx": ("dcn_bwd_dx_kernel",),
+                 "dcn_bwd_dqdw": ("dcn_bwd_wq_kernel", "true, true")}
+RUN_EXPORTED = r"""
+import json, sys, time
+import torch
+from detectron2_centernet_tpu_torch.export import load_exported
+from detectron2_centernet_tpu_torch.ops import dcn, nms
+
+def no_plain(*args, **kwargs):
+    raise RuntimeError("a plain version ran inside an exported program")
+
+dcn.modulated_deform_conv_plain = no_plain
+nms.nms_fixed = no_plain
+torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the program must keep its f32 convolutions IEEE
+spec = json.load(open(sys.argv[1]))
+out = {}
+for name, case in spec.items():
+    t0 = time.perf_counter()
+    model = load_exported(case["path"])
+    load_s = time.perf_counter() - t0
+    io = torch.load(case["io"])
+    x = io["x"].cuda()
+    dcn.modulated_deform_conv.launches = nms.greedy_nms.launches = 0
+    got = model(x)
+    torch.cuda.synchronize()
+    launches = {"dcn_fwd": dcn.modulated_deform_conv.launches, "nms_fixed": nms.greedy_nms.launches}
+    err = {k: ((got[k].float() - io[k].cuda().float()).abs().max() / io[k].float().abs().max().clamp(min=1e-30)).item()
+           for k in ("boxes", "scores", "classes")}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(2):
+        model(x)
+    start.record()
+    for _ in range(case["iters"]):
+        model(x)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / case["iters"]
+    total = {"dcn_fwd": dcn.modulated_deform_conv.launches, "nms_fixed": nms.greedy_nms.launches}
+    out[name] = dict(load_s=load_s, launches=launches, total_launches=total, rel_err=err, ms=ms,
+                     img_s=x.shape[0] * 1e3 / ms, calls=1 + 2 + case["iters"])
+out["modules"] = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "flax", "detectron2_centernet_tpu"})
+print(json.dumps(out))
+"""
+
+
+def merged_close(got, want):
+    """Two TTA results matched one for one by class, score (within
+    TTA_SCORE_TOL) and box (TTA_BOX_TOL px). Where the two sides' rounding
+    decides a near-tie apart (a heatmap peak or a variant's cut at its top
+    K, an IoU at the merge's NMS threshold), a detection stays unpaired on
+    each side: at most TTA_MAX_TIES a side may (``tools/tta_check.py``
+    traces them; a wrong K1 leaves nearly all unpaired). Returns
+    {"detections", "paired", "unpaired" (each side's), "lone" (the unpaired
+    detections' (side, rank, class, score)), the largest "score" and
+    "box_px" differences of the pairs, "ok"}."""
+    g, w = got["instances"], want["instances"]
+    left, worst, paired, lone = list(range(len(w))), [0.0, 0.0], 0, []
+    for i in range(len(g)):
+        match = next((j for j in left if w.pred_classes[j] == g.pred_classes[i]
+                      and abs(w.scores[j] - g.scores[i]) <= TTA_SCORE_TOL
+                      and np.abs(w.pred_boxes.tensor[j] - g.pred_boxes.tensor[i]).max() <= TTA_BOX_TOL), None)
+        if match is None:
+            lone.append(("got", i, int(g.pred_classes[i]), float(g.scores[i])))
+            continue
+        paired += 1
+        worst = [max(worst[0], abs(float(w.scores[match] - g.scores[i]))),
+                 max(worst[1], float(np.abs(w.pred_boxes.tensor[match] - g.pred_boxes.tensor[i]).max()))]
+        left.remove(match)
+    lone += [("want", j, int(w.pred_classes[j]), float(w.scores[j])) for j in left]
+    unpaired = (len(g) - paired, len(w) - paired)
+    return dict(detections=(len(g), len(w)), paired=paired, unpaired=unpaired, lone=lone if len(lone) <= 8 else [],
+                score=worst[0], box_px=worst[1], ok=max(unpaired) <= TTA_MAX_TIES)
+
+
+def phase_deploy(report, weights, calib, out_dir):
+    """Phase 25: test-time augmentation, export, int8 PTQ, the analysis and
+    the profiler hook on ctdet DLA-34 (and RetinaNet, Faster R-CNN), on the
+    seeded ``weights`` whose BatchNorm statistics ``calib`` (2 images)
+    gave. Returns the launches of every kernel it made, the exported
+    programs' included."""
+    from detectron2_centernet_tpu_torch.export import (custom_op_nodes, dequantize_variables, export_program,
+                                                       load_exported, quantization_error, quantize_variables)
+    from detectron2_centernet_tpu_torch.models.test_time_augmentation import TTAPredictor
+    from detectron2_centernet_tpu_torch.utils.analysis import flop_count, parameter_count
+
+    res, launches = {}, collections.Counter()
+    rng = np.random.RandomState(25)
+
+    def part(name, t0):
+        res.setdefault("part_s", {})[name] = time.perf_counter() - t0
+        print(f"  ({name}: {res['part_s'][name]:.1f} s)")
+
+    def counted():
+        torch.cuda.synchronize()
+        launches.update(read_launches())
+        launches["nms_fixed"] += nms_ops.greedy_nms.launches
+        reset_launches()
+        nms_ops.greedy_nms.launches = 0
+
+    reset_launches()
+    nms_ops.greedy_nms.launches = 0
+    # 25a: TTA through DefaultTrainer.test_with_TTA with the config's own sizes and flip
+    t0 = time.perf_counter()
+    cfg = ctdet_cfg(DLA, "bfloat16")
+    name = "tta_scenes"
+    for catalog in (DatasetCatalog, MetadataCatalog):
+        if name in catalog:
+            catalog.remove(name)
+    register_synthetic_instances(name, num_images=TTA_IMAGES, image_size=EVAL_SIZE)
+    cfg.merge_from_list(["DATASETS.TEST", (name,), "OUTPUT_DIR", os.path.join(out_dir, "tta")])
+    model = build_model(cfg)
+    model.model.load_state_dict(weights)
+    tta = TTAPredictor(cfg, model)
+    variants = len(tta.sizes) * (2 if tta.flip else 1)
+    print(f"== 25a. TTA: DefaultTrainer.test_with_TTA on {TTA_IMAGES} synthetic {EVAL_SIZE} scenes, sizes "
+          f"{tta.sizes} (TEST.AUG.MIN_SIZES rounded up to {model.size_divisibility}), flip {tta.flip}: "
+          f"{variants} variants an image, bf16")
+    reset_launches()
+    t1 = time.perf_counter()
+    results = DefaultTrainer.test_with_TTA(cfg, model)
+    torch.cuda.synchronize()
+    tta_s = time.perf_counter() - t1
+    k1 = dcn.modulated_deform_conv.launches
+    counted()
+    bbox = results["bbox"]
+    if k1 != 16 * variants * TTA_IMAGES or variants != 18:
+        raise SystemExit(f"TTA: expected 16 K1 launches x 18 variants x {TTA_IMAGES} images, got {k1} "
+                         f"({variants} variants)")
+    if not all(math.isfinite(bbox[k]) for k in BBOX_KEYS):
+        raise SystemExit(f"TTA: the bbox numbers are not finite: {bbox}")
+    # warm: every size has run once; two more images through the predictor alone
+    scenes = [d["image"] for d in DatasetCatalog.get(name)[:2]]
+    t1 = time.perf_counter()
+    for image in scenes:
+        tta(image)
+    warm_s = (time.perf_counter() - t1) / len(scenes)
+    counted()
+    print(f"  K1 {k1} = 16 x {variants} x {TTA_IMAGES}; bbox AP {bbox['AP']:.4f} (AP50 {bbox['AP50']:.4f}); "
+          f"{TTA_IMAGES / tta_s:.3f} img/s ({tta_s:.2f} s, the evaluation and each size's first call included); "
+          f"warm {1 / warm_s:.3f} img/s ({warm_s * 1e3:.1f} ms an image, {warm_s * 1e3 / variants:.2f} ms a variant)")
+    res["tta"] = dict(sizes=tta.sizes, variants=variants, images=TTA_IMAGES, k1=k1, bbox=bbox, seconds=tta_s,
+                      img_s=TTA_IMAGES / tta_s, warm_img_s=1 / warm_s)
+    # f32, card against CPU, at two sizes and the flip, on one image
+    cfg32 = ctdet_cfg(DLA, "float32")
+    img = rng.randint(0, 256, EVAL_SIZE + (3,)).astype(np.uint8)
+    merged = {}
+    for dev in ("cuda", "cpu"):
+        c = cfg32.clone()
+        c.MODEL.DEVICE = dev
+        m = build_model(c)
+        m.model.load_state_dict(weights)
+        merged[dev] = TTAPredictor(c, m, sizes=TTA_SIZES_CPU, flip=True)(img)
+    counted()
+    close = merged_close(merged["cuda"], merged["cpu"])
+    if not close["ok"]:
+        raise SystemExit(f"TTA f32: the card's merged detections are not the CPU's within scores {TTA_SCORE_TOL} "
+                         f"and boxes {TTA_BOX_TOL} px but for at most {TTA_MAX_TIES} near-ties a side: {close}")
+    print(f"  f32 card against CPU, sizes {TTA_SIZES_CPU} with the flip: {close['paired']} of {close['detections']} "
+          f"merged detections paired, scores within {close['score']:.3e} (limit {TTA_SCORE_TOL}), boxes within "
+          f"{close['box_px']:.3e} px (limit {TTA_BOX_TOL}); unpaired {close['unpaired']} (at most {TTA_MAX_TIES} a "
+          f"side) {close['lone']}")
+    res["tta"]["f32_card_vs_cpu"] = close
+    part("25a", t0)
+
+    # 25b: export, then each program loaded in a fresh process that imports the port only
+    t0 = time.perf_counter()
+    print(f"== 25b. torch.export: ctdet DLA-34 at {EXPORT_SIZE}² (batch 1 and {EXPORT_BATCH}, bf16), "
+          f"RetinaNet R50-FPN at 800² (batch {RETINA_BATCH}), and Faster R-CNN R50-FPN (batch 1)")
+    retina_cfg = retinanet_cfg("bfloat16")
+    retina = build_model(retina_cfg)
+    retina.model.load_state_dict(retinanet_weights(retina_cfg, letterboxed(rng, "cuda", 2, (800, 800)), seed=0,
+                                                   device="cuda"))
+    faster = build_model(rcnn_cfg(FASTER, "bfloat16"))
+    cases, spec, exported = {}, {}, {}
+    for name, m, batch, size in (("ctdet_b1", model, 1, EXPORT_SIZE), ("ctdet_b16", model, EXPORT_BATCH, EXPORT_SIZE),
+                                 ("retinanet_b16", retina, RETINA_BATCH, 800)):
+        x = letterboxed(rng, "cuda", batch, (size, size))
+        path = os.path.join(out_dir, f"{name}.pt2")
+        t1 = time.perf_counter()
+        program = export_program(m, batch, (size, size), path)
+        export_s = time.perf_counter() - t1
+        counted()  # the export's one eager call first
+        eager = m.predict_fn(x)
+        torch.cuda.synchronize()
+        eager_launches = {"dcn_fwd": dcn.modulated_deform_conv.launches, "nms_fixed": nms_ops.greedy_nms.launches}
+        counted()
+        torch.save({"x": x.cpu(), **{k: v.cpu() for k, v in eager.items()}}, path + ".io")
+        spec[name] = {"path": path, "io": path + ".io", "iters": 10}
+        exported[name] = load_exported(program)
+        cases[name] = dict(export_s=export_s, bytes=os.path.getsize(path), nodes=custom_op_nodes(program),
+                           eager_launches=eager_launches, batch=batch, size=size)
+        print(f"  {name}: exported in {export_s:.2f} s, {cases[name]['bytes'] / 2**20:.1f} MiB, custom ops "
+              f"{cases[name]['nodes']}; eager predict_fn launches {eager_launches}")
+    t1 = time.perf_counter()
+    program = export_program(faster, 1, (800, 800))
+    cases["faster_rcnn_b1"] = dict(export_s=time.perf_counter() - t1, nodes=custom_op_nodes(program))
+    if cases["faster_rcnn_b1"]["nodes"] != {"d2ct.greedy_nms.default": 2}:
+        raise SystemExit(f"faster_rcnn_b1: expected two NMS nodes (the RPN's, the box head's), got "
+                         f"{cases['faster_rcnn_b1']['nodes']}")
+    print(f"  faster_rcnn_b1: exported in {cases['faster_rcnn_b1']['export_s']:.2f} s, custom ops "
+          f"{cases['faster_rcnn_b1']['nodes']} (not loaded or run here)")
+    counted()
+    spec_path = os.path.join(out_dir, "exported.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RUN_EXPORTED, spec_path], capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    if proc.returncode != 0:
+        raise SystemExit(f"the exported programs did not run in a fresh process:\n{proc.stderr[-4000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    jax_modules = loaded.pop("modules")
+    if jax_modules:
+        raise SystemExit(f"the fresh process that ran the exported programs imported {jax_modules}")
+    print(f"  the fresh process ({time.perf_counter() - t1:.1f} s) imported none of jax, jaxlib, flax and the JAX "
+          f"package")
+    for name, r in loaded.items():
+        c = cases[name]
+        per_forward = r["launches"]
+        if per_forward != c["eager_launches"] or (name.startswith("ctdet") and per_forward["dcn_fwd"] != 16) \
+                or (name.startswith("retinanet") and per_forward["nms_fixed"] != 1):
+            raise SystemExit(f"{name}: the loaded program launched {per_forward}, eager {c['eager_launches']}")
+        if max(r["rel_err"].values()) > EXPORT_TOL:
+            raise SystemExit(f"{name}: the loaded program is not eager predict_fn's within {EXPORT_TOL}: {r['rel_err']}")
+        if r["total_launches"] != {k: v * r["calls"] for k, v in per_forward.items()}:
+            raise SystemExit(f"{name}: the loaded program's {r['calls']} calls launched {r['total_launches']}, not "
+                             f"{r['calls']} x {per_forward}")
+        for k in ("dcn_fwd", "nms_fixed"):
+            launches[k] += r["total_launches"][k]
+        c.update(loaded=r)
+        print(f"  {name} loaded in {r['load_s']:.2f} s: launches a forward {per_forward}, in its {r['calls']} calls "
+              f"{r['total_launches']}, err {r['rel_err']}, {r['img_s']:.2f} img/s ({r['ms']:.3f} ms a call)")
+    # ieee_f32 is in force: at PyTorch's default TF32 flags the loaded program equals eager, the program bare does not
+    x = letterboxed(rng, "cuda", 1, (EXPORT_SIZE, EXPORT_SIZE))
+    eager = model.predict_fn(x)
+    with pytorch_default_tf32():
+        wrapped = exported["ctdet_b1"](x)
+        bare = exported["ctdet_b1"].program.module()(x)
+    counted()
+    rel = lambda a: max(((a[k].float() - eager[k].float()).abs().max() / eager[k].float().abs().max()).item()
+                        for k in ("boxes", "scores"))
+    control = dict(with_ieee_f32=rel(wrapped), tf32_bare=rel(bare))
+    if control["with_ieee_f32"] > EXPORT_TOL or control["tf32_bare"] <= EXPORT_TOL:
+        raise SystemExit(f"the TF32 control: {control} (limit {EXPORT_TOL}: the first within, the second over)")
+    print(f"  at PyTorch's TF32 defaults: ExportedModel {control['with_ieee_f32']:.3e} from eager, the bare program "
+          f"{control['tf32_bare']:.3e} (the TF32 control, over {EXPORT_TOL})")
+    # eager against the loaded program's img/s at batch 16; ctdet's calls profiled in this process (the program
+    # runs the same kernels, its host time is longer)
+    for name, m in (("ctdet_b16", model), ("retinanet_b16", retina)):
+        x = letterboxed(rng, "cuda", cases[name]["batch"], (cases[name]["size"],) * 2)
+        eager_ms = cuda_ms(lambda: m.predict_fn(x), iters=10)
+        cases[name].update(eager_img_s=x.shape[0] * 1e3 / eager_ms)
+        line = f"  {name}: eager {cases[name]['eager_img_s']:.2f} img/s, loaded program " \
+               f"{cases[name]['loaded']['img_s']:.2f} img/s"
+        if name.startswith("ctdet"):
+            prof = {k: profiled(fn, calls=2) for k, fn in (("eager", lambda: m.predict_fn(x)),
+                                                             ("exported", lambda: exported[name](x)))}
+            k1_host = {k: sum(e.self_cpu_time_total for e in p["events"] if e.key == "d2ct::dcn_fwd") / 2 / 16e3
+                       for k, p in prof.items()}
+            cases[name].update(**{f"{k}_device_ms": p["device_ms"] for k, p in prof.items()},
+                               **{f"{k}_kernel_launches": p["launches"] for k, p in prof.items()},
+                               **{f"{k}_k1_host_ms": v for k, v in k1_host.items()})
+            line += (f"; device ms a call eager {prof['eager']['device_ms']:.3f}, exported "
+                     f"{prof['exported']['device_ms']:.3f}; kernel launches a call {prof['eager']['launches']:.0f}, "
+                     f"{prof['exported']['launches']:.0f}; host ms a K1 call (d2ct::dcn_fwd's self CPU) eager "
+                     f"{k1_host['eager']:.3f}, exported {k1_host['exported']:.3f}")
+        counted()
+        print(line)
+    res["export"] = dict(cases=cases, tf32_control=control)
+    part("25b", t0)
+
+    # 25c: int8 weights, served through the same kernels
+    t0 = time.perf_counter()
+    print("== 25c. int8 PTQ of DLA-34's conv and dense kernels (per output channel, symmetric), served on the card")
+    x = letterboxed(rng, "cuda", 2, (EXPORT_SIZE, EXPORT_SIZE))
+    # the model's own init, as the JAX package's bound was set (tests/test_export.py). The seeded weights'
+    # offset convs and statistics make a network that int8 rounding moves by ~100%: reported only
+    init = build_model(cfg)
+    packed = quantize_variables(init.model)
+    quantized = sum(isinstance(v, dict) for v in packed["tree"].values())
+    err = quantization_error(init, x)["output_max_rel_err"]
+    err_seeded = quantization_error(model, calib.cuda())["output_max_rel_err"]
+    served = build_model(cfg)
+    served.model.load_state_dict(dequantize_variables(packed))
+    dets = served.predict_fn(x)
+    counted()
+    if not err < INT8_BOUND or not bool((dets["scores"] > served.score_threshold).any()):
+        raise SystemExit(f"int8: quantization_error {err} (bound {INT8_BOUND}) or no detection served")
+    int8_bytes = sum(v["q"].numel() + 4 * v["scale"].numel() for v in packed["tree"].values() if isinstance(v, dict))
+    f32_bytes = sum(4 * v["q"].numel() for v in packed["tree"].values() if isinstance(v, dict))
+    print(f"  {quantized} kernels quantized ({f32_bytes / 2**20:.1f} MiB f32 → {int8_bytes / 2**20:.1f} MiB int8); "
+          f"quantization_error (the init, bf16 serving model, 2 images) {err:.4e} < {INT8_BOUND} (the seeded "
+          f"weights on their 2 calibration images, reported only: {err_seeded:.4e}); served "
+          f"{int((dets['scores'] > served.score_threshold).sum())} detections")
+    res["int8"] = dict(kernels=quantized, output_max_rel_err=err, output_max_rel_err_seeded=err_seeded,
+                       bytes_f32=f32_bytes, bytes_int8=int8_bytes)
+    part("25c", t0)
+
+    # 25d: parameters and FLOPs per image
+    t0 = time.perf_counter()
+    print("== 25d. utils/analysis.py: parameters and FLOPs of one image (predict_fn at batch 1, FlopCounterMode)")
+    analysis = {}
+    for name, m, size in (("ctdet_dla34_512", model, EXPORT_SIZE), ("retinanet_r50_fpn_800", retina, 800),
+                          ("faster_rcnn_r50_fpn_800", faster, 800)):
+        flops = flop_count(m.predict_fn, torch.zeros(1, 3, size, size, device="cuda"))
+        analysis[name] = dict(params=parameter_count(m.model)[""], flops=flops)
+        print(f"  {name}: {analysis[name]['params'] / 1e6:.3f} M parameters, {flops / 1e9:.3f} GFLOP an image")
+    counted()
+    res["analysis"] = analysis
+    part("25d", t0)
+
+    # 25e: TorchProfiler over two train steps
+    t0 = time.perf_counter()
+    print(f"== 25e. hooks.TorchProfiler over two DLA-34 train steps at batch {PROFILE_BATCH}")
+    tcfg = ctdet_cfg(DLA, "bfloat16")
+    tcfg.merge_from_list(["SOLVER.MAX_ITER", 2, "SOLVER.IMS_PER_BATCH", PROFILE_BATCH, "TEST.EVAL_PERIOD", 0,
+                          "DATASETS.TEST", (), "TEST.EXPECTED_RESULTS", [], "OUTPUT_DIR", os.path.join(out_dir, "prof")])
+    ensure_synthetic_datasets(tuple(tcfg.DATASETS.TRAIN))
+    trainer = DefaultTrainer(tcfg)
+    trainer.model.model.load_state_dict(weights)
+    trainer.resume_or_load(resume=False)
+    profiler = hooks.TorchProfiler(lambda t: True, output_dir=os.path.join(out_dir, "prof"))
+    trainer.register_hooks([profiler])
+    trainer.train()
+    step_launches = read_launches()
+    counted()
+    found = {}
+    for path in profiler.traces:
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+        for k, marks in TRACE_KERNELS.items():
+            found.setdefault(k, 0)
+            found[k] += sum(all(mark in n for mark in marks) for n in names)
+    if len(profiler.traces) != 2 or not all(found.values()) or step_launches["dcn_bwd_dqdw"] != 32:
+        raise SystemExit(f"the profiler's traces {profiler.traces} name {found}; launches {step_launches}")
+    print(f"  2 traces ({', '.join(os.path.basename(p) for p in profiler.traces)}); kernel names found {found}; "
+          f"launches {step_launches}")
+    res["profiler"] = dict(traces=len(profiler.traces), kernels_named=found, launches=step_launches)
+    part("25e", t0)
+    res["launches"] = dict(launches)
+    report["deploy"] = res
+    return dict(launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", help="also write every number of the run to this file")
@@ -5055,8 +5447,10 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False  # f32 comparisons in true f32
     torch.backends.cuda.matmul.allow_tf32 = False
-    # tools/bench's 20 timed requests, halved in this script's ~15 request timings: the whole run fits its limit
+    # tools/bench's 20 timed requests, halved in this script's ~15 request timings, and its 4 timed train steps
+    # halved in its ~14 step timings: the whole run fits its limit
     bench.REQUESTS = 10
+    bench.TRAIN_STEPS = 2
     t_start = time.perf_counter()
     report = {}
 
@@ -5184,6 +5578,12 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     lap("24")
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir="output")
+    try:
+        deploy_launches = phase_deploy(report, weights, calib, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    lap("25")
     nms_rows = phase_nms_kernel(report, dict(retinanet=retinanet_case, **rcnn_cases, **head_cases))
     lap("10c")
     totals = phase_kernel_timing(report)
@@ -5196,14 +5596,15 @@ def main() -> int:
         dconv_path = head_launches["dconv"][name] + head_launches["dconv_s3"][name] \
             + head_launches["segmentation"][name]
         main_path = inference[name] + evaluation[name] + training[name] + train_eval[name] + bench_launches[name] \
-            + dconv_path
+            + dconv_path + deploy_launches.get(name, 0)
         shapes = [r for r in dconv_ms if r["kernel"] == name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_path or phase_launches[name],
             "launches_from": "main paths (DLA-34: inference, evaluation, training, training with PreciseBN and "
             "evaluation, the bench; the dconv Mask R-CNN, both STRIDE_IN_1X1: 16a-16d; the dconv Cascade GN "
-            "Panoptic FPN R101: 20ga-20gc)" if main_path else
+            "Panoptic FPN R101: 20ga-20gc; phase 25: TTA, the exported programs (loaded in a fresh process too), "
+            "int8 serving, the FLOP counts, the profiled train steps)" if main_path else
             "autograd phase (weight or offset/mask frozen); 0 on the main paths",
             "launches_dconv_rcnn": head_launches["dconv"][name],  # phase 16, 13 per forward, 13 per train step
             "launches_dconv_stride_in_3x3_rcnn": head_launches["dconv_s3"][name],  # phase 16s
@@ -5216,6 +5617,8 @@ def main() -> int:
             "launches_deeplab_pointrend": head_launches["slice16"][name],
             "launches_rotated_rcnn": head_launches["rotated"][name],  # phase 23, asserted 0
             "launches_trident_rcnn": head_launches["trident"][name],  # phase 24, asserted 0
+            # phase 25: TTA (16 x 18 x 8 K1), export and the loaded programs, int8, FLOPs, the profiled steps
+            "launches_deploy": deploy_launches.get(name, 0),
             "launches_inference": inference[name], "launches_evaluation": evaluation[name],
             "launches_training": training[name], "launches_train_eval": train_eval[name],
             "launches_bench": bench_launches[name],
@@ -5248,7 +5651,7 @@ def main() -> int:
         "name": "nms_fixed", "route": "cuda", "source": CSRC + "nms.cu",
         "replaces": "detectron2_centernet_tpu/ops/nms.py:51",
         "launches": sum(retinanet_nms.values()) + sum(rcnn_nms.values())
-        + sum(sum(v.values()) for v in head_nms.values()),
+        + sum(sum(v.values()) for v in head_nms.values()) + deploy_launches["nms_fixed"],
         "launches_from": "RetinaNet (phase 9: requests and batch 16, the bench, train_net), Faster R-CNN "
         "(phase 10: requests and batch 16, the training's proposals, the bench, train_net, the ProposalNetwork), "
         "Mask R-CNN and Keypoint R-CNN (phases 11 and 12: requests and batch 16, the training's proposals, the "
@@ -5261,7 +5664,8 @@ def main() -> int:
         "PointRend R-CNN (phase 22: requests, batch 1 and 16, the training's proposals, its train steps, train_net; "
         "none on DeepLab or PointRend's semantic FPN), TridentNet Fast and full (phase 24: requests, batch 1 and 16, "
         "full mode's branch merge, the bench's train steps, train_net; none on the rotated R-CNN, whose NMS is "
-        "nms_rotated's)",
+        "nms_rotated's), and phase 25 (RetinaNet's and Faster R-CNN's exports, RetinaNet's programs loaded in a "
+        "fresh process and in this one, the FLOP counts)",
         "launches_retinanet": retinanet_nms, "launches_faster_rcnn": rcnn_nms,
         "launches_mask_rcnn": head_nms["mask"], "launches_keypoint_rcnn": head_nms["keypoint"],
         "launches_cascade_rcnn": head_nms["cascade"], "launches_c4_rcnn": head_nms["c4"],
@@ -5272,6 +5676,7 @@ def main() -> int:
         "launches_panoptic_dconv_cascade_gn": head_nms["panoptic_dconv"],
         "launches_pointrend_rcnn": head_nms["pointrend_rcnn"],
         "launches_trident_fast_rcnn": head_nms["trident_fast"], "launches_trident_full_rcnn": head_nms["trident_full"],
+        "launches_deploy": deploy_launches["nms_fixed"],
         "max_abs_err": 0.0 if all(r["equal"] for r in nms_rows.values()) else None,
         "ms": main_rpn["ms"], "plain_ms": main_rpn["plain_ms"], "bound_ms": main_rpn["bound_ms"],
         "bound_by": main_rpn["bound_by"], "library_ms": None,

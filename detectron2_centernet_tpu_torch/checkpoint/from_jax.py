@@ -69,8 +69,8 @@ from typing import Container, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["canonical_dla_key", "canonical_key", "jax_shape", "key_options", "port_layout", "state_dict_from_jax",
-           "torch_key"]
+__all__ = ["canonical_dla_key", "canonical_key", "jax_last_axis", "jax_shape", "key_options", "port_layout",
+           "state_dict_from_jax", "torch_key"]
 
 _LEAF = {"weight": "kernel", "bias": "bias", "running_mean": "mean", "running_var": "var"}
 _BN_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
@@ -491,6 +491,14 @@ def _transposed_conv(key: str) -> bool:
     """A ConvTranspose2d whose kernel crosses from JAX flipped, (k, k, Cin,
     Cout) → (Cin, Cout, k, k)."""
     return key.startswith("deconv_layers.") or key == "roi_heads.mask_head.deconv.weight"
+
+
+def jax_last_axis(key: str, ndim: int) -> int:
+    """The axis of the port's tensor ``key`` (``ndim`` dimensions) that is
+    the last of its JAX leaf: the output channels of a conv, a dense layer
+    or the depthwise ``up_*`` kernel (axis 0), a transposed conv's
+    ``Cout`` (axis 1)."""
+    return 1 if ndim == 4 and _transposed_conv(key) else 0
 
 
 def port_layout(key: str, arr: np.ndarray, shapes: Mapping[str, tuple]) -> np.ndarray:

@@ -6,6 +6,7 @@ from .detection_utils import (
     fast_letterbox,
     get_affine_transform,
     invert_affine,
+    letterbox_and_flip_variants,
     unwarp_boxes,
     warp_image,
 )
@@ -31,6 +32,7 @@ __all__ = [
     "get_affine_transform",
     "get_detection_dataset_dicts",
     "invert_affine",
+    "letterbox_and_flip_variants",
     "letterbox_transform",
     "register_coco_instances",
     "unwarp_boxes",

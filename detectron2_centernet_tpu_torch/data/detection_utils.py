@@ -286,3 +286,24 @@ def fast_letterbox(image: np.ndarray, out_size: Tuple[int, int]) -> Tuple[np.nda
         np.float64,
     )
     return canvas, m_eff
+
+
+def letterbox_and_flip_variants(image: np.ndarray, sizes, flip: bool,
+                                device: Optional[Union[str, torch.device]] = None):
+    """Yield (warped (size, size, C) f32 tensor on ``device``, warp matrix,
+    flipped?, size) for each TTA variant, as the JAX package's
+    ``letterbox_and_flip_variants``: one square letterbox per size, plus the
+    horizontal flip of each (``models/test_time_augmentation.py``). The flip
+    is composed into the warp matrix, so inverting the matrix un-maps flipped
+    detections too. The matrices are the JAX package's; the image goes
+    through ``warp_image`` (bilinear in PyTorch, where JAX calls
+    ``cv2.warpAffine``: ROADMAP C2)."""
+    h, w = image.shape[:2]
+    img_f32 = image.astype(np.float32)
+    for size in sizes:
+        m = get_affine_transform(np.array([w / 2.0, h / 2.0]), float(max(h, w)), (size, size))
+        yield warp_image(img_f32, m, (size, size), device=device), m, False, size
+        if flip:
+            f = np.array([[-1.0, 0.0, size - 1.0], [0.0, 1.0, 0.0]])
+            mf = np.concatenate([f[:, :2] @ m[:, :2], (f[:, :2] @ m[:, 2] + f[:, 2])[:, None]], axis=1)
+            yield warp_image(img_f32, mf, (size, size), device=device), mf, True, size

@@ -1,7 +1,8 @@
 """Inference, training and evaluation from a config (counterpart of the JAX
 package's ``engine/defaults.py``): the command-line plumbing
 (``default_argument_parser``, ``default_setup``, ``launch``),
-``DefaultPredictor`` and ``DefaultTrainer`` with its ``test``.
+``DefaultPredictor`` and ``DefaultTrainer`` with its ``test`` and
+``test_with_TTA``.
 """
 
 import argparse
@@ -264,6 +265,51 @@ class DefaultTrainer(SimpleTrainer):
                 print_csv_format(results_i)
         finally:
             model.model.train(was_training)
+        if len(results) == 1:
+            results = list(results.values())[0]
+        return results
+
+    @classmethod
+    def build_tta_predictor(cls, cfg: CfgNode, model):
+        """The TTA predictor of ``test_with_TTA``; projects override it to
+        swap in their own merge (JAX ``engine/defaults.py:371-376``)."""
+        from ..models.test_time_augmentation import TTAPredictor
+
+        return TTAPredictor(cfg, model)
+
+    @classmethod
+    def test_with_TTA(cls, cfg: CfgNode, trainer_or_model, evaluators=None) -> OrderedDict:
+        """Multi-scale and flip evaluation (JAX ``engine/defaults.py:378-420``,
+        reference ``train_net.py:105-120``): the TTA predictor image by image
+        over every ``cfg.DATASETS.TEST`` record (its ``image``, or the file
+        read in ``INPUT.FORMAT``), each result fed to the dataset's standard
+        evaluator. The network runs in eval mode and gets its mode back.
+        Returns the results of the one dataset, or an OrderedDict by
+        dataset name."""
+        from ..data import DatasetCatalog
+        from ..data.detection_utils import read_image
+
+        model = trainer_or_model.model if isinstance(trainer_or_model, DefaultTrainer) else trainer_or_model
+        tta = cls.build_tta_predictor(cfg, model)
+        network = getattr(model, "model", None)
+        was_training = bool(getattr(network, "training", False))
+        if network is not None:
+            network.eval()
+        results = OrderedDict()
+        try:
+            for idx, dataset_name in enumerate(cfg.DATASETS.TEST):
+                evaluator = evaluators[idx] if evaluators is not None else cls.build_evaluator(cfg, dataset_name)
+                evaluator.reset()
+                for d in DatasetCatalog.get(dataset_name):
+                    image = d["image"] if "image" in d else read_image(d["file_name"], cfg.INPUT.FORMAT)
+                    out = tta(np.asarray(image))
+                    evaluator.process([{"image_id": d.get("image_id", 0), "height": d["height"],
+                                        "width": d["width"]}], [out])
+                results[dataset_name] = evaluator.evaluate() or {}
+                print_csv_format(results[dataset_name])
+        finally:
+            if network is not None:
+                network.train(was_training)
         if len(results) == 1:
             results = list(results.values())[0]
         return results

@@ -1,12 +1,15 @@
 """The training hooks on the port's path (counterpart of the JAX package's
 ``engine/hooks.py``; the reference's ``detectron2/engine/hooks.py``):
-``IterationTimer``, ``LRSchedulerHook``, ``PeriodicWriter``,
-``PeriodicCheckpointerHook``, ``EvalHook`` and ``PreciseBN``.
+``CallbackHook``, ``IterationTimer``, ``LRSchedulerHook``,
+``PeriodicWriter``, ``PeriodicCheckpointerHook``, ``TorchProfiler`` (the
+JAX package's ``JaxProfiler``), ``EvalHook`` and ``PreciseBN``.
 """
 
 import logging
+import os
+import tempfile
 import time
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -17,8 +20,72 @@ from .train_loop import HookBase
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["EvalHook", "IterationTimer", "LRSchedulerHook", "PeriodicCheckpointerHook",
-           "PeriodicWriter", "PreciseBN"]
+__all__ = ["CallbackHook", "EvalHook", "IterationTimer", "LRSchedulerHook", "PeriodicCheckpointerHook",
+           "PeriodicWriter", "PreciseBN", "TorchProfiler"]
+
+
+class CallbackHook(HookBase):
+    """Calls the given functions with the trainer at each phase (JAX
+    ``hooks.py:37-60``); after training it drops them."""
+
+    def __init__(self, *, before_train=None, after_train=None, before_step=None, after_step=None):
+        self._before_train = before_train
+        self._after_train = after_train
+        self._before_step = before_step
+        self._after_step = after_step
+
+    def before_train(self):
+        if self._before_train:
+            self._before_train(self.trainer)
+
+    def after_train(self):
+        if self._after_train:
+            self._after_train(self.trainer)
+        self._before_train = self._after_train = None
+        self._before_step = self._after_step = None
+
+    def before_step(self):
+        if self._before_step:
+            self._before_step(self.trainer)
+
+    def after_step(self):
+        if self._after_step:
+            self._after_step(self.trainer)
+
+
+class TorchProfiler(HookBase):
+    """Traces the steps for which ``enable_predicate(trainer)`` holds with
+    ``torch.profiler`` (the CPU and, where torch has it, CUDA activities)
+    and writes each step's chrome trace to
+    ``output_dir/profiler-trace-iter{iter}.json`` (JAX ``JaxProfiler``,
+    ``hooks.py:150-172``; the reference's ``AutogradProfiler``)."""
+
+    def __init__(self, enable_predicate: Callable[[HookBase], bool], output_dir: Optional[str] = None):
+        self._enable_predicate = enable_predicate
+        self._output_dir = output_dir or tempfile.mkdtemp(prefix="d2torch_profile_")
+        self._profiler = None
+        self.traces = []  # the files written, in order
+
+    def before_step(self):
+        if self._enable_predicate(self.trainer):
+            from torch.profiler import ProfilerActivity, profile, supported_activities
+
+            activities = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA) if a in supported_activities()]
+            self._profiler = profile(activities=activities)
+            self._profiler.__enter__()
+
+    def after_step(self):
+        if self._profiler is None:
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._profiler.__exit__(None, None, None)
+        os.makedirs(self._output_dir, exist_ok=True)
+        path = os.path.join(self._output_dir, f"profiler-trace-iter{self.trainer.iter}.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        self.traces.append(path)
+        logger.info("Profiler trace saved to %s", path)
 
 
 class IterationTimer(HookBase):

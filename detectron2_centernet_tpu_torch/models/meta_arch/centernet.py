@@ -192,6 +192,7 @@ class CenterNet:
         self.score_threshold = float(c.SCORE_THRESH_TEST)
         self.topk_candidates = int(c.TOPK_CANDIDATES_TEST)
         self.max_detections = int(cfg.TEST.DETECTIONS_PER_IMAGE)
+        self.size_divisibility = int(c.SIZE_DIVISIBILITY)  # TTA rounds its sizes up to it
         self.hm_weight = float(c.HM_WEIGHT)
         self.wh_weight = float(c.WH_WEIGHT)
         self.off_weight = float(c.OFF_WEIGHT)

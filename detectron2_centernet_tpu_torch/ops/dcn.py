@@ -23,6 +23,13 @@ Ho × Wo, ``Ho = (H - 1) // stride + 1``.
 
 Every wrapper counts its kernel launches in ``<wrapper>.launches``.
 
+The forward is the custom op ``torch.ops.d2ct.dcn_fwd`` (``torch.library``:
+the kernel its CUDA implementation, the plain version its CPU one, a fake
+that gives the output's shape, and a FLOP formula), so that
+``torch.export`` traces it as one node and an exported program launches
+the same kernel (``export/api.py``). The backward kernels are called
+directly: export is inference only.
+
 The kernels compute exact DCNv2: every sample is bilinear with zero padding,
 wherever its offset points. The TPU kernels' "drop-far" rule (samples beyond
 |dy| > 3 read 0) was a VMEM limit of that chip and has no counterpart here.
@@ -38,6 +45,7 @@ import functools
 from typing import Dict, Optional
 
 import torch
+import torch.utils.flop_counter
 
 from . import cuda_lib
 from . import deform_conv as plain
@@ -52,6 +60,8 @@ __all__ = [
     "dcn_bwd_dqdw",
     "dcn_bwd_dw",
     "dcn_bwd_dx",
+    "dcn_fwd_flops",
+    "dcn_fwd_op",
     "kernel_resources",
     "modulated_deform_conv",
     "modulated_deform_conv_ad",
@@ -202,9 +212,13 @@ def modulated_deform_conv(
     (N, Cout, Ho, Wo) in x's dtype; products accumulate in f32 and the
     epilogue runs in f32 before the one rounding to x's dtype.
 
-    CUDA tensors launch the kernel (``modulated_deform_conv.launches`` counts
-    the launches); CPU tensors take the plain version. This is the forward
-    alone: training goes through ``modulated_deform_conv_ad``."""
+    The call goes through the custom op ``torch.ops.d2ct.dcn_fwd``
+    (``dcn_fwd_op``), so that ``torch.export`` records it as one node: its
+    CUDA implementation launches the kernel (``modulated_deform_conv.launches``
+    counts the launches, from eager code and exported programs alike), its
+    CPU implementation is the plain version. The op has no gradient: a call
+    that needs one raises on the card and runs the plain version, outside
+    the op, on the CPU. Training goes through ``modulated_deform_conv_ad``."""
     _check(x, offset, mask, weight, stride=stride, dilation=dilation)
     if (post_scale is None) != (post_shift is None):
         raise ValueError("post_scale and post_shift go together")
@@ -212,16 +226,34 @@ def modulated_deform_conv(
     for t in (bias, post_scale, post_shift):
         if t is not None and (tuple(t.shape) != (cout,) or t.device != x.device):
             raise ValueError(f"bias/post_scale/post_shift must be ({cout},) on {x.device}")
-    if x.device.type == "cpu":
-        return modulated_deform_conv_plain(
-            x, offset, mask, weight, bias, post_scale, post_shift, post_relu, stride, dilation
-        )
     tensors = (x, offset, mask, weight, bias, post_scale, post_shift)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        if x.device.type == "cpu":
+            return modulated_deform_conv_plain(
+                x, offset, mask, weight, bias, post_scale, post_shift, post_relu, stride, dilation
+            )
         raise RuntimeError(
             "the kernel's output has no gradient; train through modulated_deform_conv_ad"
         )
+    return dcn_fwd_op(x, offset, mask, weight, bias, post_scale, post_shift, post_relu, stride, dilation)
+
+
+@torch.library.custom_op("d2ct::dcn_fwd", mutates_args=(), device_types="cpu")
+def dcn_fwd_op(x: torch.Tensor, offset: torch.Tensor, mask: Optional[torch.Tensor], weight: torch.Tensor,
+               bias: Optional[torch.Tensor], post_scale: Optional[torch.Tensor],
+               post_shift: Optional[torch.Tensor], post_relu: bool, stride: int, dilation: int) -> torch.Tensor:
+    """K1 as a custom op, for inputs ``modulated_deform_conv`` checked. On
+    the CPU: the plain version."""
+    return modulated_deform_conv_plain(
+        x, offset, mask, weight, bias, post_scale, post_shift, post_relu, stride, dilation
+    )
+
+
+@dcn_fwd_op.register_kernel("cuda")
+def _dcn_fwd_cuda(x, offset, mask, weight, bias, post_scale, post_shift, post_relu, stride, dilation):
+    """On the card: the hand-written kernel of ``csrc/dcn_fwd.cu``."""
     n, cin, h, w = x.shape
+    cout = weight.shape[0]
     # fold the bias into the epilogue: (acc + b) * s + t = acc * s + (t + s * b)
     scale = shift = None
     if post_scale is not None:
@@ -243,6 +275,26 @@ def modulated_deform_conv(
     )
     modulated_deform_conv.launches += 1
     return out
+
+
+@dcn_fwd_op.register_fake
+def _dcn_fwd_fake(x, offset, mask, weight, bias, post_scale, post_shift, post_relu, stride, dilation):
+    return x.new_empty((x.shape[0], weight.shape[0], offset.shape[2], offset.shape[3]))
+
+
+def dcn_fwd_flops(x_shape, offset_shape, mask_shape, weight_shape, *args, out_shape=None, **kwargs) -> int:
+    """K1's operations for ``torch.utils.flop_counter``: the contraction,
+    2·N·Cout·Cin·9·Ho·Wo, and the bilinear sampling of each (image, channel,
+    tap, output pixel), 8 apiece (four corner products, three sums and the
+    mask's product; the corner weights, shared by every channel, are left
+    out), the count ``chip_smoke.py::dcn_bound`` takes for the gather."""
+    n, cin = x_shape[0], x_shape[1]
+    cout = weight_shape[0]
+    samples = n * cin * 9 * offset_shape[2] * offset_shape[3]
+    return 2 * samples * cout + 8 * samples
+
+
+torch.utils.flop_counter.register_flop_formula(torch.ops.d2ct.dcn_fwd)(dcn_fwd_flops)
 
 
 def _dims(x, g):

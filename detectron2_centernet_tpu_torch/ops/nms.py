@@ -14,7 +14,10 @@ and its index is that of the first maximal (``-inf``) entry, 0, as JAX's
   suppression bitmask over each chunk and a scan; or raises. On a CPU
   tensor it runs ``nms_fixed``. ``greedy_nms.launches`` counts its calls
   on the card; ``rounds_taken()`` reads the chunks their rows took, which
-  the card counts.
+  the card counts. It goes through the custom op ``torch.ops.d2ct.greedy_nms``
+  (``greedy_nms_op``: the pipeline its CUDA implementation, ``nms_fixed`` its
+  CPU one, a fake for the (R, K) outputs), so that ``torch.export`` records
+  one node and an exported program launches the same pipeline.
 * ``nms_fixed`` is the plain PyTorch version: one loop of K iterations for
   every row at once, a handful of (rows, C) tensor ops per pick, so its
   launches do not grow with the rows (but are ~25 per pick).
@@ -39,14 +42,14 @@ There is no torchvision in the port: this is its own NMS.
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from . import cuda_lib
 
-__all__ = ["CHUNK", "batched_nms_fixed", "class_offset_boxes", "greedy_nms", "nms_fixed", "nms_sorted_reference",
-           "pairwise_iou_xyxy", "rounds_taken", "sorted_nms_on_card"]
+__all__ = ["CHUNK", "batched_nms_fixed", "class_offset_boxes", "greedy_nms", "greedy_nms_op", "nms_fixed",
+           "nms_sorted_reference", "pairwise_iou_xyxy", "rounds_taken", "sorted_nms_on_card"]
 
 MaxOut = Union[int, Sequence[int], torch.Tensor]
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -215,18 +218,43 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     ``csrc/nms.cu`` (``greedy_nms.launches`` counts the calls,
     ``rounds_taken()`` the chunks their rows took), on CPU tensors
     through ``nms_fixed``. boxes (R, C, 4) and scores (R, C) f32 on one
-    device."""
+    device. The call goes through the custom op ``torch.ops.d2ct.greedy_nms``
+    (``greedy_nms_op``), which takes the pick counts as host ints, so that
+    ``torch.export`` records it as one node."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"boxes must be (R, C, 4) and scores (R, C), got {tuple(boxes.shape)} and "
                          f"{tuple(scores.shape)}")
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32 or boxes.device != scores.device:
         raise TypeError(f"boxes and scores must be float32 on one device, got {boxes.dtype} on {boxes.device} "
                         f"and {scores.dtype} on {scores.device}")
-    if boxes.device.type == "cpu":
-        return nms_fixed(boxes, scores, iou_threshold, max_out)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no NMS kernel for device {boxes.device}")
-    return sorted_nms_on_card(boxes, scores, iou_threshold, max_out, greedy_nms)
+    if isinstance(max_out, int):
+        k, counts = max_out, None
+    else:
+        counts = list(_host_counts(max_out, scores.shape[0]))
+        k = max(counts, default=0)
+    return greedy_nms_op(boxes, scores, float(iou_threshold), k, counts)
+
+
+@torch.library.custom_op("d2ct::greedy_nms", mutates_args=(), device_types="cpu")
+def greedy_nms_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float, k: int,
+                  counts: Optional[List[int]]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NMS as a custom op: ``k`` picks a row, or ``counts[r]`` for row r
+    (k their largest). On the CPU: ``nms_fixed``."""
+    return nms_fixed(boxes, scores, iou_threshold, k if counts is None else tuple(counts))
+
+
+@greedy_nms_op.register_kernel("cuda")
+def _greedy_nms_cuda(boxes, scores, iou_threshold, k, counts):
+    """On the card: the pipeline of ``csrc/nms.cu``."""
+    return sorted_nms_on_card(boxes, scores, iou_threshold, k if counts is None else tuple(counts), greedy_nms)
+
+
+@greedy_nms_op.register_fake
+def _greedy_nms_fake(boxes, scores, iou_threshold, k, counts):
+    rows = scores.shape[0]
+    return scores.new_empty((rows, k), dtype=torch.int64), scores.new_empty((rows, k), dtype=torch.bool)
 
 
 greedy_nms.launches = 0

@@ -13,7 +13,9 @@ unless ``MODEL.DEVICE cpu`` is given). With ``DETECTRON2_SYNTH_DATA`` set, a
 dataset that is not registered gets a synthetic stand-in
 (``data.datasets.ensure_synthetic_datasets``). Training ends, and
 ``--eval-only`` ends, in ``verify_results`` against
-``TEST.EXPECTED_RESULTS`` (exit code 1 on a miss).
+``TEST.EXPECTED_RESULTS`` (exit code 1 on a miss). With ``TEST.AUG.ENABLED
+True``, ``--eval-only`` also evaluates with test-time augmentation
+(``DefaultTrainer.test_with_TTA``), its results under ``<task>_TTA``.
 """
 
 import os
@@ -60,8 +62,6 @@ def setup(args):
         cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts or [])
     cfg.freeze()
-    if cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError("TEST.AUG.ENABLED: test-time augmentation is not ported yet (ROADMAP A17)")
     default_setup(cfg, args)
     if os.environ.get("DETECTRON2_SYNTH_DATA"):
         from ..data.datasets import ensure_synthetic_datasets
@@ -77,6 +77,8 @@ def main(args):
     if args.eval_only:
         trainer.data_loader.close()  # no training: the train loader's threads stop
         res = Trainer.test(cfg, trainer)
+        if cfg.TEST.AUG.ENABLED:  # the test-time augmentation's results beside, under "<task>_TTA"
+            res.update({f"{k}_TTA": v for k, v in Trainer.test_with_TTA(cfg, trainer).items()})
         verify_results(cfg, res)
         return res
     return trainer.train()

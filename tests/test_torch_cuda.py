@@ -20,7 +20,9 @@ semantic head, card against CPU; the rotated IoU kernel
 (``ops/csrc/iou_rotated.cu``) and the rotated NMS (``nms.cu``'s rotated
 pipeline) against their plain versions on random, degenerate, matching-
 and sampling-shaped pairs and on RPN-like, ragged, all-suppressed,
-multi-chunk and per-class rows.
+multi-chunk and per-class rows; K1 and the NMS as ``torch.library``
+custom ops under ``opcheck`` with their CUDA implementations, and a narrow
+ctdet exported, saved, loaded and run on the card against eager.
 
 Every test decides inside itself whether there is a card and skips here,
 where there is none. This file imports neither JAX nor the JAX package, so it
@@ -1394,3 +1396,70 @@ def test_axis_nms_beside_the_rotated_kind(card, case):
     want_keep, want_valid = nms.nms_fixed(boxes, scores, thr, counts)
     assert torch.equal(valid, want_valid) and torch.equal(keep, want_keep)
     assert all(torch.equal(x, y) for x, y in zip(rotated_before, rotated_after))
+
+
+# -- K1 and the NMS as custom ops; the exported program on the card -------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dcn_custom_op_passes_opcheck_on_the_card(card, dtype):
+    """``torch.ops.d2ct.dcn_fwd`` with its CUDA implementation (the kernel):
+    schema, fake, autograd registration and AOT dispatch; equal to the
+    plain version within the DLA shapes' tolerance, one launch counted a
+    call."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dt = getattr(torch, dtype)
+    x = torch.randn(2, 32, 12, 14, device=card, generator=g).to(dt)
+    offset = torch.randn(2, 18, 12, 14, device=card, generator=g)
+    mask = torch.rand(2, 9, 12, 14, device=card, generator=g)
+    weight = torch.randn(24, 32, 3, 3, device=card, generator=g).to(dt)
+    scale, shift = torch.rand(24, device=card, generator=g) + 0.5, torch.randn(24, device=card, generator=g)
+    args = (x, offset, mask, weight, None, scale, shift, True, 1, 1)
+    torch.library.opcheck(torch.ops.d2ct.dcn_fwd, args)
+    before = dcn.modulated_deform_conv.launches
+    got = dcn.modulated_deform_conv(x, offset, mask, weight, post_scale=scale, post_shift=shift, post_relu=True)
+    assert dcn.modulated_deform_conv.launches == before + 1
+    want = plain.modulated_deform_conv(*args)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+
+
+def test_nms_custom_op_passes_opcheck_on_the_card(card):
+    """``torch.ops.d2ct.greedy_nms`` with the pipeline of ``nms.cu``: opcheck
+    with one count and with a count a row; indices and validity equal to
+    the plain loop's."""
+    from detectron2_centernet_tpu_torch.ops import nms
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xy = torch.rand(4, 500, 2, device=card, generator=g) * 300
+    boxes = torch.cat([xy, xy + torch.rand(4, 500, 2, device=card, generator=g) * 80 + 1], -1)
+    scores = torch.rand(4, 500, device=card, generator=g)
+    for k, counts in ((50, None), (40, [10, 40, 0, 25])):
+        torch.library.opcheck(torch.ops.d2ct.greedy_nms, (boxes, scores, 0.5, k, counts))
+        got = nms.greedy_nms(boxes, scores, 0.5, k if counts is None else counts)
+        want = nms.nms_fixed(boxes, scores, 0.5, k if counts is None else counts)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_exported_ctdet_matches_eager_on_the_card(card, tmp_path):
+    """A narrow ctdet DLA-34 (bf16) exported on the card, saved, loaded and
+    run: 16 K1 launches a forward, its outputs equal eager ``predict_fn``'s;
+    the f32 heads in IEEE f32 (``ExportedModel`` runs under ``ieee_f32``)."""
+    from detectron2_centernet_tpu_torch.export import custom_op_nodes, export_program, load_exported
+
+    cfg = get_cfg()
+    cfg.merge_from_file("configs/COCO-Detection/ctdet_dla_34_1x.yaml")
+    cfg.merge_from_list(["MODEL.CENTERNET.CHANNELS", [8, 8, 16, 16, 32, 32], "MODEL.CENTERNET.HEAD_CONV", 16,
+                         "DATASETS.TRAIN", (), "TPU.DTYPE", "bfloat16"])
+    model = build_model(cfg)
+    path = str(tmp_path / "ctdet.pt2")
+    program = export_program(model, 2, (128, 128), path)
+    assert custom_op_nodes(program) == {"d2ct.dcn_fwd.default": 16}
+    x = torch.rand(2, 3, 128, 128, device=card, generator=torch.Generator(device="cuda").manual_seed(1)) * 255
+    eager = model.predict_fn(x)
+    loaded = load_exported(path)
+    before = dcn.modulated_deform_conv.launches
+    got = loaded(x)
+    assert dcn.modulated_deform_conv.launches == before + 16
+    for k, v in eager.items():
+        assert torch.equal(got[k], v), k

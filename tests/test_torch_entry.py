@@ -267,9 +267,11 @@ def test_train_net_formerly_queued_evaluators_build(evaluator_type, evaluator):
 
 
 def test_train_net_refuses_test_time_augmentation():
+    """It raised naming ROADMAP A17 until test-time augmentation was ported:
+    ``setup`` now takes ``TEST.AUG.ENABLED`` (``--eval-only`` adds the
+    ``*_TTA`` results: ``tests/test_torch_tta.py``)."""
     args = default_argument_parser().parse_args(["TEST.AUG.ENABLED", "True", "MODEL.DEVICE", "cpu"])
-    with pytest.raises(NotImplementedError, match="A17"):
-        train_net.setup(args)
+    assert train_net.setup(args).TEST.AUG.ENABLED
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
